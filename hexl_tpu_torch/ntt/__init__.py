@@ -1,0 +1,75 @@
+"""Negacyclic NTT over Z_q[X]/(X^N + 1): the public engine.
+
+Usage parity with `hexl_tpu.ntt.NTT`:
+
+    ntt = NTT(degree=4096, modulus=q)          # on the GPU
+    y = ntt.forward(x, input_mod_factor=1, output_mod_factor=1)
+    x = ntt.inverse(y, input_mod_factor=1, output_mod_factor=1)
+
+The output of `forward` is in bit-reversed order, with the same lazy ranges
+as the JAX package. Inputs have shape (..., N): numpy uint64 in gives numpy
+out; an int64 tensor of u64 bits in gives a tensor out on its device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .. import _device
+from ..limb import to_numpy
+from . import cuda_ntt
+from .plan import (NttPlan, check_arguments, clear_plan_cache, get_plan,
+                   plan_from_arrays)
+
+__all__ = ["NTT", "NttPlan", "get_plan", "clear_plan_cache",
+           "check_arguments", "plan_from_arrays"]
+
+
+class NTT:
+    """Per-(N, q) transform engine; construction precomputes twiddles.
+
+    device: where numpy inputs run (default CUDA, which must be present);
+    tensor inputs run on their own device. N <= 2^14 and every q < 2^62
+    = 1 mod 2N are covered; a larger N raises NotImplementedError."""
+
+    def __init__(self, degree: int, modulus: int, device=None):
+        check_arguments(degree, modulus)
+        if degree < 2:
+            raise ValueError("degree must be at least 2")
+        if degree > cuda_ntt.MAX_KERNEL_DEGREE:
+            raise NotImplementedError(
+                f"N={degree} > 2^14 needs the two-pass split of "
+                "hexl_tpu/ntt/hier.py, which is not ported yet")
+        self.device = _device.resolve(device)
+        self.plan = get_plan(degree, modulus)
+        self.degree = degree
+        self.modulus = modulus
+
+    @property
+    def root(self) -> int:
+        """Minimal primitive 2N-th root of unity used by this engine."""
+        return self.plan.root
+
+    def _dispatch(self, x, forward: bool, imf: int, omf: int):
+        fn = cuda_ntt.fwd_ntt if forward else cuda_ntt.inv_ntt
+        (tx,), host = _device.operands((x,), self.device)
+        out = fn(tx, self.plan, imf, omf)
+        return to_numpy(out) if host else out
+
+    def forward(self, x, input_mod_factor: int = 1,
+                output_mod_factor: int = 1):
+        """Forward NTT; input < IMF*q (IMF in {1,2,4}), bit-reversed output
+        in [0, q) for OMF=1 or [0, 4q) for OMF=4."""
+        return self._dispatch(x, True, input_mod_factor, output_mod_factor)
+
+    def inverse(self, x, input_mod_factor: int = 1,
+                output_mod_factor: int = 1):
+        """Inverse NTT; bit-reversed input < IMF*q (IMF in {1,2}), output
+        in [0, q) for OMF=1 or [0, 2q) for OMF=2."""
+        return self._dispatch(x, False, input_mod_factor, output_mod_factor)
+
+    def root_of_unity_powers(self) -> np.ndarray:
+        return self.plan.rop
+
+    def inv_root_of_unity_powers(self) -> np.ndarray:
+        return self.plan.irop

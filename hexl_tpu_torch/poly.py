@@ -1,0 +1,74 @@
+"""Fused negacyclic polynomial product and the wrapper of kernel K3.
+
+poly_mult_mod computes c = a*b over Z_q[X]/(X^N + 1) as fwd(a) and fwd(b)
+to [0,4q), mult_mod at IMF 4, then the inverse to [0,q), the counterpart of
+`hexl_tpu/poly.py::poly_mult_mod`. On the GPU the whole chain is one launch
+of K3 (`csrc/poly.cu`), which replaces the TPU kernel
+`hexl_tpu/poly.py::_poly_mult_pallas`; its source note says what bounds it
+on an H100 and how it fits two operands into one CTA. On the CPU it runs
+the plain chain (`poly_mult_plain`, the counterpart of `_poly_mult_xla`).
+Launches are counted in `_build.launches` under "K3".
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build, _device, nt
+from .eltwise import torch_kernels
+from .limb import to_numpy
+from .ntt import cuda_ntt, get_plan, torch_ntt
+
+_P = ctypes.c_void_p
+_U = ctypes.c_uint64
+_POLY_ARGS = (_P, _P, _P, _P, _P, _P, _P, _U, _U, ctypes.c_int, _U, _U, _U,
+              _U, ctypes.c_int, ctypes.c_int, _P)
+
+
+def poly_mult_plain(a: torch.Tensor, b: torch.Tensor, plan) -> torch.Tensor:
+    """The plain chain: fwd (OMF 4) of both, mult_mod at IMF 4, inverse."""
+    fa = torch_ntt.fwd_ntt(a, plan, 1, 4)
+    fb = torch_ntt.fwd_ntt(b, plan, 1, 4)
+    prod = torch_kernels.mult_mod(fa, fb, plan.q, 4)
+    return torch_ntt.inv_ntt(prod, plan, 1, 1)
+
+
+def poly_mult(a: torch.Tensor, b: torch.Tensor, plan) -> torch.Tensor:
+    """a*b mod (X^N+1, q) on int64 tensors (..., N) of one shape and
+    device: K3 on the GPU, the plain chain on the CPU."""
+    if a.shape != b.shape or a.dim() < 1 or a.shape[-1] != plan.n:
+        raise ValueError(f"operands must both have shape (..., {plan.n})")
+    if plan.n > cuda_ntt.MAX_KERNEL_DEGREE:
+        raise NotImplementedError(
+            f"N={plan.n} > 2^14: the two-pass split (hier.py) is not ported")
+    if not _build.on_card(a, b):
+        return poly_mult_plain(a, b, plan)
+    out = torch.empty_like(a)
+    batch = _build.batch_of(a, plan.n)
+    if batch == 0:
+        return out
+    mu, shift = nt.barrett_mult_constants(plan.q)
+    tabs = plan.tables(a.device)
+    fn = _build.function("poly", "hexl_poly_mult", _POLY_ARGS)
+    _build.launch_on(a.device, "K3", fn, a.data_ptr(), b.data_ptr(),
+                     out.data_ptr(), tabs["rop"].data_ptr(),
+                     tabs["prop"].data_ptr(), tabs["irop"].data_ptr(),
+                     tabs["pirop"].data_ptr(), plan.q, mu, shift, plan.inv_n,
+                     plan.inv_n_precon, plan.inv_n_w, plan.inv_n_w_precon,
+                     plan.log_n, batch)
+    return out
+
+
+def poly_mult_mod(a, b, degree: int, modulus: int, device=None):
+    """c = a * b over Z_q[X]/(X^N + 1); inputs (..., N) in [0, q).
+
+    int64 tensors of u64 bits run on their device; numpy uint64 operands
+    run there too, else on `device` (default CUDA). The result is numpy iff
+    an operand was numpy, as in the JAX package."""
+    if degree < 2:
+        raise ValueError("degree must be at least 2")
+    (ta, tb), host = _device.operands((a, b), device)
+    out = poly_mult(ta, tb, get_plan(degree, modulus))
+    return to_numpy(out) if host else out

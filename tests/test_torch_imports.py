@@ -1,0 +1,98 @@
+"""The port stands alone: no JAX, nothing of hexl_tpu, the card by default.
+
+Also: the build refuses to go on quietly when nvcc fails or is missing.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "hexl_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "hexl_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_hexl_tpu_imports(path):
+    for name in _imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, hexl_tpu_torch, hexl_tpu_torch.poly; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'hexl_tpu')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_entry_points_default_to_cuda():
+    from hexl_tpu_torch import NTT, eltwise_mult_mod, nt, poly_mult_mod
+    q = nt.generate_primes(1, 50, True, ntt_size=16)[0]
+    x = np.ones(16, dtype=np.uint64)
+    if torch.cuda.is_available():
+        assert NTT(16, q).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NTT(16, q)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NTT(16, q, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eltwise_mult_mod(x, x, q)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        poly_mult_mod(x, x, 16, q)
+
+
+def test_failed_build_raises(tmp_path, monkeypatch):
+    from hexl_tpu_torch import _build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "broken.cu").write_text("this is not C++\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build_all()
+    assert not list((tmp_path / "build").rglob("*.so"))
+
+
+def test_failed_launch_raises_and_is_not_counted():
+    from hexl_tpu_torch import _build
+    before = dict(_build.launches)
+    with pytest.raises(RuntimeError, match="cudaError 2"):
+        _build.launch("K9", lambda *args: 2)
+    assert dict(_build.launches) == before
+    _build.launch("K9", lambda *args: 0)
+    assert _build.launches["K9"] == before.get("K9", 0) + 1
+
+
+def test_build_dir_is_keyed_on_the_sources(tmp_path, monkeypatch):
+    from hexl_tpu_torch import _build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("// one\n")
+    (csrc / "u.cuh").write_text("// header\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    first = _build.build_dir()
+    assert first == _build.build_dir()
+    (csrc / "u.cuh").write_text("// header, changed\n")
+    assert _build.build_dir() != first
+    assert _build.build_dir().parent == _build.BUILD_ROOT
