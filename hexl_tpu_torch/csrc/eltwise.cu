@@ -9,7 +9,7 @@
 // and two low products; at the card's rates it is bound by bytes. The
 // design reads each input once and writes each output once, neighbouring
 // threads on neighbouring elements, with no padding copies.
-#include "u64.cuh"
+#include "modarith.cuh"
 
 __global__ void mult_mod_kernel(const u64* __restrict__ a,
                                 const u64* __restrict__ b,

@@ -23,7 +23,7 @@ __global__ void __launch_bounds__(1024)
                      const u64* __restrict__ prop,
                      const u64* __restrict__ irop,
                      const u64* __restrict__ pirop, u64 q, u64 mu, int shift,
-                     InvFinal fin, int log_n) {
+                     InvFinal<u64> fin, int log_n) {
   extern __shared__ u64 s[];
   const int T = blockDim.x;  // T * EPT == n
   const long long off = (long long)blockIdx.x << log_n;
@@ -32,7 +32,7 @@ __global__ void __launch_bounds__(1024)
 #pragma unroll
   for (int k = 0; k < EPT; ++k) s[tid + k * T] = a[off + tid + k * T];
   __syncthreads();
-  block_fwd_stages(s, log_n, 1, rop, prop, q);
+  block_fwd_stages<u64>(s, log_n, 1, rop, prop, q, 0, 0);
   u64 fa[EPT];
 #pragma unroll
   for (int k = 0; k < EPT; ++k) fa[k] = reduce_lazy(s[tid + k * T], q, 4);
@@ -41,7 +41,7 @@ __global__ void __launch_bounds__(1024)
 #pragma unroll
   for (int k = 0; k < EPT; ++k) s[tid + k * T] = b[off + tid + k * T];
   __syncthreads();
-  block_fwd_stages(s, log_n, 1, rop, prop, q);
+  block_fwd_stages<u64>(s, log_n, 1, rop, prop, q, 0, 0);
 #pragma unroll
   for (int k = 0; k < EPT; ++k) {
     const int i = tid + k * T;
@@ -49,14 +49,14 @@ __global__ void __launch_bounds__(1024)
   }
   __syncthreads();
 
-  block_inv_stages(s, log_n, 1, irop, pirop, q);
-  block_inv_final(s, out + off, log_n, 1, fin, q, 1);
+  block_inv_stages<u64>(s, log_n, 1, irop, pirop, q, 0, 0);
+  block_inv_final<u64>(s, out + off, log_n, 1, fin, q, 1);
 }
 
 template <int EPT>
 static int launch(const u64* a, const u64* b, u64* out, const u64* rop,
                   const u64* prop, const u64* irop, const u64* pirop, u64 q,
-                  u64 mu, int shift, const InvFinal& fin, int log_n,
+                  u64 mu, int shift, const InvFinal<u64>& fin, int log_n,
                   int batch, cudaStream_t stream) {
   const size_t smem = (size_t(1) << log_n) * sizeof(u64);
   cudaError_t err = allow_smem(poly_mult_kernel<EPT>, smem);
@@ -74,7 +74,7 @@ extern "C" int hexl_poly_mult(const u64* a, const u64* b, u64* out,
                               u64 mu, int shift, u64 inv_n, u64 inv_n_precon,
                               u64 inv_n_w, u64 inv_n_w_precon, int log_n,
                               int batch, cudaStream_t stream) {
-  const InvFinal fin = {inv_n, inv_n_precon, inv_n_w, inv_n_w_precon};
+  const InvFinal<u64> fin = {inv_n, inv_n_precon, inv_n_w, inv_n_w_precon};
   switch (log_n <= 11 ? 2 : 1 << (log_n - 10)) {
     case 2:
       return launch<2>(a, b, out, rop, prop, irop, pirop, q, mu, shift, fin,

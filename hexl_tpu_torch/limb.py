@@ -11,7 +11,7 @@ arithmetic is written out here:
   * the high half of a 64x64 product is assembled from 32-bit halves.
 
 These functions are the plain PyTorch versions of the CUDA device functions
-in `csrc/u64.cuh`, and run on any device.
+in `csrc/modarith.cuh`, and run on any device.
 """
 
 from __future__ import annotations

@@ -7,8 +7,12 @@ Usage parity with `hexl_tpu.ntt.NTT`:
     x = ntt.inverse(y, input_mod_factor=1, output_mod_factor=1)
 
 The output of `forward` is in bit-reversed order, with the same lazy ranges
-as the JAX package. Inputs have shape (..., N): numpy uint64 in gives numpy
-out; an int64 tensor of u64 bits in gives a tensor out on its device.
+and values as the JAX package, because the routing is the JAX engine's:
+q < 2^30 with N >= 1024 runs the single-word transform (`cuda_ntt` with
+word 32: K7, or the u32 two-pass split above 2^15), everything else the
+64-bit walk (K1/K2 up to 2^14, the two-pass split K5/K6 above). Inputs
+have shape (..., N): numpy uint64 in gives numpy out; an int64 tensor of
+u64 bits in gives a tensor out on its device.
 """
 
 from __future__ import annotations
@@ -18,28 +22,30 @@ import numpy as np
 from .. import _device
 from ..limb import to_numpy
 from . import cuda_ntt
-from .plan import (NttPlan, check_arguments, clear_plan_cache, get_plan,
-                   plan_from_arrays)
+from . import plan as _plan
+from .plan import NttPlan, check_arguments, get_plan, plan_from_arrays
+from .rns import RnsNTT, get_rns_plan
 
 __all__ = ["NTT", "NttPlan", "get_plan", "clear_plan_cache",
-           "check_arguments", "plan_from_arrays"]
+           "check_arguments", "plan_from_arrays", "RnsNTT", "get_rns_plan"]
+
+
+def clear_plan_cache() -> None:
+    """Drop every cached plan."""
+    _plan.clear_plan_cache()
 
 
 class NTT:
     """Per-(N, q) transform engine; construction precomputes twiddles.
 
     device: where numpy inputs run (default CUDA, which must be present);
-    tensor inputs run on their own device. N <= 2^14 and every q < 2^62
-    = 1 mod 2N are covered; a larger N raises NotImplementedError."""
+    tensor inputs run on their own device. Every power-of-two N from 2 to
+    2^20 and every prime q < 2^62 = 1 mod 2N are covered."""
 
     def __init__(self, degree: int, modulus: int, device=None):
         check_arguments(degree, modulus)
         if degree < 2:
             raise ValueError("degree must be at least 2")
-        if degree > cuda_ntt.MAX_KERNEL_DEGREE:
-            raise NotImplementedError(
-                f"N={degree} > 2^14 needs the two-pass split of "
-                "hexl_tpu/ntt/hier.py, which is not ported yet")
         self.device = _device.resolve(device)
         self.plan = get_plan(degree, modulus)
         self.degree = degree
@@ -53,7 +59,7 @@ class NTT:
     def _dispatch(self, x, forward: bool, imf: int, omf: int):
         fn = cuda_ntt.fwd_ntt if forward else cuda_ntt.inv_ntt
         (tx,), host = _device.operands((x,), self.device)
-        out = fn(tx, self.plan, imf, omf)
+        out = fn(tx, self.plan, imf, omf, 32 if self.plan.single_word else 64)
         return to_numpy(out) if host else out
 
     def forward(self, x, input_mod_factor: int = 1,

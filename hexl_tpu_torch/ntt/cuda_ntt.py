@@ -1,14 +1,22 @@
-"""Wrappers of the NTT kernels K1 and K2 (`csrc/ntt.cu`).
+"""The NTT for every N in both words, and the wrappers of K1, K2 and K7.
 
-The counterpart of `hexl_tpu/ntt/pallas_ntt.py` fwd_ntt/inv_ntt. K1
-replaces pallas_ntt.py::_run (one polynomial per CTA, every stage in
-shared memory); K2 replaces ::_packed_stage_kernel/_packed_call (several
-polynomials of N <= 2^12 per CTA). The source note in `csrc/ntt.cu` says
-what bounds them on an H100 and what the design does about it.
+The counterpart of `hexl_tpu/ntt/pallas_ntt.py` fwd_ntt/inv_ntt and of
+`hexl_tpu/ntt/ntt32.py`'s kernel. `word` is 64 (the 64-bit walk, for every
+q < 2^62) or 32 (the single-word walk of q < 2^30, see `ntt32`). In one
+CTA (`csrc/ntt.cu`): at 64 bits and N <= 2^14, K1 replaces
+pallas_ntt.py::_run (one polynomial per CTA, every stage in shared memory)
+and K2 replaces ::_packed_stage_kernel/_packed_call (several polynomials of
+N <= 2^12 per CTA); at 32 bits and N <= 2^15, K7 replaces
+ntt32.py::_run_pallas (one polynomial per CTA, 4N bytes). The source note
+in `csrc/ntt.cu` says what bounds them on an H100 and what the design does
+about it. Larger N runs the two-pass split of `hier` (K5, K6) in the same
+word. The public `NTT` picks word 32 for q < 2^30 with N >= 1024, as the
+JAX engine does; the poly-mult and RNS paths always run word 64, as the
+JAX package's do.
 
 A tensor on the GPU goes to the kernel, a tensor on the CPU to the plain
 version in `torch_ntt`; there is no other path. Launches are counted in
-`_build.launches` under "K1" and "K2".
+`_build.launches` under "K1", "K2" and "K7".
 """
 
 from __future__ import annotations
@@ -19,16 +27,17 @@ import functools
 import torch
 
 from .. import _build
-from . import torch_ntt
+from . import hier, torch_ntt
 
 MAX_KERNEL_DEGREE = 1 << 14    # one CTA's shared memory holds 8N bytes
+MAX_KERNEL_DEGREE32 = 1 << 15  # ... or 4N bytes in the single word
 PACK_COEFFS = 1 << 13          # K2 fills a CTA with at most this many
 
 _P = ctypes.c_void_p
 _U = ctypes.c_uint64
 _I = ctypes.c_int
-_FWD_ARGS = (_P, _P, _P, _P, _U, _I, _I, _I, _I, _P)
-_INV_ARGS = (_P, _P, _P, _P, _U, _U, _U, _U, _U, _I, _I, _I, _I, _P)
+_FWD_ARGS = (_P, _P, _P, _P, _U, _I, _I, _I, _I, _I, _P)
+_INV_ARGS = (_P, _P, _P, _P, _U, _U, _U, _U, _U, _I, _I, _I, _I, _I, _P)
 
 
 def polys_per_cta(degree: int, batch: int, sms: int) -> int:
@@ -47,48 +56,52 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch(x: torch.Tensor, plan, imf: int, omf: int,
-            forward: bool) -> torch.Tensor:
+def _launch(x: torch.Tensor, plan, imf: int, omf: int, forward: bool,
+            word: int) -> torch.Tensor:
     torch_ntt.check_factors(forward, imf, omf)
+    if word == 32 and plan.bit_shift != 32:
+        raise ValueError(f"the single-word NTT needs q < 2^30, got {plan.q}")
     if x.dim() < 1 or x.shape[-1] != plan.n:
         raise ValueError(f"last dimension must be N={plan.n}, got "
                          f"{tuple(x.shape)}")
-    if plan.n > MAX_KERNEL_DEGREE:
-        raise NotImplementedError(
-            f"N={plan.n} > 2^14: the two-pass split (hier.py) is not ported")
+    if plan.n > (MAX_KERNEL_DEGREE32 if word == 32 else MAX_KERNEL_DEGREE):
+        fn = hier.fwd_ntt if forward else hier.inv_ntt
+        return fn(x, plan, omf, word)
     if not _build.on_card(x):
         fn = torch_ntt.fwd_ntt if forward else torch_ntt.inv_ntt
-        return fn(x, plan, imf, omf)
+        return fn(x, plan, imf, omf, word=word)
     out = torch.empty_like(x)
     batch = _build.batch_of(x, plan.n)
     if batch == 0:
         return out
-    pp = polys_per_cta(plan.n, batch, sm_count(x.device))
-    kernel = "K2" if pp > 1 else "K1"
-    tabs = plan.tables(x.device)
+    if word == 32:
+        pp, kernel = 1, "K7"
+    else:
+        pp = polys_per_cta(plan.n, batch, sm_count(x.device))
+        kernel = "K2" if pp > 1 else "K1"
+    w, wp = plan.twiddles(x.device, forward, word)
     if forward:
         fn = _build.function("ntt", "hexl_ntt_fwd", _FWD_ARGS)
         _build.launch_on(x.device, kernel, fn, x.data_ptr(), out.data_ptr(),
-                         tabs["rop"].data_ptr(), tabs["prop"].data_ptr(),
-                         plan.q, plan.log_n, batch, pp, omf)
+                         w.data_ptr(), wp.data_ptr(), plan.q, plan.log_n,
+                         batch, pp, omf, word)
     else:
         fn = _build.function("ntt", "hexl_ntt_inv", _INV_ARGS)
         _build.launch_on(x.device, kernel, fn, x.data_ptr(), out.data_ptr(),
-                         tabs["irop"].data_ptr(), tabs["pirop"].data_ptr(),
-                         plan.q, plan.inv_n, plan.inv_n_precon, plan.inv_n_w,
-                         plan.inv_n_w_precon, plan.log_n, batch, pp, omf)
+                         w.data_ptr(), wp.data_ptr(), plan.q, *plan.fin(word),
+                         plan.log_n, batch, pp, omf, word)
     return out
 
 
 def fwd_ntt(x: torch.Tensor, plan, input_mod_factor: int = 1,
-            output_mod_factor: int = 1) -> torch.Tensor:
-    """Forward NTT of x (..., N) through K1/K2 (CUDA) or the plain version
-    (CPU); same contract as `torch_ntt.fwd_ntt`."""
-    return _launch(x, plan, input_mod_factor, output_mod_factor, True)
+            output_mod_factor: int = 1, word: int = 64) -> torch.Tensor:
+    """Forward NTT of x (..., N) through K1/K2/K7 or K5/K6 (CUDA) or the
+    plain versions (CPU); same contract as `torch_ntt.fwd_ntt`."""
+    return _launch(x, plan, input_mod_factor, output_mod_factor, True, word)
 
 
 def inv_ntt(x: torch.Tensor, plan, input_mod_factor: int = 1,
-            output_mod_factor: int = 1) -> torch.Tensor:
-    """Inverse NTT of x (..., N) through K1/K2 (CUDA) or the plain version
-    (CPU); same contract as `torch_ntt.inv_ntt`."""
-    return _launch(x, plan, input_mod_factor, output_mod_factor, False)
+            output_mod_factor: int = 1, word: int = 64) -> torch.Tensor:
+    """Inverse NTT of x (..., N) through K1/K2/K7 or K5/K6 (CUDA) or the
+    plain versions (CPU); same contract as `torch_ntt.inv_ntt`."""
+    return _launch(x, plan, input_mod_factor, output_mod_factor, False, word)

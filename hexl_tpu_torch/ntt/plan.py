@@ -3,11 +3,16 @@
 The counterpart of `hexl_tpu/ntt/plan.py`, keeping only what the flat walk
 needs: the bit-reversed forward table `rop`, the stage-major inverse table
 `irop`, their Shoup preconditions `prop`/`pirop`, and the constants of the
-final inverse stage fused with N^-1. (The JAX plan's TPU layouts, the phase
-A/B stage split at stride 128 and its tile tables, have no counterpart.)
+final inverse stage fused with N^-1. For q < 2^30 (`bit_shift` 32) it adds
+the single-word regime's preconditions at 2^32, `prop32`/`pirop32` and
+`inv_n_precon32`/`inv_n_w_precon32` (JAX plan.py:220-237). (The JAX plan's
+TPU layouts, the phase A/B stage split at stride 128, its tile tables and
+the per-shard stacked copies of `hier.HierTables`, have no counterpart:
+every walk reads the flat tables, a shard at its offset in them.)
 
 The twiddle tables are HEXL's only state, the role weights play in a model;
-`plan_from_arrays` carries them over from another plan's host arrays.
+`plan_from_arrays` carries them over from another plan's host arrays, and
+everything else is derived from them.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from ..limb import to_tensor
 
 MAX_DEGREE = 1 << 20
 MAX_MODULUS = 1 << 62
+MIN_2D_N = 1024          # the JAX plan's 2-D tables, and its q < 2^30 regime
+SINGLE_WORD_Q = 1 << 30  # below it, 4q < 2^32: one u32 word per coefficient
 
 
 def check_arguments(degree: int, modulus: int) -> None:
@@ -39,21 +46,36 @@ def check_arguments(degree: int, modulus: int) -> None:
         raise ValueError("modulus must be prime")
 
 
+def _powers(base: int, n: int, modulus: int) -> np.ndarray:
+    """[base^i mod q for i < n] as uint64, by doubling in Python integers."""
+    out = np.empty(n, dtype=object)
+    out[0] = 1
+    filled, step = 1, base % modulus
+    while filled < n:
+        out[filled:2 * filled] = out[:filled] * step % modulus
+        step = step * step % modulus
+        filled *= 2
+    return out.astype(np.uint64)
+
+
+def bit_reversed_indices(n: int) -> np.ndarray:
+    bits = nt.log2_exact(n)
+    idx = np.arange(n, dtype=np.int64)
+    rev = np.zeros(n, dtype=np.int64)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
+
+
 def root_of_unity_powers(n: int, modulus: int, root: int):
     """(rop, irop): rop[bit_reverse(i)] = w^i, and irop the stage-major
     reordering of w^-i at bit-reversed index (the inverse walk reads it
     sequentially)."""
-    bits = nt.log2_exact(n)
+    rev = bit_reversed_indices(n)
     rop = np.zeros(n, dtype=np.uint64)
     irop_raw = np.zeros(n, dtype=np.uint64)
-    root_inv = nt.inverse_mod(root, modulus)
-    power = inv_power = 1
-    for i in range(n):
-        idx = nt.reverse_bits(i, bits)
-        rop[idx] = power
-        irop_raw[idx] = inv_power
-        power = (power * root) % modulus
-        inv_power = (inv_power * root_inv) % modulus
+    rop[rev] = _powers(root, n, modulus)
+    irop_raw[rev] = _powers(nt.inverse_mod(root, modulus), n, modulus)
     irop = np.zeros(n, dtype=np.uint64)
     irop[0] = irop_raw[0]
     idx = 1
@@ -65,10 +87,11 @@ def root_of_unity_powers(n: int, modulus: int, root: int):
     return rop, irop
 
 
-def precon64(values: np.ndarray, modulus: int) -> np.ndarray:
-    """floor(v << 64 / q) for each table entry (Shoup preconditioning)."""
-    return np.array([nt.barrett_factor(int(v), 64, modulus) for v in values],
-                    dtype=np.uint64)
+def precon(values: np.ndarray, modulus: int, bit_shift: int) -> np.ndarray:
+    """floor(v << bit_shift / q) for each table entry (Shoup
+    preconditioning; v < q, so the result fits 64 bits)."""
+    wide = np.asarray(values, dtype=np.uint64).astype(object)
+    return ((wide << bit_shift) // modulus).astype(np.uint64)
 
 
 class NttPlan:
@@ -89,8 +112,23 @@ class NttPlan:
         self.inv_n_precon = nt.barrett_factor(self.inv_n, 64, modulus)
         self.inv_n_w = (self.inv_n * int(irop[degree - 1])) % modulus
         self.inv_n_w_precon = nt.barrett_factor(self.inv_n_w, 64, modulus)
+        # For q < 2^30 every lazy value (< 4q) fits one u32 word: the same
+        # twiddles preconditioned at 2^32 (JAX plan.py:220-237).
+        self.bit_shift = 32 if modulus < SINGLE_WORD_Q else 64
+        if self.bit_shift == 32:
+            self.prop32 = precon(rop, modulus, 32)
+            self.pirop32 = precon(irop, modulus, 32)
+            self.inv_n_precon32 = (self.inv_n << 32) // modulus
+            self.inv_n_w_precon32 = (self.inv_n_w << 32) // modulus
         self._dev: Dict[str, Dict[str, torch.Tensor]] = {}
         self._dev_lock = threading.Lock()
+
+    @property
+    def single_word(self) -> bool:
+        """The JAX engine's dispatch rule (`ntt/__init__.py::_use_32bit`):
+        q < 2^30 with N >= 1024 runs the single-word transform, whose lazy
+        outputs differ in value from the 64-bit walk's."""
+        return self.bit_shift == 32 and self.n >= MIN_2D_N
 
     @classmethod
     def build(cls, degree: int, modulus: int, root: int | None = None
@@ -102,21 +140,43 @@ class NttPlan:
             raise ValueError(f"{root} is not a primitive {2 * degree}-th "
                              f"root of unity mod {modulus}")
         rop, irop = root_of_unity_powers(degree, modulus, root)
-        return cls(degree, modulus, root, rop, precon64(rop, modulus), irop,
-                   precon64(irop, modulus))
+        return cls(degree, modulus, root, rop, precon(rop, modulus, 64), irop,
+                   precon(irop, modulus, 64))
 
     def tables(self, device) -> Dict[str, torch.Tensor]:
-        """rop, prop, irop, pirop as int64 tensors on `device`."""
+        """rop, prop, irop, pirop (and prop32, pirop32 for q < 2^30) as
+        int64 tensors on `device`."""
         key = str(torch.device(device))
         tabs = self._dev.get(key)
         if tabs is None:
             with self._dev_lock:
                 tabs = self._dev.get(key)
                 if tabs is None:
+                    names = ["rop", "prop", "irop", "pirop"]
+                    if self.bit_shift == 32:
+                        names += ["prop32", "pirop32"]
                     tabs = {name: to_tensor(getattr(self, name), device)
-                            for name in ("rop", "prop", "irop", "pirop")}
+                            for name in names}
                     self._dev[key] = tabs
         return tabs
+
+    def twiddles(self, device, forward: bool, word: int = 64):
+        """(w, w_precon) device tables of one direction for the 64-bit
+        walk (word 64) or the single-word walk (word 32)."""
+        tabs = self.tables(device)
+        suffix = "32" if word == 32 else ""
+        if forward:
+            return tabs["rop"], tabs["prop" + suffix]
+        return tabs["irop"], tabs["pirop" + suffix]
+
+    def fin(self, word: int = 64) -> Tuple[int, int, int, int]:
+        """(inv_n, inv_n_precon, inv_n_w, inv_n_w_precon) of the final
+        inverse stage, preconditioned for `word`."""
+        if word == 32:
+            return (self.inv_n, self.inv_n_precon32, self.inv_n_w,
+                    self.inv_n_w_precon32)
+        return (self.inv_n, self.inv_n_precon, self.inv_n_w,
+                self.inv_n_w_precon)
 
 
 def plan_from_arrays(degree: int, modulus: int, root: int, rop, prop, irop,
@@ -125,7 +185,8 @@ def plan_from_arrays(degree: int, modulus: int, root: int, rop, prop, irop,
     `NttPlan.rop/prop/irop/pirop`), without recomputing them.
 
     The arguments and root are checked, and the tables spot-checked against
-    the root, so a table of another (N, q, root) is refused."""
+    the root, so a table of another (N, q, root) is refused. The
+    single-word preconditions of q < 2^30 are derived from rop/irop."""
     check_arguments(degree, modulus)
     root = int(root)
     if not nt.is_primitive_root(root, 2 * degree, modulus):

@@ -1,18 +1,26 @@
 """Plain PyTorch negacyclic NTT: the flat radix-2 exact-Harvey walk.
 
 The counterpart of `hexl_tpu/ntt/jnp_ntt.py` fwd_ntt/inv_ntt with their flat
-bodies fwd_body_small/inv_body_small, for every N from 2 to 2^14, on int64
+bodies fwd_body_small/inv_body_small, for every N from 2 to 2^20, on int64
 tensors carrying u64 bits (see `..limb`). It runs on any device. The CUDA
-kernels of `cuda_ntt` compute exactly this, lazy outputs included; the
-wrappers there use it for tensors on the CPU, and `chip_smoke.py` holds the
-kernels against it on the card.
+kernels compute exactly this, lazy outputs included; their wrappers use it
+for tensors on the CPU, and `chip_smoke.py` holds the kernels against it on
+the card.
+
+The walk is written stage by stage (`fwd_stages`, `inv_stages`,
+`inv_final`) so that the two-pass split of `hier` and the single-word
+transform of `ntt32` run the same stages: `word=32` swaps in the Shoup
+multiply of `ntt32.shoup32` and the twiddles preconditioned at 2^32, and
+changes nothing else (every lazy value of the single-word regime is < 4q <
+2^32, so the int64 halvers and sums are those of the 64-bit walk).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..limb import cond_sub64_half, reduce_mod_lazy64, s64, shoup_mul_lazy
+from ..limb import MASK32, cond_sub64_half, reduce_mod_lazy64, s64, \
+    shoup_mul_lazy
 
 FWD_IMF = (1, 2, 4)
 FWD_OMF = (1, 4)
@@ -33,6 +41,23 @@ def check_factors(forward: bool, imf: int, omf: int) -> None:
             raise ValueError("output_mod_factor must be 1 or 2")
 
 
+def mulhi32(a: torch.Tensor, b) -> torch.Tensor:
+    """High 32 bits of the product of two u32 values held in int64: the
+    wrapped int64 product has the right bits, `>>` copies the sign."""
+    return ((a * b) >> 32) & MASK32
+
+
+def shoup32(x: torch.Tensor, w, w_precon, modulus: int) -> torch.Tensor:
+    """(x * w) mod q in [0, 2q) for q < 2^30 and any x < 2^32, with
+    w_precon = floor(w << 32 / q); the difference is taken mod 2^32, as
+    the u32 arithmetic of `hexl_tpu/ntt/ntt32.py::_shoup32` does."""
+    return (x * w - mulhi32(x, w_precon) * modulus) & MASK32
+
+
+def _shoup(word: int):
+    return shoup32 if word == 32 else shoup_mul_lazy
+
+
 def _split(x: torch.Tensor, m: int, t: int):
     """(..., n) -> X and Y halves (..., m, t) of each block of 2t."""
     v = x.reshape(*x.shape[:-1], m, 2, t)
@@ -44,62 +69,96 @@ def _join(nx: torch.Tensor, ny: torch.Tensor, n: int) -> torch.Tensor:
     return out.reshape(*out.shape[:-3], n)
 
 
+def fwd_stages(x: torch.Tensor, plan, m_first: int, m_stop: int,
+               word: int = 64) -> torch.Tensor:
+    """The forward stages with m_first <= m < m_stop blocks (stride
+    t = N/(2m)); block k reads rop[m + k]. Inputs [0, 4q) -> [0, 4q).
+    Butterfly: X' = red2q(X) + T, Y' = red2q(X) + 2q - T with
+    T = shoup(Y, W) in [0, 2q)."""
+    rop, prop = plan.twiddles(x.device, True, word)
+    shoup = _shoup(word)
+    n, q = plan.n, plan.q
+    two_q = s64(2 * q)
+    m = m_first
+    while m < m_stop:
+        xs, ys = _split(x, m, n // (2 * m))
+        tx = cond_sub64_half(xs, two_q)
+        tt = shoup(ys, rop[m:2 * m, None], prop[m:2 * m, None], q)
+        x = _join(tx + tt, tx + two_q - tt, n)
+        m *= 2
+    return x
+
+
+def root_index(n: int, t: int) -> int:
+    """Where the inverse stage of stride t starts in the stage-major irop:
+    1 + the sum of N/(2t') over the strides t' < t."""
+    index, s = 1, 1
+    while s < t:
+        index += n // (2 * s)
+        s *= 2
+    return index
+
+
+def inv_stages(x: torch.Tensor, plan, t_first: int, t_stop: int,
+               word: int = 64) -> torch.Tensor:
+    """The inverse stages of stride t_first <= t < t_stop (t_stop <= N/2:
+    the last stage is `inv_final`). Inputs [0, 2q) -> [0, 2q)."""
+    irop, pirop = plan.twiddles(x.device, False, word)
+    shoup = _shoup(word)
+    n, q = plan.n, plan.q
+    two_q = s64(2 * q)
+    index = root_index(n, t_first)
+    t = t_first
+    while t < t_stop:
+        m = n // (2 * t)
+        xs, ys = _split(x, m, t)
+        tx = cond_sub64_half(xs + ys, two_q)
+        ty = xs + two_q - ys
+        x = _join(tx, shoup(ty, irop[index:index + m, None],
+                            pirop[index:index + m, None], q), n)
+        index += m
+        t *= 2
+    return x
+
+
+def inv_final(x: torch.Tensor, plan, omf: int,
+              word: int = 64) -> torch.Tensor:
+    """The last inverse stage (stride N/2) fused with the scale by N^-1:
+    outputs [0, 2q), or [0, q) for OMF 1."""
+    shoup = _shoup(word)
+    n, q = plan.n, plan.q
+    two_q = s64(2 * q)
+    inv_n, inv_n_precon, inv_n_w, inv_n_w_precon = plan.fin(word)
+    xs, ys = _split(x, 1, n // 2)
+    tx = cond_sub64_half(xs + ys, two_q)
+    ty = xs + two_q - ys
+    nx = shoup(tx, inv_n, s64(inv_n_precon), q)
+    ny = shoup(ty, inv_n_w, s64(inv_n_w_precon), q)
+    x = _join(nx, ny, n)
+    if omf == 1:
+        x = cond_sub64_half(x, s64(q))
+    return x
+
+
 def fwd_ntt(x: torch.Tensor, plan, input_mod_factor: int = 1,
-            output_mod_factor: int = 1) -> torch.Tensor:
+            output_mod_factor: int = 1, word: int = 64) -> torch.Tensor:
     """Forward NTT of x (..., N), bit-reversed output.
 
     Input < IMF*q (IMF in {1,2,4}); output in [0,q) (OMF=1) or [0,4q)
-    (OMF=4). Butterfly: X' = red2q(X) + T, Y' = red2q(X) + 2q - T with
-    T = shoup(Y, W) in [0,2q)."""
+    (OMF=4)."""
     check_factors(True, input_mod_factor, output_mod_factor)
-    tabs = plan.tables(x.device)
-    rop, prop = tabs["rop"], tabs["prop"]
-    n, q = plan.n, plan.q
-    two_q = s64(2 * q)
-    m = 1
-    while m < n:
-        t = n // (2 * m)
-        xs, ys = _split(x, m, t)
-        w = rop[m:2 * m, None]
-        wp = prop[m:2 * m, None]
-        tx = cond_sub64_half(xs, two_q)
-        tt = shoup_mul_lazy(ys, w, wp, q)
-        x = _join(tx + tt, tx + two_q - tt, n)
-        m *= 2
+    x = fwd_stages(x, plan, 1, plan.n, word)
     if output_mod_factor == 1:
-        x = reduce_mod_lazy64(x, q, 4)
+        x = reduce_mod_lazy64(x, plan.q, 4)
     return x
 
 
 def inv_ntt(x: torch.Tensor, plan, input_mod_factor: int = 1,
-            output_mod_factor: int = 1) -> torch.Tensor:
+            output_mod_factor: int = 1, word: int = 64) -> torch.Tensor:
     """Inverse NTT from bit-reversed input (..., N).
 
     Input < IMF*q (IMF in {1,2}); output in [0,q) (OMF=1) or [0,2q)
     (OMF=2). The last stage is fused with the scale by N^-1."""
     check_factors(False, input_mod_factor, output_mod_factor)
-    tabs = plan.tables(x.device)
-    irop, pirop = tabs["irop"], tabs["pirop"]
-    n, q = plan.n, plan.q
-    two_q = s64(2 * q)
-    root_index = 1
-    t = 1
-    while t < n // 2:
-        m = n // (2 * t)
-        xs, ys = _split(x, m, t)
-        w = irop[root_index:root_index + m, None]
-        wp = pirop[root_index:root_index + m, None]
-        tx = cond_sub64_half(xs + ys, two_q)
-        ty = xs + two_q - ys
-        x = _join(tx, shoup_mul_lazy(ty, w, wp, q), n)
-        root_index += m
-        t *= 2
-    xs, ys = _split(x, 1, n // 2)
-    tx = cond_sub64_half(xs + ys, two_q)
-    ty = xs + two_q - ys
-    nx = shoup_mul_lazy(tx, s64(plan.inv_n), s64(plan.inv_n_precon), q)
-    ny = shoup_mul_lazy(ty, s64(plan.inv_n_w), s64(plan.inv_n_w_precon), q)
-    x = _join(nx, ny, n)
-    if output_mod_factor == 1:
-        x = cond_sub64_half(x, s64(q))
-    return x
+    x = inv_stages(x, plan, 1, plan.n // 2, word)
+    return inv_final(x, plan, output_mod_factor, word)

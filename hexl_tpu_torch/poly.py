@@ -1,13 +1,21 @@
-"""Fused negacyclic polynomial product and the wrapper of kernel K3.
+"""Negacyclic polynomial products, and the wrapper of kernel K3.
 
 poly_mult_mod computes c = a*b over Z_q[X]/(X^N + 1) as fwd(a) and fwd(b)
 to [0,4q), mult_mod at IMF 4, then the inverse to [0,q), the counterpart of
-`hexl_tpu/poly.py::poly_mult_mod`. On the GPU the whole chain is one launch
-of K3 (`csrc/poly.cu`), which replaces the TPU kernel
+`hexl_tpu/poly.py::poly_mult_mod`. For N <= 2^14 the whole chain is one
+launch of K3 (`csrc/poly.cu`) on the GPU, which replaces the TPU kernel
 `hexl_tpu/poly.py::_poly_mult_pallas`; its source note says what bounds it
 on an H100 and how it fits two operands into one CTA. On the CPU it runs
 the plain chain (`poly_mult_plain`, the counterpart of `_poly_mult_xla`).
-Launches are counted in `_build.launches` under "K3".
+Above 2^14 both devices run the staged route of `_poly_mult_staged`
+(poly.py:83-90): the 64-bit transforms of `cuda_ntt` (K5/K6 on the GPU,
+even for q < 2^30, as the JAX package's are) and the mult_mod of K4.
+Launches are counted in `_build.launches` under "K3" (and the kernels of
+the staged route under theirs).
+
+rns_poly_mult_mod runs the same product per prime of an RNS basis, the
+counterpart of `hexl_tpu/poly.py::rns_poly_mult_mod`; every output is fully
+reduced, so it equals the JAX package's stacked pipeline bit for bit.
 """
 
 from __future__ import annotations
@@ -17,7 +25,7 @@ import ctypes
 import torch
 
 from . import _build, _device, nt
-from .eltwise import torch_kernels
+from .eltwise import ops, torch_kernels
 from .limb import to_numpy
 from .ntt import cuda_ntt, get_plan, torch_ntt
 
@@ -35,14 +43,23 @@ def poly_mult_plain(a: torch.Tensor, b: torch.Tensor, plan) -> torch.Tensor:
     return torch_ntt.inv_ntt(prod, plan, 1, 1)
 
 
+def poly_mult_staged(a: torch.Tensor, b: torch.Tensor, plan) -> torch.Tensor:
+    """The same chain through the transform and mult_mod wrappers, one
+    launch per step on the GPU: the route above 2^14."""
+    fa = cuda_ntt.fwd_ntt(a, plan, 1, 4)
+    fb = cuda_ntt.fwd_ntt(b, plan, 1, 4)
+    prod = ops.mult_mod(fa, fb, plan.q, 4)
+    return cuda_ntt.inv_ntt(prod, plan, 1, 1)
+
+
 def poly_mult(a: torch.Tensor, b: torch.Tensor, plan) -> torch.Tensor:
     """a*b mod (X^N+1, q) on int64 tensors (..., N) of one shape and
-    device: K3 on the GPU, the plain chain on the CPU."""
+    device: K3 (N <= 2^14) or the staged route on the GPU, the plain chain
+    on the CPU."""
     if a.shape != b.shape or a.dim() < 1 or a.shape[-1] != plan.n:
         raise ValueError(f"operands must both have shape (..., {plan.n})")
     if plan.n > cuda_ntt.MAX_KERNEL_DEGREE:
-        raise NotImplementedError(
-            f"N={plan.n} > 2^14: the two-pass split (hier.py) is not ported")
+        return poly_mult_staged(a, b, plan)
     if not _build.on_card(a, b):
         return poly_mult_plain(a, b, plan)
     out = torch.empty_like(a)
@@ -71,4 +88,20 @@ def poly_mult_mod(a, b, degree: int, modulus: int, device=None):
         raise ValueError("degree must be at least 2")
     (ta, tb), host = _device.operands((a, b), device)
     out = poly_mult(ta, tb, get_plan(degree, modulus))
+    return to_numpy(out) if host else out
+
+
+def rns_poly_mult_mod(a, b, degree: int, moduli, device=None):
+    """Per-prime negacyclic products: a, b shaped (num_primes, ..., N) with
+    residues mod moduli[i] along the leading axis, in [0, moduli[i]);
+    returns the same shape. Operands and devices as in `poly_mult_mod`."""
+    moduli = [int(q) for q in moduli]
+    if degree < 2:
+        raise ValueError("degree must be at least 2")
+    (ta, tb), host = _device.operands((a, b), device)
+    if ta.shape != tb.shape or ta.dim() < 2 or ta.shape[0] != len(moduli):
+        raise ValueError(
+            f"operands must both have shape ({len(moduli)}, ..., {degree})")
+    out = torch.stack([poly_mult(ta[i], tb[i], get_plan(degree, q))
+                       for i, q in enumerate(moduli)])
     return to_numpy(out) if host else out

@@ -10,11 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from hexl_tpu_torch import NTT, _build, eltwise_mult_mod, nt, poly_mult_mod
+from hexl_tpu_torch import (NTT, _build, eltwise_mult_mod, nt, poly_mult_mod,
+                            rns_poly_mult_mod)
 from hexl_tpu_torch import poly
 from hexl_tpu_torch.eltwise import ops, torch_kernels
 from hexl_tpu_torch.limb import to_tensor
-from hexl_tpu_torch.ntt import cuda_ntt, get_plan, torch_ntt
+from hexl_tpu_torch.ntt import cuda_ntt, get_plan, hier, ntt32, torch_ntt
 
 pytestmark = pytest.mark.gpu
 
@@ -68,6 +69,53 @@ def test_poly_and_mult_mod_kernels_match_plain(cuda, n, batch):
         assert torch.equal(got, torch_kernels.mult_mod(a, b, q, imf))
 
 
+@pytest.mark.parametrize("n,batch", [(1 << 15, 3), (1 << 20, 1)])
+@pytest.mark.parametrize("q_bits", [29, 61, 62])
+def test_split_kernels_match_plain(cuda, n, batch, q_bits):
+    """K5 and K6, each against its plain version (u64 for every modulus,
+    and the u32 instantiation for the 29-bit one). q_bits = 62 is the
+    largest prime below 2^62, where 4q is just under 2^64."""
+    q = (nt.generate_primes(1, 61, False, ntt_size=n)[0] if q_bits == 62
+         else nt.generate_primes(1, q_bits, True, ntt_size=n)[0])
+    plan = get_plan(n, q)
+    rng = np.random.default_rng(n + q_bits)
+    for word in ((64, 32) if q_bits < 30 else (64,)):
+        for omf in (1, 4):
+            x = _rand(rng, (batch, n), 4 * q, cuda)
+            got = hier.cross(x, plan, True, omf, word)
+            torch.cuda.synchronize()
+            assert torch.equal(got, hier.cross_fwd_plain(x, plan, word))
+            got = hier.local(x, plan, True, omf, word)
+            torch.cuda.synchronize()
+            assert torch.equal(got, hier.local_fwd_plain(x, plan, omf, word))
+        for omf in (1, 2):
+            x = _rand(rng, (batch, n), 2 * q, cuda)
+            got = hier.local(x, plan, False, omf, word)
+            torch.cuda.synchronize()
+            assert torch.equal(got, hier.local_inv_plain(x, plan, word))
+            got = hier.cross(x, plan, False, omf, word)
+            torch.cuda.synchronize()
+            assert torch.equal(got, hier.cross_inv_plain(x, plan, omf, word))
+
+
+@pytest.mark.parametrize("n,batch", [(1 << 10, 401), (1 << 15, 3)])
+def test_single_word_kernel_matches_plain(cuda, n, batch):
+    """K7 against the plain single-word walk."""
+    q = nt.generate_primes(1, 29, True, ntt_size=n)[0]
+    plan = get_plan(n, q)
+    rng = np.random.default_rng(n)
+    for imf, omf in ((1, 1), (4, 4), (2, 1)):
+        x = _rand(rng, (batch, n), imf * q, cuda)
+        got = cuda_ntt.fwd_ntt(x, plan, imf, omf, word=32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ntt32.fwd_ntt32(x, plan, imf, omf))
+    for imf, omf in ((1, 1), (2, 2)):
+        x = _rand(rng, (batch, n), imf * q, cuda)
+        got = cuda_ntt.inv_ntt(x, plan, imf, omf, word=32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ntt32.inv_ntt32(x, plan, imf, omf))
+
+
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("plain version called for a CUDA tensor")
@@ -90,3 +138,29 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
     big = rng.integers(0, q, size=(4096, n), dtype=np.uint64)
     np.testing.assert_array_equal(engine.inverse(engine.forward(big)), big)
     assert _build.launches["K2"] == 2
+
+
+def test_split_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
+    """N = 2^15: the public transforms (64-bit and single-word), the
+    poly-mult and the RNS product launch K5/K6 (and K4), never a plain
+    version."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for mod, name in ((torch_ntt, "fwd_stages"), (torch_ntt, "inv_stages"),
+                      (torch_ntt, "inv_final"), (torch_kernels, "mult_mod"),
+                      (poly, "poly_mult_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    n = 1 << 15
+    rng = np.random.default_rng(1)
+    q, q29 = (nt.generate_primes(1, b, True, ntt_size=n)[0] for b in (50, 29))
+    x = rng.integers(0, q, size=(2, n), dtype=np.uint64)
+    x29 = rng.integers(0, q29, size=(2, n), dtype=np.uint64)
+    _build.reset_launches()
+    engine, engine29 = NTT(n, q), NTT(n, q29)
+    np.testing.assert_array_equal(engine.inverse(engine.forward(x)), x)
+    np.testing.assert_array_equal(engine29.inverse(engine29.forward(x29)),
+                                  x29)
+    poly_mult_mod(x, x, n, q)
+    rns_poly_mult_mod(np.stack([x, x29]), np.stack([x, x29]), n, [q, q29])
+    assert dict(_build.launches) == {"K5": 11, "K6": 11, "K7": 2, "K4": 3}

@@ -17,6 +17,7 @@ from hexl_tpu_torch import NTT, get_plan, nt, plan_from_arrays
 from hexl_tpu_torch.limb import to_numpy, to_tensor
 from hexl_tpu_torch.ntt import cuda_ntt, torch_ntt
 from tests.test_ref_ntt import GOLDEN
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _prime(q_bits, n):
@@ -24,7 +25,8 @@ def _prime(q_bits, n):
 
 
 @pytest.mark.parametrize("log_n,q_bits", [(1, 30), (3, 60), (6, 50),
-                                          (10, 61), (12, 30), (14, 60)])
+                                          (10, 61), (12, 30), (14, 60),
+                                          (17, 29)])
 def test_plan_tables_match_jax(log_n, q_bits):
     n = 1 << log_n
     q = _prime(q_bits, n)
@@ -188,6 +190,12 @@ def test_errors():
         NTT(n, 97, device="cpu")                 # prime, != 1 mod 2N
     with pytest.raises(ValueError):
         NTT(48, q, device="cpu")
+    # The degree range ends at 2^20: N = 2^15 (the two-pass split) works,
+    # N = 2^21 is refused by the argument check.
     big = 1 << 15
-    with pytest.raises(NotImplementedError, match="hier"):
-        NTT(big, _prime(50, big), device="cpu")
+    qb = _prime(50, big)
+    xb = np.random.default_rng(big).integers(0, qb, size=big, dtype=np.uint64)
+    engine = NTT(big, qb, device="cpu")
+    np.testing.assert_array_equal(engine.inverse(engine.forward(xb)), xb)
+    with pytest.raises(ValueError, match="exceeds"):
+        NTT(1 << 21, _prime(50, 1 << 21), device="cpu")

@@ -12,11 +12,14 @@ import pytest
 import torch
 
 from hexl_tpu import nt as jnt
+from hexl_tpu import ref
 from hexl_tpu.eltwise import eltwise_mult_mod as jax_eltwise_mult_mod
 from hexl_tpu.limb import from_limbs
+from hexl_tpu.ntt import get_plan as jax_get_plan
 from hexl_tpu.poly import poly_mult_mod as jax_poly_mult_mod
 from hexl_tpu_torch import NTT, eltwise_mult_mod, poly_mult_mod
 from hexl_tpu_torch.limb import to_numpy, to_tensor
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("imf", [1, 2, 4])
@@ -82,11 +85,18 @@ def test_poly_mult_mod_schoolbook_and_errors():
     assert [int(v) for v in to_numpy(got)] == [v % q for v in school]
     with pytest.raises(ValueError):
         poly_mult_mod(a, b[:8], n, q, device="cpu")
+    # N = 2^15 runs the staged route (the two-pass split) and matches the
+    # oracle product.
     big = 1 << 15
     qb = jnt.generate_primes(1, 50, True, ntt_size=big)[0]
-    with pytest.raises(NotImplementedError):
-        poly_mult_mod(np.zeros(big, np.uint64), np.zeros(big, np.uint64),
-                      big, qb, device="cpu")
+    jp = jax_get_plan(big, qb)
+    ab, bb = (rng.integers(0, qb, size=big, dtype=np.uint64) for _ in range(2))
+    fa = ref.fwd_ntt_radix2(ab, qb, jp.rop, jp.prop, 1, 1)
+    fb = ref.fwd_ntt_radix2(bb, qb, jp.rop, jp.prop, 1, 1)
+    prod = (fa.astype(object) * fb.astype(object) % qb).astype(np.uint64)
+    np.testing.assert_array_equal(
+        poly_mult_mod(ab, bb, big, qb, device="cpu"),
+        ref.inv_ntt_radix2(prod, qb, jp.irop, jp.pirop, 1, 1))
 
 
 def test_graft_entry_pipeline_vs_jax_step():
