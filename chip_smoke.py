@@ -16,9 +16,14 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      for q just above 2^29, 2^50, 2^60 and 2^61 and the largest q below
      2^62, where 4q is just under 2^64 (the 29-bit one in both the u64 and
      the u32 instantiation), over the IMF/OMF matrix and a ragged batch;
-     K7 (the single-word NTT) at N in {2^10, 2^14, 2^15};
-  4. two main paths through the public entry points, each with the launch
-     counts set to 0 just before it and read just after it.
+     K7 (the single-word NTT) at N in {2^10, 2^14, 2^15}; K4 and K8 (the
+     eltwise family: every op x word x IMF/OMF, every predicate with
+     inputs and bounds on both sides of 2^63) for q of 20, 29, 49, 60 and
+     61 bits and the largest prime below 2^62; K9 (the dyadic product, one
+     and four weights, moduli of mixed bit lengths); K10 and K11 (the key
+     switch's multiply-accumulate with its flush, and its mod-down);
+  4. three main paths through the public entry points, each with the
+     launch counts set to 0 just before it and read just after it.
      The first: NTT(2^14, 60-bit) forward and inverse at batch 256
      from numpy (K1); the __graft_entry__ pipeline (fwd OMF 4 ->
      eltwise_mult_mod IMF 4 -> inv) at 2^12, 50-bit, batch 2 (K1, K4);
@@ -34,7 +39,13 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      bit against the plain version on the same inputs, poly_mult_mod at
      N = 64 against a schoolbook product in Python integers, and one
      prime of the RNS product against a NumPy product (exact float FFTs
-     of 12-bit limbs);
+     of 12-bit limbs).
+     The third (the eltwise family and the SEAL-shim composites, see
+     third_path): every eltwise op at its Xeon row's shape and at 2^22
+     elements (64-bit and single-word), dyadic_multiply at 2^14 x 4 and
+     2^17 x 16 primes, lr_mat_vec_mult with 16 weights, key_switch at the
+     three Xeon shapes and at N=2^15 x ds 14; every output against the
+     plain version, and a key switch at N=64 against Python integers;
   5. timings with CUDA events (median of 20): each kernel and its plain
      version at the main paths' shapes, beside the kernel's bound (and
      K5 at N=2^20, where a thread holds 64 coefficients); the
@@ -42,14 +53,17 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      60-bit and 29-bit q at batch 16, each against the Xeon reference of
      benchmarks/reference_baseline/baseline_results.json; the latency and
      launch count of the 16-prime RNS product; the public pairs/s of
-     NTT(2^10, 29-bit) at batch 4096 (K7) against its Xeon rows; the
-     transform pair with
-     each number of polynomials per CTA forced, against the wrapper's
-     choice.
+     NTT(2^10, 29-bit) at batch 4096 (K7) against its Xeon rows; K8 per
+     op family at 2^22 elements, K9, K10 and K11 beside their bounds; the
+     public eltwise ops and dyadic_multiply per call against their Xeon
+     rows; each key switch's latency, its kernels and NTTs replayed from
+     CUDA graphs, and its launches per call; the transform pair with each
+     number of polynomials per CTA forced, against the wrapper's choice.
 It then prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}.
 """
 
+import importlib
 import json
 import os
 import pathlib
@@ -182,6 +196,361 @@ def negacyclic_product(a, b, q: int):
     return ((full[:n] - full[n:]) % q).astype(np.uint64)
 
 
+def top_modulus(nt, q_bits: int, n: int = 1024) -> int:
+    """A prime of q_bits (in (2^b, 2^(b+1)), = 1 mod 2n); "62" is the
+    largest prime below 2^62 instead."""
+    if q_bits == 62:
+        return nt.generate_primes(1, 61, False, ntt_size=n)[0]
+    return nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+
+
+def eltwise_cases(q, size, rng, dev, ops, plain64, plain32, nt, to_tensor):
+    """(what, kernel, kernel's output, plain output) for every op of K4/K8
+    under modulus q: both words where q < 2^30, the IMF/OMF matrix, the
+    vector and scalar forms, every predicate with bounds on both sides of
+    2^63 and inputs over the whole u64 range."""
+    import numpy as np
+
+    def rand(bound):
+        return to_tensor(rng.integers(0, bound - 1, size=size,
+                                      dtype=np.uint64, endpoint=True), dev)
+
+    def scalar(lo, hi):
+        return int(rng.integers(lo, hi - 1, dtype=np.uint64, endpoint=True))
+
+    for word in ((64, 32) if q < ops.SMALL_Q else (64,)):
+        plain = plain32 if word == 32 else plain64
+        sfx = "32" if word == 32 else ""
+        a, b, s = rand(q), rand(q), scalar(0, q)
+        for op in ("add", "sub"):
+            fn = getattr(ops, f"{op}_mod")
+            ref = getattr(plain, f"{op}_mod{sfx}")
+            for rhs, form in ((b, "vector"), (s, "scalar")):
+                yield (f"{op}_mod {form} word={word}",
+                       ops.kernel_name(op, word), fn(a, rhs, q, word),
+                       ref(a, rhs, q))
+        for imf in (1, 2, 4):
+            if q >= 1 << 62 or (word == 32 and imf * q >= 1 << 32):
+                continue
+            x, y = rand(imf * q), rand(imf * q)
+            yield (f"mult_mod imf={imf} word={word}",
+                   ops.kernel_name("mult", word),
+                   ops.mult_mod(x, y, q, imf, word),
+                   getattr(plain, f"mult_mod{sfx}")(x, y, q, imf))
+        for imf in (1, 2, 4, 8):
+            if q >= 1 << 61 or (word == 32 and imf * q >= 1 << 32):
+                continue
+            x, z = rand(imf * q), rand(imf * q)
+            w = nt.reduce_mod(scalar(0, imf * q), q, imf)
+            wp = nt.barrett_factor(w, word, q)
+            ref = (plain.fma_mod32_preconned if word == 32
+                   else plain.fma_mod_preconned)
+            for c in (z, None):
+                yield (f"fma_mod imf={imf} addend={c is not None} "
+                       f"word={word}", ops.kernel_name("fma", word),
+                       ops.fma_mod(x, w, wp, c, q, imf, word),
+                       ref(x, w, wp, c, q, imf))
+        for imf, omf in ((q, 1), (q, 2), (2, 1), (4, 1), (4, 2), (2, 2)):
+            if word == 32 and imf == q:
+                continue
+            x = rand(1 << 64) if imf == q else rand(imf * q)
+            yield (f"reduce_mod imf={'q' if imf == q else imf} omf={omf} "
+                   f"word={word}", ops.kernel_name("reduce", word),
+                   ops.reduce_mod(x, q, imf, omf, word),
+                   getattr(plain, f"reduce_mod{sfx}")(x, q, imf, omf))
+    full = rand(1 << 64)
+    for cmp in plain64.CMP_NAMES:
+        for bound in (scalar(0, 1 << 63), scalar(1 << 63, 1 << 64)):
+            f = full.clone()
+            f[:7] = int(np.uint64(bound).view(np.int64))
+            diff = scalar(1, 1 << 64)
+            yield (f"cmp_add {cmp} bound={bound}", "K8.cmp",
+                   ops.cmp_add(f, cmp, bound, diff),
+                   plain64.cmp_add(f, cmp, bound, diff))
+            diff = scalar(1, q)
+            yield (f"cmp_sub_mod {cmp} bound={bound}", "K8.cmp",
+                   ops.cmp_sub_mod(f, q, cmp, bound, diff),
+                   plain64.cmp_sub_mod(f, q, cmp, bound, diff))
+    if q < 1 << 62:
+        a, b = rand(q), rand(q)
+        for op in ("montgomery_form_in", "montgomery_form_out"):
+            yield (op, "K8.mont", getattr(ops, op)(a, q),
+                   getattr(plain64, op)(a, q))
+        yield ("montgomery_mult_reduce", "K8.mont",
+               ops.montgomery_mult_reduce(a, b, q),
+               plain64.montgomery_mult_reduce(a, b, q))
+
+
+def key_switch_inputs(rng, n, bits, kc, dev, nt, to_tensor):
+    """(result, t_target, keys, moduli, msf) of a key switch over
+    len(bits) - 1 decomposition primes and one key prime (distinct primes
+    of the given bit lengths, = 1 mod 2n), as int64 tensors on dev."""
+    import torch
+    ds = len(bits) - 1
+    moduli = []
+    for b in bits:
+        cands = nt.generate_primes(ds + 2, b, True, ntt_size=n)
+        moduli.append(next(p for p in cands if p not in moduli))
+    qk = moduli[-1]
+
+    def rows(count):
+        return torch.stack([to_tensor(rng.integers(0, q, n, dtype="uint64"),
+                                      dev) for q in moduli[:count]])
+
+    t = rows(ds)
+    keys = torch.stack([torch.stack([rows(ds + 1) for _ in range(kc)])
+                        for _ in range(ds)])
+    msf = [nt.inverse_mod(qk % q, q) for q in moduli[:ds]]
+    result = torch.stack([rows(ds) for _ in range(kc)])
+    return result, t, keys, moduli, msf
+
+
+def key_switch_oracle(result, t_target, keys, moduli, msf, nt):
+    """The key switch in Python integers, as
+    tests/test_experimental.py::_key_switch_oracle computes it, with
+    transforms by direct evaluation: the forward NTT's output i is
+    x(psi^(2 brv(i) + 1)) for the minimal primitive 2N-th root psi, and the
+    inverse undoes it. Every step is a function of residues, so the
+    oracle's fully reduced transforms give the lazy pipeline's result.
+    Arguments are nested lists of ints; returns one."""
+    kc, ds, n = len(result), len(t_target), len(t_target[0])
+    log_n = n.bit_length() - 1
+    brv = [nt.reverse_bits(i, log_n) for i in range(n)]
+    powers = {}
+
+    def table(q, inverse):
+        if (q, inverse) not in powers:
+            psi = nt.minimal_primitive_root(2 * n, q)
+            if inverse:
+                psi = pow(psi, -1, q)
+            powers[(q, inverse)] = [pow(psi, k, q) for k in range(2 * n)]
+        return powers[(q, inverse)]
+
+    def fwd(x, q):
+        pw = table(q, False)
+        return [sum(x[j] * pw[(2 * brv[i] + 1) * j % (2 * n)]
+                    for j in range(n)) % q for i in range(n)]
+
+    def inv(y, q):
+        pw, inv_n = table(q, True), pow(n, -1, q)
+        return [inv_n * sum(y[i] * pw[(2 * brv[i] + 1) * j % (2 * n)]
+                            for i in range(n)) % q for j in range(n)]
+
+    qk = moduli[-1]
+    t_intt = [inv(t_target[j], moduli[j]) for j in range(ds)]
+    tpp = [[None] * (ds + 1) for _ in range(kc)]
+    for i in range(ds + 1):
+        q = moduli[i]
+        acc = [[0] * n for _ in range(kc)]
+        for j in range(ds):
+            t_op = (t_target[j] if i == j
+                    else fwd([v % q for v in t_intt[j]], q))
+            for k in range(kc):
+                key = keys[j][k][i]
+                acc[k] = [s + a * b for s, a, b in zip(acc[k], t_op, key)]
+        for k in range(kc):
+            tpp[k][i] = [s % q for s in acc[k]]
+    half = qk >> 1
+    out = [[list(row) for row in comp] for comp in result]
+    for k in range(kc):
+        t_last = [(v + half) % qk for v in inv(tpp[k][ds], qk)]
+        for i in range(ds):
+            qi = moduli[i]
+            t_ntt = fwd([v % qi + qi - half % qi for v in t_last], qi)
+            out[k][i] = [(r + (p + 4 * qi - t) * msf[i]) % qi for r, p, t
+                         in zip(out[k][i], tpp[k][i], t_ntt)]
+    return out
+
+
+XEON_MONT_MODULUS = 67280421310725   # the Xeon Montgomery rows' 47-bit q
+BIG = (2, 16, 1 << 17)               # 2^22 elements: 2 polys x 16 primes
+LR_WEIGHTS = 16
+# (N, ds) of the key switches: the Xeon rows', then N=2^15 x 14 primes.
+KS_SHAPES = ((1 << 14, 3), (1 << 14, 5), (1 << 15, 3), (1 << 15, 14))
+THIRD_PATH_KERNELS = ("K1", "K4", "K5", "K6", "K8.add_sub", "K8.add_sub.u32",
+                      "K8.mult.u32", "K8.fma", "K8.fma.u32", "K8.reduce",
+                      "K8.reduce.u32", "K8.cmp", "K8.mont", "K9", "K10",
+                      "K11")
+
+
+def third_path(rng, dev, port, nt, plain64, plain32, dyadic, ks, to_tensor,
+               rns_moduli):
+    """The third main path as (what, kernel, call, plain): `call` runs a
+    public entry point on tensors on the card, `plain` the plain version
+    on the same inputs; `kernel` is the one whose output is compared."""
+    import torch
+
+    def rand(shape, bound):
+        return to_tensor(rng.integers(0, bound - 1, size=shape,
+                                      dtype="uint64", endpoint=True), dev)
+
+    cases = []
+
+    def add(what, kernel, call, plain):
+        cases.append((what, kernel, call, plain))
+
+    def eltwise_ops(shape, q, tag):
+        """Every op at one shape under q; tag names the case."""
+        word = 32 if q < 1 << 30 else 64
+        p = plain32 if word == 32 else plain64
+        sfx = "32" if word == 32 else ""
+        k = lambda op: port.eltwise.ops.kernel_name(op, word)
+        a, b = rand(shape, q), rand(shape, q)
+        for op in ("add", "sub"):
+            pub = getattr(port, f"eltwise_{op}_mod")
+            ref = getattr(p, f"{op}_mod{sfx}")
+            add(f"{op}_mod {tag}", k(op), lambda a=a, b=b, pub=pub:
+                pub(a, b, q), lambda a=a, b=b, ref=ref: ref(a, b, q))
+            add(f"{op}_mod scalar {tag}", k(op),
+                lambda a=a, pub=pub: pub(a, 1234567 % q, q),
+                lambda a=a, ref=ref: ref(a, 1234567 % q, q))
+        for imf in (1, 2, 4):
+            x, y = rand(shape, imf * q), rand(shape, imf * q)
+            small = word == 32 and imf * q < 1 << 32
+            ref = plain32.mult_mod32 if small else plain64.mult_mod
+            add(f"mult_mod imf={imf} {tag}",
+                port.eltwise.ops.kernel_name("mult", 32 if small else 64),
+                lambda x=x, y=y, imf=imf: port.eltwise_mult_mod(x, y, q, imf),
+                lambda x=x, y=y, imf=imf, ref=ref: ref(x, y, q, imf))
+        for imf, omf in ((q, 1), (2, 1), (4, 1), (4, 2)):
+            x = rand(shape, 1 << 64 if imf == q else imf * q)
+            small = word == 32 and imf != q
+            ref = plain32.reduce_mod32 if small else plain64.reduce_mod
+            add(f"reduce_mod imf={'q' if imf == q else imf} omf={omf} {tag}",
+                port.eltwise.ops.kernel_name("reduce", 32 if small else 64),
+                lambda x=x, imf=imf, omf=omf: port.eltwise_reduce_mod(
+                    x, q, imf, omf),
+                lambda x=x, imf=imf, omf=omf, ref=ref: ref(x, q, imf, omf))
+        fma_and_cmp(shape, q, tag)
+
+    def fma_and_cmp(shape, q, tag, imfs=(1, 8)):
+        for imf in imfs:
+            x, z = rand(shape, imf * q), rand(shape, imf * q)
+            small = q < 1 << 30 and imf * q < 1 << 32
+            w = nt.reduce_mod(12345, q, imf)
+            wp = nt.barrett_factor(w, 32 if small else 64, q)
+            ref = (plain32.fma_mod32_preconned if small
+                   else plain64.fma_mod_preconned)
+            for c in (z, None):
+                add(f"fma_mod imf={imf} addend={c is not None} {tag}",
+                    port.eltwise.ops.kernel_name("fma", 32 if small else 64),
+                    lambda x=x, c=c, imf=imf: port.eltwise_fma_mod(
+                        x, 12345, c, q, imf),
+                    lambda x=x, c=c, imf=imf, w=w, wp=wp, ref=ref: ref(
+                        x, w, wp, c, q, imf))
+        a = rand(shape, q)
+        add(f"cmp_add nlt {tag}", "K8.cmp",
+            lambda: port.eltwise_cmp_add(a, "nlt", q // 2, 42),
+            lambda: plain64.cmp_add(a, "nlt", q // 2, 42))
+        add(f"cmp_sub_mod nlt {tag}", "K8.cmp",
+            lambda: port.eltwise_cmp_sub_mod(a, q, "nlt", q // 2, 42),
+            lambda: plain64.cmp_sub_mod(a, q, "nlt", q // 2, 42))
+
+    def montgomery(shape, q, tag):
+        a, b = rand(shape, q), rand(shape, q)
+        for op in ("form_in", "form_out"):
+            add(f"montgomery_{op} {tag}", "K8.mont",
+                lambda op=op: getattr(port, f"eltwise_montgomery_{op}")(a, q),
+                lambda op=op: getattr(plain64, f"montgomery_{op}")(a, q))
+        add(f"montgomery_mult_reduce {tag}", "K8.mont",
+            lambda: port.eltwise_montgomery_mult_reduce(a, b, q),
+            lambda: plain64.montgomery_mult_reduce(a, b, q))
+
+    n12, n13, n14 = 1 << 12, 1 << 13, 1 << 14
+    q = top_modulus(nt, 60, n12)
+    a, b = rand((n12,), q), rand((n12,), q)
+    for op in ("add", "sub"):
+        pub, ref = getattr(port, f"eltwise_{op}_mod"), getattr(plain64,
+                                                              f"{op}_mod")
+        add(f"{op}_mod 2^12 60-bit", "K8.add_sub",
+            lambda pub=pub, a=a, b=b, q=q: pub(a, b, q),
+            lambda ref=ref, a=a, b=b, q=q: ref(a, b, q))
+        add(f"{op}_mod scalar 2^12 60-bit", "K8.add_sub",
+            lambda pub=pub, a=a, q=q: pub(a, 1234567, q),
+            lambda ref=ref, a=a, q=q: ref(a, 1234567, q))
+    for bits in (49, 60):
+        q = top_modulus(nt, bits, n13)
+        for imf in (1, 2, 4):
+            x, y = rand((n13,), imf * q), rand((n13,), imf * q)
+            add(f"mult_mod imf={imf} 2^13 {bits}-bit", "K4",
+                lambda x=x, y=y, q=q, imf=imf: port.eltwise_mult_mod(
+                    x, y, q, imf),
+                lambda x=x, y=y, q=q, imf=imf: plain64.mult_mod(x, y, q, imf))
+        for imf in (q, 2, 4):
+            x = rand((n13,), 1 << 64 if imf == q else imf * q)
+            add(f"reduce_mod imf={'q' if imf == q else imf} 2^13 {bits}-bit",
+                "K8.reduce",
+                lambda x=x, q=q, imf=imf: port.eltwise_reduce_mod(x, q, imf,
+                                                                  1),
+                lambda x=x, q=q, imf=imf: plain64.reduce_mod(x, q, imf, 1))
+    q = top_modulus(nt, 59, n14)
+    fma_and_cmp((n14,), q, "2^14 59-bit")
+    x = rand((n14,), 2 * q)
+    add("reduce_mod 2->1 2^14 59-bit", "K8.reduce",
+        lambda x=x, q=q: port.eltwise_reduce_mod(x, q, 2, 1),
+        lambda x=x, q=q: plain64.reduce_mod(x, q, 2, 1))
+    for i, q in enumerate(nt.generate_primes(8, 59, True, ntt_size=n14)):
+        fma_and_cmp((n14,), q, f"2^14 59-bit, prime {i} of 8", imfs=(1,))
+    montgomery((n13,), XEON_MONT_MODULUS, "2^13 47-bit (Xeon modulus)")
+    # Every op at 2^22 elements, 64-bit and single-word.
+    q60 = top_modulus(nt, 60, BIG[-1])
+    eltwise_ops(BIG, q60, "2^22 60-bit")
+    montgomery(BIG, q60, "2^22 60-bit")
+    eltwise_ops(BIG, top_modulus(nt, 29, BIG[-1]), "2^22 29-bit")
+    # The composites.
+    q4 = nt.generate_primes(4, 50, True, ntt_size=n14)
+    for n, basis in ((n14, q4), (BIG[-1], rns_moduli)):
+        x, y = (torch.stack([torch.stack([rand((n,), q) for q in basis])
+                             for _ in range(2)]) for _ in range(2))
+        add(f"dyadic_multiply 2^{n.bit_length() - 1} x {len(basis)} primes",
+            "K9", lambda x=x, y=y, basis=basis: port.dyadic_multiply(
+                x, y, basis),
+            lambda x=x, y=y, basis=basis: dyadic.dyadic_plain(
+                x[None], y[None], dyadic.row_constants(tuple(basis), dev)))
+    c1, c2 = (torch.stack([torch.stack([torch.stack(
+        [rand((n14,), q) for q in q4]) for _ in range(2)])
+        for _ in range(LR_WEIGHTS)]) for _ in range(2))
+    add(f"lr_mat_vec_mult 2^14 x 4 primes x {LR_WEIGHTS} weights", "K9",
+        lambda: port.lr_mat_vec_mult(c1, c2, q4),
+        lambda: dyadic.dyadic_plain(c1, c2, dyadic.row_constants(tuple(q4),
+                                                                 dev)))
+    for n, ds in KS_SHAPES:
+        args = key_switch_inputs(rng, n, (49,) * (ds + 1), 2, dev, nt,
+                                 to_tensor)
+        result, t, keys, moduli, msf = args
+        add(f"key_switch N=2^{n.bit_length() - 1} ds={ds}", "K11",
+            lambda result=result, t=t, keys=keys, moduli=moduli, msf=msf, n=n,
+            ds=ds: port.key_switch(result, t, n, ds, ds + 1, ds + 1, 2,
+                                   moduli, keys, msf),
+            lambda result=result, t=t, keys=keys, moduli=moduli, msf=msf, n=n,
+            ds=ds: ks.key_switch_plain(result, t, n, ds, ds + 1, ds + 1, 2,
+                                       moduli, keys, msf))
+    return cases
+
+
+def key_switch_ntts(n, ds, moduli, rand, get_plan, cuda_ntt):
+    """A function that runs the transforms of one key switch (the same
+    calls, shapes and lazy ranges, on random inputs): ds inverses of the
+    target, ds + 1 forwards of the base-converted rows, the key prime's
+    inverse and the mod-down's ds forwards."""
+    plans = [get_plan(n, q) for q in moduli]
+    inv_in = [rand((n,), 2 * q) for q in moduli[:ds]]
+    fwd_in = [rand((ds - 1 if i < ds else ds, n), q)
+              for i, q in enumerate(moduli)]
+    last_in = rand((2, n), 2 * moduli[-1])
+    md_in = [rand((2, n), 2 * q) for q in moduli[:ds]]
+
+    def run():
+        for j in range(ds):
+            cuda_ntt.inv_ntt(inv_in[j], plans[j], 2, 1)
+        for i in range(ds + 1):
+            cuda_ntt.fwd_ntt(fwd_in[i], plans[i], 4, 4)
+        cuda_ntt.inv_ntt(last_in, plans[ds], 2, 2)
+        for i in range(ds):
+            cuda_ntt.fwd_ntt(md_in[i], plans[i], 4, 4)
+    return run
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -198,12 +567,15 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
         f"max SM clock {sm_mhz} MHz")
 
+    import hexl_tpu_torch as port
     from hexl_tpu_torch import (NTT, _build, eltwise_mult_mod, nt,
                                 poly_mult_mod, rns_poly_mult_mod)
-    from hexl_tpu_torch.eltwise import ops, torch_kernels
+    from hexl_tpu_torch.eltwise import ops, torch_kernels, torch_kernels32
     from hexl_tpu_torch.limb import to_numpy, to_tensor
     from hexl_tpu_torch.ntt import cuda_ntt, get_plan, hier, ntt32, torch_ntt
     from hexl_tpu_torch import poly
+    dyadic = importlib.import_module("hexl_tpu_torch.experimental.dyadic")
+    ks = importlib.import_module("hexl_tpu_torch.experimental.key_switch")
 
     dev = torch.device("cuda", 0)
     sms = cuda_ntt.sm_count(dev)
@@ -227,13 +599,12 @@ def main() -> int:
     log(f"IMADs per product (SASS): {imads}")
 
     # -- 3. each kernel against its plain version, bit-exact ----------------
-    max_err = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K5.u32", "K6",
-                             "K6.u32", "K7"), 0)
+    max_err = {}
 
     def compare(kernel, got, want, what):
         torch.cuda.synchronize()
         err = int((got - want).abs().max().item()) if got.numel() else 0
-        max_err[kernel] = max(max_err[kernel], err)
+        max_err[kernel] = max(max_err.get(kernel, 0), err)
         if not torch.equal(got, want):
             raise AssertionError(f"{kernel} disagrees with its plain version "
                                  f"at {what}")
@@ -340,6 +711,45 @@ def main() -> int:
                                 f"K7 inv n={n} q_bits={q_bits} batch={batch} "
                                 f"imf={imf} omf={omf}")
                         checks += 1
+    # K4 and K8, every op x word x IMF/OMF (cmp: every predicate, inputs
+    # and bounds on both sides of 2^63), on a ragged 2^16 + 1 elements.
+    for q_bits in (20, 29, 49, 60, 61, 62):
+        q = top_modulus(nt, q_bits)
+        for what, kernel, got, want in eltwise_cases(
+                q, 65537, rng, dev, ops, torch_kernels, torch_kernels32, nt,
+                to_tensor):
+            compare(kernel, got, want, f"{what} q_bits={q_bits}")
+            checks += 1
+    # K9 over moduli of mixed bit lengths, alone and with 4 weights.
+    dy_moduli = [top_modulus(nt, b) for b in (20, 40, 50, 60, 62)]
+    for weights in (1, 4):
+        x, y = (torch.stack([torch.stack([torch.stack([
+            rand((16387,), q) for q in dy_moduli]) for _ in range(2)])
+            for _ in range(weights)]) for _ in range(2))
+        compare("K9", dyadic.dyadic(x, y, dy_moduli),
+                dyadic.dyadic_plain(x, y, dyadic.row_constants(
+                    tuple(dy_moduli), dev)), f"dyadic weights={weights}")
+        checks += 1
+    # K10 and K11 against their plain versions: a basis of mixed bit
+    # lengths up to 61 bits at 2^14, and the main path's 2^15 x ds 14.
+    for n, bits, kc in ((1 << 14, (61, 50, 60, 45), 3),
+                        (1 << 15, (49,) * 15, 2)):
+        ds = len(bits) - 1
+        result, t, keys, moduli, msf = key_switch_inputs(rng, n, bits, kc,
+                                                         dev, nt, to_tensor)
+        c = ks.constants(tuple(moduli), tuple(msf), ds, dev)
+        tq = torch.stack([rand((ds, n), 4 * q) for q in moduli])
+        what = f"n={n} ds={ds} kc={kc}"
+        tpp = ks.mac_flush(tq, keys, c, ds, kc, ds + 1)
+        compare("K10", tpp, ks.mac_flush_plain(tq, keys, c.mac, ds, kc,
+                                              ds + 1), f"mac_flush {what}")
+        x = rand((kc, n), 2 * moduli[-1])
+        compare("K11", ks.spread(x, c), ks.spread_plain(x, c),
+                f"spread {what}")
+        tntt = torch.stack([rand((kc, n), 4 * q) for q in moduli[:ds]])
+        compare("K11", ks.fold(result, tpp, tntt, c),
+                ks.fold_plain(result, tpp, tntt, c), f"fold {what}")
+        checks += 3
     log(f"phase 3: {checks} kernel-vs-plain checks bit-exact in "
         f"{time.perf_counter() - t0:.1f} s; max_abs_err {max_err}")
 
@@ -514,6 +924,44 @@ def main() -> int:
     log("phase 4: every output of the second main path == its plain version; "
         "round trips exact; RNS prime 0 == the NumPy FFT product")
 
+    # The third: the eltwise family and the SEAL-shim composites through
+    # the public entry points. Each eltwise op at its Xeon row's shape
+    # (add/sub 2^12, 60-bit; mult_mod and reduce_mod 2^13 at 49 and 60
+    # bits; fma, cmp_add, cmp_sub_mod and reduce 2->1 at 2^14, 59-bit, and
+    # fma/cmp over BASELINE.json's 8 primes; Montgomery 2^13 on the Xeon
+    # row's 47-bit modulus), then every op at 2^22 elements (a 2-polynomial
+    # ciphertext over 16 primes at N=2^17: 60-bit q, and 29-bit for the
+    # single-word bodies); dyadic_multiply at the Xeon row (2^14 x 4 primes
+    # of 50 bits) and at BASELINE.json's basis (2^17 x 16 primes of 50
+    # bits); lr_mat_vec_mult at 2^14 x 4 primes x 16 weights; key_switch
+    # at the three Xeon shapes and at N=2^15 x ds 14 (49-bit, kc 2).
+    third = third_path(rng, dev, port, nt, torch_kernels, torch_kernels32,
+                       dyadic, ks, to_tensor, moduli)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    outs = [call() for _, _, call, _ in third]
+    torch.cuda.synchronize()
+    launches3 = dict(_build.launches)
+    log(f"phase 4: third main path's launches {launches3}")
+    missing = [k for k in THIRD_PATH_KERNELS if launches3.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"third main path launched no {missing}")
+    for (what, kernel, _, plain), out in zip(third, outs):
+        compare(kernel, out, plain(), f"main path: {what}")
+    # One small key switch against Python integers, after the counts.
+    res, tt, kk, ks_moduli, msf = key_switch_inputs(rng, 64, (40, 41, 45), 2,
+                                                    dev, nt, to_tensor)
+    got = port.key_switch(res, tt, 64, 2, 3, 3, 2, ks_moduli, kk, msf)
+    lists = lambda v: [[int(x) for x in row] for row in to_numpy(v)]
+    want = key_switch_oracle(
+        [lists(c) for c in res], lists(tt),
+        [[lists(kk[j, k]) for k in range(2)] for j in range(2)], ks_moduli,
+        msf, nt)
+    if [lists(c) for c in got] != want:
+        raise AssertionError("key_switch n=64 != the Python-integer oracle")
+    log(f"phase 4: every output of the third main path ({len(third)} calls) "
+        "== its plain version; key_switch n=64 == the Python-integer oracle")
+
     # -- 5. timings ---------------------------------------------------------
     def graph_ms(fn, inner):
         """Median device ms of one call of fn over 20 replays of a CUDA
@@ -646,7 +1094,8 @@ def main() -> int:
         "K3": ("poly_mult_kernel", "hexl_tpu_torch/csrc/poly.cu",
                "hexl_tpu/poly.py:72",
                "poly_mult N=2^14, 60-bit q, batch 64", k3),
-        "K4": ("mult_mod_kernel", "hexl_tpu_torch/csrc/eltwise.cu",
+        "K4": ("eltwise_kernel (mult_mod, 64-bit)",
+               "hexl_tpu_torch/csrc/eltwise.cu",
                "hexl_tpu/eltwise/pallas_kernels.py:65",
                "mult_mod IMF 4, 2x2^12 elements, 50-bit q", k4),
         "K5": ("cross_fwd_kernel+cross_inv_kernel<u64, 3>",
@@ -671,6 +1120,111 @@ def main() -> int:
                "hexl_tpu_torch/csrc/ntt.cu", "hexl_tpu/ntt/ntt32.py:205",
                "fwd OMF1 + inv OMF1 pair, N=2^14, 29-bit q, batch 256", k7),
     }
+    # K8 per family at 2^22 elements, one representative op each (60-bit
+    # q, or 29-bit for the single word). Bytes: the operands read and the
+    # output written; operations: the 64x64 (or 32x32) products.
+    elems = BIG[0] * BIG[1] * BIG[2]
+    q60b, q29b = top_modulus(nt, 60, BIG[-1]), top_modulus(nt, 29, BIG[-1])
+    hi64, lo64 = imads["mulhi64"], imads["mullo64"]
+    hi32, lo32 = imads["mulhi32"], imads["mullo32"]
+    e60 = [rand(BIG, q60b) for _ in range(2)]
+    e29 = [rand(BIG, q29b) for _ in range(2)]
+    e60x8 = [rand(BIG, 8 * q60b) for _ in range(2)]
+    e29x8 = [rand(BIG, 8 * q29b) for _ in range(2)]
+    e64 = rand(BIG, 1 << 64)
+    w60 = (12345, nt.barrett_factor(12345, 64, q60b))
+    w29 = (12345, nt.barrett_factor(12345, 32, q29b))
+    k8_cases = {
+        "K8.add_sub": ("add_mod vector, 60-bit",
+                       lambda: ops.add_mod(*e60, q60b),
+                       lambda: torch_kernels.add_mod(*e60, q60b), 3, 0),
+        "K8.add_sub.u32": ("add_mod vector, 29-bit",
+                           lambda: ops.add_mod(*e29, q29b, 32),
+                           lambda: torch_kernels32.add_mod32(*e29, q29b),
+                           3, 0),
+        "K8.mult.u32": ("mult_mod IMF 1, 29-bit",
+                        lambda: ops.mult_mod(*e29, q29b, 1, 32),
+                        lambda: torch_kernels32.mult_mod32(*e29, q29b, 1),
+                        3, 2 * hi32 + 2 * lo32),
+        "K8.fma": ("fma_mod IMF 8 with addend, 60-bit",
+                   lambda: ops.fma_mod(e60x8[0], *w60, e60x8[1], q60b, 8),
+                   lambda: torch_kernels.fma_mod_preconned(
+                       e60x8[0], *w60, e60x8[1], q60b, 8), 3,
+                   hi64 + 2 * lo64),
+        "K8.fma.u32": ("fma_mod IMF 8 with addend, 29-bit",
+                       lambda: ops.fma_mod(e29x8[0], *w29, e29x8[1], q29b,
+                                           8, 32),
+                       lambda: torch_kernels32.fma_mod32_preconned(
+                           e29x8[0], *w29, e29x8[1], q29b, 8), 3,
+                       hi32 + 2 * lo32),
+        "K8.reduce": ("reduce_mod IMF q -> OMF 1, 60-bit",
+                      lambda: ops.reduce_mod(e64, q60b, q60b, 1),
+                      lambda: torch_kernels.reduce_mod(e64, q60b, q60b, 1),
+                      2, hi64 + lo64),
+        "K8.reduce.u32": ("reduce_mod IMF 4 -> OMF 1, 29-bit",
+                          lambda: ops.reduce_mod(e29[0], q29b, 4, 1, 32),
+                          lambda: torch_kernels32.reduce_mod32(e29[0], q29b,
+                                                               4, 1), 2, 0),
+        "K8.cmp": ("cmp_sub_mod nlt, 60-bit",
+                   lambda: ops.cmp_sub_mod(e64, q60b, "nlt", 1 << 63, 42),
+                   lambda: torch_kernels.cmp_sub_mod(e64, q60b, "nlt",
+                                                     1 << 63, 42),
+                   2, hi64 + lo64),
+        "K8.mont": ("montgomery_mult_reduce, 60-bit",
+                    lambda: ops.montgomery_mult_reduce(*e60, q60b),
+                    lambda: torch_kernels.montgomery_mult_reduce(*e60, q60b),
+                    3, 2 * hi64 + 3 * lo64),
+    }
+    for name, (op, kernel, plain, words, per_elem) in k8_cases.items():
+        cases[name] = (f"eltwise_kernel ({op})",
+                       "hexl_tpu_torch/csrc/eltwise.cu",
+                       "hexl_tpu/eltwise/pallas_kernels.py:65",
+                       f"{op}, 2^22 elements",
+                       (kernel, plain, 8 * words * elems, per_elem * elems))
+    # K9: dyadic_multiply at N=2^17 x 16 primes (4 words read, 3 written,
+    # four Barrett products per coefficient).
+    dx, dy = (torch.stack([torch.stack([rand((n17,), q) for q in moduli])
+                           for _ in range(2)])[None] for _ in range(2))
+    dcon = dyadic.row_constants(tuple(moduli), dev)
+    mn = RNS_PRIMES * n17
+    cases["K9"] = ("dyadic_kernel", "hexl_tpu_torch/csrc/dyadic.cu",
+                   "hexl_tpu/experimental/dyadic.py:92 (XLA-fused jnp; no "
+                   "pallas_call)", f"dyadic_multiply N=2^17 x {RNS_PRIMES} "
+                   "primes of 50 bits",
+                   (lambda: dyadic.dyadic(dx, dy, moduli),
+                    lambda: dyadic.dyadic_plain(dx, dy, dcon),
+                    8 * 7 * mn, 4 * mn * per_barrett))
+    # K10 and K11 at the key switch of N=2^15 x ds 14, kc 2.
+    ks_n, ks_ds = KS_SHAPES[-1]
+    result, _, keys, ks_moduli, msf = key_switch_inputs(
+        rng, ks_n, (49,) * (ks_ds + 1), 2, dev, nt, to_tensor)
+    kcon = ks.constants(tuple(ks_moduli), tuple(msf), ks_ds, dev)
+    rows_ = ks_ds + 1
+    tq = torch.stack([rand((ks_ds, ks_n), 4 * q) for q in ks_moduli])
+    tpp = ks.mac_flush(tq, keys, kcon, ks_ds, 2, rows_)
+    xl = rand((2, ks_n), 2 * ks_moduli[-1])
+    tntt = torch.stack([rand((2, ks_n), 4 * q) for q in ks_moduli[:ks_ds]])
+    out_words = rows_ * 2 * ks_n
+    cases["K10"] = (
+        "mac_flush_kernel", "hexl_tpu_torch/csrc/key_switch.cu",
+        "hexl_tpu/experimental/key_switch.py:172-224 (XLA-fused jnp; no "
+        "pallas_call)", f"key-switch MAC + flush, N=2^15, ds {ks_ds}, kc 2",
+        (lambda: ks.mac_flush(tq, keys, kcon, ks_ds, 2, rows_),
+         lambda: ks.mac_flush_plain(tq, keys, kcon.mac, ks_ds, 2, rows_),
+         8 * (rows_ * ks_ds * ks_n + keys.numel() + out_words),
+         out_words * (ks_ds * (hi64 + lo64) + 2 * (hi64 + lo64)
+                      + per_barrett)))
+    md_words = ks_ds * 2 * ks_n
+    cases["K11"] = (
+        "spread_kernel+fold_kernel", "hexl_tpu_torch/csrc/key_switch.cu",
+        "hexl_tpu/experimental/key_switch.py:226-284 (XLA-fused jnp; no "
+        "pallas_call)", f"key-switch mod-down spread + fold, N=2^15, "
+        f"ds {ks_ds}, kc 2",
+        (lambda: (ks.spread(xl, kcon), ks.fold(result, tpp, tntt, kcon)),
+         lambda: (ks.spread_plain(xl, kcon),
+                  ks.fold_plain(result, tpp, tntt, kcon)),
+         8 * (2 * ks_n + md_words + 4 * md_words),
+         md_words * (2 * (hi64 + lo64) + hi64 + 2 * lo64)))
     entries = []
     for name, (desc, source, replaces, shape, case) in cases.items():
         kernel, plain, nbytes, nimads = case
@@ -683,7 +1237,8 @@ def main() -> int:
         entries.append({
             "name": f"{name} {desc}", "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches1.get(name, 0) + launches2.get(name, 0),
+            "launches": sum(counts.get(name, 0) for counts in
+                            (launches1, launches2, launches3)),
             "max_abs_err": float(max_err[name]), "matched": True,
             "shape": shape, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
@@ -746,6 +1301,96 @@ def main() -> int:
         f"{rns_ms:.4f} ms per call (events), {rns_graph_ms:.4f} ms replayed "
         f"from a CUDA graph; {sum(rns_launches.values())} launches per call "
         f"{rns_launches}")
+
+    # The eltwise ops through the public entry points at their Xeon rows'
+    # shapes, per call (events, median of 50), against those rows. The
+    # Xeon Montgomery rows use R = 2^46 and this port R = 2^64: the same
+    # class of work, not the same function.
+    def xeon_row(kernel, n, q_bits):
+        return next(r["us_per_call"] for r in rows if r["kernel"] == kernel
+                    and r["n"] == n and r["q_bits"] == q_bits)
+
+    def vec(n, bound):
+        return rand((n,), bound)
+
+    q12 = top_modulus(nt, 60, n12)
+    a, b = vec(n12, q12), vec(n12, q12)
+    public = [
+        ("eltwise_add_mod", n12, 60,
+         lambda: port.eltwise_add_mod(a, b, q12)),
+        ("eltwise_sub_mod", n12, 60,
+         lambda: port.eltwise_sub_mod(a, b, q12)),
+        ("eltwise_add_mod_scalar", n12, 60,
+         lambda: port.eltwise_add_mod(a, 1234567, q12)),
+        ("eltwise_sub_mod_scalar", n12, 60,
+         lambda: port.eltwise_sub_mod(a, 1234567, q12))]
+    n13 = 1 << 13
+    for bits in (49, 60):
+        q = top_modulus(nt, bits, n13)
+        x, y, z = vec(n13, q), vec(n13, q), vec(n13, 4 * q)
+        public += [
+            ("eltwise_mult_mod", n13, bits,
+             lambda x=x, y=y, q=q: port.eltwise_mult_mod(x, y, q, 1)),
+            ("eltwise_reduce_mod", n13, bits,
+             lambda z=z, q=q: port.eltwise_reduce_mod(z, q, 4, 1))]
+    q59 = top_modulus(nt, 59, n14)
+    f1, f3, f2 = vec(n14, q59), vec(n14, q59), vec(n14, 2 * q59)
+    public += [
+        ("eltwise_fma_mod", n14, 59,
+         lambda: port.eltwise_fma_mod(f1, 12345, f3, q59, 1)),
+        ("eltwise_fma_mod_no_addend", n14, 59,
+         lambda: port.eltwise_fma_mod(f1, 12345, None, q59, 1)),
+        ("eltwise_cmp_add", n14, 59,
+         lambda: port.eltwise_cmp_add(f1, "nlt", q59 // 2, 42)),
+        ("eltwise_cmp_sub_mod", n14, 59,
+         lambda: port.eltwise_cmp_sub_mod(f1, q59, "nlt", q59 // 2, 42)),
+        ("eltwise_reduce_mod_2to1", n14, 59,
+         lambda: port.eltwise_reduce_mod(f2, q59, 2, 1))]
+    qm = XEON_MONT_MODULUS
+    ma, mb = vec(n13, qm), vec(n13, qm)
+    public += [
+        ("eltwise_mont_reduce", n13, 47,
+         lambda: port.eltwise_montgomery_mult_reduce(ma, mb, qm)),
+        ("eltwise_mont_form_in", n13, 47,
+         lambda: port.eltwise_montgomery_form_in(ma, qm)),
+        ("eltwise_mont_form_out", n13, 47,
+         lambda: port.eltwise_montgomery_form_out(ma, qm))]
+    q4 = nt.generate_primes(4, 50, True, ntt_size=n14)
+    d4 = [torch.stack([vec(n14, q) for q in q4]) for _ in range(4)]
+    public.append(("dyadic_multiply", n14, 50, lambda: port.dyadic_multiply(
+        torch.stack(d4[:2]), torch.stack(d4[2:]), q4)))
+    for kernel, n, bits, fn in public:
+        us = event_ms(fn, 50) * 1e3
+        xeon = xeon_row(kernel, n, bits)
+        log(f"public {kernel} (2^{n.bit_length() - 1}, {bits}-bit): "
+            f"{us:.3f} us per call; Xeon {xeon} us; ratio {xeon / us:.3f}")
+
+    # The key switch per call: device latency (events), the same call
+    # replayed from a CUDA graph (kernels without host gaps), the NTT
+    # launches alone (the same transforms, graph-replayed), and the
+    # launches per call, against the Xeon rows where one exists.
+    for n, ds in KS_SHAPES:
+        result, t, keys, ks_moduli, msf = key_switch_inputs(
+            rng, n, (49,) * (ds + 1), 2, dev, nt, to_tensor)
+        call = lambda: port.key_switch(result, t, n, ds, ds + 1, ds + 1, 2,
+                                       ks_moduli, keys, msf)
+        _build.reset_launches()
+        call()
+        ks_launches = dict(_build.launches)
+        ks_ms = event_ms(call, 10)
+        ks_graph = graph_ms(call, 1)
+        ntt_graph = graph_ms(key_switch_ntts(n, ds, ks_moduli, rand,
+                                             get_plan, cuda_ntt), 1)
+        name = "key_switch_ds5" if ds == 5 else "key_switch"
+        xeon = (f"; Xeon {xeon_row(name, n, 49)} us, ratio "
+                f"{xeon_row(name, n, 49) / (ks_ms * 1e3):.3f}"
+                if ds in (3, 5) else "; no Xeon row")
+        log(f"key_switch N=2^{n.bit_length() - 1} ds={ds} kc=2 49-bit: "
+            f"{ks_ms:.4f} ms per call (events), {ks_graph:.4f} ms replayed "
+            f"(kernels), of which NTTs {ntt_graph:.4f} ms, other kernels "
+            f"{ks_graph - ntt_graph:.4f} ms, host gaps "
+            f"{ks_ms - ks_graph:.4f} ms; {sum(ks_launches.values())} "
+            f"launches per call {ks_launches}{xeon}")
 
     # Host time per forward call at batch 1, by layer: the public entry
     # point, the wrapper under it, and the bare C entry (ctypes and the

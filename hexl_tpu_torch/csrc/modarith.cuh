@@ -36,6 +36,21 @@ __device__ __forceinline__ W reduce_lazy(W x, W q, int imf) {
   return x;
 }
 
+// x mod q for x < imf*q, imf in {1, 2, 4, 8} (8q must fit the word).
+template <typename W>
+__device__ __forceinline__ W reduce_lazy8(W x, W q, int imf) {
+  if (imf >= 8) x = halve(x, (W)(4 * q));
+  return reduce_lazy(x, q, imf);
+}
+
+// Any u64 mod q by Barrett with q_barr = floor(2^64 / q): [0, 2q), or
+// [0, q) for omf 1.
+__device__ __forceinline__ u64 barrett_reduce(u64 x, u64 q, u64 q_barr,
+                                              int omf) {
+  const u64 r = x - __umul64hi(x, q_barr) * q;
+  return omf == 1 ? halve(r, q) : r;
+}
+
 // (x * w) mod q in [0, 2q), w_precon = floor(w * 2^64 / q).
 __device__ __forceinline__ u64 shoup(u64 x, u64 w, u64 w_precon, u64 q) {
   const u64 q_hat = __umul64hi(x, w_precon);

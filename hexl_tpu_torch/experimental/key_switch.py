@@ -1,0 +1,277 @@
+"""CKKS key switch, and the wrappers of kernels K10 and K11
+(`csrc/key_switch.cu`).
+
+The counterpart of `hexl_tpu/experimental/key_switch.py::key_switch`, with
+its lazy ranges chained identically: the (2,1) inverse NTTs of the target
+feed the base conversion (reduce_mod at IMF = q), the (4,4) forward NTTs
+feed the 128-bit multiply-accumulate with the keys and its exact
+Barrett-128 flush (K10), the key prime's (2,2) inverse feeds the +qk/2
+spread (K11), and after the mod-down's (4,4) forward NTTs the fold
+(K11) computes add_mod(result, fma_mod(..., IMF 8)). The transforms always
+take the 64-bit walk, as the JAX function's do (it calls the 64-bit bodies
+and the RNS transforms directly, never the public engine's single-word
+route): `cuda_ntt` with word 64, K1/K2 up to 2^14 and K5/K6 above. The
+base conversion of row i reduces the whole stack of the other targets
+mod q_i in one K8 launch: a value below q_i, which the JAX function leaves
+alone, is left alone by the reduction too.
+
+A tensor on the GPU goes to the kernels; a tensor on the CPU to the plain
+versions (`mac_flush_plain`, `spread_plain`, `fold_plain`, and the plain
+NTT walk and eltwise bodies under the wrappers). `key_switch_plain` runs
+the whole pipeline on the plain versions on any device. Every output is
+fully reduced, so each equals the JAX package's bit for bit. Launches are
+counted under "K10" and "K11" (and those of the NTTs and of K8 under
+theirs).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from types import SimpleNamespace
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .. import _build, _device, nt
+from ..eltwise import ops, torch_kernels
+from ..limb import (add128, cond_sub64_half, mul64_wide, mulhi64,
+                    mult_mod_barrett_rows, reduce_mod_lazy64, shoup_mul_lazy,
+                    to_numpy, to_tensor)
+from ..ntt import cuda_ntt, get_plan, torch_ntt
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint64
+_L = ctypes.c_int64
+_MAC_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _L, _P)
+_SPREAD_ARGS = (_P, _P, _P, _U, _U, _U, _I, _L, _P)
+_FOLD_ARGS = (_P, _P, _P, _P, _P, _I, _I, _L, _P)
+
+
+def _column(rows, device) -> torch.Tensor:
+    """Per-row constants (a list of u64 lists) as a (len, rows) int64
+    tensor on `device`."""
+    return to_tensor(np.array(rows, dtype=np.uint64), device)
+
+
+@functools.lru_cache(maxsize=None)
+def constants(moduli: tuple, msf: tuple, ds: int, device: torch.device
+              ) -> SimpleNamespace:
+    """The host-computed constants of one basis, on `device`.
+
+    mac (5, ds + 1): q, floor(2^64/q), 2^64 mod q, mu and shift of each
+    row (the decomposition primes, then the key prime); spread (3, ds):
+    q_i, floor(2^64/q_i) and fix_i = q_i - (floor(qk/2) mod q_i); fold
+    (3, ds): q_i, w_i = the modswitch factor reduced at IMF 8, and its
+    Shoup precondition wp_i. The plain versions read the same values as
+    the Python lists moduli, fix, w and wp."""
+    qk = moduli[-1]
+    rows = list(moduli[:ds]) + [qk]
+    barr = [nt.barrett_factor(1, 64, q) for q in rows]
+    mus, shifts = zip(*(nt.barrett_mult_constants(q) for q in rows))
+    half = qk >> 1
+    fix = [q - nt.barrett_reduce_64(half, q, b)
+           for q, b in zip(rows[:ds], barr[:ds])]
+    w = [nt.reduce_mod(f, q, 8) for f, q in zip(msf, rows[:ds])]
+    wp = [nt.barrett_factor(wi, 64, q) for wi, q in zip(w, rows[:ds])]
+    return SimpleNamespace(
+        qk=qk, qk_barr=barr[-1], qk_half=half, moduli=rows[:ds], fix=fix,
+        w=w, wp=wp,
+        mac=_column([rows, barr, [(1 << 64) % q for q in rows], mus,
+                     shifts], device),
+        spread=_column([rows[:ds], barr[:ds], fix], device),
+        fold=_column([rows[:ds], w, wp], device))
+
+
+# -- plain versions ------------------------------------------------------------
+
+def mac_flush_plain(t: torch.Tensor, keys: torch.Tensor, consts: torch.Tensor,
+                    ds: int, kc: int, kms: int) -> torch.Tensor:
+    """t (ds + 1, ds, n), keys (ds, kc, kms, n) -> (ds + 1, kc, n): the
+    128-bit sums over j of t[i][j] * keys[j][k][key_idx(i)], reduced mod
+    q_i, where key_idx(i) is i for the decomposition rows and kms - 1 for
+    the key prime's row. The key rows are gathered by slicing, which
+    needs no index tensor (and so no host copy inside a CUDA graph)."""
+    k_rows = torch.cat([keys[:, :, :ds], keys[:, :, kms - 1:kms]], dim=2)
+    k_rows = k_rows.permute(2, 0, 1, 3).contiguous()     # (ds + 1, ds, kc, n)
+    hi = lo = torch.zeros_like(k_rows[:, 0])
+    for j in range(ds):
+        p_hi, p_lo = mul64_wide(t[:, j, None, :], k_rows[:, j])
+        hi, lo = add128(hi, lo, p_hi, p_lo)
+    q, q_barr, r_mod, mu, shift = (consts[c].view(-1, 1, 1) for c in range(5))
+
+    def reduce(x):
+        return cond_sub64_half(x - mulhi64(x, q_barr) * q, q)
+
+    folded = mult_mod_barrett_rows(reduce(hi), r_mod, q, mu, shift)
+    return cond_sub64_half(folded + reduce(lo), q)
+
+
+def spread_plain(x: torch.Tensor, c: SimpleNamespace) -> torch.Tensor:
+    """x (kc, n) in [0, 2qk) -> (ds, kc, n) in [0, 2 q_i)."""
+    v = torch_kernels.barrett_reduce(x + c.qk_half, c.qk, 1)
+    out = []
+    for q, fix in zip(c.moduli, c.fix):
+        r = torch_kernels.reduce_mod(v, q, q, 1) if c.qk > q else v
+        out.append(r + fix)
+    return torch.stack(out)
+
+
+def fold_plain(result: torch.Tensor, tpp: torch.Tensor, tntt: torch.Tensor,
+               c: SimpleNamespace) -> torch.Tensor:
+    """result (kc, ds, n), tpp (>= ds rows, kc, n), tntt (ds, kc, n) ->
+    (kc, ds, n)."""
+    out = []
+    for i, (q, w, wp) in enumerate(zip(c.moduli, c.w, c.wp)):
+        x = reduce_mod_lazy64(tpp[i] + 4 * q - tntt[i], q, 8)
+        prod = cond_sub64_half(shoup_mul_lazy(x, w, wp, q), q)
+        out.append(cond_sub64_half(result[:, i] + prod, q))
+    return torch.stack(out, dim=1)
+
+
+# -- the kernel wrappers ---------------------------------------------------------
+
+def mac_flush(t: torch.Tensor, keys: torch.Tensor, c: SimpleNamespace,
+              ds: int, kc: int, kms: int) -> torch.Tensor:
+    """K10 on the GPU, `mac_flush_plain` on the CPU."""
+    if not _build.on_card(t, keys, c.mac):
+        return mac_flush_plain(t, keys, c.mac, ds, kc, kms)
+    rns, _, n = t.shape
+    out = torch.empty((rns, kc, n), dtype=torch.int64, device=t.device)
+    fn = _build.function("key_switch", "hexl_ks_mac_flush", _MAC_ARGS)
+    _build.launch_on(t.device, "K10", fn, t.data_ptr(), keys.data_ptr(),
+                     out.data_ptr(), c.mac.data_ptr(), rns, ds, kc, kms, n)
+    return out
+
+
+def spread(x: torch.Tensor, c: SimpleNamespace) -> torch.Tensor:
+    """K11's spread on the GPU, `spread_plain` on the CPU."""
+    if not _build.on_card(x, c.spread):
+        return spread_plain(x, c)
+    ds = c.spread.shape[1]
+    out = torch.empty((ds,) + tuple(x.shape), dtype=torch.int64,
+                      device=x.device)
+    fn = _build.function("key_switch", "hexl_ks_spread", _SPREAD_ARGS)
+    _build.launch_on(x.device, "K11", fn, x.data_ptr(), out.data_ptr(),
+                     c.spread.data_ptr(), c.qk, c.qk_barr, c.qk_half, ds,
+                     x.numel())
+    return out
+
+
+def fold(result: torch.Tensor, tpp: torch.Tensor, tntt: torch.Tensor,
+         c: SimpleNamespace) -> torch.Tensor:
+    """K11's fold on the GPU, `fold_plain` on the CPU."""
+    if not _build.on_card(result, tpp, tntt, c.fold):
+        return fold_plain(result, tpp, tntt, c)
+    kc, ds, n = result.shape
+    out = torch.empty_like(result)
+    fn = _build.function("key_switch", "hexl_ks_fold", _FOLD_ARGS)
+    _build.launch_on(result.device, "K11", fn, result.data_ptr(),
+                     tpp.data_ptr(), tntt.data_ptr(), out.data_ptr(),
+                     c.fold.data_ptr(), ds, kc, n)
+    return out
+
+
+# The steps of the pipeline: through the wrappers (kernels on the GPU),
+# or through the plain versions on any device.
+_WRAPPERS = SimpleNamespace(
+    fwd=cuda_ntt.fwd_ntt, inv=cuda_ntt.inv_ntt,
+    reduce=lambda x, q: ops.reduce_mod(x, q, q, 1),
+    mac_flush=mac_flush, spread=spread, fold=fold)
+_PLAIN = SimpleNamespace(
+    fwd=torch_ntt.fwd_ntt, inv=torch_ntt.inv_ntt,
+    reduce=lambda x, q: torch_kernels.reduce_mod(x, q, q, 1),
+    mac_flush=lambda t, keys, c, ds, kc, kms: mac_flush_plain(
+        t, keys, c.mac, ds, kc, kms),
+    spread=spread_plain, fold=fold_plain)
+
+
+def _pipeline(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
+    c = constants(moduli, msf, ds, t_target.device)
+    plans = [get_plan(n, q) for q in moduli[:ds]] + [get_plan(n, c.qk)]
+    # The target's inverse NTTs, (2, 1), one per decomposition prime.
+    t_intt = [steps.inv(t_target[j], plans[j], 2, 1) for j in range(ds)]
+    # Row i (the ds decomposition primes, then the key prime): the other
+    # targets, base-converted to q_i and forward-transformed at (4, 4); at
+    # j = i (i < ds) the target itself, already in NTT form.
+    rows = []
+    for i, plan in enumerate(plans):
+        js = [j for j in range(ds) if j != i]
+        ops_i = []
+        if js:
+            conv = steps.reduce(torch.stack([t_intt[j] for j in js]), plan.q)
+            ops_i = list(steps.fwd(conv, plan, 4, 4).unbind(0))
+        if i < ds:
+            ops_i.insert(i, t_target[i])
+        rows.append(torch.stack(ops_i))
+    tpp = steps.mac_flush(torch.stack(rows), keys, c, ds, kc, kms)
+    # Mod-down: the key prime's row, (2, 2) inverse; the spread to every
+    # q_i; the (4, 4) forward NTTs; the fold into result.
+    t_last = steps.inv(tpp[ds], plans[ds], 2, 2)
+    spread_out = steps.spread(t_last, c)
+    t_ntt = torch.stack([steps.fwd(spread_out[i], plans[i], 4, 4)
+                         for i in range(ds)])
+    return steps.fold(result, tpp, t_ntt, c)
+
+
+def _arguments(result, t_target, n, ds, kms, rns, kc, moduli, keys, msf,
+               device):
+    moduli = tuple(int(q) for q in moduli)
+    msf = tuple(int(f) for f in msf)
+    if rns != ds + 1 or kms < ds + 1 or len(moduli) != kms \
+            or len(msf) != ds or ds < 1 or kc < 1:
+        raise ValueError(
+            "key_switch needs rns_modulus_size == decomp_modulus_size + 1, "
+            "key_modulus_size moduli (at least ds + 1) and ds "
+            "modswitch factors")
+    (r, t, k), _ = _device.operands((result, t_target, keys), device)
+    # As in the JAX function, numpy keys alone do not make the result numpy.
+    host = not all(isinstance(v, torch.Tensor) for v in (result, t_target))
+    for name, x, shape in (("result", r, (kc, ds, n)),
+                           ("t_target", t, (ds, n)),
+                           ("key_switch_keys", k, (ds, kc, kms, n))):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(x.shape)}")
+    return (r, t, k, n, ds, kms, kc, moduli, msf), host
+
+
+def key_switch(result, t_target, n: int, decomp_modulus_size: int,
+               key_modulus_size: int, rns_modulus_size: int,
+               key_component_count: int, moduli: Sequence[int],
+               key_switch_keys, modswitch_factors: Sequence[int],
+               device=None):
+    """CKKS key switch; returns result plus the switched target, in a new
+    array (`result` is left as it is, as in the JAX package).
+
+    result:            (key_component_count, decomp_modulus_size, n)
+    t_target:          (decomp_modulus_size, n), NTT form
+    key_switch_keys:   (decomp_modulus_size, key_component_count,
+                        key_modulus_size, n)
+    moduli:            key_modulus_size moduli (decomp primes + key prime)
+    modswitch_factors: decomp_modulus_size factors qk^-1 mod qi
+    rns_modulus_size must be decomp_modulus_size + 1, as the JAX function
+    requires. Operands and devices as in `dyadic_multiply`."""
+    args, host = _arguments(result, t_target, n, decomp_modulus_size,
+                            key_modulus_size, rns_modulus_size,
+                            key_component_count, moduli, key_switch_keys,
+                            modswitch_factors, device)
+    out = _pipeline(_WRAPPERS, *args)
+    return to_numpy(out) if host else out
+
+
+def key_switch_plain(result, t_target, n: int, decomp_modulus_size: int,
+                     key_modulus_size: int, rns_modulus_size: int,
+                     key_component_count: int, moduli: Sequence[int],
+                     key_switch_keys, modswitch_factors: Sequence[int],
+                     device=None):
+    """`key_switch` through the plain versions only, on any device: what
+    the kernels are held against on the card."""
+    args, host = _arguments(result, t_target, n, decomp_modulus_size,
+                            key_modulus_size, rns_modulus_size,
+                            key_component_count, moduli, key_switch_keys,
+                            modswitch_factors, device)
+    out = _pipeline(_PLAIN, *args)
+    return to_numpy(out) if host else out

@@ -8,7 +8,10 @@ arithmetic is written out here:
 
   * `>>` is arithmetic on int64, so a logical shift masks the sign copies;
   * the range halver tests the sign bit of the wrapped difference;
-  * the high half of a 64x64 product is assembled from 32-bit halves.
+  * the high half of a 64x64 product is assembled from 32-bit halves;
+  * `<` and the other compares are signed on int64, so the unsigned ones
+    (`lt64` ...) flip the sign bit of both sides first, which maps u64
+    order onto int64 order.
 
 These functions are the plain PyTorch versions of the CUDA device functions
 in `csrc/modarith.cuh`, and run on any device.
@@ -22,6 +25,7 @@ import torch
 from .nt import barrett_mult_constants
 
 MASK32 = 0xFFFFFFFF
+SIGN_BIT = -(1 << 63)          # the int64 whose bits are 2^63
 
 
 def s64(value: int) -> int:
@@ -30,6 +34,42 @@ def s64(value: int) -> int:
     if not 0 <= value < (1 << 64):
         raise ValueError("value out of uint64 range")
     return value - (1 << 64) if value >= (1 << 63) else value
+
+
+def u64_bits(v):
+    """A tensor as it is; a u64 Python int as its int64 bits."""
+    return v if isinstance(v, torch.Tensor) else s64(v)
+
+
+def _ordered(v):
+    """u64 bits mapped onto int64 in the same order: the sign bit flipped."""
+    return u64_bits(v) ^ SIGN_BIT
+
+
+def eq64(x: torch.Tensor, y) -> torch.Tensor:
+    return x == u64_bits(y)
+
+
+def lt64(x: torch.Tensor, y) -> torch.Tensor:
+    """Unsigned x < y; y a tensor or a u64 Python int."""
+    return _ordered(x) < _ordered(y)
+
+
+def le64(x: torch.Tensor, y) -> torch.Tensor:
+    return _ordered(x) <= _ordered(y)
+
+
+def ge64(x: torch.Tensor, y) -> torch.Tensor:
+    return _ordered(x) >= _ordered(y)
+
+
+def gt64(x: torch.Tensor, y) -> torch.Tensor:
+    return _ordered(x) > _ordered(y)
+
+
+def select64(mask: torch.Tensor, x, y) -> torch.Tensor:
+    """mask ? x : y, element-wise."""
+    return torch.where(mask, u64_bits(x), u64_bits(y))
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -146,3 +186,38 @@ def mult_mod_barrett(x: torch.Tensor, y: torch.Tensor, modulus: int
     q_hat = mulhi64(c1, s64(mu))
     z = lo - q_hat * s64(modulus)
     return cond_sub64_half(z, s64(modulus))
+
+
+def mult_mod_barrett_rows(x: torch.Tensor, y: torch.Tensor,
+                          q: torch.Tensor, mu: torch.Tensor,
+                          shift: torch.Tensor) -> torch.Tensor:
+    """mult_mod_barrett with the modulus constants as tensors that
+    broadcast against x and y (one (q, mu, shift) per row of an RNS
+    stack), so that rows of any bit lengths share one call. Shifts run
+    in two steps, (v << 1) << (63 - s), so that s = 0 needs no shift by
+    64."""
+    hi, lo = mul64_wide(x, y)
+    ones = torch.ones_like(shift)
+    low_mask = ((ones << (63 - shift)) << 1) - 1
+    c1 = ((lo >> shift) & low_mask) | ((hi << 1) << (63 - shift))
+    q_hat = mulhi64(c1, mu)
+    return cond_sub64_half(lo - q_hat * q, q)
+
+
+def add128(x_hi: torch.Tensor, x_lo: torch.Tensor, y_hi: torch.Tensor,
+           y_lo: torch.Tensor) -> tuple:
+    """(x + y) mod 2^128 of two (hi, lo) pairs, as (hi, lo)."""
+    lo = x_lo + y_lo
+    return x_hi + y_hi + lt64(lo, x_lo).to(torch.int64), lo
+
+
+def montgomery_reduce_u128(t_hi: torch.Tensor, t_lo: torch.Tensor,
+                           modulus: int, inv_mod: int) -> torch.Tensor:
+    """REDC: t * 2^-64 mod q for t = (t_hi, t_lo) in [0, 2^64 q), with
+    q * inv_mod = -1 mod 2^64; output in [0, q). t + m q is divisible by
+    2^64: the result is its high word, with the carry out of the low
+    words found by an unsigned compare."""
+    m = t_lo * s64(inv_mod)
+    mq_hi, mq_lo = mul64_wide(m, s64(modulus))
+    carry = lt64(t_lo + mq_lo, t_lo).to(torch.int64)
+    return cond_sub64_half(t_hi + mq_hi + carry, s64(modulus))

@@ -37,11 +37,19 @@ def reverse_bits(x: int, bit_width: int) -> int:
     return out
 
 
+def pow_mod(base: int, exp: int, modulus: int) -> int:
+    return pow(base, exp, modulus)
+
+
 def inverse_mod(x: int, modulus: int) -> int:
     """x^-1 mod modulus; requires gcd(x, modulus) == 1."""
     if x % modulus == 0:
         raise ValueError(f"{x} has no inverse mod {modulus}")
     return pow(x, -1, modulus)
+
+
+def multiply_mod(x: int, y: int, modulus: int) -> int:
+    return (x * y) % modulus
 
 
 def is_prime(n: int) -> bool:
@@ -150,6 +158,46 @@ def barrett_factor(operand: int, bit_shift: int, modulus: int) -> int:
     if bit_shift not in (32, 52, 64):
         raise ValueError("bit_shift must be 32, 52 or 64")
     return ((operand << bit_shift) // modulus) & U64_MAX
+
+
+def barrett_reduce_64(x: int, modulus: int, q_barr: int,
+                      output_mod_factor: int = 1) -> int:
+    """x mod q via the 64-bit Barrett constant q_barr = floor(2^64/q);
+    output_mod_factor=2 leaves the result in [0, 2q)."""
+    q_hat = (x * q_barr) >> 64
+    r = (x - q_hat * modulus) & U64_MAX
+    if output_mod_factor == 2:
+        return r
+    return r - modulus if r >= modulus else r
+
+
+def reduce_mod(x: int, modulus: int, input_mod_factor: int) -> int:
+    """x mod q given x < input_mod_factor * q, by conditional subtraction."""
+    if input_mod_factor not in (1, 2, 4, 8):
+        raise ValueError("input_mod_factor must be 1, 2, 4 or 8")
+    if input_mod_factor >= 8 and x >= 4 * modulus:
+        x -= 4 * modulus
+    if input_mod_factor >= 4 and x >= 2 * modulus:
+        x -= 2 * modulus
+    if input_mod_factor >= 2 and x >= modulus:
+        x -= modulus
+    return x
+
+
+def hensel_lemma_2adic_root(r: int, q: int) -> int:
+    """x in [0, 2^r) with q*x = -1 mod 2^r (the Montgomery constant)."""
+    if q % 2 == 0:
+        raise ValueError("q must be odd")
+    return (-pow(q, -1, 1 << r)) % (1 << r)
+
+
+def montgomery_reduce(t: int, q: int, r: int, inv_mod: int) -> int:
+    """REDC: t * R^-1 mod q for R = 2^r, given t in [0, R*q) and
+    q*inv_mod = -1 mod R."""
+    mask = (1 << r) - 1
+    m = ((t & mask) * inv_mod) & mask
+    s = (t + m * q) >> r
+    return s - q if s >= q else s
 
 
 def barrett_mult_constants(modulus: int) -> tuple:

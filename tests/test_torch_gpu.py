@@ -6,16 +6,25 @@ Whether a card is present is decided in the fixture, never at import, so
 that every test worker collects the same tests.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from hexl_tpu_torch import (NTT, _build, eltwise_mult_mod, nt, poly_mult_mod,
+from hexl_tpu_torch import (NTT, _build, dyadic_multiply, eltwise_add_mod,
+                            eltwise_cmp_add, eltwise_cmp_sub_mod,
+                            eltwise_fma_mod, eltwise_montgomery_form_in,
+                            eltwise_mult_mod, eltwise_reduce_mod, key_switch,
+                            lr_mat_vec_mult, nt, poly_mult_mod,
                             rns_poly_mult_mod)
 from hexl_tpu_torch import poly
-from hexl_tpu_torch.eltwise import ops, torch_kernels
+from hexl_tpu_torch.eltwise import ops, torch_kernels, torch_kernels32
 from hexl_tpu_torch.limb import to_tensor
 from hexl_tpu_torch.ntt import cuda_ntt, get_plan, hier, ntt32, torch_ntt
+
+dyadic_mod = importlib.import_module("hexl_tpu_torch.experimental.dyadic")
+ks_mod = importlib.import_module("hexl_tpu_torch.experimental.key_switch")
 
 pytestmark = pytest.mark.gpu
 
@@ -164,3 +173,221 @@ def test_split_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
     poly_mult_mod(x, x, n, q)
     rns_poly_mult_mod(np.stack([x, x29]), np.stack([x, x29]), n, [q, q29])
     assert dict(_build.launches) == {"K5": 11, "K6": 11, "K7": 2, "K4": 3}
+
+
+def _u64(rng, lo, hi):
+    """A u64 Python int in [lo, hi); hi may be 2^64."""
+    return int(rng.integers(lo, hi - 1, dtype=np.uint64, endpoint=True))
+
+
+def _modulus(q_bits, n=1024):
+    """generate_primes gives q in (2^b, 2^(b+1)); "62" is the largest
+    prime below 2^62 instead."""
+    if q_bits == 62:
+        return nt.generate_primes(1, 61, False, ntt_size=n)[0]
+    return nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+
+
+@pytest.mark.parametrize("q_bits", [20, 29, 49, 60, 61, 62])
+def test_eltwise_kernels_match_plain(cuda, q_bits):
+    """K4 and K8: every op, in both words where q allows the single word,
+    over the IMF/OMF matrix; cmp with bounds on both sides of 2^63 and
+    inputs across the whole u64 range."""
+    q = _modulus(q_bits)
+    rng = np.random.default_rng(q_bits)
+    size = 5000
+
+    def rand(bound):
+        return to_tensor(rng.integers(0, bound - 1, size=size,
+                                      dtype=np.uint64, endpoint=True), cuda)
+
+    def same(got, want):
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+    for word in ((64, 32) if q < ops.SMALL_Q else (64,)):
+        plain = torch_kernels32 if word == 32 else torch_kernels
+        k32 = word == 32
+        a, b, s = rand(q), rand(q), _u64(rng, 0, q)
+        same(ops.add_mod(a, b, q, word),
+             (plain.add_mod32 if k32 else plain.add_mod)(a, b, q))
+        same(ops.add_mod(a, s, q, word),
+             (plain.add_mod32 if k32 else plain.add_mod)(a, s, q))
+        same(ops.sub_mod(a, b, q, word),
+             (plain.sub_mod32 if k32 else plain.sub_mod)(a, b, q))
+        same(ops.sub_mod(a, s, q, word),
+             (plain.sub_mod32 if k32 else plain.sub_mod)(a, s, q))
+        for imf in (1, 2, 4):
+            if q >= 1 << 62 or (k32 and imf * q >= 1 << 32):
+                continue
+            x, y = rand(imf * q), rand(imf * q)
+            same(ops.mult_mod(x, y, q, imf, word),
+                 (plain.mult_mod32 if k32 else plain.mult_mod)(x, y, q, imf))
+        for imf in (1, 2, 4, 8):
+            if q >= 1 << 61 or (k32 and imf * q >= 1 << 32):
+                continue
+            x, z = rand(imf * q), rand(imf * q)
+            w = nt.reduce_mod(_u64(rng, 0, imf * q), q, imf)
+            wp = nt.barrett_factor(w, word, q)
+            fma = (plain.fma_mod32_preconned if k32
+                   else plain.fma_mod_preconned)
+            for c in (z, None):
+                same(ops.fma_mod(x, w, wp, c, q, imf, word),
+                     fma(x, w, wp, c, q, imf))
+        for imf, omf in ((q, 1), (q, 2), (2, 1), (4, 1), (4, 2), (2, 2)):
+            if k32 and imf == q:
+                continue
+            x = rand(1 << 64) if imf == q else rand(imf * q)
+            red = plain.reduce_mod32 if k32 else plain.reduce_mod
+            same(ops.reduce_mod(x, q, imf, omf, word), red(x, q, imf, omf))
+    full = rand(1 << 64)
+    for cmp in torch_kernels.CMP_NAMES:
+        for bound in (_u64(rng, 0, 1 << 63), _u64(rng, 1 << 63, 1 << 64)):
+            f = full.clone()
+            f[:7] = int(np.uint64(bound).view(np.int64))
+            diff = _u64(rng, 1, 1 << 64)
+            same(ops.cmp_add(f, cmp, bound, diff),
+                 torch_kernels.cmp_add(f, cmp, bound, diff))
+            diff = _u64(rng, 1, q)
+            same(ops.cmp_sub_mod(f, q, cmp, bound, diff),
+                 torch_kernels.cmp_sub_mod(f, q, cmp, bound, diff))
+    if q < 1 << 62:
+        a, b = rand(q), rand(q)
+        same(ops.montgomery_form_in(a, q),
+             torch_kernels.montgomery_form_in(a, q))
+        same(ops.montgomery_form_out(a, q),
+             torch_kernels.montgomery_form_out(a, q))
+        same(ops.montgomery_mult_reduce(a, b, q),
+             torch_kernels.montgomery_mult_reduce(a, b, q))
+
+
+@pytest.mark.parametrize("weights", [1, 4])
+def test_dyadic_kernel_matches_plain(cuda, weights):
+    """K9 over moduli of mixed bit lengths (one launch, per-row shifts),
+    up to the largest prime below 2^62."""
+    moduli = [_modulus(b) for b in (20, 40, 50, 60, 62)]
+    rng = np.random.default_rng(weights)
+    n = 4099
+
+    def cipher():
+        return torch.stack([torch.stack([
+            torch.stack([to_tensor(rng.integers(0, q, n, dtype=np.uint64),
+                                   cuda) for q in moduli])
+            for _ in range(2)]) for _ in range(weights)])
+
+    x, y = cipher(), cipher()
+    got = dyadic_mod.dyadic(x, y, moduli)
+    torch.cuda.synchronize()
+    want = dyadic_mod.dyadic_plain(
+        x, y, dyadic_mod.row_constants(tuple(moduli), cuda))
+    assert torch.equal(got, want)
+
+
+def _key_switch_inputs(rng, n, bits, kc, dev):
+    ds = len(bits) - 1
+    moduli = []
+    for b in bits:
+        moduli.append(next(p for p in nt.generate_primes(4, b, True,
+                                                         ntt_size=n)
+                           if p not in moduli))
+    qk = moduli[-1]
+
+    def rows(count):
+        return torch.stack([to_tensor(rng.integers(0, q, n, dtype=np.uint64),
+                                      dev) for q in moduli[:count]])
+
+    t = rows(ds)
+    keys = torch.stack([torch.stack([rows(ds + 1) for _ in range(kc)])
+                        for _ in range(ds)])
+    msf = [nt.inverse_mod(qk % q, q) for q in moduli[:ds]]
+    result = torch.stack([rows(ds) for _ in range(kc)])
+    return result, t, keys, moduli, msf
+
+
+@pytest.mark.parametrize("n,bits,kc", [(64, (40, 41, 45), 2),
+                                       (1 << 14, (61, 50, 60, 45), 3),
+                                       (1 << 15, (49,) * 4, 2)])
+def test_key_switch_kernels_match_plain(cuda, n, bits, kc):
+    """K10 and K11 against their plain versions, and the whole key switch
+    (K1/K5/K6, K8, K10, K11) against the plain pipeline."""
+    rng = np.random.default_rng(n)
+    result, t, keys, moduli, msf = _key_switch_inputs(rng, n, bits, kc,
+                                                      cuda)
+    ds = len(bits) - 1
+    c = ks_mod.constants(tuple(moduli), tuple(msf), ds, cuda)
+    tq = torch.stack([to_tensor(rng.integers(0, 4 * q, (ds, n),
+                                             dtype=np.uint64), cuda)
+                      for q in moduli[:ds] + moduli[-1:]])
+    got = ks_mod.mac_flush(tq, keys, c, ds, kc, ds + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ks_mod.mac_flush_plain(tq, keys, c.mac, ds, kc,
+                                                   ds + 1))
+    x = to_tensor(rng.integers(0, 2 * moduli[-1], (kc, n), dtype=np.uint64),
+                  cuda)
+    got = ks_mod.spread(x, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ks_mod.spread_plain(x, c))
+    tntt = torch.stack([to_tensor(rng.integers(0, 4 * q, (kc, n),
+                                               dtype=np.uint64), cuda)
+                        for q in moduli[:ds]])
+    tpp = ks_mod.mac_flush(tq, keys, c, ds, kc, ds + 1)
+    got = ks_mod.fold(result, tpp, tntt, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ks_mod.fold_plain(result, tpp, tntt, c))
+    before = result.clone()
+    got = key_switch(result, t, n, ds, ds + 1, ds + 1, kc, moduli, keys, msf)
+    torch.cuda.synchronize()
+    want = ks_mod.key_switch_plain(result, t, n, ds, ds + 1, ds + 1, kc,
+                                   moduli, keys, msf)
+    assert torch.equal(got, want)
+    assert torch.equal(result, before)
+
+
+def test_slice3_entry_points_never_take_the_plain_path(cuda, monkeypatch):
+    """The eltwise family and the composites on CUDA tensors launch their
+    kernels (single word where the JAX routing picks it), never a plain
+    version."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for mod in (torch_kernels, torch_kernels32):
+        for name in dir(mod):
+            if callable(getattr(mod, name)) and not name.startswith("_") \
+                    and name not in ("cmp_code", "mult_constants32"):
+                monkeypatch.setattr(mod, name, refuse)
+    for name in ("dyadic_plain", "mac_flush_plain", "spread_plain",
+                 "fold_plain"):
+        monkeypatch.setattr(dyadic_mod if name == "dyadic_plain" else ks_mod,
+                            name, refuse)
+    for name in ("fwd_stages", "inv_stages", "inv_final"):
+        monkeypatch.setattr(torch_ntt, name, refuse)
+    rng = np.random.default_rng(2)
+    q60, q29 = _modulus(60), _modulus(29)
+    a60 = to_tensor(rng.integers(0, q60, 4096, dtype=np.uint64), cuda)
+    a29 = to_tensor(rng.integers(0, q29, 4096, dtype=np.uint64), cuda)
+    _build.reset_launches()
+    eltwise_add_mod(a60, a60, q60)
+    eltwise_add_mod(a29, 5, q29)
+    eltwise_mult_mod(a29, a29, q29, 4)
+    eltwise_fma_mod(a60, 7, a60, q60, 8)
+    eltwise_fma_mod(a29, 7, None, q29, 1)
+    eltwise_reduce_mod(a60, q60, q60, 2)
+    eltwise_reduce_mod(a29, q29, 4, 1)
+    eltwise_cmp_add(a60, "nlt", 1 << 63, 3)
+    eltwise_cmp_sub_mod(a60, q60, "le", q60 // 2, 3)
+    eltwise_montgomery_form_in(a60, q60)
+    assert dict(_build.launches) == {
+        "K8.add_sub": 1, "K8.add_sub.u32": 1, "K8.mult.u32": 1, "K8.fma": 1,
+        "K8.fma.u32": 1, "K8.reduce": 1, "K8.reduce.u32": 1, "K8.cmp": 2,
+        "K8.mont": 1}
+    n, bits = 1 << 15, (49, 49, 49)
+    result, t, keys, moduli, msf = _key_switch_inputs(rng, n, bits, 2, cuda)
+    x = torch.stack([t, t])
+    _build.reset_launches()
+    dyadic_multiply(x, x, moduli[:2])
+    lr_mat_vec_mult(torch.stack([x, x]), torch.stack([x, x]), moduli[:2])
+    key_switch(result, t, n, 2, 3, 3, 2, moduli, keys, msf)
+    # ds = 2 at 2^15: 2 + 3 + 1 + 2 inverse/forward transforms of two
+    # passes (K5, K6) each, one K8 reduce per row, K10, K11 twice.
+    assert dict(_build.launches) == {"K9": 2, "K5": 8, "K6": 8,
+                                     "K8.reduce": 3, "K10": 1, "K11": 2}

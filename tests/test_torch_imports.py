@@ -62,6 +62,41 @@ def test_entry_points_default_to_cuda():
         poly_mult_mod(x, x, 16, q)
 
 
+def test_slice3_entry_points_default_to_cuda():
+    """Every entry point of the eltwise family and of the composites
+    runs on CUDA unless given device="cpu", and raises without a card."""
+    import hexl_tpu_torch as port
+    q = port.nt.generate_primes(3, 50, True, ntt_size=16)
+    x = np.ones(16, dtype=np.uint64)
+    c = np.ones((2, 2, 16), dtype=np.uint64)
+    keys = np.ones((2, 2, 3, 16), dtype=np.uint64)
+    calls = [
+        (port.eltwise_add_mod, (x, x, q[0])),
+        (port.eltwise_add_mod, (x, 3, q[0])),
+        (port.eltwise_sub_mod, (x, x, q[0])),
+        (port.eltwise_sub_mod, (x, 3, q[0])),
+        (port.eltwise_mult_mod, (x, x, q[0])),
+        (port.eltwise_fma_mod, (x, 3, x, q[0])),
+        (port.eltwise_fma_mod, (x, 3, None, q[0])),
+        (port.eltwise_reduce_mod, (x, q[0], 2, 1)),
+        (port.eltwise_cmp_add, (x, "lt", 5, 1)),
+        (port.eltwise_cmp_sub_mod, (x, q[0], "lt", 5, 1)),
+        (port.eltwise_montgomery_form_in, (x, q[0])),
+        (port.eltwise_montgomery_form_out, (x, q[0])),
+        (port.eltwise_montgomery_mult_reduce, (x, x, q[0])),
+        (port.dyadic_multiply, (c, c, q[:2])),
+        (port.lr_mat_vec_mult, (c[None], c[None], q[:2])),
+        (port.key_switch, (c, c[0], 16, 2, 3, 3, 2, q, keys, [1, 1])),
+    ]
+    for fn, args in calls:
+        if torch.cuda.is_available():
+            assert fn(*args).shape    # runs on the card
+            continue
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(*args)
+        assert isinstance(fn(*args, device="cpu"), np.ndarray)
+
+
 def test_failed_build_raises(tmp_path, monkeypatch):
     from hexl_tpu_torch import _build
     csrc = tmp_path / "csrc"

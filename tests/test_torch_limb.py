@@ -169,3 +169,86 @@ def test_nt_is_prime_matches_jax():
     for v in list(range(0, 400)) + [(1 << 61) - 1, (1 << 62) - 57,
                                     (1 << 62) - 55, 2 ** 64 - 59]:
         assert nt.is_prime(v) == jnt.is_prime(v), v
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_unsigned_compares_and_select_vs_jax(seed):
+    """lt/le/ge/gt/eq on u64 bits across 2^63 (torch's own are signed),
+    against the JAX limb compares, with tensor and scalar right sides."""
+    a, b = _edge_and_random(seed, 2000)
+    ja, jb = jlimb.to_limbs(a), jlimb.to_limbs(b)
+    for ours, theirs in ((limb.lt64, jlimb.lt64), (limb.le64, jlimb.le64),
+                         (limb.ge64, jlimb.ge64), (limb.gt64, jlimb.gt64),
+                         (limb.eq64, jlimb.eq64)):
+        want = np.asarray(theirs(ja, jb))
+        np.testing.assert_array_equal(ours(_t(a), _t(b)).numpy(), want)
+        for s in (5, (1 << 63) + 5):
+            want = np.asarray(theirs(ja, jlimb.const64(s, a.shape)))
+            np.testing.assert_array_equal(ours(_t(a), s).numpy(), want)
+    mask = limb.lt64(_t(a), _t(b))
+    np.testing.assert_array_equal(
+        limb.to_numpy(limb.select64(mask, _t(a), _t(b))), np.minimum(a, b))
+
+
+def test_add128_and_montgomery_reduce_vs_jax():
+    """The 128-bit add wraps mod 2^128; REDC's carry is an unsigned
+    compare."""
+    a, b = _edge_and_random(2, 2000)
+    c, d = _edge_and_random(3, 2000)
+    hi, lo = limb.add128(_t(a), _t(b), _t(c), _t(d))
+    got = [(int(h) << 64) | int(x) for h, x in
+           zip(limb.to_numpy(hi), limb.to_numpy(lo))]
+    want = [(((int(w) << 64) | int(x)) + ((int(y) << 64) | int(z)))
+            % (1 << 128) for w, x, y, z in zip(a, b, c, d)]
+    assert got == want
+    for q_bits in (30, 50, 61):
+        q = _moduli(q_bits)
+        inv = nt.hensel_lemma_2adic_root(64, q)
+        assert inv == jnt.hensel_lemma_2adic_root(64, q)
+        t_hi = a % np.uint64(q)          # t = t_hi 2^64 + t_lo < 2^64 q
+        got = limb.montgomery_reduce_u128(_t(t_hi), _t(b), q, inv)
+        want = jlimb.montgomery_reduce_u128(
+            jlimb.U128(jlimb.to_limbs(t_hi), jlimb.to_limbs(b)), q, 64, inv)
+        np.testing.assert_array_equal(limb.to_numpy(got),
+                                      jlimb.from_limbs(want))
+        for t in ((int(t_hi[0]) << 64) | int(b[0]),
+                  (int(t_hi[-1]) << 64) | int(b[-1])):
+            assert nt.montgomery_reduce(t, q, 64, inv) == \
+                jnt.montgomery_reduce(t, q, 64, inv)
+
+
+def test_mult_mod_barrett_rows_vs_jax_traced():
+    """Per-row (q, mu, shift) tensors over rows of mixed bit lengths, down
+    to q = 3 (shift 0), against mult_mod_barrett_traced row by row."""
+    moduli = [3, 5, _moduli(20), _moduli(40), _moduli(50), _moduli(61)]
+    rng = np.random.default_rng(4)
+    x = np.stack([rng.integers(0, q, 500, dtype=np.uint64) for q in moduli])
+    y = np.stack([rng.integers(0, q, 500, dtype=np.uint64) for q in moduli])
+    consts = np.array([moduli] + [list(v) for v in zip(
+        *(nt.barrett_mult_constants(q) for q in moduli))], dtype=np.uint64)
+    q_t, mu_t, shift_t = (_t(consts[k][:, None]) for k in range(3))
+    got = limb.to_numpy(limb.mult_mod_barrett_rows(_t(x), _t(y), q_t, mu_t,
+                                                   shift_t))
+    for i, q in enumerate(moduli):
+        mu, shift = nt.barrett_mult_constants(q)
+        want = jlimb.mult_mod_barrett_traced(
+            jlimb.to_limbs(x[i]), jlimb.to_limbs(y[i]), jlimb.const64(q),
+            jlimb.const64(2 * q), jlimb.const64(mu), shift, False)
+        np.testing.assert_array_equal(got[i], jlimb.from_limbs(want))
+
+
+@pytest.mark.parametrize("q_bits", [20, 49, 61])
+def test_nt_reductions_vs_jax(q_bits):
+    q = _moduli(q_bits)
+    barr = nt.barrett_factor(1, 64, q)
+    rng = np.random.default_rng(q_bits)
+    for x in [int(v) for v in rng.integers(0, 1 << 64, 50, dtype=np.uint64)]:
+        for omf in (1, 2):
+            assert nt.barrett_reduce_64(x, q, barr, omf) == \
+                jnt.barrett_reduce_64(x, q, barr, omf)
+        for imf in (1, 2, 4, 8):
+            v = x % (imf * q)
+            assert nt.reduce_mod(v, q, imf) == jnt.reduce_mod(v, q, imf)
+    assert nt.multiply_mod(q - 1, q - 2, q) == jnt.multiply_mod(q - 1, q - 2,
+                                                                q)
+    assert nt.pow_mod(3, q - 2, q) == jnt.pow_mod(3, q - 2, q)
