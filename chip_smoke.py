@@ -21,8 +21,14 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      inputs and bounds on both sides of 2^63) for q of 20, 29, 49, 60 and
      61 bits and the largest prime below 2^62; K9 (the dyadic product, one
      and four weights, moduli of mixed bit lengths); K10 and K11 (the key
-     switch's multiply-accumulate with its flush, and its mod-down);
-  4. three main paths through the public entry points, each with the
+     switch's multiply-accumulate with its flush, and its mod-down); K12
+     and K13 (the FFT-like's block walk and cross pass) in f64, single and
+     double-float at n from 16 to 2^16, forward and inverse, with and
+     without a scalar, bit-exact (no FMA contraction in the kernels); K14
+     and K15 (the four-step NTT's folds) on the int32 planes of every pass
+     at N in {2^8, 2^10, 2^14, 2^17} for five moduli over the IMF/OMF
+     matrix;
+  4. four main paths through the public entry points, each with the
      launch counts set to 0 just before it and read just after it.
      The first: NTT(2^14, 60-bit) forward and inverse at batch 256
      from numpy (K1); the __graft_entry__ pipeline (fwd OMF 4 ->
@@ -45,7 +51,12 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      elements (64-bit and single-word), dyadic_multiply at 2^14 x 4 and
      2^17 x 16 primes, lr_mat_vec_mult with 16 weights, key_switch at the
      three Xeon shapes and at N=2^15 x ds 14; every output against the
-     plain version, and a key switch at N=64 against Python integers;
+     plain version, and a key switch at N=64 against Python integers.
+     The fourth (see its comment in main): CKKS encode and decode through
+     FFTLike at 2^14 slots, scale 2^40, batch 64, in auto (f64), single
+     and double-float, the round trip within 1e-12 (1e-4 in single); the
+     FFT-like at the Xeon rows' shapes; fwd_ntt_mxu/inv_ntt_mxu at (2^14,
+     60-bit, 256) and (2^17, 60-bit, 16), bit-equal to NTT's outputs;
   5. timings with CUDA events (median of 20): each kernel and its plain
      version at the main paths' shapes, beside the kernel's bound (and
      K5 at N=2^20, where a thread holds 64 coefficients); the
@@ -58,12 +69,17 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      public eltwise ops and dyadic_multiply per call against their Xeon
      rows; each key switch's latency, its kernels and NTTs replayed from
      CUDA graphs, and its launches per call; the transform pair with each
-     number of polynomials per CTA forced, against the wrapper's choice.
+     number of polynomials per CTA forced, against the wrapper's choice;
+     K12/K13 per precision beside torch.fft.fft (the nearest library
+     call, another function), K14/K15 beside torch._int_mm (the pass's
+     matmul); the MXU pairs/s against the NTT's and the Xeon pair; the
+     FFT-like against its Xeon rows; CKKS encode/decode per call.
 It then prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}.
 """
 
 import importlib
+import itertools
 import json
 import os
 import pathlib
@@ -551,6 +567,162 @@ def key_switch_ntts(n, ds, moduli, rand, get_plan, cuda_ntt):
     return run
 
 
+FFT_PRECISIONS = ("f64", "single", "double_float")
+FFT_N = 1 << 14            # CKKS at N = 2^15: 2^14 slots
+FFT_BATCH = 64
+FFT_SCALAR = 2.0 ** 40     # the CKKS scale of the fourth path
+FIXED_POINT_BITS = 20      # the decode's integers carry 2^20 x the scale
+XEON_FFT_SCALAR = 2.0 ** 30  # the Xeon rows fuse a 2^-30 scale
+# Floating-point operations of each step of the FFT-like, counted from the
+# arithmetic, negations free: "mul" the butterfly's product by an already
+# split twiddle (f64 and single: 4 multiplies, 2 adds; double-float:
+# df32.py's cdf_mul_ps, 82), "add" a complex add or subtract (2; 22),
+# "split" presplitting one twiddle, once per stage as the flat walks do
+# (0; the two 4097-splits of re.hi and im.hi, 8), "scale" a complex value
+# times a real scalar (2; two df_mul, 48) and "mul_full" the inverse's
+# scaled final product (6; cdf_mul, 118). Non-tensor-core lanes per SM of
+# an H100: 64 FP64, 128 FP32.
+_COMPLEX_COST = {"mul": 6, "add": 2, "split": 0, "scale": 2, "mul_full": 6}
+FFT_COST = {"f64": _COMPLEX_COST, "single": _COMPLEX_COST,
+            "double_float": {"mul": 82, "add": 22, "split": 8, "scale": 48,
+                             "mul_full": 118}}
+FP64_LANES_PER_SM = 64
+FP32_LANES_PER_SM = 128
+
+
+def fft_pass_ops(precision, n, batch, block_n, forward, cross, scaled):
+    """The floating-point operations one pass of the split FFT-like (n >
+    block_n) needs on `batch` transforms. The stage with m twiddle blocks
+    (m from 1 to n/2; the cross pass has those with m < n/block_n, the
+    block pass the others) does batch * n/2 butterflies, a product and a
+    complex add and subtract each, and splits its m twiddles once. With a
+    scalar, the forward's last stage (m = n/2, in the block pass) scales
+    its xs and its twiddles; the inverse's final stage (m = 1, in the
+    cross pass) scales the sum and its one twiddle and takes the full
+    product."""
+    c = FFT_COST[precision]
+    bfly = batch * n // 2
+    d = n // block_n
+    ms = [1 << k for k in range(n.bit_length() - 1)
+          if ((1 << k) < d) == cross]
+    ops = sum(bfly * (c["mul"] + 2 * c["add"]) + m * c["split"] for m in ms)
+    if scaled and forward and not cross:
+        ops += (bfly + n // 2) * c["scale"]
+    if scaled and not forward and cross:
+        ops += (bfly * (c["scale"] + c["mul_full"] - c["mul"])
+                + c["scale"] - c["split"])
+    return ops
+
+
+def fft_value(rng, shape, precision, dev):
+    """Random complex values of a precision's form on dev: a complex128 or
+    complex64 tensor, or a CDF of float32 planes."""
+    import torch
+    from hexl_tpu_torch.experimental import df32
+    z = torch.from_numpy(rng.normal(size=shape) + 1j * rng.normal(size=shape))
+    if precision == "double_float":
+        return df32.cdf_from_complex128(z, dev)
+    return z.to(dev, torch.complex64 if precision == "single"
+                else torch.complex128)
+
+
+def fft_kernel_cases(rng, dev, FFTLike, cuda_fft):
+    """(kernel, precision, what, kernel's output, plain output) for K12 and
+    K13 against the plain walks on the card: every precision, n from 16 to
+    2^13 (K12 alone; batch 64 packs several transforms per CTA at small n)
+    and 2^14-2^16 (the split: K13 and K12 alone, and the whole transform),
+    forward and inverse, with and without a scalar."""
+    for precision in FFT_PRECISIONS:
+        k12 = cuda_fft.kernel_name("K12", precision)
+        k13 = cuda_fft.kernel_name("K13", precision)
+        for n in (16, 64, 1024, 4096, 1 << 13, 1 << 14, 1 << 15, 1 << 16):
+            split = n > cuda_fft.BLOCK_N
+            for scalar in (None, FFT_SCALAR):
+                fft = FFTLike(n, scalar, precision=precision, device=dev)
+                tables = fft.tables(dev)
+                for batch in ((2,) if split else (1, 3, 64)):
+                    v = fft_value(rng, (batch, n), precision, dev)
+                    for forward in (True, False):
+                        s = fft.fused_scale(forward)
+                        tab = tables[0 if forward else 1]
+                        what = (f"{precision} n={n} batch={batch} "
+                                f"scalar={scalar} "
+                                f"{'fwd' if forward else 'inv'}")
+                        args = (v, tab, s, precision, forward)
+                        if split:
+                            yield (k13, precision, "cross " + what,
+                                   cuda_fft.cross(*args),
+                                   cuda_fft.cross_plain(*args))
+                            yield (k12, precision, "block " + what,
+                                   cuda_fft.block(*args),
+                                   cuda_fft.block_plain(*args))
+                        whole = cuda_fft.forward if forward else \
+                            cuda_fft.inverse
+                        yield (k13 if split and not forward else k12,
+                               precision, "whole " + what,
+                               whole(v, tab, s, precision),
+                               cuda_fft.walk_plain(*args))
+
+
+def mxu_kernel_checks(rng, dev, nt, get_mxu_plan, mxu_ntt, to_tensor,
+                      compare) -> int:
+    """K14 and K15 against the plain folds on the same int32 planes, in
+    every pass of the four-step NTT: N in {2^8, 2^10, 2^14, 2^17}, q just
+    above 2^29, 2^49, 2^52 (a 53-bit q, the object path of the plan) and
+    2^60, and the largest prime below 2^62, over the IMF/OMF matrix.
+    Returns the number of checks."""
+    import numpy as np
+    checks = 0
+
+    def checked(kernel, fold, plain, what):
+        def run(planes, *args):
+            nonlocal checks
+            got = fold(planes, *args)
+            compare(kernel, got, plain(planes, *args), what)
+            checks += 1
+            return got
+        return run
+
+    for n in (1 << 8, 1 << 10, 1 << 14, 1 << 17):
+        for q_bits in (29, 49, 52, 60, 62):
+            q = top_modulus(nt, q_bits, n)
+            plan = get_mxu_plan(n, q)
+            for forward, imfs, omfs in ((True, (1, 2, 4), (1, 4)),
+                                        (False, (1, 2), (1, 2))):
+                for imf in imfs:
+                    x = to_tensor(rng.integers(0, imf * q, size=(3, n),
+                                               dtype=np.uint64), dev)
+                    for omf in omfs:
+                        what = (f"n={n} q_bits={q_bits} "
+                                f"{'fwd' if forward else 'inv'} imf={imf} "
+                                f"omf={omf}")
+                        mxu_ntt._passes(
+                            x, plan, forward, omf,
+                            checked("K14", mxu_ntt.fold_twiddle,
+                                    mxu_ntt.fold_twiddle_plain, what),
+                            checked("K15", mxu_ntt.fold_final,
+                                    mxu_ntt.fold_final_plain, what))
+    return checks
+
+
+def ckks_words(coeffs, q_words):
+    """A CKKS plaintext as the decryption would leave it: the real and
+    imaginary parts of the encoded coefficients rounded to integers at
+    2^FIXED_POINT_BITS times the scale, mod the 2-word Q (a negative m as
+    Q - |m|). Returns int64 words of u64 bits shaped (2 words, 2 parts,
+    *coeffs.shape)."""
+    import torch
+    from hexl_tpu_torch.limb import lt64, s64
+    parts = torch.stack([coeffs.real, coeffs.imag]).to(torch.float64)
+    m = torch.round(parts * 2.0 ** FIXED_POINT_BITS).to(torch.int64)
+    neg, mag = m < 0, m.abs()
+    q_lo, q_hi = s64(q_words[0]), s64(q_words[1])
+    lo = torch.where(neg, q_lo - mag, m)
+    borrow = (neg & lt64(torch.full_like(mag, q_lo), mag)).to(torch.int64)
+    hi = torch.where(neg, q_hi - borrow, torch.zeros_like(m))
+    return torch.stack([lo, hi])
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -576,6 +748,10 @@ def main() -> int:
     from hexl_tpu_torch import poly
     dyadic = importlib.import_module("hexl_tpu_torch.experimental.dyadic")
     ks = importlib.import_module("hexl_tpu_torch.experimental.key_switch")
+    from hexl_tpu_torch import FFTLike
+    from hexl_tpu_torch.experimental import cuda_fft, df32
+    from hexl_tpu_torch.ntt import (fwd_ntt_mxu, get_mxu_plan, inv_ntt_mxu,
+                                    mxu_ntt)
 
     dev = torch.device("cuda", 0)
     sms = cuda_ntt.sm_count(dev)
@@ -606,6 +782,17 @@ def main() -> int:
         err = int((got - want).abs().max().item()) if got.numel() else 0
         max_err[kernel] = max(max_err.get(kernel, 0), err)
         if not torch.equal(got, want):
+            raise AssertionError(f"{kernel} disagrees with its plain version "
+                                 f"at {what}")
+
+    def compare_fft(kernel, got, want, precision, what):
+        torch.cuda.synchronize()
+        gp = cuda_fft.planes(got, precision)
+        wp = cuda_fft.planes(want, precision)
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(gp, wp))
+        max_err[kernel] = max(max_err.get(kernel, 0), err)
+        if not all(torch.equal(a, b) for a, b in zip(gp, wp)):
             raise AssertionError(f"{kernel} disagrees with its plain version "
                                  f"at {what}")
 
@@ -750,6 +937,16 @@ def main() -> int:
         compare("K11", ks.fold(result, tpp, tntt, c),
                 ks.fold_plain(result, tpp, tntt, c), f"fold {what}")
         checks += 3
+    # K12 and K13 in every precision, bit-exact: their float arithmetic is
+    # never contracted into FMAs, and the plain walks are separate torch
+    # ops; max_abs_err is over every plane.
+    for kernel, precision, what, got, want in fft_kernel_cases(
+            rng, dev, FFTLike, cuda_fft):
+        compare_fft(kernel, got, want, precision, what)
+        checks += 1
+    # K14 and K15 on the int32 planes of every pass of the four-step NTT.
+    checks += mxu_kernel_checks(rng, dev, nt, get_mxu_plan, mxu_ntt,
+                                to_tensor, compare)
     log(f"phase 3: {checks} kernel-vs-plain checks bit-exact in "
         f"{time.perf_counter() - t0:.1f} s; max_abs_err {max_err}")
 
@@ -962,6 +1159,127 @@ def main() -> int:
     log(f"phase 4: every output of the third main path ({len(third)} calls) "
         "== its plain version; key_switch n=64 == the Python-integer oracle")
 
+    # The fourth: CKKS encode and decode through the public FFTLike at
+    # n = 2^14 slots (N = 2^15), scale 2^40, batch 64, in "auto" (f64),
+    # "single" and "double_float". Encode is the inverse; decode composes
+    # the plaintext's 2-word integers mod Q (two 60-bit primes) with
+    # build_floating_points_device and runs the forward. The encoded
+    # coefficients are rounded at 2^20 times the scale, so the rounding
+    # stays below the round trip's 1e-12. Then the Xeon rows' FFT shapes
+    # (n = 2^12 and 2^14, one polynomial, a 2^-30 scale fused) and the
+    # four-step NTT at bench.py's shape (2^14, 60-bit, batch 256) and at
+    # N = 2^17 (60-bit, batch 16), on the first and second paths' inputs.
+    slots = torch.from_numpy(rng.normal(size=(FFT_BATCH, FFT_N))
+                             + 1j * rng.normal(size=(FFT_BATCH, FFT_N))).to(dev)
+    engines = {p: FFTLike(FFT_N, FFT_SCALAR, precision=p)
+               for p in ("auto", "single", "double_float")}
+    q_dec = 1
+    for p in nt.generate_primes(2, 60, True, ntt_size=2 * FFT_N):
+        q_dec *= p
+    q_words = [(q_dec >> (64 * w)) & ((1 << 64) - 1) for w in range(2)]
+    thr_words = [((q_dec >> 1) >> (64 * w)) & ((1 << 64) - 1)
+                 for w in range(2)]
+    xeon_in = {n: torch.from_numpy(rng.uniform(-1, 1, (1, n))
+                                   + 1j * rng.uniform(-1, 1, (1, n))).to(dev)
+               for n in (n12, n14)}
+    xeon_fft = {n: FFTLike(n, XEON_FFT_SCALAR) for n in xeon_in}
+    mxu_cases = ((get_mxu_plan(n14, q60), t(x14), t(y14)),
+                 (get_mxu_plan(n17, q60_17), x17, y17))
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    encoded, composed, decoded = {}, {}, {}
+    for p, e in engines.items():
+        encoded[p] = e.inverse(slots)
+        df = e.build_floating_points_device(ckks_words(encoded[p], q_words),
+                                            thr_words, q_words,
+                                            2.0 ** -FIXED_POINT_BITS)
+        re, im = (df32.DF(df.hi[i], df.lo[i]) for i in range(2))
+        if p == "double_float":
+            composed[p] = df32.CDF(re, im)
+            decoded_df = e.df_fwd_body(composed[p], e.fused_scale(True))
+            decoded[p] = df32.cdf_to_complex128(decoded_df)
+        else:
+            composed[p] = torch.complex(df32.df_to_f64(re),
+                                        df32.df_to_f64(im))
+            decoded[p] = e.forward(composed[p])
+    xeon_out = {n: (xeon_fft[n].forward(x), xeon_fft[n].inverse(x))
+                for n, x in xeon_in.items()}
+    mxu_out = [(fwd_ntt_mxu(x, plan), inv_ntt_mxu(y, plan))
+               for plan, x, y in mxu_cases]
+    torch.cuda.synchronize()
+    launches4 = dict(_build.launches)
+    log(f"phase 4: fourth main path's launches {launches4}")
+    # Encode and decode of three precisions (K13 + K12 each), the Xeon
+    # shapes (K12 twice at 2^12, K13 + K12 twice at 2^14), and two
+    # passes per MXU transform.
+    expected = {"K12.f64": 6, "K13.f64": 4, "K12.f32": 2, "K13.f32": 2,
+                "K12.df": 2, "K13.df": 2, "K14": 4, "K15": 4}
+    if launches4 != expected:
+        raise AssertionError(f"fourth main path launched {launches4}, "
+                             f"expected {expected}")
+
+    # Every output against the plain version on the same inputs.
+    for p, e in engines.items():
+        prec = e.precision
+        fwd_t, inv_t = e.tables(dev)
+        k12, k13 = (cuda_fft.kernel_name(k, prec) for k in ("K12", "K13"))
+        if prec == "double_float":
+            plain = df32.cdf_to_complex128(cuda_fft.walk_plain(
+                df32.cdf_from_complex128(slots), inv_t, e.fused_scale(False),
+                prec, False))
+            compare_fft(k13, encoded[p], plain, "f64",
+                        "main path: CKKS encode, double_float")
+            want = cuda_fft.walk_plain(composed[p], fwd_t, e.fused_scale(True),
+                                       prec, True)
+            compare_fft(k12, decoded_df, want, prec,
+                        "main path: CKKS decode, double_float")
+        else:
+            compare_fft(k13, encoded[p], cuda_fft.walk_plain(
+                slots.to(encoded[p].dtype), inv_t, e.fused_scale(False), prec,
+                False), prec, f"main path: CKKS encode, {p}")
+            compare_fft(k12, decoded[p], cuda_fft.walk_plain(
+                composed[p].to(decoded[p].dtype), fwd_t, e.fused_scale(True),
+                prec, True), prec, f"main path: CKKS decode, {p}")
+        rel = float((decoded[p] - slots).abs().max() / slots.abs().max())
+        limit = 1e-4 if prec == "single" else 1e-12
+        log(f"phase 4: CKKS round trip {p}: relative error {rel:.3e} "
+            f"(limit {limit})")
+        if not rel < limit:
+            raise AssertionError(f"CKKS round trip {p}: {rel} >= {limit}")
+    # The device compose against the host one (Python integers, float64).
+    words = to_numpy(ckks_words(encoded["auto"], q_words)[:, 0, 0, :512])
+    host = engines["auto"].build_floating_points(words, thr_words, q_words,
+                                                 2.0 ** -FIXED_POINT_BITS)
+    dev_re = composed["auto"].real[0, :512].cpu().numpy()
+    if not np.allclose(dev_re, host.real, rtol=3e-14, atol=1e-20):
+        raise AssertionError("build_floating_points_device != the host "
+                             "compose")
+    for n, x in xeon_in.items():
+        e = xeon_fft[n]
+        fwd_t, inv_t = e.tables(dev)
+        compare_fft("K12.f64", xeon_out[n][0], cuda_fft.walk_plain(
+            x, fwd_t, e.fused_scale(True), "f64", True), "f64",
+            f"main path: FFTLike({n}).forward")
+        compare_fft("K13.f64" if n > cuda_fft.BLOCK_N else "K12.f64",
+                    xeon_out[n][1], cuda_fft.walk_plain(
+                        x, inv_t, e.fused_scale(False), "f64", False), "f64",
+                    f"main path: FFTLike({n}).inverse")
+    for (plan, x, y), (fy, ix) in zip(mxu_cases, mxu_out):
+        what = f"main path: MXU NTT(2^{plan.log_n}, 60-bit)"
+        compare("K15", fy, mxu_ntt._passes(
+            x, plan, True, 1, mxu_ntt.fold_twiddle_plain,
+            mxu_ntt.fold_final_plain), f"{what}.forward")
+        compare("K15", ix, mxu_ntt._passes(
+            y, plan, False, 1, mxu_ntt.fold_twiddle_plain,
+            mxu_ntt.fold_final_plain), f"{what}.inverse")
+        if not (torch.equal(fy, y) and torch.equal(ix, x)):
+            raise AssertionError(f"{what} != NTT on the same inputs")
+    log("phase 4: every output of the fourth main path == its plain version; "
+        "CKKS round trips within their limits; the device compose == the "
+        "host one; the MXU NTT's outputs == NTT's (K1 at 2^14, K5/K6 at "
+        "2^17)")
+
     # -- 5. timings ---------------------------------------------------------
     def graph_ms(fn, inner):
         """Median device ms of one call of fn over 20 replays of a CUDA
@@ -1010,9 +1328,16 @@ def main() -> int:
         stages = log_n if forward else log_n + 1   # final stage: 2 Shoups
         return batch * stages * (n // 2) * shoup
 
-    def bound(nbytes, nimads):
+    def rotating(values):
+        """A function giving the next of `values` at each call."""
+        it = itertools.cycle(values)
+        return lambda: next(it)
+
+    def bound(nbytes, nops, rate=None):
+        """The larger of the bytes over the memory rate and the operations
+        over their rate (32-bit IMADs unless another rate is given)."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nimads / imad_rate * 1e3
+        t_ops = nops / (rate or imad_rate) * 1e3
         return (max(t_bytes, t_ops),
                 "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1225,23 +1550,114 @@ def main() -> int:
                   ks.fold_plain(result, tpp, tntt, kcon)),
          8 * (2 * ks_n + md_words + 4 * md_words),
          md_words * (2 * (hi64 + lo64) + hi64 + 2 * lo64)))
+    # K12 and K13 per precision at the fourth path's shape (n = 2^14, batch
+    # 64, scale 2^40), each pass forward + inverse, on six inputs in turn
+    # (`rotating`), so that a graph's launches read more than the 50 MB L2
+    # holds, as a caller streaming fresh slots would. Bytes: every
+    # coefficient read and written once per direction, and the table
+    # entries the pass reads; operations: fft_pass_ops, over the
+    # FP64 lanes (f64) or the FP32 lanes (single, double-float) at the
+    # maximum SM clock. The nearest library call, torch.fft.fft + ifft of
+    # the whole transform at the same (batch, n), computes another
+    # function (natural order, no twist); it is timed beside, never used.
+    d_fft = FFT_N // cuda_fft.BLOCK_N
+    nearest = {}
+    for prec in FFT_PRECISIONS:
+        e = engines["auto" if prec == "f64" else prec]
+        fwd_t, inv_t = e.tables(dev)
+        nxt = rotating([fft_value(rng, (FFT_BATCH, FFT_N), prec, dev)
+                        for _ in range(6)])
+        sf, si = e.fused_scale(True), e.fused_scale(False)
+        coef = 8 if prec == "single" else 16
+        lanes = FP64_LANES_PER_SM if prec == "f64" else FP32_LANES_PER_SM
+        rate = SMS * lanes * sm_mhz * 1e6
+        z = fft_value(rng, (FFT_BATCH, FFT_N),
+                      "single" if prec == "single" else "f64", dev)
+        nearest[prec] = {
+            "call": f"torch.fft.fft + torch.fft.ifft, {z.dtype}, whole "
+                    "transform (not the same function)",
+            "ms": graph_ms(lambda: torch.fft.ifft(torch.fft.fft(z)), 20)}
+        for kernel, run, plain, tab in (
+                ("K13", cuda_fft.cross, cuda_fft.cross_plain, d_fft),
+                ("K12", cuda_fft.block, cuda_fft.block_plain, FFT_N)):
+            nops = sum(fft_pass_ops(prec, FFT_N, FFT_BATCH, cuda_fft.BLOCK_N,
+                                    forward, kernel == "K13", True)
+                       for forward in (True, False))
+            name = cuda_fft.kernel_name(kernel, prec)
+            desc = ("fft_cross_kernel" if kernel == "K13"
+                    else "fft_block_kernel, 1 block of a split/CTA")
+            cases[name] = (
+                f"{desc} ({prec})", "hexl_tpu_torch/csrc/fft.cu",
+                "hexl_tpu/experimental/pallas_fft.py:183",
+                f"{'cross' if kernel == 'K13' else 'block'} pass fwd + inv, "
+                f"n=2^14, batch {FFT_BATCH}, scale 2^40",
+                (lambda run=run, nxt=nxt, fwd_t=fwd_t, inv_t=inv_t, sf=sf,
+                 si=si, prec=prec: (run(nxt(), fwd_t, sf, prec, True),
+                                    run(nxt(), inv_t, si, prec, False)),
+                 lambda plain=plain, nxt=nxt, fwd_t=fwd_t, inv_t=inv_t, sf=sf,
+                 si=si, prec=prec: (plain(nxt(), fwd_t, sf, prec, True),
+                                    plain(nxt(), inv_t, si, prec, False)),
+                 2 * (2 * coef * FFT_BATCH * FFT_N + coef * tab),
+                 nops, rate, nearest[prec]))
+    # K14 and K15 on the planes of the forward's first pass at bench.py's
+    # shape (N = 2^14, 60-bit q, batch 256): dw int32 planes read and 8
+    # bytes written per value (and K14's four tables); operations: K14's
+    # two Shoup products, K15's one and a Barrett step. The pass's digit
+    # product, torch._int_mm, is timed beside as the matmul's library time.
+    mplan = get_mxu_plan(n14, q60)
+    mtabs = mplan.tensors(dev)
+    mx = rand((256, n14), q60).reshape(256, mplan.n2, mplan.n1)
+    mx = mx.permute(1, 0, 2).contiguous()
+    mdigits = mxu_ntt.split_digits(mx, mplan.dx_fwd).t()
+    mplanes = torch._int_mm(mtabs["wa"], mdigits)
+    values = 256 * n14
+    int_mm = {"call": "torch._int_mm of the pass's int8 digit planes "
+                      f"({tuple(mtabs['wa'].shape)} x {tuple(mdigits.shape)})",
+              "ms": graph_ms(lambda: torch._int_mm(mtabs["wa"], mdigits), 20)}
+    cases["K14"] = (
+        "mxu_fold_twiddle_kernel", "hexl_tpu_torch/csrc/mxu.cu",
+        "hexl_tpu/ntt/mxu_ntt.py:541", "forward pass-1 fold + twiddle, "
+        "N=2^14, 60-bit q, batch 256",
+        (lambda: mxu_ntt.fold_twiddle(mplanes, mplan, mtabs["t_tab"],
+                                      mtabs["rho_t_tab"], mplan.n2, mplan.n1),
+         lambda: mxu_ntt.fold_twiddle_plain(mplanes, mplan, mtabs["t_tab"],
+                                            mtabs["rho_t_tab"], mplan.n2,
+                                            mplan.n1),
+         4 * mplanes.numel() + 8 * values + 4 * 8 * n14,
+         2 * values * per_shoup, None, int_mm))
+    cases["K15"] = (
+        "mxu_fold_final_kernel", "hexl_tpu_torch/csrc/mxu.cu",
+        "hexl_tpu/ntt/mxu_ntt.py:587", "final fold + Barrett (OMF 1) on the "
+        "same planes, N=2^14, 60-bit q, batch 256",
+        (lambda: mxu_ntt.fold_final(mplanes, mplan, mplan.n2, 1),
+         lambda: mxu_ntt.fold_final_plain(mplanes, mplan, mplan.n2, 1),
+         4 * mplanes.numel() + 8 * values,
+         values * (per_shoup + imads["mulhi64"] + imads["mullo64"]), None,
+         int_mm))
     entries = []
     for name, (desc, source, replaces, shape, case) in cases.items():
-        kernel, plain, nbytes, nimads = case
+        kernel, plain, nbytes, nops = case[:4]
+        rate, near = (case[4], case[5]) if len(case) > 4 else (None, None)
         ms = graph_ms(kernel, 20)
         plain_ms = graph_ms(plain, 2)
-        bound_ms, bound_by = bound(nbytes, nimads)
+        bound_ms, bound_by = bound(nbytes, nops, rate)
+        unit = "IMADs" if rate is None else "FP ops"
+        beside = (f"; nearest library {near['call']}: {near['ms']:.4f} ms"
+                  if near else "")
         log(f"{name} {desc} at {shape}: {ms:.4f} ms, plain {plain_ms:.4f} "
             f"ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes} bytes, "
-            f"{nimads} IMADs), {bound_ms / ms:.1%} of bound")
-        entries.append({
+            f"{nops} {unit}), {bound_ms / ms:.1%} of bound{beside}")
+        entry = {
             "name": f"{name} {desc}", "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(counts.get(name, 0) for counts in
-                            (launches1, launches2, launches3)),
+                            (launches1, launches2, launches3, launches4)),
             "max_abs_err": float(max_err[name]), "matched": True,
             "shape": shape, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        if near:
+            entry["nearest_library"] = near
+        entries.append(entry)
 
     # K5 at the largest degree, where a thread holds D = 64 coefficients
     # (128 registers of them at 64 bits; phase 2's -Xptxas -v report gives
@@ -1290,6 +1706,59 @@ def main() -> int:
     public_pairs(e17, rand((SPLIT_BATCH, n17), q60_17), 60)
     public_pairs(e17s, rand((SPLIT_BATCH, n17), q29_17), 29)
     public_pairs(ntt10s, rand((K2_BATCH, n10), q29), 29)
+
+    # The four-step NTT: fwd+inv pairs/s through fwd_ntt_mxu/inv_ntt_mxu
+    # against the NTT's (K1 at 2^14, K5/K6 at 2^17) and the Xeon pair, on
+    # the same inputs; and where a pass's time goes at 2^14 (the digit
+    # split, the int8 product, the fold; the transposes are the rest).
+    for n, batch, q, engine in ((n14, 256, q60, ntt14),
+                                (n17, SPLIT_BATCH, q60_17, e17)):
+        plan = get_mxu_plan(n, q)
+        x = rand((batch, n), q)
+        mxu_ms = event_ms(lambda: inv_ntt_mxu(fwd_ntt_mxu(x, plan), plan))
+        ntt_ms = event_ms(lambda: engine.inverse(engine.forward(x)))
+        xeon_us = sum(r["us_per_call"] for r in rows
+                      if r["kernel"] in ("fwd_ntt", "inv_ntt")
+                      and r["n"] == n and r["q_bits"] == 60)
+        log(f"MXU NTT(2^{n.bit_length() - 1}, 60-bit) fwd+inv at batch "
+            f"{batch}: {mxu_ms:.4f} ms = {batch / mxu_ms * 1e3:.1f} pairs/s; "
+            f"NTT {ntt_ms:.4f} ms = {batch / ntt_ms * 1e3:.1f} pairs/s "
+            f"(MXU/NTT time {mxu_ms / ntt_ms:.2f}x); Xeon "
+            f"{1e6 / xeon_us:.1f} pairs/s; MXU ratio to Xeon "
+            f"{batch / mxu_ms * 1e3 / (1e6 / xeon_us):.3f}")
+    split_ms = graph_ms(lambda: mxu_ntt.split_digits(mx, mplan.dx_fwd), 20)
+    log(f"MXU pass at N=2^14, batch 256: digit split {split_ms:.4f} ms, "
+        f"int8 product {int_mm['ms']:.4f} ms, fold (K14) "
+        f"{graph_ms(cases['K14'][4][0], 20):.4f} ms; whole forward "
+        f"{graph_ms(lambda: fwd_ntt_mxu(mx.reshape(256, n14), mplan), 5):.4f}"
+        " ms (graphs)")
+
+    # The FFT-like at the Xeon rows' shapes (f64, one polynomial, a 2^-30
+    # scale fused), per public call against those rows; and CKKS encode
+    # and decode per call at the fourth path's shape, per precision.
+    for n, x in xeon_in.items():
+        e = xeon_fft[n]
+        for direction, kernel in (("forward", "fwd_fft_like"),
+                                  ("inverse", "inv_fft_like")):
+            us = event_ms(lambda: getattr(e, direction)(x), 50) * 1e3
+            xeon = next(r["us_per_call"] for r in rows
+                        if r["kernel"] == kernel and r["n"] == n)
+            log(f"public FFTLike(2^{n.bit_length() - 1}).{direction}, batch "
+                f"1: {us:.3f} us per call; Xeon {xeon} us; ratio "
+                f"{xeon / us:.3f}")
+    for p, e in engines.items():
+        words = ckks_words(encoded[p], q_words)
+        enc_ms = event_ms(lambda: e.inverse(slots), 10)
+        compose_ms = event_ms(lambda: e.build_floating_points_device(
+            words, thr_words, q_words, 2.0 ** -FIXED_POINT_BITS), 10)
+        if p == "double_float":
+            dec_ms = event_ms(lambda: e.df_fwd_body(composed[p],
+                                                    e.fused_scale(True)), 10)
+        else:
+            dec_ms = event_ms(lambda: e.forward(composed[p]), 10)
+        log(f"CKKS n=2^14 batch {FFT_BATCH} {p}: encode {enc_ms:.4f} ms, "
+            f"decode compose {compose_ms:.4f} ms + forward {dec_ms:.4f} ms "
+            "(events, per call)")
 
     # The 16-prime RNS product: device latency of one call and its launches.
     _build.reset_launches()

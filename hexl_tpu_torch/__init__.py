@@ -5,8 +5,10 @@ q < 2^62 = 1 mod 2N (the 64-bit walk, and the single-word walk the JAX
 engine takes for q < 2^30), the multi-modulus `RnsNTT`, the whole
 element-wise family (add/sub, mult, fma, reduce, cmp_add, cmp_sub_mod and
 the Montgomery ops, with the single-word regime of q < 2^30), the
-polynomial products `poly_mult_mod` and `rns_poly_mult_mod`, and the
-composites `dyadic_multiply`, `lr_mat_vec_mult` and `key_switch`, computed
+polynomial products `poly_mult_mod` and `rns_poly_mult_mod`, the
+composites `dyadic_multiply`, `lr_mat_vec_mult` and `key_switch`, the
+four-step matmul NTT (`ntt.fwd_ntt_mxu`/`inv_ntt_mxu`) and the FFT-like of
+CKKS encode/decode (`FFTLike`, with `build_floating_points`), computed
 by hand-written CUDA kernels (`csrc/`) on the GPU and by their plain
 PyTorch versions on the CPU. Entry points run on CUDA unless the caller
 passes device="cpu". The JAX package `hexl_tpu` is the reference the port
@@ -19,7 +21,8 @@ from .eltwise import (eltwise_add_mod, eltwise_cmp_add, eltwise_cmp_sub_mod,
                       eltwise_montgomery_form_out,
                       eltwise_montgomery_mult_reduce, eltwise_mult_mod,
                       eltwise_reduce_mod, eltwise_sub_mod)
-from .experimental import dyadic_multiply, key_switch, lr_mat_vec_mult
+from .experimental import (FFTLike, dyadic_multiply, key_switch,
+                           lr_mat_vec_mult)
 from .ntt import NTT, RnsNTT, get_plan, get_rns_plan, plan_from_arrays
 from .poly import poly_mult_mod, rns_poly_mult_mod
 
@@ -28,5 +31,5 @@ __all__ = ["NTT", "RnsNTT", "get_plan", "get_rns_plan", "plan_from_arrays",
            "eltwise_fma_mod", "eltwise_reduce_mod", "eltwise_cmp_add",
            "eltwise_cmp_sub_mod", "eltwise_montgomery_form_in",
            "eltwise_montgomery_form_out", "eltwise_montgomery_mult_reduce",
-           "dyadic_multiply", "lr_mat_vec_mult", "key_switch",
+           "dyadic_multiply", "lr_mat_vec_mult", "key_switch", "FFTLike",
            "poly_mult_mod", "rns_poly_mult_mod", "nt"]

@@ -13,6 +13,10 @@ word 32: K7, or the u32 two-pass split above 2^15), everything else the
 64-bit walk (K1/K2 up to 2^14, the two-pass split K5/K6 above). Inputs
 have shape (..., N): numpy uint64 in gives numpy out; an int64 tensor of
 u64 bits in gives a tensor out on its device.
+
+The four-step matmul regime (`mxu_ntt`: `get_mxu_plan`, `fwd_ntt_mxu`,
+`inv_ntt_mxu`, N from 2^8 to 2^18) computes the same fully reduced
+transform for the same root; its lazy outputs are its own.
 """
 
 from __future__ import annotations
@@ -21,18 +25,21 @@ import numpy as np
 
 from .. import _device
 from ..limb import to_numpy
-from . import cuda_ntt
+from . import cuda_ntt, mxu_ntt
 from . import plan as _plan
+from .mxu_ntt import fwd_ntt_mxu, get_mxu_plan, inv_ntt_mxu
 from .plan import NttPlan, check_arguments, get_plan, plan_from_arrays
 from .rns import RnsNTT, get_rns_plan
 
 __all__ = ["NTT", "NttPlan", "get_plan", "clear_plan_cache",
-           "check_arguments", "plan_from_arrays", "RnsNTT", "get_rns_plan"]
+           "check_arguments", "plan_from_arrays", "RnsNTT", "get_rns_plan",
+           "get_mxu_plan", "fwd_ntt_mxu", "inv_ntt_mxu"]
 
 
 def clear_plan_cache() -> None:
-    """Drop every cached plan."""
+    """Drop every cached plan, the MXU plans included."""
     _plan.clear_plan_cache()
+    mxu_ntt.clear_mxu_cache()
 
 
 class NTT:

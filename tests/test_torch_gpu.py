@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from hexl_tpu_torch import (NTT, _build, dyadic_multiply, eltwise_add_mod,
+from hexl_tpu_torch import (NTT, FFTLike, _build, dyadic_multiply,
+                            eltwise_add_mod,
                             eltwise_cmp_add, eltwise_cmp_sub_mod,
                             eltwise_fma_mod, eltwise_montgomery_form_in,
                             eltwise_mult_mod, eltwise_reduce_mod, key_switch,
@@ -20,8 +21,10 @@ from hexl_tpu_torch import (NTT, _build, dyadic_multiply, eltwise_add_mod,
                             rns_poly_mult_mod)
 from hexl_tpu_torch import poly
 from hexl_tpu_torch.eltwise import ops, torch_kernels, torch_kernels32
+from hexl_tpu_torch.experimental import cuda_fft, df32, fft_like
 from hexl_tpu_torch.limb import to_tensor
-from hexl_tpu_torch.ntt import cuda_ntt, get_plan, hier, ntt32, torch_ntt
+from hexl_tpu_torch.ntt import (cuda_ntt, fwd_ntt_mxu, get_mxu_plan, get_plan,
+                                hier, inv_ntt_mxu, mxu_ntt, ntt32, torch_ntt)
 
 dyadic_mod = importlib.import_module("hexl_tpu_torch.experimental.dyadic")
 ks_mod = importlib.import_module("hexl_tpu_torch.experimental.key_switch")
@@ -391,3 +394,129 @@ def test_slice3_entry_points_never_take_the_plain_path(cuda, monkeypatch):
     # passes (K5, K6) each, one K8 reduce per row, K10, K11 twice.
     assert dict(_build.launches) == {"K9": 2, "K5": 8, "K6": 8,
                                      "K8.reduce": 3, "K10": 1, "K11": 2}
+
+
+def _fft_value(rng, shape, precision, dev):
+    z = torch.from_numpy(rng.normal(size=shape) + 1j * rng.normal(size=shape))
+    if precision == "double_float":
+        return df32.cdf_from_complex128(z, dev)
+    return z.to(dev, fft_like._CTYPE[precision])
+
+
+def _same_value(got, want, precision):
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(
+        cuda_fft.planes(got, precision), cuda_fft.planes(want, precision)))
+
+
+@pytest.mark.parametrize("precision", ["f64", "single", "double_float"])
+@pytest.mark.parametrize("n,batch", [(16, 3), (16, 401), (1024, 2),
+                                     (8192, 1), (1 << 14, 2), (1 << 17, 1)])
+def test_fft_kernels_match_plain(cuda, precision, n, batch):
+    """K12 (and K13 above 2^13) bit-exact against the plain walk on the
+    card, with and without a scalar; above 2^13 each pass alone too."""
+    rng = np.random.default_rng(n + batch)
+    for scalar in (None, 2.0 ** 40):
+        fft = FFTLike(n, scalar, precision=precision, device=cuda)
+        tables = fft.tables(cuda)
+        v = _fft_value(rng, (batch, n), precision, cuda)
+        for forward in (True, False):
+            s = fft.fused_scale(forward)
+            tab = tables[0 if forward else 1]
+            fn = cuda_fft.forward if forward else cuda_fft.inverse
+            assert _same_value(fn(v, tab, s, precision),
+                               cuda_fft.walk_plain(v, tab, s, precision,
+                                                   forward), precision)
+            if n > cuda_fft.BLOCK_N:
+                assert _same_value(
+                    cuda_fft.cross(v, tab, s, precision, forward),
+                    cuda_fft.cross_plain(v, tab, s, precision, forward),
+                    precision)
+                assert _same_value(
+                    cuda_fft.block(v, tab, s, precision, forward),
+                    cuda_fft.block_plain(v, tab, s, precision, forward),
+                    precision)
+
+
+@pytest.mark.parametrize("precision", ["auto", "single", "double_float"])
+@pytest.mark.parametrize("n", [1024, 1 << 14])
+def test_fft_lazy_conjugate_on_card(cuda, precision, n):
+    """z.conj() on the card transforms as its conjugate: the kernels get
+    the resolved memory, bit-equal to the plain walk of conj(z)."""
+    fft = FFTLike(n, 2.0 ** 40, precision=precision, device=cuda)
+    z = torch.from_numpy(np.random.default_rng(n).normal(size=(2, n, 2)))
+    z = torch.view_as_complex(z).to(cuda)
+    lazy, eager = z.conj(), z.conj().resolve_conj()
+    assert lazy.is_conj()
+    tables = fft.tables(cuda)
+    for forward in (True, False):
+        got = (fft.forward if forward else fft.inverse)(lazy)
+        v = (df32.cdf_from_complex128(eager) if fft.precision == "double_float"
+             else eager.to(fft_like._CTYPE[fft.precision]))
+        want = cuda_fft.walk_plain(v, tables[0 if forward else 1],
+                                   fft.fused_scale(forward), fft.precision,
+                                   forward)
+        if fft.precision == "double_float":
+            want = df32.cdf_to_complex128(want)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,bits", [(256, 29), (1024, 52), (1 << 14, 60),
+                                     (1 << 17, 62)])
+def test_mxu_folds_match_plain(cuda, n, bits):
+    """K14 and K15 against the plain folds on the same int32 planes, over
+    the IMF/OMF matrix; the OMF 1 outputs equal the NTT's."""
+    q = _modulus(bits, n)
+    plan = get_mxu_plan(n, q)
+    rng = np.random.default_rng(n + bits)
+
+    def checked(kernel, plain):
+        def fold(planes, *args):
+            got = kernel(planes, *args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain(planes, *args))
+            return got
+        return fold
+
+    boundary = checked(mxu_ntt.fold_twiddle, mxu_ntt.fold_twiddle_plain)
+    final = checked(mxu_ntt.fold_final, mxu_ntt.fold_final_plain)
+    for forward, imfs, omfs in ((True, (1, 2, 4), (1, 4)),
+                                (False, (1, 2), (1, 2))):
+        for imf in imfs:
+            if imf * q >= 1 << 64:
+                continue
+            x = _rand(rng, (2, n), imf * q, cuda)
+            for omf in omfs:
+                mxu_ntt._passes(x, plan, forward, omf, boundary, final)
+    x = _rand(rng, (3, n), q, cuda)
+    ntt = NTT(n, q)
+    assert torch.equal(fwd_ntt_mxu(x, plan), ntt.forward(x))
+    assert torch.equal(inv_ntt_mxu(x, plan), ntt.inverse(x))
+
+
+def test_slice4_entry_points_never_take_the_plain_path(cuda, monkeypatch):
+    """FFTLike in every precision and the MXU transforms on CUDA tensors
+    launch K12-K15, never a plain walk or fold."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for name in ("fwd_stages", "inv_stages", "inv_final"):
+        monkeypatch.setattr(fft_like, name, refuse)
+    for name in ("fold_twiddle_plain", "fold_final_plain"):
+        monkeypatch.setattr(mxu_ntt, name, refuse)
+    rng = np.random.default_rng(4)
+    z = rng.normal(size=(2, 1 << 14)) + 1j * rng.normal(size=(2, 1 << 14))
+    _build.reset_launches()
+    for precision in ("auto", "single", "double_float"):
+        fft = FFTLike(1 << 14, 2.0 ** 40, precision=precision)
+        back = fft.forward(fft.inverse(z))
+        assert np.abs(back - z).max() < (1e-3 if precision == "single"
+                                         else 1e-9)
+    q = _modulus(60, 1 << 14)
+    x = rng.integers(0, q, size=(2, 1 << 14), dtype=np.uint64)
+    plan = get_mxu_plan(1 << 14, q)
+    np.testing.assert_array_equal(inv_ntt_mxu(fwd_ntt_mxu(x, plan), plan), x)
+    assert dict(_build.launches) == {
+        "K12.f64": 2, "K13.f64": 2, "K12.f32": 2, "K13.f32": 2,
+        "K12.df": 2, "K13.df": 2, "K14": 2, "K15": 2}

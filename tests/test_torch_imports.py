@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from hexl_tpu_torch import FFTLike
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "hexl_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
@@ -95,6 +97,38 @@ def test_slice3_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             fn(*args)
         assert isinstance(fn(*args, device="cpu"), np.ndarray)
+
+
+def test_slice4_entry_points_default_to_cuda():
+    """FFTLike in every precision, its device compose and the MXU
+    transforms run on CUDA unless given device="cpu", and raise without a
+    card."""
+    import hexl_tpu_torch as port
+    from hexl_tpu_torch.ntt import fwd_ntt_mxu, get_mxu_plan, inv_ntt_mxu
+    q = port.nt.generate_primes(1, 50, True, ntt_size=256)[0]
+    plan = get_mxu_plan(256, q)
+    x = np.ones((1, 256), dtype=np.uint64)
+    z = np.ones(16, dtype=np.complex128)
+    words = np.ones((2, 16), dtype=np.uint64)
+    for precision in ("auto", "f64", "single", "double_float"):
+        if torch.cuda.is_available():
+            assert FFTLike(16, precision=precision).device.type == "cuda"
+            continue
+        with pytest.raises(RuntimeError, match="CUDA"):
+            FFTLike(16, precision=precision)
+        fft = FFTLike(16, 2.0, precision=precision, device="cpu")
+        assert isinstance(fft.forward(z), np.ndarray)
+        assert isinstance(fft.inverse(z), np.ndarray)
+    if torch.cuda.is_available():
+        assert fwd_ntt_mxu(x, plan).shape == x.shape
+        return
+    for fn in (fwd_ntt_mxu, inv_ntt_mxu):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(x, plan)
+        assert isinstance(fn(x, plan, device="cpu"), np.ndarray)
+    dev = FFTLike(16, device="cpu").build_floating_points_device(
+        words, [0, 1], [1, 2], 1.0)
+    assert dev.hi.device.type == "cpu"
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
