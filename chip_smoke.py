@@ -27,8 +27,13 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      without a scalar, bit-exact (no FMA contraction in the kernels); K14
      and K15 (the four-step NTT's folds) on the int32 planes of every pass
      at N in {2^8, 2^10, 2^14, 2^17} for five moduli over the IMF/OMF
-     matrix;
-  4. four main paths through the public entry points, each with the
+     matrix; the parallel layer's kernels (parallel_kernel_checks): K5
+     with a column stride on DistNTT's exchanged blocks for D in {2, 4, 8,
+     16, 128} (two launches above 64 rows) and lc from 256/D up to 2^14
+     (N <= 2^20), K6 with a shard base for L from
+     2^10 to 2^16, and K16 at every stage of N in {2^10, 2^14, 2^17}, for
+     q of 29 (q < 2^30, through the 64-bit walk), 30, 50, 60 and 61 bits;
+  4. five main paths through the public entry points, each with the
      launch counts set to 0 just before it and read just after it.
      The first: NTT(2^14, 60-bit) forward and inverse at batch 256
      from numpy (K1); the __graft_entry__ pipeline (fwd OMF 4 ->
@@ -56,7 +61,14 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      FFTLike at 2^14 slots, scale 2^40, batch 64, in auto (f64), single
      and double-float, the round trip within 1e-12 (1e-4 in single); the
      FFT-like at the Xeon rows' shapes; fwd_ntt_mxu/inv_ntt_mxu at (2^14,
-     60-bit, 256) and (2^17, 60-bit, 16), bit-equal to NTT's outputs;
+     60-bit, 256) and (2^17, 60-bit, 16), bit-equal to NTT's outputs.
+     The fifth (see its comment in main): the parallel layer on meshes of
+     cuda:0 positions, one card holding every position: dist_rns_poly_mult
+     at N=2^17 x 16 primes of 50 bits on the (2, 4) and (2, 8) meshes,
+     DistNTT at bench.py's shape on (1, 8), (2, 4) (also with two overlap
+     slices) and (1, 1), PipelineNTT on a ring of 8, dist_key_switch and
+     dist_dyadic_multiply; every output against the port's single-device
+     call and the plain path on the same inputs;
   5. timings with CUDA events (median of 20): each kernel and its plain
      version at the main paths' shapes, beside the kernel's bound (and
      K5 at N=2^20, where a thread holds 64 coefficients); the
@@ -73,7 +85,11 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      K12/K13 per precision beside torch.fft.fft (the nearest library
      call, another function), K14/K15 beside torch._int_mm (the pass's
      matmul); the MXU pairs/s against the NTT's and the Xeon pair; the
-     FFT-like against its Xeon rows; CKKS encode/decode per call.
+     FFT-like against its Xeon rows; CKKS encode/decode per call; K6
+     with a shard base, K5 with a column stride and K16 beside their
+     bounds; each call of the fifth path per call, with its launches, its
+     exchange copies and bytes, the mesh's count of distinct devices and
+     the same work on one device.
 It then prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}.
 """
@@ -705,6 +721,95 @@ def mxu_kernel_checks(rng, dev, nt, get_mxu_plan, mxu_ntt, to_tensor,
     return checks
 
 
+PARALLEL_Q_BITS = (29, 30, 50, 60, 61)
+
+
+def parallel_kernel_checks(rng, dev, nt, get_plan, hier, shard, pipeline,
+                           to_tensor, compare) -> int:
+    """The kernels of the parallel layer against their plain versions, bit
+    for bit, for q just above 2^29 (q < 2^30 goes through the 64-bit walk
+    in this layer), 2^30, 2^50, 2^60 and 2^61: K5 with a column stride on DistNTT's
+    exchanged (batch, D, lc) blocks for D in {2, 4, 8, 16, 128} (two
+    launches for 128) and lc from
+    256/D up to 2^14 (N = D^2 lc <= 2^20), and on a slice of the chunk
+    axis, forward and inverse at both OMFs; K6 with a shard base at the
+    first, a middle and the last position for L from 2^10 to 2^14, and at
+    L = 2^15 and 2^16 (K5 on the intra-shard stages, then K6 on 2^14
+    sub-shards), a modulus of each size in turn over the K5 and K6 cases;
+    K16 at every stage of N in {2^10, 2^14, 2^17} for every size, the
+    fused final stage at OMF 1 and 2 (forward 1 and 4). Returns the
+    number of checks."""
+    import numpy as np
+    checks = 0
+
+    def rand(shape, bound):
+        return to_tensor(rng.integers(0, bound, size=shape, dtype=np.uint64),
+                         dev)
+
+    cases = 0
+    for d in (2, 4, 8, 16, 128):
+        lc = max(1, 256 // d)
+        while lc <= (1 << 14) and d * d * lc <= (1 << 20):
+            n = d * d * lc
+            q_bits = PARALLEL_Q_BITS[cases % len(PARALLEL_Q_BITS)]
+            cases += 1
+            q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+            plan = get_plan(n, q)
+            for batch, width in ((3, lc), (2, max(1, lc // 4))):
+                what = (f"D={d} lc={lc} width={width} batch={batch} "
+                        f"q_bits={q_bits}")
+                x = rand((batch, d, width), 4 * q)
+                compare("K5.col", hier.cross(x, plan, True),
+                        hier.cross_fwd_plain(x, plan), f"cross fwd {what}")
+                x = rand((batch, d, width), 2 * q)
+                for omf in (1, 2):
+                    compare("K5.col", hier.cross(x, plan, False, omf),
+                            hier.cross_inv_plain(x, plan, omf),
+                            f"cross inv {what} omf={omf}")
+                checks += 3
+            lc *= 2
+    for log_l in range(10, 17):
+        for d in (2, 8):
+            n = d << log_l
+            q_bits = PARALLEL_Q_BITS[cases % len(PARALLEL_Q_BITS)]
+            cases += 1
+            q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+            plan = get_plan(n, q)
+            for r in (0, d // 2, d - 1):
+                what = f"L=2^{log_l} D={d} r={r} q_bits={q_bits}"
+                x = rand((3, n // d), 4 * q)
+                for omf in (1, 4):
+                    compare("K6.shard", shard.local(x, plan, r, d, True,
+                                                    omf),
+                            shard.local_fwd_plain(x, plan, r, d, omf),
+                            f"local fwd {what} omf={omf}")
+                x = rand((3, n // d), 2 * q)
+                compare("K6.shard", shard.local(x, plan, r, d, False),
+                        shard.local_inv_plain(x, plan, r, d),
+                        f"local inv {what}")
+                checks += 3
+    for log_n in (10, 14, 17):
+        n = 1 << log_n
+        for q_bits in PARALLEL_Q_BITS:
+            q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+            plan = get_plan(n, q)
+            for k in range(log_n):
+                last = k == log_n - 1
+                for forward, bound, omfs in (
+                        (True, 4 * q, (1, 4) if last else (4,)),
+                        (False, 2 * q, (1, 2) if last else (2,))):
+                    x = rand((2, n), bound)
+                    for omf in omfs:
+                        compare("K16", pipeline.stages(x, plan, forward, k,
+                                                       k + 1, omf),
+                                pipeline.stages_plain(x, plan, forward, k,
+                                                      k + 1, omf),
+                                f"stage {k} of N=2^{log_n} q_bits={q_bits} "
+                                f"{'fwd' if forward else 'inv'} omf={omf}")
+                        checks += 1
+    return checks
+
+
 def ckks_words(coeffs, q_words):
     """A CKKS plaintext as the decryption would leave it: the real and
     imaginary parts of the encoded coefficients rounded to integers at
@@ -752,6 +857,13 @@ def main() -> int:
     from hexl_tpu_torch.experimental import cuda_fft, df32
     from hexl_tpu_torch.ntt import (fwd_ntt_mxu, get_mxu_plan, inv_ntt_mxu,
                                     mxu_ntt)
+    from hexl_tpu_torch.ntt import shard
+    from hexl_tpu_torch.parallel import (DistNTT, PipelineNTT,
+                                         dist_dyadic_multiply,
+                                         dist_key_switch, dist_rns_poly_mult,
+                                         make_mesh, make_pipeline_mesh)
+    from hexl_tpu_torch.parallel import mesh as pmesh
+    from hexl_tpu_torch.parallel import pipeline
 
     dev = torch.device("cuda", 0)
     sms = cuda_ntt.sm_count(dev)
@@ -851,15 +963,17 @@ def main() -> int:
                  nt.generate_primes(1, q_bits, True, ntt_size=n)[0])
             plan = get_plan(n, q)
             for batch in ((1, 2) if n == 1 << 20 else (1, 3)):
+                blocks = (batch, n // hier.LOCAL_N, hier.LOCAL_N)
                 for word in ((64, 32) if q_bits < 30 else (64,)):
                     k5 = hier.kernel_name("K5", word)
                     k6 = hier.kernel_name("K6", word)
                     what = f"n={n} q_bits={q_bits} batch={batch} word={word}"
                     for imf in (1, 2, 4):
-                        x = rand((batch, n), imf * q)
+                        x = rand(blocks, imf * q)
                         c = hier.cross(x, plan, True, 1, word)
                         compare(k5, c, hier.cross_fwd_plain(x, plan, word),
                                 f"cross fwd {what} imf={imf}")
+                        c = c.view(batch, n)
                         for omf in (1, 4):
                             compare(k6, hier.local(c, plan, True, omf, word),
                                     hier.local_fwd_plain(c, plan, omf, word),
@@ -870,6 +984,7 @@ def main() -> int:
                         loc = hier.local(x, plan, False, 1, word)
                         compare(k6, loc, hier.local_inv_plain(x, plan, word),
                                 f"local inv {what} imf={imf}")
+                        loc = loc.view(blocks)
                         for omf in (1, 2):
                             compare(k5, hier.cross(loc, plan, False, omf,
                                                    word),
@@ -947,6 +1062,10 @@ def main() -> int:
     # K14 and K15 on the int32 planes of every pass of the four-step NTT.
     checks += mxu_kernel_checks(rng, dev, nt, get_mxu_plan, mxu_ntt,
                                 to_tensor, compare)
+    # K5 with a column stride, K6 with a shard base and K16: the kernels of
+    # the parallel layer.
+    checks += parallel_kernel_checks(rng, dev, nt, get_plan, hier, shard,
+                                     pipeline, to_tensor, compare)
     log(f"phase 3: {checks} kernel-vs-plain checks bit-exact in "
         f"{time.perf_counter() - t0:.1f} s; max_abs_err {max_err}")
 
@@ -1280,6 +1399,124 @@ def main() -> int:
         "host one; the MXU NTT's outputs == NTT's (K1 at 2^14, K5/K6 at "
         "2^17)")
 
+    # The fifth: the parallel layer on meshes of cuda:0 positions (one card
+    # holds every position, as one CPU holds the JAX package's virtual
+    # devices in its tests and dry run; this says nothing of NVLink or of
+    # scaling). BASELINE.json's north star, the RNS poly-mult at N=2^17 x
+    # 16 primes of 50 bits, batch 2 (a polynomial per batch row), on the
+    # dry run's (batch 2, coeff 4) mesh (L = 2^15: K5 + K6 per position)
+    # and its 16-device (2, 8) mesh (L = 2^14); DistNTT fwd+inv at bench.py's
+    # shape (2^14, 60-bit, batch 256) on (1, 8) and (2, 4), on (2, 4) with
+    # overlap_slices=2, and on the D = 1 mesh; PipelineNTT at 2^14, 60-bit,
+    # 16 microbatches of 16 on an 8-position ring; dist_key_switch at the
+    # dry run's shape (2^14, ds 3, kc 2, 49-bit) on (2, 4); and
+    # dist_dyadic_multiply on the same moduli.
+    meshes = {(nb, nc): make_mesh(nc, nb, [dev] * (nb * nc))
+              for nb, nc in ((2, 4), (2, 8), (1, 8), (1, 1))}
+    ra2 = torch.stack([rand((2, n17), q) for q in moduli])
+    rb2 = torch.stack([rand((2, n17), q) for q in moduli])
+    xd = rand((256, n14), q60)
+    xp = rand((16, 16, n14), q60)
+    ks_res, ks_t, ks_keys, ks5_moduli, ks_msf = key_switch_inputs(
+        rng, n14, (49,) * 4, 2, dev, nt, to_tensor)
+    dy5 = [torch.stack([torch.stack([rand((n14,), q) for q in ks5_moduli])
+                        for _ in range(2)]) for _ in range(2)]
+    dists = {"(1, 8)": DistNTT(n14, q60, meshes[(1, 8)]),
+             "(2, 4)": DistNTT(n14, q60, meshes[(2, 4)]),
+             "(2, 4), 2 slices": DistNTT(n14, q60, meshes[(2, 4)],
+                                         overlap_slices=2),
+             "(1, 1)": DistNTT(n14, q60, meshes[(1, 1)])}
+    ring = make_pipeline_mesh(8, [dev] * 8)
+    pipe = PipelineNTT(n14, q60, ring)
+
+    def dist_pair(e):
+        y = e.forward(xd)
+        return y, e.inverse(y)
+
+    # name -> (call, mesh, the same computation on one device)
+    fifth = {
+        f"dist_rns_poly_mult N=2^17 x {RNS_PRIMES} primes, batch 2, "
+        "mesh (2, 4)": (
+            lambda: dist_rns_poly_mult(ra2, rb2, n17, moduli, meshes[(2, 4)]),
+            meshes[(2, 4)], lambda: rns_poly_mult_mod(ra2, rb2, n17, moduli)),
+        f"dist_rns_poly_mult N=2^17 x {RNS_PRIMES} primes, batch 2, "
+        "mesh (2, 8)": (
+            lambda: dist_rns_poly_mult(ra2, rb2, n17, moduli, meshes[(2, 8)]),
+            meshes[(2, 8)], lambda: rns_poly_mult_mod(ra2, rb2, n17, moduli)),
+    }
+    for name, e in dists.items():
+        fifth[f"DistNTT fwd+inv 2^14, 60-bit, batch 256, mesh {name}"] = (
+            lambda e=e: dist_pair(e), e.mesh,
+            lambda: (lambda y: (y, cuda_ntt.inv_ntt(y, plan14)))(
+                cuda_ntt.fwd_ntt(xd, plan14)))
+    fifth["PipelineNTT fwd+inv 2^14, 60-bit, 16 x 16, ring of 8"] = (
+        lambda: (lambda y: (y, pipe.inverse(y)))(pipe.forward(xp)), ring,
+        lambda: (lambda y: (y, cuda_ntt.inv_ntt(y, plan14)))(
+            cuda_ntt.fwd_ntt(xp, plan14)))
+    fifth["dist_key_switch 2^14, ds 3, kc 2, 49-bit, mesh (2, 4)"] = (
+        lambda: dist_key_switch(ks_res, ks_t, n14, 3, 4, 4, 2, ks5_moduli,
+                                ks_keys, ks_msf, meshes[(2, 4)]),
+        meshes[(2, 4)],
+        lambda: port.key_switch(ks_res, ks_t, n14, 3, 4, 4, 2, ks5_moduli,
+                                ks_keys, ks_msf))
+    fifth["dist_dyadic_multiply 2^14 x 4 moduli, mesh (2, 4)"] = (
+        lambda: dist_dyadic_multiply(*dy5, ks5_moduli, meshes[(2, 4)]),
+        meshes[(2, 4)], lambda: port.dyadic_multiply(*dy5, ks5_moduli))
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    pmesh.reset_exchanges()
+    outs5 = {name: call() for name, (call, _, _) in fifth.items()}
+    torch.cuda.synchronize()
+    launches5 = dict(_build.launches)
+    exchanges5 = dict(pmesh.exchanges)
+    log(f"phase 4: fifth main path's launches {launches5}; exchanges "
+        f"{exchanges5}")
+    missing = [k for k in ("K1", "K4", "K5", "K6", "K8.reduce", "K9", "K10",
+                           "K11", "K16") if launches5.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"fifth main path launched no {missing}")
+
+    # Every output against the port's single-device call and the plain path
+    # on the same inputs (after the counts were read).
+    ones = {name: single() for name, (_, _, single) in fifth.items()}
+    for name, out in outs5.items():
+        pairs = list(zip(out, ones[name])) if isinstance(out, tuple) \
+            else [(out, ones[name])]
+        for got, want in pairs:
+            kernel = ("K16" if name.startswith("Pipeline") else
+                      "K11" if "key_switch" in name else
+                      "K9" if "dyadic" in name else "K6.shard")
+            compare(kernel, got, want, f"main path: {name} == one device")
+    ks_plain = ks.key_switch_plain(ks_res, ks_t, n14, 3, 4, 4, 2, ks5_moduli,
+                                   ks_keys, ks_msf)
+    dy_plain = dyadic.dyadic_plain(dy5[0][None], dy5[1][None],
+                                   dyadic.row_constants(tuple(ks5_moduli),
+                                                        dev))
+    for name, out in outs5.items():
+        if name.startswith("dist_rns"):
+            for i, q in enumerate(moduli):
+                compare("K6.shard", out[i], poly.poly_mult_plain(
+                    ra2[i], rb2[i], get_plan(n17, q)),
+                    f"main path: {name}, prime {i} == the plain path")
+        elif name.startswith("DistNTT"):
+            compare("K6.shard", out[0], torch_ntt.fwd_ntt(xd, plan14),
+                    f"main path: {name}, forward == the plain walk")
+            if not torch.equal(out[1], xd):
+                raise AssertionError(f"{name}: round trip failed")
+        elif name.startswith("Pipeline"):
+            compare("K16", out[0], torch_ntt.fwd_ntt(xp, plan14),
+                    f"main path: {name}, forward == the plain walk")
+            if not torch.equal(out[1], xp):
+                raise AssertionError(f"{name}: round trip failed")
+        elif "key_switch" in name:
+            compare("K11", out, ks_plain, f"main path: {name} == plain")
+        else:
+            compare("K9", out, dy_plain, f"main path: {name} == plain")
+    log(f"phase 4: every output of the fifth main path ({len(fifth)} calls) "
+        "== the port's single-device call and the plain path on the same "
+        "inputs; round trips exact")
+
     # -- 5. timings ---------------------------------------------------------
     def graph_ms(fn, inner):
         """Median device ms of one call of fn over 20 replays of a CUDA
@@ -1379,6 +1616,7 @@ def main() -> int:
         shoup = per_shoup32 if word == 32 else per_shoup
         butterflies = batch * (n // 2)
         if cross:
+            xf, xi = (v.view(batch, d, hier.LOCAL_N) for v in (xf, xi))
             run, fwd_plain = hier.cross, hier.cross_fwd_plain
             plain = lambda: (fwd_plain(xf, plan, word),
                              hier.cross_inv_plain(xi, plan, 1, word))
@@ -1634,6 +1872,61 @@ def main() -> int:
          4 * mplanes.numel() + 8 * values,
          values * (per_shoup + imads["mulhi64"] + imads["mullo64"]), None,
          int_mm))
+    # The parallel layer's kernels at bench.py's shape on the (1, 8) mesh
+    # (2^14, 60-bit, batch 256: a position holds 256 x 2048): one
+    # position's local pass (K6 with a shard base, the port of row 10) and
+    # its cross pass on the exchanged (256, 8, 256) block (K5 with a column
+    # stride), each forward + inverse; and K16, the pipeline's stage, as a
+    # whole forward + inverse of one microbatch (16 x 2^14) in 28 launches.
+    # Bytes: every coefficient read and written once per launch, and the
+    # twiddle entries read; operations: one Shoup per butterfly (two in the
+    # final inverse stage).
+    d8, l8 = 8, n14 // 8
+    xf, xi = rand((256, l8), q60), rand((256, l8), 2 * q60)
+    bf, bi = rand((256, d8, l8 // d8), q60), rand((256, d8, l8 // d8), 2 * q60)
+    butterflies = 256 * l8 // 2
+    cases["K6.shard"] = (
+        "ntt_fwd_kernel+ntt_inv_kernel<u64>, shard base (a DistNTT "
+        "position's local pass)", "hexl_tpu_torch/csrc/ntt_hier.cu",
+        "hexl_tpu/parallel/dist_ntt.py:287", "local pass fwd + inv of "
+        "position 3 of 8, 2^14, 60-bit q, batch 256 (L = 2^11)",
+        (lambda: (shard.local(xf, plan14, 3, d8, True, 1),
+                  shard.local(xi, plan14, 3, d8, False)),
+         lambda: (shard.local_fwd_plain(xf, plan14, 3, d8, 1),
+                  shard.local_inv_plain(xi, plan14, 3, d8)),
+         2 * 2 * 8 * 256 * l8 + 2 * 2 * 8 * (l8 - 1),
+         2 * (l8.bit_length() - 1) * butterflies * per_shoup))
+    cases["K5.col"] = (
+        "cross_fwd_kernel+cross_inv_kernel<u64, 3>, column stride 256 (a "
+        "DistNTT position's cross pass)", "hexl_tpu_torch/csrc/ntt_hier.cu",
+        "hexl_tpu/ntt/hier.py:164 (and the jnp cross stages of "
+        "hexl_tpu/parallel/dist_ntt.py:152-216)",
+        "cross pass fwd + inv on the exchanged (256, 8, 256) block, 2^14, "
+        "60-bit q",
+        (lambda: (hier.cross(bf, plan14, True),
+                  hier.cross(bi, plan14, False, 1)),
+         lambda: (hier.cross_fwd_plain(bf, plan14),
+                  hier.cross_inv_plain(bi, plan14, 1)),
+         2 * 2 * 8 * 256 * l8 + 2 * 8 * (2 * d8 - 3),
+         (2 * (d8.bit_length() - 1) + 1) * butterflies * per_shoup))
+    xs16 = rand((16, n14), q60)
+    cases["K16"] = (
+        "stage_kernel, one radix-2 stage per launch",
+        "hexl_tpu_torch/csrc/stage.cu",
+        "port-only: hexl_tpu/parallel/pipeline.py:80-122 (jnp stages in "
+        "shard_map; no pallas_call)",
+        "a whole fwd + inv (28 stages) of a 16 x 2^14 microbatch, 60-bit q",
+        (lambda: (pipeline.stages(xs16, plan14, True, 0, plan14.log_n, 1),
+                  pipeline.stages(xs16, plan14, False, 0, plan14.log_n, 1)),
+         lambda: (pipeline.stages_plain(xs16, plan14, True, 0, plan14.log_n,
+                                        1),
+                  pipeline.stages_plain(xs16, plan14, False, 0, plan14.log_n,
+                                        1)),
+         2 * plan14.log_n * 2 * 8 * 16 * n14 + 2 * 2 * 8 * n14,
+         (2 * plan14.log_n + 1) * 16 * (n14 // 2) * per_shoup))
+    # Entries whose launches are counted under another kernel's name: the
+    # fifth path's K6 and K5 launches are all DistNTT positions'.
+    counted_as = {"K6.shard": "K6", "K5.col": "K5"}
     entries = []
     for name, (desc, source, replaces, shape, case) in cases.items():
         kernel, plain, nbytes, nops = case[:4]
@@ -1650,8 +1943,11 @@ def main() -> int:
         entry = {
             "name": f"{name} {desc}", "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(counts.get(name, 0) for counts in
-                            (launches1, launches2, launches3, launches4)),
+            "launches": (launches5.get(counted_as[name], 0)
+                         if name in counted_as else
+                         sum(counts.get(name, 0) for counts in
+                             (launches1, launches2, launches3, launches4,
+                              launches5))),
             "max_abs_err": float(max_err[name]), "matched": True,
             "shape": shape, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
@@ -1770,6 +2066,30 @@ def main() -> int:
         f"{rns_ms:.4f} ms per call (events), {rns_graph_ms:.4f} ms replayed "
         f"from a CUDA graph; {sum(rns_launches.values())} launches per call "
         f"{rns_launches}")
+
+    # The fifth path per call: latency (events, median of 5), the same call
+    # replayed from a CUDA graph (its kernels and copies without host gaps),
+    # its launches by kernel, its exchange copies and their bytes, and the
+    # same work on one device (the single-device entry points) on the same
+    # inputs, both ways. Every mesh is one card: the ratios are the virtual
+    # mesh's overhead (its copies and its many smaller launches, serialised
+    # on one stream), not a scaling figure.
+    for name, (call, mesh, single) in fifth.items():
+        _build.reset_launches()
+        pmesh.reset_exchanges()
+        call()
+        torch.cuda.synchronize()
+        per_call, exch = dict(_build.launches), dict(pmesh.exchanges)
+        ms, one_ms = event_ms(call, 5), event_ms(single, 5)
+        replay, one_replay = graph_ms(call, 1), graph_ms(single, 1)
+        log(f"fifth path {name}: {ms:.4f} ms per call (events), "
+            f"{replay:.4f} ms replayed from a CUDA graph, on "
+            f"{mesh.distinct_devices()} distinct device(s) for "
+            f"{mesh.devices.size} positions; {sum(per_call.values())} "
+            f"launches per call {per_call}; {exch.get('copies', 0)} exchange "
+            f"copies of {exch.get('bytes', 0)} bytes; one device "
+            f"{one_ms:.4f} ms ({one_replay:.4f} replayed); mesh/one-device "
+            f"time {ms / one_ms:.2f}x ({replay / one_replay:.2f}x replayed)")
 
     # The eltwise ops through the public entry points at their Xeon rows'
     # shapes, per call (events, median of 50), against those rows. The

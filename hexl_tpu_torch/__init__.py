@@ -10,8 +10,12 @@ composites `dyadic_multiply`, `lr_mat_vec_mult` and `key_switch`, the
 four-step matmul NTT (`ntt.fwd_ntt_mxu`/`inv_ntt_mxu`) and the FFT-like of
 CKKS encode/decode (`FFTLike`, with `build_floating_points`), computed
 by hand-written CUDA kernels (`csrc/`) on the GPU and by their plain
-PyTorch versions on the CPU. Entry points run on CUDA unless the caller
-passes device="cpu". The JAX package `hexl_tpu` is the reference the port
+PyTorch versions on the CPU. The parallel layer, `hexl_tpu_torch.parallel`
+(the coefficient-sharded `DistNTT`, `dist_rns_poly_mult`, the
+stage-pipelined `PipelineNTT` and the sharded composites over a mesh of
+torch devices driven by this process), is imported on its own, not by this
+package, as in the JAX package. Entry points run on CUDA unless the caller
+passes device="cpu" (a mesh: devices=["cpu"] * k). The JAX package `hexl_tpu` is the reference the port
 is tested against; this package imports nothing of it.
 """
 

@@ -42,9 +42,9 @@ extern "C" int hexl_ntt_fwd(const u64* x, u64* y, const u64* rop,
                             cudaStream_t stream) {
   if (word == 32)
     return launch_fwd<u32>(x, y, rop, prop, q, log_n, batch, polys_per_cta,
-                           omf, 0, stream);
+                           omf, 0, 0, 0, stream);
   return launch_fwd<u64>(x, y, rop, prop, q, log_n, batch, polys_per_cta, omf,
-                         0, stream);
+                         0, 0, 0, stream);
 }
 
 extern "C" int hexl_ntt_inv(const u64* x, u64* y, const u64* irop,
@@ -56,9 +56,9 @@ extern "C" int hexl_ntt_inv(const u64* x, u64* y, const u64* irop,
     const InvFinal<u32> fin = {(u32)inv_n, (u32)inv_n_precon, (u32)inv_n_w,
                                (u32)inv_n_w_precon};
     return launch_inv<u32>(x, y, irop, pirop, q, fin, log_n, batch,
-                           polys_per_cta, omf, 0, stream);
+                           polys_per_cta, omf, 0, 0, 0, stream);
   }
   const InvFinal<u64> fin = {inv_n, inv_n_precon, inv_n_w, inv_n_w_precon};
   return launch_inv<u64>(x, y, irop, pirop, q, fin, log_n, batch,
-                         polys_per_cta, omf, 0, stream);
+                         polys_per_cta, omf, 0, 0, 0, stream);
 }

@@ -12,14 +12,20 @@
 //
 // A CTA holds either whole transforms of n = 2^log_n (log_d = 0: K1, K2,
 // K7), or shard `shard` of the 2^log_d contiguous shards of one transform
-// of degree 2^(log_n + log_d) (the local pass K6 of the two-pass split,
-// hexl_tpu_torch/ntt/hier.py). A shard runs the global stages of stride
-// t < n in place, with its twiddles read from the flat tables at its
-// offset: forward block k of the stage with m blocks per shard reads
-// rop[m * (2^log_d + shard) + k]; inverse block k at stride t reads
-// irop[root_index(t) + shard * n/(2t) + k]. With log_d = 0 these are the
-// flat walk's indices. The inverse of a shard stops before the global
-// final stage, which the cross pass K5 runs.
+// of degree 2^(log_n + log_d) (the local pass K6: of the two-pass split,
+// hexl_tpu_torch/ntt/hier.py, and of one position of the coefficient-
+// sharded transform, hexl_tpu_torch/parallel/dist_ntt.py). A shard runs
+// the global stages of stride t < n in place, with its twiddles read from
+// the flat tables at its offset: forward block k of the stage with m
+// blocks per shard reads rop[m * (2^log_d + shard) + k]; inverse block k
+// at stride t reads irop[root_index(t) + shard * n/(2t) + k]. With
+// log_d = 0 these are the flat walk's indices. The inverse of a shard
+// stops before the global final stage, which the cross pass K5 runs.
+// The CTAs of a launch hold consecutive chunks of x; the shard of CTA b
+// is shard_base + (b mod 2^log_sub): the two-pass split passes
+// (0, log_d), every shard of each polynomial in turn; a position of the
+// sharded transform passes its own shard (log_sub = 0), or its first
+// 2^14-coefficient sub-shard and their count when it holds more.
 //
 // W is the word the coefficients occupy in shared memory: u64, or u32 for
 // q < 2^30, where every lazy value is < 4q < 2^32 (the single-word regime
@@ -120,13 +126,13 @@ __global__ void __launch_bounds__(1024)
     ntt_fwd_kernel(const u64* __restrict__ x, u64* __restrict__ y,
                    const u64* __restrict__ rop, const u64* __restrict__ prop,
                    u64 q, int log_n, int chunks, int polys_per_cta, int omf,
-                   int log_d) {
+                   int log_d, int shard_base, int log_sub) {
   extern __shared__ __align__(16) unsigned char ntt_smem[];
   W* s = reinterpret_cast<W*>(ntt_smem);
   const long long first = (long long)blockIdx.x * polys_per_cta;
   const int polys = min(polys_per_cta, (int)(chunks - first));
   const int count = polys << log_n;
-  const int shard = blockIdx.x & ((1 << log_d) - 1);
+  const int shard = shard_base + (blockIdx.x & ((1 << log_sub) - 1));
   const u64* src = x + (first << log_n);
   u64* dst = y + (first << log_n);
   for (int i = threadIdx.x; i < count; i += blockDim.x) s[i] = (W)src[i];
@@ -142,13 +148,13 @@ __global__ void __launch_bounds__(1024)
                    const u64* __restrict__ irop,
                    const u64* __restrict__ pirop, u64 q, InvFinal<W> fin,
                    int log_n, int chunks, int polys_per_cta, int omf,
-                   int log_d) {
+                   int log_d, int shard_base, int log_sub) {
   extern __shared__ __align__(16) unsigned char ntt_smem[];
   W* s = reinterpret_cast<W*>(ntt_smem);
   const long long first = (long long)blockIdx.x * polys_per_cta;
   const int polys = min(polys_per_cta, (int)(chunks - first));
   const int count = polys << log_n;
-  const int shard = blockIdx.x & ((1 << log_d) - 1);
+  const int shard = shard_base + (blockIdx.x & ((1 << log_sub) - 1));
   const u64* src = x + (first << log_n);
   u64* dst = y + (first << log_n);
   for (int i = threadIdx.x; i < count; i += blockDim.x) s[i] = (W)src[i];
@@ -177,14 +183,16 @@ static int threads_for(int log_n, int polys_per_cta) {
 template <typename W>
 static int launch_fwd(const u64* x, u64* y, const u64* rop, const u64* prop,
                       u64 q, int log_n, int chunks, int polys_per_cta,
-                      int omf, int log_d, cudaStream_t stream) {
+                      int omf, int log_d, int shard_base, int log_sub,
+                      cudaStream_t stream) {
   const size_t smem = ((size_t)polys_per_cta << log_n) * sizeof(W);
   cudaError_t err = allow_smem(ntt_fwd_kernel<W>, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (chunks + polys_per_cta - 1) / polys_per_cta;
   ntt_fwd_kernel<W><<<grid, threads_for(log_n, polys_per_cta), smem,
                       stream>>>(x, y, rop, prop, q, log_n, chunks,
-                                polys_per_cta, omf, log_d);
+                                polys_per_cta, omf, log_d, shard_base,
+                                log_sub);
   return (int)cudaGetLastError();
 }
 
@@ -192,13 +200,15 @@ template <typename W>
 static int launch_inv(const u64* x, u64* y, const u64* irop,
                       const u64* pirop, u64 q, const InvFinal<W>& fin,
                       int log_n, int chunks, int polys_per_cta, int omf,
-                      int log_d, cudaStream_t stream) {
+                      int log_d, int shard_base, int log_sub,
+                      cudaStream_t stream) {
   const size_t smem = ((size_t)polys_per_cta << log_n) * sizeof(W);
   cudaError_t err = allow_smem(ntt_inv_kernel<W>, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (chunks + polys_per_cta - 1) / polys_per_cta;
   ntt_inv_kernel<W><<<grid, threads_for(log_n, polys_per_cta), smem,
                       stream>>>(x, y, irop, pirop, q, fin, log_n, chunks,
-                                polys_per_cta, omf, log_d);
+                                polys_per_cta, omf, log_d, shard_base,
+                                log_sub);
   return (int)cudaGetLastError();
 }

@@ -175,24 +175,37 @@ def fold(result: torch.Tensor, tpp: torch.Tensor, tntt: torch.Tensor,
 
 
 # The steps of the pipeline: through the wrappers (kernels on the GPU),
-# or through the plain versions on any device.
-_WRAPPERS = SimpleNamespace(
-    fwd=cuda_ntt.fwd_ntt, inv=cuda_ntt.inv_ntt,
+# or through the plain versions on any device. `plan` gives what the
+# transforms take for a prime; `constants` the basis's constants, as the
+# other steps take them; take, stack and unbind act on the pipeline's
+# values (tensors here, sharded values in `parallel.composites`).
+_TENSORS = dict(
+    plan=get_plan,
+    constants=lambda moduli, msf, ds, like: constants(moduli, msf, ds,
+                                                      like.device),
+    take=lambda x, i: x[i], stack=torch.stack,
+    unbind=lambda x: list(x.unbind(0)))
+WRAPPERS = SimpleNamespace(
+    **_TENSORS, fwd=cuda_ntt.fwd_ntt, inv=cuda_ntt.inv_ntt,
     reduce=lambda x, q: ops.reduce_mod(x, q, q, 1),
     mac_flush=mac_flush, spread=spread, fold=fold)
-_PLAIN = SimpleNamespace(
-    fwd=torch_ntt.fwd_ntt, inv=torch_ntt.inv_ntt,
+PLAIN = SimpleNamespace(
+    **_TENSORS, fwd=torch_ntt.fwd_ntt, inv=torch_ntt.inv_ntt,
     reduce=lambda x, q: torch_kernels.reduce_mod(x, q, q, 1),
     mac_flush=lambda t, keys, c, ds, kc, kms: mac_flush_plain(
         t, keys, c.mac, ds, kc, kms),
     spread=spread_plain, fold=fold_plain)
 
 
-def _pipeline(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
-    c = constants(moduli, msf, ds, t_target.device)
-    plans = [get_plan(n, q) for q in moduli[:ds]] + [get_plan(n, c.qk)]
+def pipeline(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
+    """The key switch's order of steps, with its lazy ranges, over the
+    values and steps of `steps` (WRAPPERS, PLAIN, or a mesh's)."""
+    c = steps.constants(moduli, msf, ds, t_target)
+    plans = [steps.plan(n, q) for q in moduli[:ds]] + [steps.plan(n,
+                                                                 moduli[-1])]
     # The target's inverse NTTs, (2, 1), one per decomposition prime.
-    t_intt = [steps.inv(t_target[j], plans[j], 2, 1) for j in range(ds)]
+    t_intt = [steps.inv(steps.take(t_target, j), plans[j], 2, 1)
+              for j in range(ds)]
     # Row i (the ds decomposition primes, then the key prime): the other
     # targets, base-converted to q_i and forward-transformed at (4, 4); at
     # j = i (i < ds) the target itself, already in NTT form.
@@ -201,22 +214,22 @@ def _pipeline(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
         js = [j for j in range(ds) if j != i]
         ops_i = []
         if js:
-            conv = steps.reduce(torch.stack([t_intt[j] for j in js]), plan.q)
-            ops_i = list(steps.fwd(conv, plan, 4, 4).unbind(0))
+            conv = steps.reduce(steps.stack([t_intt[j] for j in js]), plan.q)
+            ops_i = steps.unbind(steps.fwd(conv, plan, 4, 4))
         if i < ds:
-            ops_i.insert(i, t_target[i])
-        rows.append(torch.stack(ops_i))
-    tpp = steps.mac_flush(torch.stack(rows), keys, c, ds, kc, kms)
+            ops_i.insert(i, steps.take(t_target, i))
+        rows.append(steps.stack(ops_i))
+    tpp = steps.mac_flush(steps.stack(rows), keys, c, ds, kc, kms)
     # Mod-down: the key prime's row, (2, 2) inverse; the spread to every
     # q_i; the (4, 4) forward NTTs; the fold into result.
-    t_last = steps.inv(tpp[ds], plans[ds], 2, 2)
+    t_last = steps.inv(steps.take(tpp, ds), plans[ds], 2, 2)
     spread_out = steps.spread(t_last, c)
-    t_ntt = torch.stack([steps.fwd(spread_out[i], plans[i], 4, 4)
+    t_ntt = steps.stack([steps.fwd(steps.take(spread_out, i), plans[i], 4, 4)
                          for i in range(ds)])
     return steps.fold(result, tpp, t_ntt, c)
 
 
-def _arguments(result, t_target, n, ds, kms, rns, kc, moduli, keys, msf,
+def arguments(result, t_target, n, ds, kms, rns, kc, moduli, keys, msf,
                device):
     moduli = tuple(int(q) for q in moduli)
     msf = tuple(int(f) for f in msf)
@@ -254,11 +267,11 @@ def key_switch(result, t_target, n: int, decomp_modulus_size: int,
     modswitch_factors: decomp_modulus_size factors qk^-1 mod qi
     rns_modulus_size must be decomp_modulus_size + 1, as the JAX function
     requires. Operands and devices as in `dyadic_multiply`."""
-    args, host = _arguments(result, t_target, n, decomp_modulus_size,
+    args, host = arguments(result, t_target, n, decomp_modulus_size,
                             key_modulus_size, rns_modulus_size,
                             key_component_count, moduli, key_switch_keys,
                             modswitch_factors, device)
-    out = _pipeline(_WRAPPERS, *args)
+    out = pipeline(WRAPPERS, *args)
     return to_numpy(out) if host else out
 
 
@@ -269,9 +282,9 @@ def key_switch_plain(result, t_target, n: int, decomp_modulus_size: int,
                      device=None):
     """`key_switch` through the plain versions only, on any device: what
     the kernels are held against on the card."""
-    args, host = _arguments(result, t_target, n, decomp_modulus_size,
+    args, host = arguments(result, t_target, n, decomp_modulus_size,
                             key_modulus_size, rns_modulus_size,
                             key_component_count, moduli, key_switch_keys,
                             modswitch_factors, device)
-    out = _pipeline(_PLAIN, *args)
+    out = pipeline(PLAIN, *args)
     return to_numpy(out) if host else out

@@ -17,7 +17,10 @@ hier.py::_cross_call) and the local pass K6 (the kernels of
 read the plan's flat tables, a shard at its offset in them. `word` is 64,
 or 32 for the single-word regime of q < 2^30 (`ntt32`), which runs the
 u32 instantiation of both kernels. Launches are counted in
-`_build.launches` under "K5"/"K6", or "K5.u32"/"K6.u32".
+`_build.launches` under "K5"/"K6", or "K5.u32"/"K6.u32". `cross` takes
+any (..., D, w) block, the split's view of the whole transform or the
+exchanged block of a DistNTT position; `local_launch` takes the shard base
+that a position's local pass (`shard`) passes.
 """
 
 from __future__ import annotations
@@ -30,15 +33,18 @@ from .. import _build, nt
 from ..limb import reduce_mod_lazy64
 from . import torch_ntt
 
-LOCAL_N = 1 << 14
+LOG_LOCAL = 14
+LOCAL_N = 1 << LOG_LOCAL
 
 _P = ctypes.c_void_p
 _U = ctypes.c_uint64
 _I = ctypes.c_int
-_CROSS_FWD_ARGS = (_P, _P, _P, _P, _U, _I, _I, _I, _P)
-_CROSS_INV_ARGS = (_P, _P, _P, _P, _U, _U, _U, _U, _U, _I, _I, _I, _I, _P)
-_LOCAL_FWD_ARGS = (_P, _P, _P, _P, _U, _I, _I, _I, _I, _P)
-_LOCAL_INV_ARGS = (_P, _P, _P, _P, _U, _I, _I, _I, _P)
+_CROSS_FWD_ARGS = (_P, _P, _P, _P, _U, _I, _I, _I, _I, _I, _P)
+_CROSS_INV_ARGS = (_P, _P, _P, _P, _U, _U, _U, _U, _U, _I, _I, _I, _I, _I,
+                   _I, _I, _P)
+_LOCAL_FWD_ARGS = (_P, _P, _P, _P, _U, _I, _I, _I, _I, _I, _I, _I, _P)
+_LOCAL_INV_ARGS = (_P, _P, _P, _P, _U, _I, _I, _I, _I, _I, _I, _P)
+MAX_CROSS_ROWS = 64    # K5 holds at most 64 coefficients a thread
 
 
 def shards(plan) -> int:
@@ -55,8 +61,13 @@ def kernel_name(kernel: str, word: int) -> str:
 # -- plain versions: the flat walk cut at stride LOCAL_N --------------------
 
 def cross_fwd_plain(x: torch.Tensor, plan, word: int = 64) -> torch.Tensor:
-    """The forward stages of stride >= LOCAL_N (m < D blocks)."""
-    return torch_ntt.fwd_stages(x, plan, 1, shards(plan), word)
+    """The forward stages of stride >= N/D on a (..., D, w) block (its
+    rows at stride N/D, its columns adjacent): flattened, the flat walk's
+    first log2(D) stages, each pair of rows at the twiddle of the whole
+    transform."""
+    flat = x.reshape(*x.shape[:-2], -1)
+    return torch_ntt.fwd_stages(flat, plan, 1, x.shape[-2],
+                                word).reshape(x.shape)
 
 
 def local_fwd_plain(x: torch.Tensor, plan, omf: int,
@@ -76,43 +87,125 @@ def local_inv_plain(x: torch.Tensor, plan, word: int = 64) -> torch.Tensor:
 
 def cross_inv_plain(x: torch.Tensor, plan, omf: int,
                     word: int = 64) -> torch.Tensor:
-    """The inverse stages of stride >= LOCAL_N, the last fused with N^-1,
-    then the OMF reduction."""
-    shards(plan)
-    x = torch_ntt.inv_stages(x, plan, LOCAL_N, plan.n // 2, word)
-    return torch_ntt.inv_final(x, plan, omf, word)
+    """The inverse stages of stride >= N/D on a (..., D, w) block, the last
+    fused with N^-1, then the OMF reduction."""
+    flat = x.reshape(*x.shape[:-2], -1)
+    flat = torch_ntt.inv_stages(flat, plan, x.shape[-1], flat.shape[-1] // 2,
+                                word)
+    return torch_ntt.inv_final(flat, plan, omf, word).reshape(x.shape)
 
 
-# -- the kernel wrappers -----------------------------------------------------
+# -- the launches of K5 and K6 ----------------------------------------------
 
-def cross(x: torch.Tensor, plan, forward: bool, omf: int = 1,
-          word: int = 64) -> torch.Tensor:
-    """The cross pass of x (..., N): K5 on the GPU, the plain version on
-    the CPU. The forward ignores omf."""
-    log_d = nt.log2_exact(shards(plan))
-    if not _build.on_card(x):
-        if forward:
-            return cross_fwd_plain(x, plan, word)
-        return cross_inv_plain(x, plan, omf, word)
+def cross_launch(x: torch.Tensor, w: torch.Tensor, wp: torch.Tensor, plan,
+                 log_d: int, log_lc: int, forward: bool, omf: int = 1,
+                 final_stage: bool = True, word: int = 64,
+                 log_groups: int = 0) -> torch.Tensor:
+    """K5 on the (..., 2^log_d, 2^log_lc) blocks of x, a CUDA tensor: the
+    forward stages m = 1 .. D/2 with block k of stage m at w[m + k], or
+    the inverse stages with block k of the stage of m blocks at
+    w[D - 2m + k], ending with the global final stage x N^-1 and the OMF
+    (final_stage) or with an ordinary stage at w[D - 2]. With G =
+    2^log_groups, block b of x is group g = b mod G of G consecutive
+    blocks, the rows of one block of G D rows, and reads the twiddles of
+    that block's stages: forward w[m (G + g) + k], inverse
+    w[G (D - 2m) + g m + k] (no final stage)."""
+    if not 2 <= 1 << log_d <= MAX_CROSS_ROWS:
+        raise ValueError(f"K5 takes 2 to {MAX_CROSS_ROWS} rows, got "
+                         f"{1 << log_d}")
     out = torch.empty_like(x)
-    batch = _build.batch_of(x, plan.n)
+    batch = _build.batch_of(x, 1 << (log_d + log_lc))
     if batch == 0:
         return out
     name = kernel_name("K5", word)
     if forward:
-        rop, prop = plan.twiddles(x.device, True, word)
         fn = _build.function("ntt_hier", "hexl_cross_fwd", _CROSS_FWD_ARGS)
         _build.launch_on(x.device, name, fn, x.data_ptr(), out.data_ptr(),
-                         rop.data_ptr(), prop.data_ptr(), plan.q, log_d, batch,
-                         word)
+                         w.data_ptr(), wp.data_ptr(), plan.q, log_d, log_lc,
+                         log_groups, batch, word)
     else:
-        irop, pirop = plan.twiddles(x.device, False, word)
-        start = torch_ntt.root_index(plan.n, LOCAL_N)
         fn = _build.function("ntt_hier", "hexl_cross_inv", _CROSS_INV_ARGS)
         _build.launch_on(x.device, name, fn, x.data_ptr(), out.data_ptr(),
-                         irop[start:].data_ptr(), pirop[start:].data_ptr(),
-                         plan.q, *plan.fin(word), log_d, batch, omf, word)
+                         w.data_ptr(), wp.data_ptr(), plan.q, *plan.fin(word),
+                         log_d, log_lc, log_groups, batch, omf,
+                         int(final_stage), word)
     return out
+
+
+def local_launch(x: torch.Tensor, plan, forward: bool, omf: int, log_n: int,
+                 log_d: int, shard_base: int, log_sub: int,
+                 word: int = 64) -> torch.Tensor:
+    """K6 on the 2^log_n-coefficient chunks of x, a CUDA tensor: chunk c is
+    shard shard_base + (c mod 2^log_sub) of a transform of degree
+    2^(log_n + log_d). The inverse ignores omf."""
+    out = torch.empty_like(x)
+    chunks = _build.batch_of(x, 1 << log_n)
+    if chunks == 0:
+        return out
+    name = kernel_name("K6", word)
+    w, wp = plan.twiddles(x.device, forward, word)
+    if forward:
+        fn = _build.function("ntt_hier", "hexl_local_fwd", _LOCAL_FWD_ARGS)
+        _build.launch_on(x.device, name, fn, x.data_ptr(), out.data_ptr(),
+                         w.data_ptr(), wp.data_ptr(), plan.q, log_n, log_d,
+                         shard_base, log_sub, chunks, omf, word)
+    else:
+        fn = _build.function("ntt_hier", "hexl_local_inv", _LOCAL_INV_ARGS)
+        _build.launch_on(x.device, name, fn, x.data_ptr(), out.data_ptr(),
+                         w.data_ptr(), wp.data_ptr(), plan.q, log_n, log_d,
+                         shard_base, log_sub, chunks, word)
+    return out
+
+
+# -- the kernel wrappers -----------------------------------------------------
+
+def _cross_table(plan, device, forward: bool, word: int, rows: int):
+    """K5's twiddles for the cross stages of `rows` rows of stride N/rows:
+    the forward table whole, the inverse one from its stage of that
+    stride on (taken from the rows: a block may be a slice of the
+    columns, so its width says nothing of the stride)."""
+    w, wp = plan.twiddles(device, forward, word)
+    if forward:
+        return w, wp
+    start = torch_ntt.root_index(plan.n, plan.n // rows)
+    return w[start:], wp[start:]
+
+
+def cross(x: torch.Tensor, plan, forward: bool, omf: int = 1,
+          word: int = 64) -> torch.Tensor:
+    """The cross pass of a (..., D, w) block: K5 with column stride w on
+    the GPU, the plain version on the CPU. The split passes the whole
+    transform as (..., N/LOCAL_N, LOCAL_N); a DistNTT position its
+    exchanged (..., D, L/D) block, or a slice of its columns. The forward
+    ignores omf.
+
+    K5 holds at most MAX_CROSS_ROWS rows a thread. More rows, D = A B,
+    run as two launches: the stages that pair rows of different groups of
+    B consecutive rows (on the (..., A, B w) view), and the stages within
+    a group (on the (... A, B, w) view, each group with its own
+    twiddles)."""
+    if not _build.on_card(x):
+        if forward:
+            return cross_fwd_plain(x, plan, word)
+        return cross_inv_plain(x, plan, omf, word)
+    log_d = nt.log2_exact(x.shape[-2])
+    log_w = nt.log2_exact(x.shape[-1])
+    log_a = log_d if 1 << log_d <= MAX_CROSS_ROWS else log_d // 2
+    log_b = log_d - log_a
+
+    def across(v):
+        return cross_launch(
+            v, *_cross_table(plan, v.device, forward, word, 1 << log_a), plan,
+            log_a, log_b + log_w, forward, omf, True, word)
+
+    def within(v):
+        return cross_launch(
+            v, *_cross_table(plan, v.device, forward, word, 1 << log_d), plan,
+            log_b, log_w, forward, omf, False, word, log_a)
+
+    if log_b == 0:
+        return across(x)
+    return within(across(x)) if forward else across(within(x))
 
 
 def local(x: torch.Tensor, plan, forward: bool, omf: int = 1,
@@ -124,33 +217,24 @@ def local(x: torch.Tensor, plan, forward: bool, omf: int = 1,
         if forward:
             return local_fwd_plain(x, plan, omf, word)
         return local_inv_plain(x, plan, word)
-    out = torch.empty_like(x)
-    _build.batch_of(x, LOCAL_N)      # the kernel counts shards in a C int
-    batch = _build.batch_of(x, plan.n)
-    if batch == 0:
-        return out
-    name = kernel_name("K6", word)
-    w, wp = plan.twiddles(x.device, forward, word)
-    if forward:
-        fn = _build.function("ntt_hier", "hexl_local_fwd", _LOCAL_FWD_ARGS)
-        _build.launch_on(x.device, name, fn, x.data_ptr(), out.data_ptr(),
-                         w.data_ptr(), wp.data_ptr(), plan.q, log_d, batch,
-                         omf, word)
-    else:
-        fn = _build.function("ntt_hier", "hexl_local_inv", _LOCAL_INV_ARGS)
-        _build.launch_on(x.device, name, fn, x.data_ptr(), out.data_ptr(),
-                         w.data_ptr(), wp.data_ptr(), plan.q, log_d, batch,
-                         word)
-    return out
+    return local_launch(x, plan, forward, omf, LOG_LOCAL, log_d, 0, log_d,
+                        word)
+
+
+def _blocks(x: torch.Tensor, plan) -> torch.Tensor:
+    """x (..., N) as the cross pass's (..., D, LOCAL_N) block."""
+    return x.reshape(*x.shape[:-1], shards(plan), LOCAL_N)
 
 
 def fwd_ntt(x: torch.Tensor, plan, omf: int = 1,
             word: int = 64) -> torch.Tensor:
     """Forward NTT of x (..., N), N > 2^14: cross pass, then local pass."""
-    return local(cross(x, plan, True, omf, word), plan, True, omf, word)
+    c = cross(_blocks(x, plan), plan, True, omf, word).reshape(x.shape)
+    return local(c, plan, True, omf, word)
 
 
 def inv_ntt(x: torch.Tensor, plan, omf: int = 1,
             word: int = 64) -> torch.Tensor:
     """Inverse NTT of x (..., N), N > 2^14: local pass, then cross pass."""
-    return cross(local(x, plan, False, omf, word), plan, False, omf, word)
+    loc = local(x, plan, False, omf, word)
+    return cross(_blocks(loc, plan), plan, False, omf, word).reshape(x.shape)

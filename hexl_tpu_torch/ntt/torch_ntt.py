@@ -69,21 +69,34 @@ def _join(nx: torch.Tensor, ny: torch.Tensor, n: int) -> torch.Tensor:
     return out.reshape(*out.shape[:-3], n)
 
 
+def fwd_index(m: int, shard: int = 0, shards: int = 1) -> int:
+    """Where block 0 of a forward stage with m blocks per shard starts in
+    rop, for shard `shard` of `shards` contiguous shards: the global stage
+    has m * shards blocks, starting at index m * shards."""
+    return m * (shards + shard)
+
+
 def fwd_stages(x: torch.Tensor, plan, m_first: int, m_stop: int,
-               word: int = 64) -> torch.Tensor:
-    """The forward stages with m_first <= m < m_stop blocks (stride
-    t = N/(2m)); block k reads rop[m + k]. Inputs [0, 4q) -> [0, 4q).
-    Butterfly: X' = red2q(X) + T, Y' = red2q(X) + 2q - T with
-    T = shoup(Y, W) in [0, 2q)."""
+               word: int = 64, shard: int = 0,
+               shards: int = 1) -> torch.Tensor:
+    """The forward stages with m_first <= m < m_stop blocks over x's last
+    axis (stride t = n/(2m), n = x.shape[-1]); block k reads
+    rop[fwd_index(m, shard, shards) + k]. With shards = 1, x (..., N) is
+    the whole transform; with shards = D, x holds shard `shard` of the D
+    contiguous shards of N/D coefficients and runs its stages of stride
+    < N/D. Inputs [0, 4q) -> [0, 4q). Butterfly: X' = red2q(X) + T,
+    Y' = red2q(X) + 2q - T with T = shoup(Y, W) in [0, 2q)."""
     rop, prop = plan.twiddles(x.device, True, word)
     shoup = _shoup(word)
-    n, q = plan.n, plan.q
+    n, q = x.shape[-1], plan.q
     two_q = s64(2 * q)
     m = m_first
     while m < m_stop:
+        first = fwd_index(m, shard, shards)
         xs, ys = _split(x, m, n // (2 * m))
         tx = cond_sub64_half(xs, two_q)
-        tt = shoup(ys, rop[m:2 * m, None], prop[m:2 * m, None], q)
+        tt = shoup(ys, rop[first:first + m, None], prop[first:first + m, None],
+                   q)
         x = _join(tx + tt, tx + two_q - tt, n)
         m *= 2
     return x
@@ -99,34 +112,45 @@ def root_index(n: int, t: int) -> int:
     return index
 
 
+def inv_index(n: int, m: int, shard: int = 0, shards: int = 1) -> int:
+    """Where block 0 of an inverse stage with m blocks per shard starts in
+    irop, for shard `shard` of `shards`: the global stage has m * shards
+    blocks (stride N/(2 m shards))."""
+    return root_index(n, n // (2 * m * shards)) + shard * m
+
+
 def inv_stages(x: torch.Tensor, plan, t_first: int, t_stop: int,
-               word: int = 64) -> torch.Tensor:
-    """The inverse stages of stride t_first <= t < t_stop (t_stop <= N/2:
-    the last stage is `inv_final`). Inputs [0, 2q) -> [0, 2q)."""
+               word: int = 64, shard: int = 0,
+               shards: int = 1) -> torch.Tensor:
+    """The inverse stages of stride t_first <= t < t_stop over x's last
+    axis (m = n/(2t) blocks, n = x.shape[-1]); block k reads
+    irop[inv_index(N, m, shard, shards) + k]. x and the shards as in
+    `fwd_stages`; for the whole transform t_stop <= N/2, the last stage
+    being `inv_final`. Inputs [0, 2q) -> [0, 2q)."""
     irop, pirop = plan.twiddles(x.device, False, word)
     shoup = _shoup(word)
-    n, q = plan.n, plan.q
+    n, q = x.shape[-1], plan.q
     two_q = s64(2 * q)
-    index = root_index(n, t_first)
     t = t_first
     while t < t_stop:
         m = n // (2 * t)
+        index = inv_index(plan.n, m, shard, shards)
         xs, ys = _split(x, m, t)
         tx = cond_sub64_half(xs + ys, two_q)
         ty = xs + two_q - ys
         x = _join(tx, shoup(ty, irop[index:index + m, None],
                             pirop[index:index + m, None], q), n)
-        index += m
         t *= 2
     return x
 
 
 def inv_final(x: torch.Tensor, plan, omf: int,
               word: int = 64) -> torch.Tensor:
-    """The last inverse stage (stride N/2) fused with the scale by N^-1:
-    outputs [0, 2q), or [0, q) for OMF 1."""
+    """The last inverse stage (stride N/2, pairing the halves of x's last
+    axis) fused with the scale by N^-1: outputs [0, 2q), or [0, q) for
+    OMF 1."""
     shoup = _shoup(word)
-    n, q = plan.n, plan.q
+    n, q = x.shape[-1], plan.q
     two_q = s64(2 * q)
     inv_n, inv_n_precon, inv_n_w, inv_n_w_precon = plan.fin(word)
     xs, ys = _split(x, 1, n // 2)

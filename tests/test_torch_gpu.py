@@ -91,12 +91,14 @@ def test_split_kernels_match_plain(cuda, n, batch, q_bits):
          else nt.generate_primes(1, q_bits, True, ntt_size=n)[0])
     plan = get_plan(n, q)
     rng = np.random.default_rng(n + q_bits)
+    blocks = (batch, n // hier.LOCAL_N, hier.LOCAL_N)
     for word in ((64, 32) if q_bits < 30 else (64,)):
         for omf in (1, 4):
             x = _rand(rng, (batch, n), 4 * q, cuda)
-            got = hier.cross(x, plan, True, omf, word)
+            got = hier.cross(x.view(blocks), plan, True, omf, word)
             torch.cuda.synchronize()
-            assert torch.equal(got, hier.cross_fwd_plain(x, plan, word))
+            assert torch.equal(got, hier.cross_fwd_plain(x.view(blocks), plan,
+                                                         word))
             got = hier.local(x, plan, True, omf, word)
             torch.cuda.synchronize()
             assert torch.equal(got, hier.local_fwd_plain(x, plan, omf, word))
@@ -105,9 +107,10 @@ def test_split_kernels_match_plain(cuda, n, batch, q_bits):
             got = hier.local(x, plan, False, omf, word)
             torch.cuda.synchronize()
             assert torch.equal(got, hier.local_inv_plain(x, plan, word))
-            got = hier.cross(x, plan, False, omf, word)
+            got = hier.cross(x.view(blocks), plan, False, omf, word)
             torch.cuda.synchronize()
-            assert torch.equal(got, hier.cross_inv_plain(x, plan, omf, word))
+            assert torch.equal(got, hier.cross_inv_plain(x.view(blocks), plan,
+                                                         omf, word))
 
 
 @pytest.mark.parametrize("n,batch", [(1 << 10, 401), (1 << 15, 3)])
@@ -520,3 +523,140 @@ def test_slice4_entry_points_never_take_the_plain_path(cuda, monkeypatch):
     assert dict(_build.launches) == {
         "K12.f64": 2, "K13.f64": 2, "K12.f32": 2, "K13.f32": 2,
         "K12.df": 2, "K13.df": 2, "K14": 2, "K15": 2}
+
+
+# -- the parallel layer -------------------------------------------------------
+
+@pytest.mark.parametrize("d,log_n,q_bits", [(2, 12, 61), (4, 15, 30),
+                                            (8, 14, 50), (16, 17, 60),
+                                            (128, 15, 50), (256, 17, 61)])
+def test_column_stride_cross_kernel_matches_plain(cuda, d, log_n, q_bits):
+    """K5 on DistNTT's exchanged (batch, D, lc) blocks, lc = N/D^2 (and a
+    slice of the chunk axis, as overlap_slices cuts it), forward and
+    inverse at both OMFs; above 64 rows, its two launches."""
+    n = 1 << log_n
+    q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+    plan = get_plan(n, q)
+    rng = np.random.default_rng(n + d)
+    lc = n // (d * d)
+    for batch, width in ((1, lc), (3, lc), (2, max(1, lc // 4))):
+        x = _rand(rng, (batch, d, width), 4 * q, cuda)
+        got = hier.cross(x, plan, True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, hier.cross_fwd_plain(x, plan))
+        x = _rand(rng, (batch, d, width), 2 * q, cuda)
+        for omf in (1, 2):
+            got = hier.cross(x, plan, False, omf)
+            torch.cuda.synchronize()
+            assert torch.equal(got, hier.cross_inv_plain(x, plan, omf))
+
+
+@pytest.mark.parametrize("d,log_n", [(4, 12), (8, 14), (2, 15), (4, 17),
+                                     (2, 17)])
+def test_shard_base_local_kernel_matches_plain(cuda, d, log_n):
+    """K6 with a shard base at every position (and, for a shard above
+    2^14, K5 on its intra-shard stages), forward at both OMFs and
+    inverse."""
+    from hexl_tpu_torch.ntt import shard
+    n = 1 << log_n
+    q = nt.generate_primes(1, 61, True, ntt_size=n)[0]
+    plan = get_plan(n, q)
+    rng = np.random.default_rng(n + d)
+    for r in range(d):
+        x = _rand(rng, (3, n // d), 4 * q, cuda)
+        for omf in (1, 4):
+            got = shard.local(x, plan, r, d, True, omf)
+            torch.cuda.synchronize()
+            assert torch.equal(got, shard.local_fwd_plain(x, plan, r, d, omf))
+        x = _rand(rng, (3, n // d), 2 * q, cuda)
+        got = shard.local(x, plan, r, d, False)
+        torch.cuda.synchronize()
+        assert torch.equal(got, shard.local_inv_plain(x, plan, r, d))
+
+
+@pytest.mark.parametrize("log_n,q_bits", [(10, 30), (14, 61), (17, 50)])
+def test_stage_kernel_matches_plain(cuda, log_n, q_bits):
+    """K16 at every stage, the fused final stage at OMF 1 and 2 (4 and 1
+    forward), and a whole transform of single-stage launches."""
+    from hexl_tpu_torch.parallel import pipeline
+    n = 1 << log_n
+    q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+    plan = get_plan(n, q)
+    rng = np.random.default_rng(log_n)
+    for k in range(log_n):
+        last = k == log_n - 1
+        for forward, bound, omfs in ((True, 4 * q, (1, 4) if last else (4,)),
+                                     (False, 2 * q, (1, 2) if last else (2,))):
+            x = _rand(rng, (2, n), bound, cuda)
+            for omf in omfs:
+                got = pipeline.stages(x, plan, forward, k, k + 1, omf)
+                torch.cuda.synchronize()
+                assert torch.equal(got, pipeline.stages_plain(
+                    x, plan, forward, k, k + 1, omf))
+    x = _rand(rng, (2, n), q, cuda)
+    assert torch.equal(pipeline.stages(x, plan, True, 0, log_n, 1),
+                       torch_ntt.fwd_ntt(x, plan))
+    assert torch.equal(pipeline.stages(x, plan, False, 0, log_n, 1),
+                       torch_ntt.inv_ntt(x, plan))
+
+
+def test_parallel_layer_on_a_one_card_mesh(cuda, monkeypatch):
+    """DistNTT, its product, PipelineNTT and the sharded composites on
+    meshes of cuda:0 positions equal the single-device calls, through
+    K4-K6, K8-K11 and K16 only (the plain walks refuse)."""
+    from hexl_tpu_torch.parallel import (DistNTT, PipelineNTT,
+                                         dist_dyadic_multiply,
+                                         dist_key_switch, dist_rns_poly_mult,
+                                         make_mesh, make_pipeline_mesh)
+    n = 1 << 15
+    rng = np.random.default_rng(5)
+    q = nt.generate_primes(1, 50, True, ntt_size=n)[0]
+    x = rng.integers(0, q, size=(2, n), dtype=np.uint64)
+    engine = NTT(n, q)
+    want_fwd, want_prod = engine.forward(x, 1, 4), poly_mult_mod(x, x, n, q)
+    q2 = nt.generate_primes(2, 50, True, ntt_size=n)
+    xs = rng.integers(0, min(q2), size=(2, 2, n), dtype=np.uint64)
+    want_rns = rns_poly_mult_mod(xs, xs, n, q2)
+    q12 = nt.generate_primes(1, 60, True, ntt_size=1 << 12)[0]
+    xp = rng.integers(0, q12, size=(5, 2, 1 << 12), dtype=np.uint64)
+    want_pipe = NTT(1 << 12, q12).forward(xp)
+    result, t, keys, moduli, msf = _key_switch_inputs(rng, 1 << 14,
+                                                      (49, 49, 49, 49), 2,
+                                                      cuda)
+    want_ks = key_switch(result, t, 1 << 14, 3, 4, 4, 2, moduli, keys, msf)
+    c = torch.stack([t[:2], t[:2]])
+    want_dy = dyadic_multiply(c, c, moduli[:2])
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for name in ("fwd_stages", "inv_stages", "inv_final"):
+        monkeypatch.setattr(torch_ntt, name, refuse)
+    for name in ("dyadic_plain", "mac_flush_plain", "spread_plain",
+                 "fold_plain"):
+        monkeypatch.setattr(dyadic_mod if name == "dyadic_plain" else ks_mod,
+                            name, refuse)
+    monkeypatch.setattr(torch_kernels, "mult_mod", refuse)
+    _build.reset_launches()
+    for d, nb in ((4, 2), (8, 1), (2, 1), (128, 1)):
+        mesh = make_mesh(d, nb, ["cuda:0"] * (d * nb))
+        dist = DistNTT(n, q, mesh, overlap_slices=2)
+        np.testing.assert_array_equal(dist.forward(x, 1, 4), want_fwd)
+        np.testing.assert_array_equal(dist.inverse(want_fwd % np.uint64(q)),
+                                      x)
+        np.testing.assert_array_equal(dist.poly_mult(x, x), want_prod)
+        np.testing.assert_array_equal(dist_rns_poly_mult(xs, xs, n, q2, mesh),
+                                      want_rns)
+    ring = make_pipeline_mesh(8, ["cuda:0"] * 8)
+    np.testing.assert_array_equal(
+        PipelineNTT(1 << 12, q12, ring).forward(xp), want_pipe)
+    mesh = make_mesh(4, 2, ["cuda:0"] * 8)
+    got = dist_key_switch(result, t, 1 << 14, 3, 4, 4, 2, moduli, keys, msf,
+                          mesh)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want_ks)
+    assert torch.equal(dist_dyadic_multiply(c, c, moduli[:2], mesh), want_dy)
+    launched = dict(_build.launches)
+    assert all(launched.get(k, 0) > 0 for k in
+               ("K4", "K5", "K6", "K8.reduce", "K9", "K10", "K11",
+                "K16")), launched

@@ -38,12 +38,19 @@ def _prime(q_bits, n):
     return jnt.generate_primes(1, q_bits, True, ntt_size=n)[0]
 
 
+def _blocks(x, plan):
+    """x (..., N) as the cross pass's (..., N/2^14, 2^14) block."""
+    return x.reshape(*x.shape[:-1], hier.shards(plan), hier.LOCAL_N)
+
+
 def _split_fwd(x, plan, omf):
-    return hier.local_fwd_plain(hier.cross_fwd_plain(x, plan), plan, omf)
+    c = hier.cross_fwd_plain(_blocks(x, plan), plan).reshape(x.shape)
+    return hier.local_fwd_plain(c, plan, omf)
 
 
 def _split_inv(x, plan, omf):
-    return hier.cross_inv_plain(hier.local_inv_plain(x, plan), plan, omf)
+    loc = _blocks(hier.local_inv_plain(x, plan), plan)
+    return hier.cross_inv_plain(loc, plan, omf).reshape(x.shape)
 
 
 def _check(n, q, batch, fwd_factors, inv_factors, seed):
@@ -181,6 +188,6 @@ def test_split_errors():
     n = 1 << 14
     plan = get_plan(n, _prime(50, n))
     with pytest.raises(ValueError, match="2\\^14"):
-        hier.cross_fwd_plain(torch.zeros(n, dtype=torch.int64), plan)
+        hier.fwd_ntt(torch.zeros(n, dtype=torch.int64), plan)
     with pytest.raises(ValueError, match="2\\^14"):
         hier.local(torch.zeros(n, dtype=torch.int64), plan, True)

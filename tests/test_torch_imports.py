@@ -165,3 +165,25 @@ def test_build_dir_is_keyed_on_the_sources(tmp_path, monkeypatch):
     (csrc / "u.cuh").write_text("// header, changed\n")
     assert _build.build_dir() != first
     assert _build.build_dir().parent == _build.BUILD_ROOT
+
+
+def test_slice5_entry_points_default_to_cuda():
+    """The parallel layer is in the package (and under the import guard
+    above), and a mesh with devices=None wants one card per position: it
+    raises without them and never lays positions over fewer cards or the
+    CPU by itself."""
+    from hexl_tpu_torch.parallel import make_mesh, make_pipeline_mesh
+    assert any(p.parent.name == "parallel" for p in PORT_FILES)
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    for make, count in ((lambda: make_mesh(2, 2), 4),
+                        (lambda: make_mesh(cards + 1), cards + 1),
+                        (lambda: make_pipeline_mesh(cards + 1), cards + 1)):
+        if cards >= count:
+            assert {d.type for d in make().devices.flat} == {"cuda"}
+            continue
+        with pytest.raises(RuntimeError, match="CUDA devices"):
+            make()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_mesh(2, 1, ["cuda:0"] * 2)
+    assert make_mesh(4, 2, ["cpu"] * 8).shape == {"batch": 2, "coeff": 4}
