@@ -8,8 +8,10 @@ Run from the root of the repository on a machine with an H100:
 Phases, each of which fails the run (non-zero exit) if anything is wrong:
   1. the card: CUDA present; its name and power limit from nvidia-smi;
   2. build: every kernel compiled from csrc/ with nvcc for sm_90a, with
-     the compiler's -Xptxas -v report, and four probe kernels whose SASS
-     gives the IMADs of a 64x64 and of a 32x32 high and low product;
+     the compiler's -Xptxas -v report (the run fails if a lean or chain
+     instantiation spills), and five probe kernels whose SASS gives the
+     IMADs of a 64x64 and of a 32x32 high and low product and of the lean
+     butterflies' approximate 64x64 high product;
   3. every kernel against its plain PyTorch version on the card, bit-exact:
      K1/K2 over N x q x the IMF/OMF matrix x batch, K3, K4; K5 and K6 (the
      cross and local passes of N > 2^14) at N in {2^15, 2^16, 2^17, 2^20}
@@ -68,7 +70,14 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      DistNTT at bench.py's shape on (1, 8), (2, 4) (also with two overlap
      slices) and (1, 1), PipelineNTT on a ring of 8, dist_key_switch and
      dist_dyadic_multiply; every output against the port's single-device
-     call and the plain path on the same inputs;
+     call and the plain path on the same inputs.
+     The sixth (see its comment in main): the approximate-butterfly regime
+     forced on: NTT(2^14) at 60 bits (lean8) and 59 bits (lean16) at batch
+     256, NTT(2^17, 50-bit) at batch 16 (lean16, K5/K6), NTT(2^10, 49-bit)
+     at batch 4096 (lean8, K2), rns_poly_mult_mod at N=2^17 x 16 primes of
+     50 bits; the K17 and K18 chains at the probes' shapes; every output
+     against the plain lean path, fully reduced ones against the exact
+     outputs, the K18 chains against each other;
   5. timings with CUDA events (median of 20): each kernel and its plain
      version at the main paths' shapes, beside the kernel's bound (and
      K5 at N=2^20, where a thread holds 64 coefficients); the
@@ -89,7 +98,11 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      with a shard base, K5 with a column stride and K16 beside their
      bounds; each call of the fifth path per call, with its launches, its
      exchange copies and bytes, the mesh's count of distinct devices and
-     the same work on one device.
+     the same work on one device; the lean instantiations, K17 and K18
+     beside their bounds, the lean against the exact pair at each
+     sixth-path shape (40 event timings each, in turns, with their spread,
+     and graph replays), the RNS product both ways, and the chains in
+     Gbfly/s.
 It then prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}.
 """
@@ -132,9 +145,11 @@ def nvidia_smi(query: str) -> str:
 
 
 # One multiply each, never launched: their SASS (cuobjdump) gives the
-# 32-bit IMADs that a 64x64 high and low product, and a 32x32 high and low
-# product, compile to: the operation term of each kernel's bound. Built
-# here only, not into the port's libraries.
+# 32-bit IMADs that a 64x64 high and low product, a 32x32 high and low
+# product, and the approximate 64x64 high product of the lean butterflies
+# (csrc/modarith.cuh mulhi64_approx6, spelt out) compile to: the operation
+# term of each kernel's bound. Built here only, not into the port's
+# libraries.
 SASS_PROBES = r"""
 extern "C" __global__ void sass_probe_mulhi64(const unsigned long long* a,
                                               const unsigned long long* b,
@@ -145,6 +160,20 @@ extern "C" __global__ void sass_probe_mullo64(const unsigned long long* a,
                                               const unsigned long long* b,
                                               unsigned long long* c) {
   c[0] = a[0] * b[0];
+}
+extern "C" __global__ void sass_probe_mulhi64a6(const unsigned long long* a,
+                                                const unsigned long long* b,
+                                                unsigned long long* c) {
+  const unsigned long long x = a[0], y = b[0];
+  const unsigned x0 = (unsigned)x, x1 = (unsigned)(x >> 32);
+  const unsigned y0 = (unsigned)y, y1 = (unsigned)(y >> 32);
+  const unsigned h01 = (x0 >> 16) * (y1 >> 16) +
+                       (((x0 & 0xFFFFu) * (y1 >> 16)) >> 16) +
+                       (((x0 >> 16) * (y1 & 0xFFFFu)) >> 16);
+  const unsigned h10 = (x1 >> 16) * (y0 >> 16) +
+                       (((x1 & 0xFFFFu) * (y0 >> 16)) >> 16) +
+                       (((x1 >> 16) * (y0 & 0xFFFFu)) >> 16);
+  c[0] = (unsigned long long)x1 * y1 + h01 + h10;
 }
 extern "C" __global__ void sass_probe_mulhi32(const unsigned int* a,
                                               const unsigned int* b,
@@ -157,7 +186,7 @@ extern "C" __global__ void sass_probe_mullo32(const unsigned int* a,
   c[0] = a[0] * b[0];
 }
 """
-SASS_KINDS = ("mulhi64", "mullo64", "mulhi32", "mullo32")
+SASS_KINDS = ("mulhi64", "mullo64", "mulhi32", "mullo32", "mulhi64a6")
 
 
 def start_sass_probes(nvcc: str, out_dir: pathlib.Path):
@@ -810,6 +839,151 @@ def parallel_kernel_checks(rng, dev, nt, get_plan, hier, shard, pipeline,
     return checks
 
 
+# The lean instantiations and the chain kernels: mangled names with the
+# scheme argument 1 (lean16) or 2 (lean8) after a u64 word, and K17/K18.
+NEW_INSTANTIATION = re.compile(r"chain_kernel|kernelIyLi[12]E")
+NEW_INSTANTIATIONS = 4 + 2 * 6 * 3 + 2 + 3   # K1/K2/K6, K5 fwd/inv, chains
+# Moduli of the lean checks: generate_primes(1, b) gives q in (2^b,
+# 2^(b+1)); "61" is the largest prime below 2^61, where 8q is just under
+# 2^64 (lean8's raw product range).
+LEAN_Q_BITS = (49, 59, 60, 61)
+
+
+def lean_modulus(nt, q_bits: int, n: int) -> int:
+    if q_bits == 61:
+        return nt.generate_primes(1, 60, False, ntt_size=n)[0]
+    return nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+
+
+def lean_schemes(torch_ntt, q: int) -> list:
+    """Every approximate scheme q allows (lean16 q < 2^60, lean8 < 2^61)."""
+    return [s for s, bound in (("lean16", torch_ntt.LEAN16_MAX_Q),
+                               ("lean8", torch_ntt.LEAN_APPROX_MAX_Q))
+            if q < bound]
+
+
+def lean_kernel_checks(rng, dev, nt, get_plan, cuda_ntt, hier, torch_ntt,
+                       to_tensor, compare, route):
+    """K1/K2 (N from 2 to 2^14) and K5/K6 (N in {2^15, 2^17, 2^20}) in
+    every lean scheme each modulus allows, against the plain lean walk, bit
+    for bit, over the IMF/OMF matrix; every fully reduced (OMF 1) lean
+    output also against the exact instantiation's. Returns the count."""
+    import numpy as np
+
+    def rand(shape, bound):
+        return to_tensor(rng.integers(0, bound, size=shape, dtype=np.uint64),
+                         dev)
+
+    checks = 0
+    for n in (2, 16, 1024, 4096, 1 << 13, 1 << 14):
+        for q_bits in LEAN_Q_BITS:
+            q = lean_modulus(nt, q_bits, n)
+            plan = get_plan(n, q)
+            for scheme, batch in itertools.product(lean_schemes(torch_ntt, q),
+                                                   (3, 401)):
+                kernel = hier.kernel_name(route(n, batch), 64, scheme)
+                what = f"n={n} q_bits={q_bits} {scheme} batch={batch}"
+                for imf in (1, 2, 4):
+                    x = rand((batch, n), imf * q)
+                    for omf in (1, 4):
+                        got = cuda_ntt.fwd_ntt(x, plan, imf, omf, 64, scheme)
+                        compare(kernel, got, torch_ntt.fwd_ntt(
+                            x, plan, imf, omf, 64, scheme),
+                            f"fwd {what} imf={imf} omf={omf}")
+                        checks += 1
+                        if omf == 1:
+                            compare(kernel, got, cuda_ntt.fwd_ntt(
+                                x, plan, imf, 1),
+                                f"fwd {what} imf={imf} OMF 1 == exact")
+                            checks += 1
+                for imf in (1, 2):
+                    x = rand((batch, n), imf * q)
+                    for omf in (1, 2):
+                        got = cuda_ntt.inv_ntt(x, plan, imf, omf, 64, scheme)
+                        compare(kernel, got, torch_ntt.inv_ntt(
+                            x, plan, imf, omf, 64, scheme),
+                            f"inv {what} imf={imf} omf={omf}")
+                        checks += 1
+                        if omf == 1:
+                            compare(kernel, got, cuda_ntt.inv_ntt(
+                                x, plan, imf, 1),
+                                f"inv {what} imf={imf} OMF 1 == exact")
+                            checks += 1
+    for n in (1 << 15, 1 << 17, 1 << 20):
+        for q_bits in LEAN_Q_BITS:
+            q = lean_modulus(nt, q_bits, n)
+            plan = get_plan(n, q)
+            batches = (1, 2) if n == 1 << 20 else (1, 3)
+            for scheme, batch in itertools.product(lean_schemes(torch_ntt, q),
+                                                   batches):
+                blocks = (batch, n // hier.LOCAL_N, hier.LOCAL_N)
+                k5 = hier.kernel_name("K5", 64, scheme)
+                k6 = hier.kernel_name("K6", 64, scheme)
+                what = f"n={n} q_bits={q_bits} {scheme} batch={batch}"
+                for imf in (1, 2, 4):
+                    x = rand(blocks, imf * q)
+                    c = hier.cross(x, plan, True, 1, 64, scheme)
+                    compare(k5, c, hier.cross_fwd_plain(x, plan, 64, scheme),
+                            f"cross fwd {what} imf={imf}")
+                    c = c.view(batch, n)
+                    for omf in (1, 4):
+                        compare(k6, hier.local(c, plan, True, omf, 64, scheme),
+                                hier.local_fwd_plain(c, plan, omf, 64, scheme),
+                                f"local fwd {what} imf={imf} omf={omf}")
+                    flat = x.view(batch, n)
+                    compare(k6, cuda_ntt.fwd_ntt(flat, plan, imf, 1, 64,
+                                                 scheme),
+                            cuda_ntt.fwd_ntt(flat, plan, imf, 1),
+                            f"fwd {what} imf={imf} OMF 1 == exact")
+                    checks += 4
+                for imf in (1, 2):
+                    x = rand((batch, n), imf * q)
+                    loc = hier.local(x, plan, False, 1, 64, scheme)
+                    compare(k6, loc, hier.local_inv_plain(x, plan, 64, scheme),
+                            f"local inv {what} imf={imf}")
+                    for omf in (1, 2):
+                        compare(k5, hier.cross(loc.view(blocks), plan, False,
+                                               omf, 64, scheme),
+                                hier.cross_inv_plain(loc.view(blocks), plan,
+                                                     omf, 64, scheme),
+                                f"cross inv {what} imf={imf} omf={omf}")
+                    compare(k5, cuda_ntt.inv_ntt(x, plan, imf, 1, 64, scheme),
+                            cuda_ntt.inv_ntt(x, plan, imf, 1),
+                            f"inv {what} imf={imf} OMF 1 == exact")
+                    checks += 4
+    return checks
+
+
+def chain_kernel_checks(rng, dev, chain, df_chain, compare, compare_fft):
+    """K17 (lean16 and its exact sibling) and K18 in every precision, at
+    the probes' shapes and on a ragged 7 x 143 elements, each against its
+    plain version, bit for bit. Returns the count."""
+    checks = 0
+    for shape in ((chain.ROWS, chain.LANES), (7, 143)):
+        x, y = chain.probe_inputs(rng, dev, *shape)
+        for scheme in ("lean16", "exact"):
+            got = chain.chain(x, y, chain.PROBE_W, chain.PROBE_Q, chain.REPS,
+                              scheme)
+            want = chain.chain_plain(x, y, chain.PROBE_W, chain.PROBE_Q,
+                                     chain.REPS, scheme)
+            for g, w, leg in zip(got, want, "xy"):
+                compare(chain.kernel_name(scheme), g, w,
+                        f"chain {scheme} {shape} {leg}")
+                checks += 1
+    for precision in df_chain.PRECISIONS:
+        w = df_chain.twiddle(precision, dev)
+        s = df_chain.shrink(precision)
+        for shape in ((df_chain.ROWS, df_chain.LANES), (7, 143)):
+            x, y = (fft_value(rng, shape, precision, dev) for _ in range(2))
+            got = df_chain.chain(x, y, w, s, precision)
+            want = df_chain.chain_plain(x, y, w, s, precision)
+            for g, v, leg in zip(got, want, "xy"):
+                compare_fft(df_chain.kernel_name(precision), g, v, precision,
+                            f"df chain {precision} {shape} {leg}")
+                checks += 1
+    return checks
+
+
 def ckks_words(coeffs, q_words):
     """A CKKS plaintext as the decryption would leave it: the real and
     imaginary parts of the encoded coefficients rounded to integers at
@@ -864,6 +1038,9 @@ def main() -> int:
                                          make_mesh, make_pipeline_mesh)
     from hexl_tpu_torch.parallel import mesh as pmesh
     from hexl_tpu_torch.parallel import pipeline
+    from hexl_tpu_torch import config as port_config
+    from hexl_tpu_torch.ntt import chain
+    from hexl_tpu_torch.experimental import df_chain
 
     dev = torch.device("cuda", 0)
     sms = cuda_ntt.sm_count(dev)
@@ -885,6 +1062,14 @@ def main() -> int:
     log(info["log"])
     imads = sass_imads(*probes)
     log(f"IMADs per product (SASS): {imads}")
+    resources = _build.kernel_resources(info["log"])
+    new = {k: v for k, v in resources.items() if NEW_INSTANTIATION.search(k)}
+    log(f"build: {len(new)} lean and chain instantiations (registers, stack, "
+        f"spill stores, spill loads): {new}")
+    spilled = {k: v for k, v in new.items() if v[2] or v[3] or v[2] is None}
+    if spilled or len(new) < NEW_INSTANTIATIONS:
+        raise AssertionError(f"of {NEW_INSTANTIATIONS} new instantiations "
+                             f"{len(new)} reported, spills: {spilled}")
 
     # -- 3. each kernel against its plain version, bit-exact ----------------
     max_err = {}
@@ -1066,6 +1251,11 @@ def main() -> int:
     # the parallel layer.
     checks += parallel_kernel_checks(rng, dev, nt, get_plan, hier, shard,
                                      pipeline, to_tensor, compare)
+    # The lean instantiations of K1/K2/K5/K6, and the chains K17 and K18.
+    checks += lean_kernel_checks(rng, dev, nt, get_plan, cuda_ntt, hier,
+                                 torch_ntt, to_tensor, compare, route)
+    checks += chain_kernel_checks(rng, dev, chain, df_chain, compare,
+                                  compare_fft)
     log(f"phase 3: {checks} kernel-vs-plain checks bit-exact in "
         f"{time.perf_counter() - t0:.1f} s; max_abs_err {max_err}")
 
@@ -1517,6 +1707,124 @@ def main() -> int:
         "== the port's single-device call and the plain path on the same "
         "inputs; round trips exact")
 
+    # The sixth: the approximate-butterfly regime of the JAX engine's device
+    # bodies, forced on (config.approx_butterflies, as the JAX tests force
+    # theirs): bench.py's shape at 60 bits (lean8) and 59 bits (lean16),
+    # NTT(2^17, 50-bit) at batch 16 (lean16 through K5/K6), NTT(2^10,
+    # 49-bit) at batch 4096 (lean8 through K2), BASELINE.json's RNS product
+    # at N=2^17 x 16 primes of 50 bits (lean16); and the two probes as their
+    # benchmarks run them: K17's lean16 chain and its exact sibling on two
+    # 16384 x 128 planes, K18 on 8192 x 128 in double-float, f64 and single.
+    q59 = nt.generate_primes(1, 59, True, ntt_size=n14)[0]
+    q50_17 = nt.generate_primes(1, 50, True, ntt_size=n17)[0]
+    sixth = {
+        "lean8": ("NTT(2^14, 60-bit), batch 256", ntt14,
+                  rand((256, n14), q60)),
+        "lean16": ("NTT(2^14, 59-bit), batch 256", NTT(n14, q59),
+                   rand((256, n14), q59)),
+        "lean16 split": ("NTT(2^17, 50-bit), batch 16", NTT(n17, q50_17),
+                         rand((SPLIT_BATCH, n17), q50_17)),
+        "lean8 packed": (f"NTT(2^10, 49-bit), batch {K2_BATCH}", ntt10,
+                         rand((K2_BATCH, n10), q49)),
+    }
+    cx, cy = chain.probe_inputs(rng, dev)
+    # One set of complex values in every precision, so that the three K18
+    # chains can be held against each other.
+    zxy = [fft_value(rng, (df_chain.ROWS, df_chain.LANES), "f64", dev)
+           for _ in range(2)]
+    dfx = {"f64": tuple(zxy),
+           "single": tuple(z.to(torch.complex64) for z in zxy),
+           "double_float": tuple(df32.cdf_from_complex128(z) for z in zxy)}
+    dfw = {p: (df_chain.twiddle(p, dev), df_chain.shrink(p))
+           for p in df_chain.PRECISIONS}
+    torch.cuda.synchronize()
+
+    exact_regime = port_config.approx_butterflies
+    port_config.approx_butterflies = lambda device: True
+    try:
+        _build.reset_launches()
+        outs6 = {}
+        for key, (_, e, x) in sixth.items():
+            y = e.forward(x)
+            outs6[key] = (y, e.forward(x, 1, 4), e.inverse(y))
+        rc6 = rns_poly_mult_mod(ra, rb, n17, moduli)
+        chains6 = {s: chain.chain(cx, cy, chain.PROBE_W, chain.PROBE_Q,
+                                  chain.REPS, s) for s in ("lean16", "exact")}
+        dfs6 = {p: df_chain.chain(*dfx[p], *dfw[p], p)
+                for p in df_chain.PRECISIONS}
+        torch.cuda.synchronize()
+        launches6 = dict(_build.launches)
+    finally:
+        port_config.approx_butterflies = exact_regime
+    log(f"phase 4: sixth main path's launches {launches6}")
+    sixth_kernels = ("K1.lean8", "K1.lean16", "K2.lean8", "K5.lean16",
+                     "K6.lean16", "K4", "K17", "K17.exact", "K18.df",
+                     "K18.f64", "K18.f32")
+    missing = [k for k in sixth_kernels if launches6.get(k, 0) < 1]
+    exact_names = [k for k in ("K1", "K2", "K5", "K6") if k in launches6]
+    if missing or exact_names:
+        raise AssertionError(f"sixth main path launched no {missing}; exact "
+                             f"instantiations {exact_names}")
+
+    # Every output against the plain lean path and, fully reduced, against
+    # the exact outputs on the same inputs (after the counts were read).
+    for key, (name, e, x) in sixth.items():
+        scheme = key.split()[0]
+        y, lazy, back = outs6[key]
+        fwd_k = ("K6" if e.plan.n > n14 else
+                 "K2" if key.endswith("packed") else "K1") + "." + scheme
+        inv_k = ("K5" if e.plan.n > n14 else fwd_k.split(".")[0]) + "." + \
+            scheme
+        compare(fwd_k, y, torch_ntt.fwd_ntt(x, e.plan, 1, 1, 64, scheme),
+                f"sixth path: {name}.forward == the plain lean walk")
+        compare(fwd_k, lazy, torch_ntt.fwd_ntt(x, e.plan, 1, 4, 64, scheme),
+                f"sixth path: {name}.forward OMF 4 == the plain lean walk")
+        compare(inv_k, back, torch_ntt.inv_ntt(y, e.plan, 1, 1, 64, scheme),
+                f"sixth path: {name}.inverse == the plain lean walk")
+        compare(fwd_k, y, torch_ntt.fwd_ntt(x, e.plan),
+                f"sixth path: {name}.forward == the exact output")
+        if not torch.equal(back, x):
+            raise AssertionError(f"sixth path: {name} round trip failed")
+        if int(to_numpy(lazy).max()) >= 4 * e.plan.q:
+            raise AssertionError(f"sixth path: {name} OMF 4 out of range")
+    for i, plan in enumerate(rns_plans):
+        fa, fb = (torch_ntt.fwd_ntt(v[i], plan, 1, 4, 64, "lean16")
+                  for v in (ra, rb))
+        plain = torch_ntt.inv_ntt(torch_kernels.mult_mod(fa, fb, plan.q, 4),
+                                  plan, 1, 1, 64, "lean16")
+        compare("K5.lean16", rc6[i], plain,
+                f"sixth path: rns_poly_mult_mod prime {i} == the plain lean "
+                "path")
+    compare("K5.lean16", rc6, rc, "sixth path: rns_poly_mult_mod == the "
+            "exact product of the second path")
+    for s_, (gx, gy) in chains6.items():
+        want = chain.chain_plain(cx, cy, chain.PROBE_W, chain.PROBE_Q,
+                                 chain.REPS, s_)
+        compare(chain.kernel_name(s_), gx, want[0], f"sixth path: K17 {s_} x")
+        compare(chain.kernel_name(s_), gy, want[1], f"sixth path: K17 {s_} y")
+    q17 = np.uint64(chain.PROBE_Q)
+    if not all(np.array_equal(to_numpy(a) % q17, to_numpy(b) % q17)
+               for a, b in zip(chains6["lean16"], chains6["exact"])):
+        raise AssertionError("sixth path: the lean16 chain != the exact one "
+                             "mod q")
+    for p_, (gx, gy) in dfs6.items():
+        want = df_chain.chain_plain(*dfx[p_], *dfw[p_], p_)
+        compare_fft(df_chain.kernel_name(p_), gx, want[0], p_,
+                    f"sixth path: K18 {p_} x")
+        compare_fft(df_chain.kernel_name(p_), gy, want[1], p_,
+                    f"sixth path: K18 {p_} y")
+    z64 = {p_: [df32.cdf_to_complex128(v) if p_ == "double_float" else
+                v.to(torch.complex128) for v in dfs6[p_]]
+           for p_ in df_chain.PRECISIONS}
+    chain_err = {p_: max(float((a - b).abs().max()) for a, b in
+                         zip(z64[p_], z64["f64"]))
+                 for p_ in ("double_float", "single")}
+    log(f"phase 4: every output of the sixth main path == the plain lean path "
+        f"and, fully reduced, the exact one; round trips exact; K17 lean16 == "
+        f"exact mod q; K18 against its f64 chain: max abs err {chain_err}")
+    if chain_err["double_float"] > 1e-12 or chain_err["single"] > 1e-4:
+        raise AssertionError(f"K18 chains disagree with f64: {chain_err}")
+
     # -- 5. timings ---------------------------------------------------------
     def graph_ms(fn, inner):
         """Median device ms of one call of fn over 20 replays of a CUDA
@@ -1578,15 +1886,29 @@ def main() -> int:
         return (max(t_bytes, t_ops),
                 "bytes" if t_bytes >= t_ops else "operations")
 
-    def pair_case(n, q, batch, omf_fwd):
+    per_lean = imads["mulhi64a6"] + 2 * imads["mullo64"]
+
+    def lean_imads(butterflies, stages, final):
+        """IMADs of `stages` lean stages of `butterflies` butterflies each,
+        plus a final inverse stage's two exact Shoup products."""
+        return butterflies * (stages * per_lean + (2 * per_shoup if final
+                                                   else 0))
+
+    def pair_case(n, q, batch, omf_fwd, scheme="exact"):
         plan = get_plan(n, q)
         x = rand((batch, n), q)
         kernel = lambda: cuda_ntt.inv_ntt(
-            cuda_ntt.fwd_ntt(x, plan, 1, omf_fwd), plan, 1, 1)
+            cuda_ntt.fwd_ntt(x, plan, 1, omf_fwd, 64, scheme), plan, 1, 1, 64,
+            scheme)
         plain = lambda: torch_ntt.inv_ntt(
-            torch_ntt.fwd_ntt(x, plan, 1, omf_fwd), plan, 1, 1)
+            torch_ntt.fwd_ntt(x, plan, 1, omf_fwd, 64, scheme), plan, 1, 1,
+            64, scheme)
         nbytes = 2 * (2 * 8 * batch * n + 2 * 8 * n)
-        nimads = ntt_imads(n, batch, True) + ntt_imads(n, batch, False)
+        if scheme == "exact":
+            nimads = ntt_imads(n, batch, True) + ntt_imads(n, batch, False)
+        else:
+            log_n = n.bit_length() - 1
+            nimads = lean_imads(batch * n // 2, 2 * log_n - 1, True)
         return kernel, plain, nbytes, nimads
 
     k1 = pair_case(n14, q60, 256, 1)
@@ -1602,13 +1924,14 @@ def main() -> int:
           lambda: torch_kernels.mult_mod(ea, eb, q50, 4),
           3 * 8 * 2 * n12, 2 * n12 * per_barrett)
 
-    def pass_case(n, q, batch, word, cross):
+    def pass_case(n, q, batch, word, cross, scheme="exact"):
         """One pass of the split, forward on inputs in [0, q) and inverse
         on inputs in [0, 2q) (two launches per call). Bytes: each
         coefficient read and written once per direction, plus the twiddle
         entries the pass reads (D - 1 forward, D - 2 inverse for K5; the
         N - D of its stages and their preconditions for K6). Operations:
-        one Shoup per butterfly, two in the inverse's final stage (K5)."""
+        one Shoup per butterfly (exact or lean), two exact ones in the
+        inverse's final stage (K5)."""
         plan = get_plan(n, q)
         xf, xi = rand((batch, n), q), rand((batch, n), 2 * q)
         log_d = (n // hier.LOCAL_N).bit_length() - 1
@@ -1618,18 +1941,22 @@ def main() -> int:
         if cross:
             xf, xi = (v.view(batch, d, hier.LOCAL_N) for v in (xf, xi))
             run, fwd_plain = hier.cross, hier.cross_fwd_plain
-            plain = lambda: (fwd_plain(xf, plan, word),
-                             hier.cross_inv_plain(xi, plan, 1, word))
+            plain = lambda: (fwd_plain(xf, plan, word, scheme),
+                             hier.cross_inv_plain(xi, plan, 1, word, scheme))
             tables = 2 * 8 * (2 * d - 3)
             nimads = (2 * log_d + 1) * butterflies * shoup
+            if scheme != "exact":
+                nimads = lean_imads(butterflies, 2 * log_d - 1, True)
         else:
             run, fwd_plain = hier.local, hier.local_fwd_plain
-            plain = lambda: (fwd_plain(xf, plan, 1, word),
-                             hier.local_inv_plain(xi, plan, word))
+            plain = lambda: (fwd_plain(xf, plan, 1, word, scheme),
+                             hier.local_inv_plain(xi, plan, word, scheme))
             tables = 2 * 2 * 8 * (n - d)
             nimads = 2 * 14 * butterflies * shoup
-        kernel = lambda: (run(xf, plan, True, 1, word),
-                          run(xi, plan, False, 1, word))
+            if scheme != "exact":
+                nimads = lean_imads(butterflies, 2 * 14, False)
+        kernel = lambda: (run(xf, plan, True, 1, word, scheme),
+                          run(xi, plan, False, 1, word, scheme))
         return kernel, plain, 2 * 2 * 8 * batch * n + tables, nimads
 
     k5 = pass_case(n17, q60_17, SPLIT_BATCH, 64, True)
@@ -1924,6 +2251,90 @@ def main() -> int:
                                         1)),
          2 * plan14.log_n * 2 * 8 * 16 * n14 + 2 * 2 * 8 * n14,
          (2 * plan14.log_n + 1) * 16 * (n14 // 2) * per_shoup))
+    # The lean instantiations at the sixth path's shapes (bound: as their
+    # exact forms, the lean butterflies' IMADs from the SASS of the
+    # approximate quotient), and the chains at the probes' shapes. K17:
+    # its four planes read or written once, REPS butterflies an element.
+    # K18: its sixteen float32 planes (or four complex ones) read or
+    # written once; REPS products and complex adds and subtracts an element
+    # and two closing scales, the twiddle split once (FFT_COST), over the
+    # FP32 or FP64 lanes.
+    lean_replaces = ("hexl_tpu/ntt/jnp_ntt.py:114-212 (the lean16/lean8 "
+                     "butterflies of the XLA device body; the TPU kernel "
+                     "%s runs the 'lean' form of pallas_ntt.py:53-61)")
+    cases["K1.lean8"] = (
+        "ntt_fwd_kernel+ntt_inv_kernel<u64, LEAN8>, 1 poly/CTA",
+        "hexl_tpu_torch/csrc/ntt.cu",
+        lean_replaces % "hexl_tpu/ntt/pallas_ntt.py:547",
+        "fwd OMF1 + inv OMF1 pair, N=2^14, 60-bit q, batch 256, lean8",
+        pair_case(n14, q60, 256, 1, "lean8"))
+    cases["K1.lean16"] = (
+        "ntt_fwd_kernel+ntt_inv_kernel<u64, LEAN16>, 1 poly/CTA",
+        "hexl_tpu_torch/csrc/ntt.cu",
+        lean_replaces % "hexl_tpu/ntt/pallas_ntt.py:547",
+        "fwd OMF1 + inv OMF1 pair, N=2^14, 59-bit q, batch 256, lean16",
+        pair_case(n14, q59, 256, 1, "lean16"))
+    cases["K2.lean8"] = (
+        "ntt_fwd_kernel+ntt_inv_kernel<u64, LEAN8>, P polys/CTA",
+        "hexl_tpu_torch/csrc/ntt.cu",
+        lean_replaces % "hexl_tpu/ntt/pallas_ntt.py:230",
+        f"fwd OMF1 + inv OMF1 pair, N=2^10, 49-bit q, batch {K2_BATCH} "
+        f"(P={p10}), lean8", pair_case(n10, q49, K2_BATCH, 1, "lean8"))
+    cases["K5.lean16"] = (
+        "cross_fwd_kernel+cross_inv_kernel<u64, LEAN16, 3>",
+        "hexl_tpu_torch/csrc/ntt_hier.cu",
+        lean_replaces % "hexl_tpu/ntt/hier.py:164",
+        f"cross pass fwd + inv, N=2^17 (D=8), 50-bit q, batch {SPLIT_BATCH}, "
+        "lean16", pass_case(n17, q50_17, SPLIT_BATCH, 64, True, "lean16"))
+    cases["K6.lean16"] = (
+        "ntt_fwd_kernel+ntt_inv_kernel<u64, LEAN16>, 1 shard/CTA",
+        "hexl_tpu_torch/csrc/ntt_hier.cu",
+        lean_replaces % "hexl_tpu/ntt/hier.py:255",
+        f"local pass fwd + inv, N=2^17 (8 shards), 50-bit q, batch "
+        f"{SPLIT_BATCH}, lean16",
+        pass_case(n17, q50_17, SPLIT_BATCH, 64, False, "lean16"))
+    # The chains on six input sets in turn (`rotating`), so that a graph's
+    # launches read more than the 50 MB L2 holds, as K12/K13's do.
+    chain_elems = chain.ROWS * chain.LANES
+    next_cxy = rotating([chain.probe_inputs(rng, dev) for _ in range(6)])
+    for s_, per in (("lean16", per_lean), ("exact", per_shoup)):
+        cases[chain.kernel_name(s_)] = (
+            f"ntt_chain_kernel<{'LEAN16' if s_ == 'lean16' else 'EXACT'}>",
+            "hexl_tpu_torch/csrc/chain.cu",
+            "benchmarks/mosaic_butterfly_ab.py:93" + (
+                "" if s_ == "lean16" else " (its exact-Harvey sibling)"),
+            f"{chain.REPS} dependent {s_} butterflies on two "
+            f"{chain.ROWS} x {chain.LANES} planes, q = 2^59 - 2^14 + 1",
+            (lambda s_=s_: chain.chain(*next_cxy(), chain.PROBE_W,
+                                       chain.PROBE_Q, chain.REPS, s_),
+             lambda s_=s_: chain.chain_plain(*next_cxy(), chain.PROBE_W,
+                                             chain.PROBE_Q, chain.REPS, s_),
+             4 * 8 * chain_elems, chain_elems * chain.REPS * per))
+    df_elems = df_chain.ROWS * df_chain.LANES
+    next_dfx = {p_: rotating([tuple(fft_value(rng, (df_chain.ROWS,
+                                                    df_chain.LANES), p_, dev)
+                                    for _ in range(2)) for _ in range(6)])
+                for p_ in df_chain.PRECISIONS}
+    for p_ in df_chain.PRECISIONS:
+        c = FFT_COST[p_]
+        lanes = FP64_LANES_PER_SM if p_ == "f64" else FP32_LANES_PER_SM
+        word = 8 if p_ == "single" else 16
+        policy = {"double_float": "DfP", "f64": "F64", "single": "F32"}[p_]
+        cases[df_chain.kernel_name(p_)] = (
+            f"df_chain_kernel<{policy}>",
+            "hexl_tpu_torch/csrc/chain.cu",
+            "benchmarks/mosaic_df_bfly_ab.py:85" + (
+                "" if p_ == "double_float" else
+                f" (the same chain in {p_}, K12's arithmetic)"),
+            f"{df_chain.REPS} dependent butterflies and a 2^-8 scale on "
+            f"{df_chain.ROWS} x {df_chain.LANES} complex values, {p_}",
+            (lambda p_=p_: df_chain.chain(*next_dfx[p_](), *dfw[p_], p_),
+             lambda p_=p_: df_chain.chain_plain(*next_dfx[p_](), *dfw[p_],
+                                                p_),
+             4 * word * df_elems,
+             df_elems * (df_chain.REPS * (c["mul"] + 2 * c["add"])
+                         + 2 * c["scale"]) + c["split"],
+             SMS * lanes * sm_mhz * 1e6, None))
     # Entries whose launches are counted under another kernel's name: the
     # fifth path's K6 and K5 launches are all DistNTT positions'.
     counted_as = {"K6.shard": "K6", "K5.col": "K5"}
@@ -1947,7 +2358,7 @@ def main() -> int:
                          if name in counted_as else
                          sum(counts.get(name, 0) for counts in
                              (launches1, launches2, launches3, launches4,
-                              launches5))),
+                              launches5, launches6))),
             "max_abs_err": float(max_err[name]), "matched": True,
             "shape": shape, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
@@ -2002,6 +2413,79 @@ def main() -> int:
     public_pairs(e17, rand((SPLIT_BATCH, n17), q60_17), 60)
     public_pairs(e17s, rand((SPLIT_BATCH, n17), q29_17), 29)
     public_pairs(ntt10s, rand((K2_BATCH, n10), q29), 29)
+
+    # The lean regime against the exact one, the A/B behind
+    # config.approx_butterflies' CUDA default: the public fwd+inv pair (OMF
+    # 1) at each sixth-path shape, 20 CUDA-event timings per turn, in turns
+    # exact, lean, lean, exact (40 each), the regime forced on for the lean
+    # turns; the same pair replayed from a CUDA graph (device time); the
+    # RNS product both ways. "Beyond the spread": every lean timing below
+    # every exact one.
+    def event_times(fn, reps=20):
+        """`reps` CUDA-event timings (ms) of fn(), after three warm-ups."""
+        times = []
+        for i in range(reps + 3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            if i >= 3:
+                times.append(start.elapsed_time(end))
+        return times
+
+    def regime_ab(fn, reps, inner):
+        times = {"exact": [], "lean": []}
+        replay = {"exact": [], "lean": []}
+        for turn in ("exact", "lean", "lean", "exact"):
+            port_config.approx_butterflies = (
+                (lambda device: True) if turn == "lean" else exact_regime)
+            try:
+                times[turn] += event_times(fn, reps)
+                replay[turn].append(graph_ms(fn, inner))
+            finally:
+                port_config.approx_butterflies = exact_regime
+        return times, replay
+
+    def spread(v):
+        return (f"median {statistics.median(v):.4f} ms [min {min(v):.4f}, "
+                f"max {max(v):.4f}]")
+
+    for key, (name, e, x) in sixth.items():
+        times, replay = regime_ab(lambda: e.inverse(e.forward(x)), 20, 10)
+        batch = x.shape[0]
+        med = {k: statistics.median(v) for k, v in times.items()}
+        log(f"A/B {name}, {key.split()[0]} against exact, fwd+inv pair: "
+            f"exact {spread(times['exact'])} = "
+            f"{batch / med['exact'] * 1e3:.1f} pairs/s; lean "
+            f"{spread(times['lean'])} = {batch / med['lean'] * 1e3:.1f} "
+            f"pairs/s; lean/exact {med['lean'] / med['exact']:.4f}; lean "
+            f"faster beyond the spread: "
+            f"{max(times['lean']) < min(times['exact'])}; replayed from "
+            f"graphs: exact {replay['exact']} ms, lean {replay['lean']} ms")
+    times, replay = regime_ab(lambda: rns_poly_mult_mod(ra, rb, n17, moduli),
+                              10, 2)
+    log(f"A/B rns_poly_mult_mod N=2^17 x {RNS_PRIMES} primes of 50 bits, "
+        f"lean16 against exact: exact {spread(times['exact'])}, lean "
+        f"{spread(times['lean'])}; replayed: exact {replay['exact']} ms, "
+        f"lean {replay['lean']} ms")
+    ms_of = {entry["name"].split()[0]: entry["ms"] for entry in entries}
+    bflys = chain.ROWS * chain.LANES * chain.REPS
+    log(f"K17 chains ({chain.REPS} butterflies on 2 x {chain.ROWS} x "
+        f"{chain.LANES}), replayed: lean16 {ms_of['K17']:.4f} ms = "
+        f"{bflys / ms_of['K17'] / 1e6:.2f} Gbfly/s, exact "
+        f"{ms_of['K17.exact']:.4f} ms = "
+        f"{bflys / ms_of['K17.exact'] / 1e6:.2f} Gbfly/s; lean/exact time "
+        f"{ms_of['K17'] / ms_of['K17.exact']:.4f}")
+    bflys = df_chain.ROWS * df_chain.LANES * df_chain.REPS
+    log("K18 chains (" + f"{df_chain.REPS} butterflies on {df_chain.ROWS} x "
+        f"{df_chain.LANES}), replayed: " + "; ".join(
+            f"{p_} {ms_of[df_chain.kernel_name(p_)]:.4f} ms = "
+            f"{bflys / ms_of[df_chain.kernel_name(p_)] / 1e6:.2f} Gbfly/s"
+            for p_ in df_chain.PRECISIONS)
+        + f"; double-float/f64 time "
+        f"{ms_of['K18.df'] / ms_of['K18.f64']:.4f}")
 
     # The four-step NTT: fwd+inv pairs/s through fwd_ntt_mxu/inv_ntt_mxu
     # against the NTT's (K1 at 2^14, K5/K6 at 2^17) and the Xeon pair, on
@@ -2195,7 +2679,7 @@ def main() -> int:
         "wrapper cuda_ntt.fwd_ntt": lambda: cuda_ntt.fwd_ntt(x1, plan14),
         "C entry hexl_ntt_fwd": lambda: fwd_c(
             x1.data_ptr(), out1.data_ptr(), tabs14["rop"].data_ptr(),
-            tabs14["prop"].data_ptr(), q60, 14, 1, 1, 1, 64, stream),
+            tabs14["prop"].data_ptr(), q60, 14, 1, 1, 1, 64, 0, stream),
     }
     host = {}
     for name, fn in layers.items():

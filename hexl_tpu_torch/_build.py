@@ -23,6 +23,7 @@ import fcntl
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -118,6 +119,34 @@ def build_all() -> dict:
     return {"seconds": time.perf_counter() - t0, "built": bool(todo),
             "log": log_path.read_text() if log_path.exists() else "",
             "dir": str(out_dir)}
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def kernel_resources(log: str) -> dict:
+    """{mangled kernel name: (registers, stack bytes, spill store bytes,
+    spill load bytes)} from the `-Xptxas -v` report in a build log (a
+    figure the report leaves out is None)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            name = m.group(1)
+            out[name] = [None] * 4
+            continue
+        if name is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            out[name][1:] = [int(v) for v in m.groups()]
+        m = _PTXAS_REGS.search(line)
+        if m:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def _lib(name: str) -> ctypes.CDLL:

@@ -18,7 +18,14 @@
 // N = 2^15), every stage runs with Shoup on __umulhi and the precon32
 // tables, and the store widens back. Every lazy value is < 4q < 2^32, so
 // the walk is bit-identical to hexl_tpu_torch/ntt/ntt32.py::fwd_ntt32/
-// inv_ntt32 and to the JAX single-word path, lazy outputs included.
+// inv_ntt32 and to the JAX single-word path, lazy outputs included. The
+// 64-bit walk also runs in the lean16 and lean8 schemes of the JAX engine's
+// device bodies (hexl_tpu/ntt/jnp_ntt.py::_bflys3, the approximate Shoup
+// quotient mulhi64_approx6): one more instantiation of each kernel per
+// scheme, bit-identical to the plain lean walk. On Hopper the approximate
+// quotient saves no multiply: a 32x32 high product is one IMAD, so its
+// 16-bit partial products cost as much as the exact 64x64 high product,
+// and the exact Harvey forward already has one halver, as lean16 does.
 //
 // What bounds it on an H100: reading and writing each coefficient once
 // (plus the twiddle tables) moves 16 bytes per coefficient (the tensors
@@ -35,30 +42,31 @@
 #include "ntt_block.cuh"
 
 // word is 64, or 32 for q < 2^30, where the precon tables and constants
-// are the plan's precon32 ones.
+// are the plan's precon32 ones; scheme is a Scheme code (modarith.cuh), a
+// lean one with word 64 only.
 extern "C" int hexl_ntt_fwd(const u64* x, u64* y, const u64* rop,
                             const u64* prop, u64 q, int log_n, int batch,
-                            int polys_per_cta, int omf, int word,
+                            int polys_per_cta, int omf, int word, int scheme,
                             cudaStream_t stream) {
   if (word == 32)
-    return launch_fwd<u32>(x, y, rop, prop, q, log_n, batch, polys_per_cta,
-                           omf, 0, 0, 0, stream);
-  return launch_fwd<u64>(x, y, rop, prop, q, log_n, batch, polys_per_cta, omf,
-                         0, 0, 0, stream);
+    return launch_fwd_scheme<u32>(scheme, x, y, rop, prop, q, log_n, batch,
+                                  polys_per_cta, omf, 0, 0, 0, stream);
+  return launch_fwd_scheme<u64>(scheme, x, y, rop, prop, q, log_n, batch,
+                                polys_per_cta, omf, 0, 0, 0, stream);
 }
 
 extern "C" int hexl_ntt_inv(const u64* x, u64* y, const u64* irop,
                             const u64* pirop, u64 q, u64 inv_n,
                             u64 inv_n_precon, u64 inv_n_w, u64 inv_n_w_precon,
                             int log_n, int batch, int polys_per_cta, int omf,
-                            int word, cudaStream_t stream) {
+                            int word, int scheme, cudaStream_t stream) {
   if (word == 32) {
     const InvFinal<u32> fin = {(u32)inv_n, (u32)inv_n_precon, (u32)inv_n_w,
                                (u32)inv_n_w_precon};
-    return launch_inv<u32>(x, y, irop, pirop, q, fin, log_n, batch,
-                           polys_per_cta, omf, 0, 0, 0, stream);
+    return launch_inv_scheme<u32>(scheme, x, y, irop, pirop, q, fin, log_n,
+                                  batch, polys_per_cta, omf, 0, 0, 0, stream);
   }
   const InvFinal<u64> fin = {inv_n, inv_n_precon, inv_n_w, inv_n_w_precon};
-  return launch_inv<u64>(x, y, irop, pirop, q, fin, log_n, batch,
-                         polys_per_cta, omf, 0, 0, 0, stream);
+  return launch_inv_scheme<u64>(scheme, x, y, irop, pirop, q, fin, log_n,
+                                batch, polys_per_cta, omf, 0, 0, 0, stream);
 }

@@ -30,14 +30,16 @@
 // W is the word the coefficients occupy in shared memory: u64, or u32 for
 // q < 2^30, where every lazy value is < 4q < 2^32 (the single-word regime
 // of hexl_tpu/ntt/ntt32.py). Global memory always holds int64 tensors of
-// u64 bits; a u32 walk narrows on the load and widens on the store.
+// u64 bits; a u32 walk narrows on the load and widens on the store. S is
+// the butterfly scheme (modarith.cuh): a lean forward ends with its fixup
+// before the OMF reduction, a lean inverse with its own final stage.
 #pragma once
 
 #include "modarith.cuh"
 
 // Forward stages of `polys` transforms (or shards) of n = 2^log_n
-// coefficients stored back to back in s. Inputs [0, 4q) -> [0, 4q).
-template <typename W>
+// coefficients stored back to back in s. Exact inputs [0, 4q) -> [0, 4q).
+template <typename W, int S = EXACT>
 __device__ __forceinline__ void block_fwd_stages(W* s, int log_n, int polys,
                                                  const u64* __restrict__ rop,
                                                  const u64* __restrict__ prop,
@@ -56,8 +58,8 @@ __device__ __forceinline__ void block_fwd_stages(W* s, int log_n, int polys,
       const int k = j >> log_t;
       W* p = s + ((g >> log_half) << log_n) + (k << (log_t + 1)) +
              (j & (t - 1));
-      fwd_butterfly(p[0], p[t], (W)__ldg(rop + first + k),
-                    (W)__ldg(prop + first + k), q, two_q);
+      fwd_butterfly<W, S>(p[0], p[t], (W)__ldg(rop + first + k),
+                          (W)__ldg(prop + first + k), q, two_q);
     }
     __syncthreads();
   }
@@ -65,8 +67,8 @@ __device__ __forceinline__ void block_fwd_stages(W* s, int log_n, int polys,
 
 // The inverse stages of stride t < n, except the global final stage:
 // every stage of a shard (log_d > 0), every stage but the last of a whole
-// transform (log_d = 0). Inputs [0, 2q) -> outputs [0, 2q).
-template <typename W>
+// transform (log_d = 0). Exact inputs [0, 2q) -> outputs [0, 2q).
+template <typename W, int S = EXACT>
 __device__ __forceinline__ void block_inv_stages(W* s, int log_n, int polys,
                                                  const u64* __restrict__ irop,
                                                  const u64* __restrict__ pirop,
@@ -85,8 +87,8 @@ __device__ __forceinline__ void block_inv_stages(W* s, int log_n, int polys,
       const int k = j >> log_t;
       W* p = s + ((g >> log_half) << log_n) + (k << (log_t + 1)) +
              (j & (t - 1));
-      inv_butterfly(p[0], p[t], (W)__ldg(irop + first + k),
-                    (W)__ldg(pirop + first + k), q, two_q);
+      inv_butterfly<W, S>(p[0], p[t], (W)__ldg(irop + first + k),
+                          (W)__ldg(pirop + first + k), q, two_q);
     }
     // The global stage of stride t has N/(2t) blocks, N = n * 2^log_d.
     root_index += 1 << (log_half + log_d - log_t);
@@ -96,7 +98,7 @@ __device__ __forceinline__ void block_inv_stages(W* s, int log_n, int polys,
 
 // The last inverse stage fused with N^-1, written straight to global memory
 // (outputs [0, 2q), or [0, q) when omf == 1).
-template <typename W>
+template <typename W, int S = EXACT>
 __device__ __forceinline__ void block_inv_final(const W* s, u64* out,
                                                 int log_n, int polys,
                                                 const InvFinal<W>& fin, W q,
@@ -109,7 +111,7 @@ __device__ __forceinline__ void block_inv_final(const W* s, u64* out,
     const int i = ((g >> log_half) << log_n) + (g & (half - 1));
     W x = s[i];
     W y = s[i + half];
-    inv_final_butterfly(x, y, fin, q, two_q);
+    inv_final_butterfly<W, S>(x, y, fin, q, two_q);
     if (omf == 1) {
       x = halve(x, q);
       y = halve(y, q);
@@ -121,7 +123,7 @@ __device__ __forceinline__ void block_inv_final(const W* s, u64* out,
 
 // `chunks` transforms (or shards) of 2^log_n coefficients, `polys_per_cta`
 // of them per CTA (1 for shards); the last CTA may hold fewer.
-template <typename W>
+template <typename W, int S>
 __global__ void __launch_bounds__(1024)
     ntt_fwd_kernel(const u64* __restrict__ x, u64* __restrict__ y,
                    const u64* __restrict__ rop, const u64* __restrict__ prop,
@@ -137,12 +139,14 @@ __global__ void __launch_bounds__(1024)
   u64* dst = y + (first << log_n);
   for (int i = threadIdx.x; i < count; i += blockDim.x) s[i] = (W)src[i];
   __syncthreads();
-  block_fwd_stages<W>(s, log_n, polys, rop, prop, (W)q, log_d, shard);
-  for (int i = threadIdx.x; i < count; i += blockDim.x)
-    dst[i] = omf == 1 ? reduce_lazy<W>(s[i], (W)q, 4) : s[i];
+  block_fwd_stages<W, S>(s, log_n, polys, rop, prop, (W)q, log_d, shard);
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    const W v = fwd_fixup<W, S>(s[i], (W)q);
+    dst[i] = omf == 1 ? reduce_lazy<W>(v, (W)q, 4) : v;
+  }
 }
 
-template <typename W>
+template <typename W, int S>
 __global__ void __launch_bounds__(1024)
     ntt_inv_kernel(const u64* __restrict__ x, u64* __restrict__ y,
                    const u64* __restrict__ irop,
@@ -159,9 +163,9 @@ __global__ void __launch_bounds__(1024)
   u64* dst = y + (first << log_n);
   for (int i = threadIdx.x; i < count; i += blockDim.x) s[i] = (W)src[i];
   __syncthreads();
-  block_inv_stages<W>(s, log_n, polys, irop, pirop, (W)q, log_d, shard);
+  block_inv_stages<W, S>(s, log_n, polys, irop, pirop, (W)q, log_d, shard);
   if (log_d == 0) {
-    block_inv_final<W>(s, dst, log_n, polys, fin, (W)q, omf);
+    block_inv_final<W, S>(s, dst, log_n, polys, fin, (W)q, omf);
   } else {
     for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = s[i];
   }
@@ -180,35 +184,84 @@ static int threads_for(int log_n, int polys_per_cta) {
   return butterflies >= 1024 ? 1024 : (int)butterflies;
 }
 
-template <typename W>
+template <typename W, int S>
 static int launch_fwd(const u64* x, u64* y, const u64* rop, const u64* prop,
                       u64 q, int log_n, int chunks, int polys_per_cta,
                       int omf, int log_d, int shard_base, int log_sub,
                       cudaStream_t stream) {
   const size_t smem = ((size_t)polys_per_cta << log_n) * sizeof(W);
-  cudaError_t err = allow_smem(ntt_fwd_kernel<W>, smem);
+  cudaError_t err = allow_smem(ntt_fwd_kernel<W, S>, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (chunks + polys_per_cta - 1) / polys_per_cta;
-  ntt_fwd_kernel<W><<<grid, threads_for(log_n, polys_per_cta), smem,
-                      stream>>>(x, y, rop, prop, q, log_n, chunks,
-                                polys_per_cta, omf, log_d, shard_base,
-                                log_sub);
+  ntt_fwd_kernel<W, S><<<grid, threads_for(log_n, polys_per_cta), smem,
+                         stream>>>(x, y, rop, prop, q, log_n, chunks,
+                                   polys_per_cta, omf, log_d, shard_base,
+                                   log_sub);
   return (int)cudaGetLastError();
 }
 
-template <typename W>
+template <typename W, int S>
 static int launch_inv(const u64* x, u64* y, const u64* irop,
                       const u64* pirop, u64 q, const InvFinal<W>& fin,
                       int log_n, int chunks, int polys_per_cta, int omf,
                       int log_d, int shard_base, int log_sub,
                       cudaStream_t stream) {
   const size_t smem = ((size_t)polys_per_cta << log_n) * sizeof(W);
-  cudaError_t err = allow_smem(ntt_inv_kernel<W>, smem);
+  cudaError_t err = allow_smem(ntt_inv_kernel<W, S>, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (chunks + polys_per_cta - 1) / polys_per_cta;
-  ntt_inv_kernel<W><<<grid, threads_for(log_n, polys_per_cta), smem,
-                      stream>>>(x, y, irop, pirop, q, fin, log_n, chunks,
-                                polys_per_cta, omf, log_d, shard_base,
-                                log_sub);
+  ntt_inv_kernel<W, S><<<grid, threads_for(log_n, polys_per_cta), smem,
+                         stream>>>(x, y, irop, pirop, q, fin, log_n, chunks,
+                                   polys_per_cta, omf, log_d, shard_base,
+                                   log_sub);
   return (int)cudaGetLastError();
+}
+
+// The launch of scheme code `scheme` (modarith.cuh Scheme): the exact
+// instantiation for either word, the lean ones for u64 only.
+template <typename W>
+static int launch_fwd_scheme(int scheme, const u64* x, u64* y,
+                             const u64* rop, const u64* prop, u64 q,
+                             int log_n, int chunks, int polys_per_cta,
+                             int omf, int log_d, int shard_base, int log_sub,
+                             cudaStream_t stream) {
+  if (scheme == EXACT)
+    return launch_fwd<W, EXACT>(x, y, rop, prop, q, log_n, chunks,
+                                polys_per_cta, omf, log_d, shard_base,
+                                log_sub, stream);
+  if constexpr (sizeof(W) == 8) {
+    if (scheme == LEAN16)
+      return launch_fwd<W, LEAN16>(x, y, rop, prop, q, log_n, chunks,
+                                   polys_per_cta, omf, log_d, shard_base,
+                                   log_sub, stream);
+    if (scheme == LEAN8)
+      return launch_fwd<W, LEAN8>(x, y, rop, prop, q, log_n, chunks,
+                                  polys_per_cta, omf, log_d, shard_base,
+                                  log_sub, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename W>
+static int launch_inv_scheme(int scheme, const u64* x, u64* y,
+                             const u64* irop, const u64* pirop, u64 q,
+                             const InvFinal<W>& fin, int log_n, int chunks,
+                             int polys_per_cta, int omf, int log_d,
+                             int shard_base, int log_sub,
+                             cudaStream_t stream) {
+  if (scheme == EXACT)
+    return launch_inv<W, EXACT>(x, y, irop, pirop, q, fin, log_n, chunks,
+                                polys_per_cta, omf, log_d, shard_base,
+                                log_sub, stream);
+  if constexpr (sizeof(W) == 8) {
+    if (scheme == LEAN16)
+      return launch_inv<W, LEAN16>(x, y, irop, pirop, q, fin, log_n, chunks,
+                                   polys_per_cta, omf, log_d, shard_base,
+                                   log_sub, stream);
+    if (scheme == LEAN8)
+      return launch_inv<W, LEAN8>(x, y, irop, pirop, q, fin, log_n, chunks,
+                                  polys_per_cta, omf, log_d, shard_base,
+                                  log_sub, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

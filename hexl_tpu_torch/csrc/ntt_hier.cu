@@ -43,6 +43,11 @@
 // the global final stage. With D = 1 the same kernels are K1 (u64) and K7
 // (u32).
 //
+// Both passes run in the exact scheme and, for u64, in the lean16 and lean8
+// schemes of the JAX engine's device bodies (modarith.cuh), each a
+// template instantiation: a lean forward's fixup runs at the end of the
+// local pass, a lean inverse's final stage in the cross pass.
+//
 // What bounds them on an H100: each pass reads and writes every coefficient
 // once (16 bytes per coefficient, the tensors being int64 in both
 // regimes), against log2(D) butterflies per coefficient pair in K5 and
@@ -123,7 +128,7 @@ __device__ __forceinline__ void stage_twiddles(W*& tw, W*& twp,
 // blocks are one block of G D rows, see hexl_cross_fwd): the stage with
 // m blocks reads rop/prop[m (G + group) + k] for block k, and the tables
 // hold D G entries.
-template <typename W, int LOG_D>
+template <typename W, int S, int LOG_D>
 __global__ void __launch_bounds__(CROSS_THREADS)
     cross_fwd_kernel(const u64* __restrict__ x, u64* __restrict__ y,
                      const u64* __restrict__ rop,
@@ -150,8 +155,8 @@ __global__ void __launch_bounds__(CROSS_THREADS)
     static_for<0, m>([&](auto k) {
       constexpr int at = 2 * half * decltype(k)::value;
       static_for<0, half>([&](auto i) {
-        fwd_butterfly(v[at + i], v[at + i + half], tw[first + k],
-                      twp[first + k], q, two_q);
+        fwd_butterfly<W, S>(v[at + i], v[at + i + half], tw[first + k],
+                            twp[first + k], q, two_q);
       });
     });
   });
@@ -167,7 +172,7 @@ __global__ void __launch_bounds__(CROSS_THREADS)
 // coefficients fill nearly all of them). With G = 2^log_groups groups (no
 // final stage) the stage with m blocks of group g reads
 // [G (D - 2m) + g m, G (D - 2m) + (g + 1) m).
-template <typename W, int LOG_D, bool FINAL>
+template <typename W, int S, int LOG_D, bool FINAL>
 __global__ void __launch_bounds__(CROSS_THREADS)
     cross_inv_kernel(const u64* __restrict__ x, u64* __restrict__ y,
                      const u64* __restrict__ irop_cross,
@@ -196,15 +201,15 @@ __global__ void __launch_bounds__(CROSS_THREADS)
     static_for<0, m>([&](auto k) {
       constexpr int at = 2 * half * decltype(k)::value;
       static_for<0, half>([&](auto i) {
-        inv_butterfly(v[at + i], v[at + i + half], tw[first + k],
-                      twp[first + k], q, two_q);
+        inv_butterfly<W, S>(v[at + i], v[at + i + half], tw[first + k],
+                            twp[first + k], q, two_q);
       });
     });
   });
   if constexpr (FINAL) {
     // The global final stage (stride N/2) fused with N^-1, then the OMF.
     static_for<0, D / 2>([&](auto i) {
-      inv_final_butterfly(v[i], v[i + D / 2], fin, q, two_q);
+      inv_final_butterfly<W, S>(v[i], v[i + D / 2], fin, q, two_q);
     });
     if (omf == 1) {
       static_for<0, D>([&](auto d) { v[d] = halve(v[d], q); });
@@ -212,7 +217,7 @@ __global__ void __launch_bounds__(CROSS_THREADS)
   } else {
     const int last = (D - 2) * groups + group;
     static_for<0, D / 2>([&](auto i) {
-      inv_butterfly(v[i], v[i + D / 2], tw[last], twp[last], q, two_q);
+      inv_butterfly<W, S>(v[i], v[i + D / 2], tw[last], twp[last], q, two_q);
     });
   }
   store_column(v, y, base, log_lc);
@@ -231,14 +236,14 @@ static size_t cross_smem(int log_table) {
 }
 
 // The launch for D = 2^log_d, found by walking LOG_D = 1 .. 6.
-template <typename W, int LOG_D>
+template <typename W, int S, int LOG_D>
 static int cross_fwd_at(int log_d, const u64* x, u64* y, const u64* rop,
                         const u64* prop, u64 q, int log_lc, int log_groups,
                         long long columns, cudaStream_t stream) {
   if (log_d != LOG_D) {
     if constexpr (LOG_D < 6) {
-      return cross_fwd_at<W, LOG_D + 1>(log_d, x, y, rop, prop, q, log_lc,
-                                         log_groups, columns, stream);
+      return cross_fwd_at<W, S, LOG_D + 1>(log_d, x, y, rop, prop, q, log_lc,
+                                            log_groups, columns, stream);
     } else {
       return (int)cudaErrorInvalidValue;
     }
@@ -247,12 +252,12 @@ static int cross_fwd_at(int log_d, const u64* x, u64* y, const u64* rop,
   if (grid == 0 || log_groups < 0 || LOG_D + log_groups > MAX_LOG_TABLE)
     return (int)cudaErrorInvalidValue;
   const size_t smem = cross_smem<W>(LOG_D + log_groups);
-  cross_fwd_kernel<W, LOG_D><<<grid, CROSS_THREADS, smem, stream>>>(
+  cross_fwd_kernel<W, S, LOG_D><<<grid, CROSS_THREADS, smem, stream>>>(
       x, y, rop, prop, q, log_lc, log_groups, columns);
   return (int)cudaGetLastError();
 }
 
-template <typename W, int LOG_D>
+template <typename W, int S, int LOG_D>
 static int cross_inv_at(int log_d, const u64* x, u64* y,
                         const u64* irop_cross, const u64* pirop_cross, u64 q,
                         const InvFinal<W>& fin, int omf, int final_stage,
@@ -260,9 +265,10 @@ static int cross_inv_at(int log_d, const u64* x, u64* y,
                         cudaStream_t stream) {
   if (log_d != LOG_D) {
     if constexpr (LOG_D < 6) {
-      return cross_inv_at<W, LOG_D + 1>(log_d, x, y, irop_cross, pirop_cross,
-                                        q, fin, omf, final_stage, log_lc,
-                                        log_groups, columns, stream);
+      return cross_inv_at<W, S, LOG_D + 1>(log_d, x, y, irop_cross,
+                                           pirop_cross, q, fin, omf,
+                                           final_stage, log_lc, log_groups,
+                                           columns, stream);
     } else {
       return (int)cudaErrorInvalidValue;
     }
@@ -273,11 +279,13 @@ static int cross_inv_at(int log_d, const u64* x, u64* y,
     return (int)cudaErrorInvalidValue;
   const size_t smem = cross_smem<W>(LOG_D + log_groups);
   if (final_stage)
-    cross_inv_kernel<W, LOG_D, true><<<grid, CROSS_THREADS, smem, stream>>>(
+    cross_inv_kernel<W, S, LOG_D, true><<<grid, CROSS_THREADS, smem,
+                                          stream>>>(
         x, y, irop_cross, pirop_cross, q, fin, omf, log_lc, log_groups,
         columns);
   else
-    cross_inv_kernel<W, LOG_D, false><<<grid, CROSS_THREADS, smem, stream>>>(
+    cross_inv_kernel<W, S, LOG_D, false><<<grid, CROSS_THREADS, smem,
+                                           stream>>>(
         x, y, irop_cross, pirop_cross, q, fin, omf, log_lc, log_groups,
         columns);
   return (int)cudaGetLastError();
@@ -285,17 +293,28 @@ static int cross_inv_at(int log_d, const u64* x, u64* y,
 
 // K5 on `batch` blocks of (2^log_d, 2^log_lc), in groups of
 // 2^log_groups consecutive blocks (see the kernels). word is 64 or 32; for
-// 32 the precon tables and constants are the plan's precon32 ones.
+// 32 the precon tables and constants are the plan's precon32 ones. scheme
+// is a Scheme code (modarith.cuh), a lean one with word 64 only.
 extern "C" int hexl_cross_fwd(const u64* x, u64* y, const u64* rop,
                               const u64* prop, u64 q, int log_d, int log_lc,
-                              int log_groups, int batch, int word,
+                              int log_groups, int batch, int word, int scheme,
                               cudaStream_t stream) {
   const long long columns = (long long)batch << log_lc;
   if (word == 32)
-    return cross_fwd_at<u32, 1>(log_d, x, y, rop, prop, q, log_lc,
-                                log_groups, columns, stream);
-  return cross_fwd_at<u64, 1>(log_d, x, y, rop, prop, q, log_lc, log_groups,
-                              columns, stream);
+    return scheme != EXACT
+               ? (int)cudaErrorInvalidValue
+               : cross_fwd_at<u32, EXACT, 1>(log_d, x, y, rop, prop, q,
+                                             log_lc, log_groups, columns,
+                                             stream);
+  if (scheme == LEAN16)
+    return cross_fwd_at<u64, LEAN16, 1>(log_d, x, y, rop, prop, q, log_lc,
+                                        log_groups, columns, stream);
+  if (scheme == LEAN8)
+    return cross_fwd_at<u64, LEAN8, 1>(log_d, x, y, rop, prop, q, log_lc,
+                                       log_groups, columns, stream);
+  if (scheme != EXACT) return (int)cudaErrorInvalidValue;
+  return cross_fwd_at<u64, EXACT, 1>(log_d, x, y, rop, prop, q, log_lc,
+                                     log_groups, columns, stream);
 }
 
 extern "C" int hexl_cross_inv(const u64* x, u64* y, const u64* irop_cross,
@@ -303,20 +322,32 @@ extern "C" int hexl_cross_inv(const u64* x, u64* y, const u64* irop_cross,
                               u64 inv_n_precon, u64 inv_n_w,
                               u64 inv_n_w_precon, int log_d, int log_lc,
                               int log_groups, int batch, int omf,
-                              int final_stage, int word,
+                              int final_stage, int word, int scheme,
                               cudaStream_t stream) {
   const long long columns = (long long)batch << log_lc;
   if (word == 32) {
     const InvFinal<u32> fin = {(u32)inv_n, (u32)inv_n_precon, (u32)inv_n_w,
                                (u32)inv_n_w_precon};
-    return cross_inv_at<u32, 1>(log_d, x, y, irop_cross, pirop_cross, q, fin,
-                                omf, final_stage, log_lc, log_groups, columns,
-                                stream);
+    return scheme != EXACT
+               ? (int)cudaErrorInvalidValue
+               : cross_inv_at<u32, EXACT, 1>(log_d, x, y, irop_cross,
+                                             pirop_cross, q, fin, omf,
+                                             final_stage, log_lc, log_groups,
+                                             columns, stream);
   }
   const InvFinal<u64> fin = {inv_n, inv_n_precon, inv_n_w, inv_n_w_precon};
-  return cross_inv_at<u64, 1>(log_d, x, y, irop_cross, pirop_cross, q, fin,
-                              omf, final_stage, log_lc, log_groups, columns,
-                              stream);
+  if (scheme == LEAN16)
+    return cross_inv_at<u64, LEAN16, 1>(log_d, x, y, irop_cross, pirop_cross,
+                                        q, fin, omf, final_stage, log_lc,
+                                        log_groups, columns, stream);
+  if (scheme == LEAN8)
+    return cross_inv_at<u64, LEAN8, 1>(log_d, x, y, irop_cross, pirop_cross,
+                                       q, fin, omf, final_stage, log_lc,
+                                       log_groups, columns, stream);
+  if (scheme != EXACT) return (int)cudaErrorInvalidValue;
+  return cross_inv_at<u64, EXACT, 1>(log_d, x, y, irop_cross, pirop_cross, q,
+                                     fin, omf, final_stage, log_lc,
+                                     log_groups, columns, stream);
 }
 
 // K6: `chunks` shards of 2^log_n coefficients of transforms of degree
@@ -325,21 +356,24 @@ extern "C" int hexl_cross_inv(const u64* x, u64* y, const u64* irop_cross,
 extern "C" int hexl_local_fwd(const u64* x, u64* y, const u64* rop,
                               const u64* prop, u64 q, int log_n, int log_d,
                               int shard_base, int log_sub, int chunks,
-                              int omf, int word, cudaStream_t stream) {
+                              int omf, int word, int scheme,
+                              cudaStream_t stream) {
   if (word == 32)
-    return launch_fwd<u32>(x, y, rop, prop, q, log_n, chunks, 1, omf, log_d,
-                           shard_base, log_sub, stream);
-  return launch_fwd<u64>(x, y, rop, prop, q, log_n, chunks, 1, omf, log_d,
-                         shard_base, log_sub, stream);
+    return launch_fwd_scheme<u32>(scheme, x, y, rop, prop, q, log_n, chunks,
+                                  1, omf, log_d, shard_base, log_sub, stream);
+  return launch_fwd_scheme<u64>(scheme, x, y, rop, prop, q, log_n, chunks, 1,
+                                omf, log_d, shard_base, log_sub, stream);
 }
 
 extern "C" int hexl_local_inv(const u64* x, u64* y, const u64* irop,
                               const u64* pirop, u64 q, int log_n, int log_d,
                               int shard_base, int log_sub, int chunks,
-                              int word, cudaStream_t stream) {
+                              int word, int scheme, cudaStream_t stream) {
   if (word == 32)
-    return launch_inv<u32>(x, y, irop, pirop, q, InvFinal<u32>{}, log_n,
-                           chunks, 1, 2, log_d, shard_base, log_sub, stream);
-  return launch_inv<u64>(x, y, irop, pirop, q, InvFinal<u64>{}, log_n, chunks,
-                         1, 2, log_d, shard_base, log_sub, stream);
+    return launch_inv_scheme<u32>(scheme, x, y, irop, pirop, q,
+                                  InvFinal<u32>{}, log_n, chunks, 1, 2, log_d,
+                                  shard_base, log_sub, stream);
+  return launch_inv_scheme<u64>(scheme, x, y, irop, pirop, q, InvFinal<u64>{},
+                                log_n, chunks, 1, 2, log_d, shard_base,
+                                log_sub, stream);
 }

@@ -119,13 +119,13 @@ def block_plain(v, table, scalar, precision: str, forward: bool):
 
 # -- the kernel wrappers ------------------------------------------------------------
 
-def _on_card(v, table, precision: str) -> bool:
-    """The wrappers' checks: every plane of the value and the table of the
-    precision's type, contiguous, with no lazy conjugate or negation (a
-    kernel reads the memory as it lies), on one device. True on a CUDA
-    device (the kernel runs), False on the CPU (the plain version runs)."""
-    tensors = (planes(v, precision) + planes(table, precision)
-               if precision == "double_float" else (v, table))
+def check_memory(values, precision: str) -> torch.device:
+    """The checks of a kernel's operands: every tensor of the values (a
+    double-float value's planes) of the precision's type, contiguous, with
+    no lazy conjugate or negation (a kernel reads the memory as it lies),
+    on one device, which is returned."""
+    tensors = ([p for v in values for p in planes(v, precision)]
+               if precision == "double_float" else list(values))
     dev = tensors[0].device
     for t in tensors:
         if t.dtype != _DTYPE[precision]:
@@ -138,6 +138,14 @@ def _on_card(v, table, precision: str) -> bool:
         if t.is_conj() or t.is_neg():
             raise ValueError("operands must not be lazy conjugates or "
                              "negations (resolve_conj/resolve_neg first)")
+    return dev
+
+
+def _on_card(v, table, precision: str) -> bool:
+    """The wrappers' checks (`check_memory`, and the shapes). True on a
+    CUDA device (the kernel runs), False on the CPU (the plain version
+    runs)."""
+    dev = check_memory((v, table), precision)
     shape = planes(v, precision)[0].shape
     if any(p.shape != shape for p in planes(v, precision)):
         raise ValueError("the planes of a value differ in shape")
@@ -151,13 +159,13 @@ def _on_card(v, table, precision: str) -> bool:
     return dev.type == "cuda"
 
 
-def _pointers(v, precision: str) -> list:
+def pointers(v, precision: str) -> list:
     if precision == "double_float":
         return [p.data_ptr() for p in planes(v, precision)]
     return [v.data_ptr(), None, None, None]
 
 
-def _empty_like(v, precision: str):
+def empty_like(v, precision: str):
     if precision == "double_float":
         return value(tuple(torch.empty_like(p) for p in planes(v, precision)),
                      precision)
@@ -184,7 +192,7 @@ def block(v, table, scalar, precision: str, forward: bool):
     if not _on_card(v, table, precision):
         fn = walk_plain if n <= BLOCK_N else block_plain
         return fn(v, table, scalar, precision, forward)
-    out = _empty_like(v, precision)
+    out = empty_like(v, precision)
     batch = _build.batch_of(planes(v, precision)[0], n)
     if batch == 0:
         return out
@@ -198,8 +206,8 @@ def block(v, table, scalar, precision: str, forward: bool):
         pp = 1
     fn = _build.function("fft", "hexl_fft_block", _BLOCK_ARGS)
     _build.launch_on(dev, kernel_name("K12", precision), fn,
-                     _CODE[precision], *_pointers(v, precision),
-                     *_pointers(out, precision), *_pointers(table, precision),
+                     _CODE[precision], *pointers(v, precision),
+                     *pointers(out, precision), *pointers(table, precision),
                      *_scalar_args(scalar, precision), int(forward), log_n,
                      log_d, chunks, pp)
     return out
@@ -211,15 +219,15 @@ def cross(v, table, scalar, precision: str, forward: bool):
     log_d = nt.log2_exact(_shards(n))
     if not _on_card(v, table, precision):
         return cross_plain(v, table, scalar, precision, forward)
-    out = _empty_like(v, precision)
+    out = empty_like(v, precision)
     batch = _build.batch_of(planes(v, precision)[0], n)
     if batch == 0:
         return out
     fn = _build.function("fft", "hexl_fft_cross", _CROSS_ARGS)
     _build.launch_on(_device_of(v, precision),
                      kernel_name("K13", precision), fn, _CODE[precision],
-                     *_pointers(v, precision), *_pointers(out, precision),
-                     *_pointers(table, precision),
+                     *pointers(v, precision), *pointers(out, precision),
+                     *pointers(table, precision),
                      *_scalar_args(scalar, precision), int(forward),
                      nt.log2_exact(BLOCK_N), log_d, batch)
     return out

@@ -135,6 +135,28 @@ def mulhi64(x: torch.Tensor, y) -> torch.Tensor:
     return mul64_wide(x, y)[0]
 
 
+def hi32_approx(a: torch.Tensor, b) -> torch.Tensor:
+    """The high 32 bits of the product of two u32 values (held in int64),
+    less 0, 1 or 2: `hexl_tpu/limb.py::hi32_approx`, from three 16-bit
+    partial products with the carry of the middle column dropped. Every
+    term is below 2^32, and so is their sum."""
+    a0, a1 = a & 0xFFFF, a >> 16
+    b0, b1 = b & 0xFFFF, b >> 16
+    return a1 * b1 + ((a0 * b1) >> 16) + ((a1 * b0) >> 16)
+
+
+def mulhi64_approx6(x: torch.Tensor, y) -> torch.Tensor:
+    """floor(x*y / 2^64) - e with e in [0, 6]: `hexl_tpu/limb.py::
+    mulhi64_approx6` bit for bit. It drops the bit-32 column (x0 y0's high
+    half and the low halves of the cross partials) and takes the cross
+    partials' high halves from `hi32_approx`; the JAX form's two 32-bit
+    carries are the 64-bit sum's own carries, so the result is
+    x1 y1 + hi32_approx(x0, y1) + hi32_approx(x1, y0) mod 2^64."""
+    x0, x1 = x & MASK32, shr64(x, 32)
+    y0, y1 = u64_bits(y) & MASK32, shr64(u64_bits(y), 32)
+    return x1 * y1 + hi32_approx(x0, y1) + hi32_approx(x1, y0)
+
+
 def mullo64(x: torch.Tensor, y) -> torch.Tensor:
     """(x * y) mod 2^64."""
     return x * y

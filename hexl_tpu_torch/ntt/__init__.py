@@ -10,7 +10,13 @@ The output of `forward` is in bit-reversed order, with the same lazy ranges
 and values as the JAX package, because the routing is the JAX engine's:
 q < 2^30 with N >= 1024 runs the single-word transform (`cuda_ntt` with
 word 32: K7, or the u32 two-pass split above 2^15), everything else the
-64-bit walk (K1/K2 up to 2^14, the two-pass split K5/K6 above). Inputs
+64-bit walk (K1/K2 up to 2^14, the two-pass split K5/K6 above). The
+64-bit walk runs the approximate-quotient butterflies of the JAX engine's
+device bodies (lean16/lean8, `torch_ntt.scheme_for`) where
+`config.approx_butterflies(device)` says so, and the exact Harvey ones
+elsewhere: fully reduced outputs are the same bits, lazy ones agree mod q
+within the same ranges. Under HEXL_TPU_DEBUG=1 every input is checked
+below IMF x q, as in the JAX engine. Inputs
 have shape (..., N): numpy uint64 in gives numpy out; an int64 tensor of
 u64 bits in gives a tensor out on its device.
 
@@ -25,7 +31,8 @@ import numpy as np
 
 from .. import _device
 from ..limb import to_numpy
-from . import cuda_ntt, mxu_ntt
+from ..utils import check as _check
+from . import cuda_ntt, mxu_ntt, torch_ntt
 from . import plan as _plan
 from .mxu_ntt import fwd_ntt_mxu, get_mxu_plan, inv_ntt_mxu
 from .plan import NttPlan, check_arguments, get_plan, plan_from_arrays
@@ -64,9 +71,17 @@ class NTT:
         return self.plan.root
 
     def _dispatch(self, x, forward: bool, imf: int, omf: int):
+        _check.check_bounds(
+            x, imf * self.modulus,
+            f"{'forward' if forward else 'inverse'} NTT input")
         fn = cuda_ntt.fwd_ntt if forward else cuda_ntt.inv_ntt
         (tx,), host = _device.operands((x,), self.device)
-        out = fn(tx, self.plan, imf, omf, 32 if self.plan.single_word else 64)
+        if self.plan.single_word:
+            out = fn(tx, self.plan, imf, omf, 32)
+        else:
+            out = fn(tx, self.plan, imf, omf, 64,
+                     torch_ntt.scheme_for(self.modulus, self.degree,
+                                          tx.device))
         return to_numpy(out) if host else out
 
     def forward(self, x, input_mod_factor: int = 1,

@@ -12,11 +12,14 @@ in `csrc/ntt.cu` says what bounds them on an H100 and what the design does
 about it. Larger N runs the two-pass split of `hier` (K5, K6) in the same
 word. The public `NTT` picks word 32 for q < 2^30 with N >= 1024, as the
 JAX engine does; the poly-mult and RNS paths always run word 64, as the
-JAX package's do.
+JAX package's do. `scheme` (word 64 only) picks the butterflies, exact or
+approximate (`torch_ntt`): each is a template instantiation of the
+kernels, not a run-time branch in them.
 
 A tensor on the GPU goes to the kernel, a tensor on the CPU to the plain
 version in `torch_ntt`; there is no other path. Launches are counted in
-`_build.launches` under "K1", "K2" and "K7".
+`_build.launches` under "K1", "K2" and "K7", the lean instantiations under
+"K1.lean16", "K1.lean8", "K2.lean16" and "K2.lean8".
 """
 
 from __future__ import annotations
@@ -36,8 +39,8 @@ PACK_COEFFS = 1 << 13          # K2 fills a CTA with at most this many
 _P = ctypes.c_void_p
 _U = ctypes.c_uint64
 _I = ctypes.c_int
-_FWD_ARGS = (_P, _P, _P, _P, _U, _I, _I, _I, _I, _I, _P)
-_INV_ARGS = (_P, _P, _P, _P, _U, _U, _U, _U, _U, _I, _I, _I, _I, _I, _P)
+_FWD_ARGS = (_P, _P, _P, _P, _U, _I, _I, _I, _I, _I, _I, _P)
+_INV_ARGS = (_P, _P, _P, _P, _U, _U, _U, _U, _U, _I, _I, _I, _I, _I, _I, _P)
 
 
 def polys_per_cta(degree: int, batch: int, sms: int) -> int:
@@ -57,8 +60,9 @@ def sm_count(device: torch.device) -> int:
 
 
 def _launch(x: torch.Tensor, plan, imf: int, omf: int, forward: bool,
-            word: int) -> torch.Tensor:
+            word: int, scheme: str) -> torch.Tensor:
     torch_ntt.check_factors(forward, imf, omf)
+    torch_ntt.check_scheme(scheme, plan.q, word)
     if word == 32 and plan.bit_shift != 32:
         raise ValueError(f"the single-word NTT needs q < 2^30, got {plan.q}")
     if x.dim() < 1 or x.shape[-1] != plan.n:
@@ -66,10 +70,10 @@ def _launch(x: torch.Tensor, plan, imf: int, omf: int, forward: bool,
                          f"{tuple(x.shape)}")
     if plan.n > (MAX_KERNEL_DEGREE32 if word == 32 else MAX_KERNEL_DEGREE):
         fn = hier.fwd_ntt if forward else hier.inv_ntt
-        return fn(x, plan, omf, word)
+        return fn(x, plan, omf, word, scheme)
     if not _build.on_card(x):
         fn = torch_ntt.fwd_ntt if forward else torch_ntt.inv_ntt
-        return fn(x, plan, imf, omf, word=word)
+        return fn(x, plan, imf, omf, word, scheme)
     out = torch.empty_like(x)
     batch = _build.batch_of(x, plan.n)
     if batch == 0:
@@ -78,30 +82,36 @@ def _launch(x: torch.Tensor, plan, imf: int, omf: int, forward: bool,
         pp, kernel = 1, "K7"
     else:
         pp = polys_per_cta(plan.n, batch, sm_count(x.device))
-        kernel = "K2" if pp > 1 else "K1"
+        kernel = hier.kernel_name("K2" if pp > 1 else "K1", word, scheme)
     w, wp = plan.twiddles(x.device, forward, word)
     if forward:
         fn = _build.function("ntt", "hexl_ntt_fwd", _FWD_ARGS)
         _build.launch_on(x.device, kernel, fn, x.data_ptr(), out.data_ptr(),
                          w.data_ptr(), wp.data_ptr(), plan.q, plan.log_n,
-                         batch, pp, omf, word)
+                         batch, pp, omf, word,
+                         torch_ntt.SCHEME_CODE[scheme])
     else:
         fn = _build.function("ntt", "hexl_ntt_inv", _INV_ARGS)
         _build.launch_on(x.device, kernel, fn, x.data_ptr(), out.data_ptr(),
                          w.data_ptr(), wp.data_ptr(), plan.q, *plan.fin(word),
-                         plan.log_n, batch, pp, omf, word)
+                         plan.log_n, batch, pp, omf, word,
+                         torch_ntt.SCHEME_CODE[scheme])
     return out
 
 
 def fwd_ntt(x: torch.Tensor, plan, input_mod_factor: int = 1,
-            output_mod_factor: int = 1, word: int = 64) -> torch.Tensor:
+            output_mod_factor: int = 1, word: int = 64,
+            scheme: str = "exact") -> torch.Tensor:
     """Forward NTT of x (..., N) through K1/K2/K7 or K5/K6 (CUDA) or the
     plain versions (CPU); same contract as `torch_ntt.fwd_ntt`."""
-    return _launch(x, plan, input_mod_factor, output_mod_factor, True, word)
+    return _launch(x, plan, input_mod_factor, output_mod_factor, True, word,
+                   scheme)
 
 
 def inv_ntt(x: torch.Tensor, plan, input_mod_factor: int = 1,
-            output_mod_factor: int = 1, word: int = 64) -> torch.Tensor:
+            output_mod_factor: int = 1, word: int = 64,
+            scheme: str = "exact") -> torch.Tensor:
     """Inverse NTT of x (..., N) through K1/K2/K7 or K5/K6 (CUDA) or the
     plain versions (CPU); same contract as `torch_ntt.inv_ntt`."""
-    return _launch(x, plan, input_mod_factor, output_mod_factor, False, word)
+    return _launch(x, plan, input_mod_factor, output_mod_factor, False, word,
+                   scheme)

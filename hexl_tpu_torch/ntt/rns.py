@@ -6,7 +6,12 @@ as the **64-bit** single-modulus transform of `cuda_ntt` (K1/K2 up to
 2^14, K5/K6 above), lazy outputs included. The JAX stacked path never
 takes the single-word regime (rns.py:13-16): a q < 2^30 prime in a basis
 runs the 64-bit walk here too, not `ntt32`, so its lazy outputs are those
-of the 64-bit walk and not those of `NTT(N, q)`.
+of the 64-bit walk and not those of `NTT(N, q)`. Where
+`config.approx_butterflies(device)` says so, every row runs the
+approximate-quotient butterflies of the scheme that the basis's largest
+modulus allows (`torch_ntt.scheme_for(max(moduli), N)`), as the JAX
+stacked bodies do (rns.py:118-177). Under HEXL_TPU_DEBUG=1 row i is
+checked below IMF x moduli[i], as in the JAX engine.
 
 Each row is one launch per pass (k launches per direction for N <= 2^14,
 2k above). A single stacked launch with per-row q and table offsets is
@@ -19,7 +24,8 @@ import torch
 
 from .. import _device
 from ..limb import to_numpy
-from . import cuda_ntt
+from ..utils import check as _check
+from . import cuda_ntt, torch_ntt
 from .plan import get_plan
 
 
@@ -44,18 +50,23 @@ def get_rns_plan(degree: int, moduli) -> RnsPlan:
 
 
 def fwd_ntt_rns(x: torch.Tensor, rplan: RnsPlan, input_mod_factor: int = 1,
-                output_mod_factor: int = 1) -> torch.Tensor:
-    """Forward NTT of x (k, ..., N), row i under moduli[i]."""
+                output_mod_factor: int = 1,
+                scheme: str = "exact") -> torch.Tensor:
+    """Forward NTT of x (k, ..., N), row i under moduli[i], every row
+    with the butterflies of `scheme`."""
     return torch.stack([
-        cuda_ntt.fwd_ntt(x[i], p, input_mod_factor, output_mod_factor)
+        cuda_ntt.fwd_ntt(x[i], p, input_mod_factor, output_mod_factor, 64,
+                         scheme)
         for i, p in enumerate(rplan.plans)])
 
 
 def inv_ntt_rns(x: torch.Tensor, rplan: RnsPlan, input_mod_factor: int = 1,
-                output_mod_factor: int = 1) -> torch.Tensor:
+                output_mod_factor: int = 1,
+                scheme: str = "exact") -> torch.Tensor:
     """Inverse NTT of x (k, ..., N), row i under moduli[i]."""
     return torch.stack([
-        cuda_ntt.inv_ntt(x[i], p, input_mod_factor, output_mod_factor)
+        cuda_ntt.inv_ntt(x[i], p, input_mod_factor, output_mod_factor, 64,
+                         scheme)
         for i, p in enumerate(rplan.plans)])
 
 
@@ -83,8 +94,15 @@ class RnsNTT:
             raise ValueError(
                 f"input leading axis must be the {self.plan.k}-prime basis "
                 f"axis, got shape {tuple(tx.shape)}")
+        for i, q in enumerate(self.moduli):
+            _check.check_bounds(
+                tx[i], imf * q,
+                f"{'forward' if forward else 'inverse'} RNS NTT input "
+                f"(prime {i})")
         fn = fwd_ntt_rns if forward else inv_ntt_rns
-        out = fn(tx, self.plan, imf, omf)
+        out = fn(tx, self.plan, imf, omf,
+                 torch_ntt.scheme_for(max(self.moduli), self.degree,
+                                      tx.device))
         return to_numpy(out) if host else out
 
     def forward(self, x, input_mod_factor: int = 1,

@@ -28,12 +28,11 @@ included (its CPU bodies are the exact Harvey butterflies).
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import torch
 
-from .. import _device
+from .. import _device, config
 from ..eltwise import ops
 from ..limb import to_numpy
 from ..ntt import cuda_ntt, hier, shard
@@ -42,18 +41,6 @@ from .mesh import (Mesh, Sharded, all_to_all, gather, local,
                    mesh_devices, scatter)
 
 LANES = 128     # the JAX layout's lane count: a shard holds at least 2 x 128
-
-
-def dist_overlap_slices() -> int:
-    """HEXL_TPU_DIST_OVERLAP=S (S > 1) splits each cross-phase exchange
-    into S slices, each with its own pair of exchanges (the JAX package's
-    `config.dist_overlap_slices`); 0/unset keeps one exchange per phase."""
-    v = os.environ.get("HEXL_TPU_DIST_OVERLAP", "0")
-    try:
-        return int(v)
-    except ValueError:
-        raise ValueError(
-            f"HEXL_TPU_DIST_OVERLAP must be an integer; got {v!r}") from None
 
 
 def make_mesh(n_coeff: int, n_batch: int = 1, devices=None) -> Mesh:
@@ -83,7 +70,7 @@ class DistNTT:
         self.q = modulus
         self.d = mesh.shape["coeff"]
         if overlap_slices is None:
-            overlap_slices = dist_overlap_slices()
+            overlap_slices = config.dist_overlap_slices()
         self.overlap_slices = max(1, int(overlap_slices))
         if degree % (self.d * self.d) != 0:
             raise ValueError("degree must be divisible by D^2")
@@ -204,7 +191,7 @@ _DIST_CACHE = {}
 
 
 def get_dist_ntt(degree: int, modulus: int, mesh: Mesh) -> DistNTT:
-    key = (degree, modulus, mesh.key(), max(1, dist_overlap_slices()))
+    key = (degree, modulus, mesh.key(), max(1, config.dist_overlap_slices()))
     if key not in _DIST_CACHE:
         _DIST_CACHE[key] = DistNTT(degree, modulus, mesh)
     return _DIST_CACHE[key]

@@ -11,7 +11,11 @@ Above 2^14 both devices run the staged route of `_poly_mult_staged`
 (poly.py:83-90): the 64-bit transforms of `cuda_ntt` (K5/K6 on the GPU,
 even for q < 2^30, as the JAX package's are) and the mult_mod of K4.
 Launches are counted in `_build.launches` under "K3" (and the kernels of
-the staged route under theirs).
+the staged route under theirs). Where `config.approx_butterflies` says
+so, the staged route's transforms run the approximate-quotient
+butterflies that the modulus (for an RNS basis, its largest, as the JAX
+stacked pipeline does) allows; K3 and the plain chain stay exact. Every
+output is fully reduced, so the scheme changes no bit of it.
 
 rns_poly_mult_mod runs the same product per prime of an RNS basis, the
 counterpart of `hexl_tpu/poly.py::rns_poly_mult_mod`; every output is fully
@@ -43,23 +47,28 @@ def poly_mult_plain(a: torch.Tensor, b: torch.Tensor, plan) -> torch.Tensor:
     return torch_ntt.inv_ntt(prod, plan, 1, 1)
 
 
-def poly_mult_staged(a: torch.Tensor, b: torch.Tensor, plan) -> torch.Tensor:
+def poly_mult_staged(a: torch.Tensor, b: torch.Tensor, plan,
+                     scheme: str = "exact") -> torch.Tensor:
     """The same chain through the transform and mult_mod wrappers, one
-    launch per step on the GPU: the route above 2^14."""
-    fa = cuda_ntt.fwd_ntt(a, plan, 1, 4)
-    fb = cuda_ntt.fwd_ntt(b, plan, 1, 4)
+    launch per step on the GPU: the route above 2^14. The transforms run
+    the butterflies of `scheme`; the product is fully reduced either
+    way."""
+    fa = cuda_ntt.fwd_ntt(a, plan, 1, 4, 64, scheme)
+    fb = cuda_ntt.fwd_ntt(b, plan, 1, 4, 64, scheme)
     prod = ops.mult_mod(fa, fb, plan.q, 4)
-    return cuda_ntt.inv_ntt(prod, plan, 1, 1)
+    return cuda_ntt.inv_ntt(prod, plan, 1, 1, 64, scheme)
 
 
-def poly_mult(a: torch.Tensor, b: torch.Tensor, plan) -> torch.Tensor:
+def poly_mult(a: torch.Tensor, b: torch.Tensor, plan,
+              scheme: str = "exact") -> torch.Tensor:
     """a*b mod (X^N+1, q) on int64 tensors (..., N) of one shape and
     device: K3 (N <= 2^14) or the staged route on the GPU, the plain chain
-    on the CPU."""
+    on the CPU. `scheme` is the staged route's (K3 and the plain chain
+    are exact)."""
     if a.shape != b.shape or a.dim() < 1 or a.shape[-1] != plan.n:
         raise ValueError(f"operands must both have shape (..., {plan.n})")
     if plan.n > cuda_ntt.MAX_KERNEL_DEGREE:
-        return poly_mult_staged(a, b, plan)
+        return poly_mult_staged(a, b, plan, scheme)
     if not _build.on_card(a, b):
         return poly_mult_plain(a, b, plan)
     out = torch.empty_like(a)
@@ -87,7 +96,8 @@ def poly_mult_mod(a, b, degree: int, modulus: int, device=None):
     if degree < 2:
         raise ValueError("degree must be at least 2")
     (ta, tb), host = _device.operands((a, b), device)
-    out = poly_mult(ta, tb, get_plan(degree, modulus))
+    out = poly_mult(ta, tb, get_plan(degree, modulus),
+                    torch_ntt.scheme_for(modulus, degree, ta.device))
     return to_numpy(out) if host else out
 
 
@@ -102,6 +112,7 @@ def rns_poly_mult_mod(a, b, degree: int, moduli, device=None):
     if ta.shape != tb.shape or ta.dim() < 2 or ta.shape[0] != len(moduli):
         raise ValueError(
             f"operands must both have shape ({len(moduli)}, ..., {degree})")
-    out = torch.stack([poly_mult(ta[i], tb[i], get_plan(degree, q))
+    scheme = torch_ntt.scheme_for(max(moduli), degree, ta.device)
+    out = torch.stack([poly_mult(ta[i], tb[i], get_plan(degree, q), scheme)
                        for i, q in enumerate(moduli)])
     return to_numpy(out) if host else out

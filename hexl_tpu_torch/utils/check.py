@@ -8,17 +8,15 @@ for it, which costs a synchronisation, and only then.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
+from .. import config
 from ..limb import to_numpy
 
 
 def debug_enabled() -> bool:
-    return os.environ.get("HEXL_TPU_DEBUG", "").strip() not in (
-        "", "0", "false", "False")
+    return config.debug_checks()
 
 
 def check(cond: bool, message: str) -> None:

@@ -660,3 +660,126 @@ def test_parallel_layer_on_a_one_card_mesh(cuda, monkeypatch):
     assert all(launched.get(k, 0) > 0 for k in
                ("K4", "K5", "K6", "K8.reduce", "K9", "K10", "K11",
                 "K16")), launched
+
+
+# -- the approximate-butterfly schemes and the chains (K17, K18) ------------
+
+def _lean_schemes(q):
+    """Every lean scheme q allows."""
+    return [s for s, bound in (("lean16", torch_ntt.LEAN16_MAX_Q),
+                               ("lean8", torch_ntt.LEAN_APPROX_MAX_Q))
+            if q < bound]
+
+
+@pytest.mark.parametrize("n,batch", [(2, 1), (16, 401), (1024, 401),
+                                     (4096, 3), (8192, 2), (16384, 2)])
+@pytest.mark.parametrize("q_bits", [49, 59, 60])
+def test_lean_ntt_kernels_match_plain(cuda, n, batch, q_bits):
+    q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+    plan = get_plan(n, q)
+    rng = np.random.default_rng(n + q_bits)
+    for scheme in _lean_schemes(q):
+        for imf in (1, 2, 4):
+            x = _rand(rng, (batch, n), imf * q, cuda)
+            for omf in (1, 4):
+                got = cuda_ntt.fwd_ntt(x, plan, imf, omf, 64, scheme)
+                torch.cuda.synchronize()
+                assert torch.equal(got, torch_ntt.fwd_ntt(x, plan, imf, omf,
+                                                          64, scheme))
+                if omf == 1:
+                    assert torch.equal(got, cuda_ntt.fwd_ntt(x, plan, imf, 1))
+        for imf in (1, 2):
+            x = _rand(rng, (batch, n), imf * q, cuda)
+            for omf in (1, 2):
+                got = cuda_ntt.inv_ntt(x, plan, imf, omf, 64, scheme)
+                torch.cuda.synchronize()
+                assert torch.equal(got, torch_ntt.inv_ntt(x, plan, imf, omf,
+                                                          64, scheme))
+
+
+@pytest.mark.parametrize("n,batch", [(1 << 15, 3), (1 << 20, 1)])
+@pytest.mark.parametrize("q_bits", [49, 59, 60])
+def test_lean_split_kernels_match_plain(cuda, n, batch, q_bits):
+    q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+    plan = get_plan(n, q)
+    rng = np.random.default_rng(n + q_bits)
+    blocks = (batch, n // hier.LOCAL_N, hier.LOCAL_N)
+    for scheme in _lean_schemes(q):
+        x = _rand(rng, blocks, 4 * q, cuda)
+        c = hier.cross(x, plan, True, 1, 64, scheme)
+        torch.cuda.synchronize()
+        assert torch.equal(c, hier.cross_fwd_plain(x, plan, 64, scheme))
+        c = c.view(batch, n)
+        for omf in (1, 4):
+            got = hier.local(c, plan, True, omf, 64, scheme)
+            torch.cuda.synchronize()
+            assert torch.equal(got, hier.local_fwd_plain(c, plan, omf, 64,
+                                                         scheme))
+        x = _rand(rng, (batch, n), 2 * q, cuda)
+        loc = hier.local(x, plan, False, 1, 64, scheme)
+        torch.cuda.synchronize()
+        assert torch.equal(loc, hier.local_inv_plain(x, plan, 64, scheme))
+        for omf in (1, 2):
+            got = hier.cross(loc.view(blocks), plan, False, omf, 64, scheme)
+            torch.cuda.synchronize()
+            assert torch.equal(got, hier.cross_inv_plain(loc.view(blocks),
+                                                         plan, omf, 64,
+                                                         scheme))
+
+
+def test_public_lean_regime_goes_through_the_kernels(cuda, monkeypatch):
+    """With the regime forced on, NTT runs the lean instantiations: equal
+    to the plain lean walk, and to the exact outputs at OMF 1."""
+    from hexl_tpu_torch import config
+    n = 1 << 14
+    for q_bits, scheme in ((60, "lean8"), (59, "lean16")):
+        q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+        engine, plan = NTT(n, q), get_plan(n, q)
+        x = _rand(np.random.default_rng(q_bits), (4, n), q, cuda)
+        exact = engine.forward(x)
+        monkeypatch.setattr(config, "approx_butterflies", lambda d: True)
+        _build.reset_launches()
+        lazy = engine.forward(x, 1, 4)
+        y = engine.forward(x)
+        back = engine.inverse(y)
+        torch.cuda.synchronize()
+        assert _build.launches[f"K1.{scheme}"] == 3
+        assert torch.equal(lazy, torch_ntt.fwd_ntt(x, plan, 1, 4, 64, scheme))
+        assert torch.equal(y, exact) and torch.equal(back, x)
+        monkeypatch.setattr(config, "approx_butterflies", lambda d: False)
+
+
+@pytest.mark.parametrize("scheme", ["lean16", "exact"])
+def test_ntt_chain_kernel_matches_plain(cuda, scheme):
+    from hexl_tpu_torch.ntt import chain
+    x, y = chain.probe_inputs(np.random.default_rng(17), cuda, 1024, 128)
+    got = chain.chain(x, y, chain.PROBE_W, chain.PROBE_Q, chain.REPS, scheme)
+    torch.cuda.synchronize()
+    want = chain.chain_plain(x, y, chain.PROBE_W, chain.PROBE_Q, chain.REPS,
+                             scheme)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("precision", ["double_float", "f64", "single"])
+def test_df_chain_kernel_matches_plain(cuda, precision):
+    from hexl_tpu_torch.experimental import df_chain
+    rng = np.random.default_rng(18)
+    x, y = (_fft_value(rng, (1024, 128), precision, cuda) for _ in range(2))
+    w, s = df_chain.twiddle(precision, cuda), df_chain.shrink(precision)
+    got = df_chain.chain(x, y, w, s, precision)
+    torch.cuda.synchronize()
+    want = df_chain.chain_plain(x, y, w, s, precision)
+    for g, v in zip(got, want):
+        assert _same_value(g, v, precision)
+
+
+def test_new_instantiations_do_not_spill(cuda):
+    """The lean instantiations of K1/K2/K5/K6 and the chain kernels, from
+    the -Xptxas -v report of the build."""
+    import re
+    res = _build.kernel_resources(_build.build_all()["log"])
+    new = {k: v for k, v in res.items()
+           if "chain_kernel" in k or re.search(r"kernelIyLi[12]E", k)}
+    assert len(new) >= 2 * 2 + 2 * 6 * 3 + 2 + 3
+    spills = {k: v for k, v in new.items() if v[2] or v[3]}
+    assert not spills, spills

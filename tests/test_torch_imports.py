@@ -39,7 +39,9 @@ def test_no_jax_or_hexl_tpu_imports(path):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, hexl_tpu_torch, hexl_tpu_torch.poly; "
+    code = ("import sys, hexl_tpu_torch, hexl_tpu_torch.poly, "
+            "hexl_tpu_torch.config, hexl_tpu_torch.ntt.chain, "
+            "hexl_tpu_torch.experimental.df_chain; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'hexl_tpu')]; "
             "assert not bad, bad")
@@ -187,3 +189,19 @@ def test_slice5_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             make_mesh(2, 1, ["cuda:0"] * 2)
     assert make_mesh(4, 2, ["cpu"] * 8).shape == {"batch": 2, "coeff": 4}
+
+
+def test_kernel_resources_parses_the_ptxas_report():
+    """The `-Xptxas -v` report that chip_smoke.py and the GPU tests read
+    for registers and spills."""
+    from hexl_tpu_torch import _build
+    log = (
+        "ptxas info    : Compiling entry function '_Z3abcv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3abcv\n"
+        "    16 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 254 registers, used 0 barriers\n"
+        "ptxas info    : Compiling entry function '_Z3defv' for 'sm_90a'\n"
+        "ptxas info    : Used 40 registers\n")
+    assert _build.kernel_resources(log) == {
+        "_Z3abcv": (254, 16, 8, 4), "_Z3defv": (40, None, None, None)}
