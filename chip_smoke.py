@@ -5,16 +5,23 @@ Run from the root of the repository on a machine with an H100:
 
     python3 chip_smoke.py
 
+and, to time the radix walk's rows against an earlier tree of the port
+unpacked at PARENT (a `git archive` in a directory .gitignore lists), on
+the same card in turns parent, this tree, this tree, parent:
+
+    python3 chip_smoke.py --walk-ab PARENT
+
 Phases, each of which fails the run (non-zero exit) if anything is wrong:
   1. the card: CUDA present; its name and power limit from nvidia-smi;
   2. build: every kernel compiled from csrc/ with nvcc for sm_90a, with
-     the compiler's -Xptxas -v report (the run fails if a lean or chain
-     instantiation spills), and five probe kernels whose SASS gives the
+     the compiler's -Xptxas -v report (the run fails if a lean, chain or
+     radix-walk instantiation spills), and five probe kernels whose SASS gives the
      IMADs of a 64x64 and of a 32x32 high and low product and of the lean
      butterflies' approximate 64x64 high product;
   3. every kernel against its plain PyTorch version on the card, bit-exact:
-     K1/K2 over N x q x the IMF/OMF matrix x batch, K3, K4; K5 and K6 (the
-     cross and local passes of N > 2^14) at N in {2^15, 2^16, 2^17, 2^20}
+     K1/K2 over N x q x the IMF/OMF matrix x batch (K1 at every N from 2
+     to 2^14), K3, K4; K5 and K6 (the cross and local passes of N > 2^14)
+     at every N from 2^15 to 2^20
      for q just above 2^29, 2^50, 2^60 and 2^61 and the largest q below
      2^62, where 4q is just under 2^64 (the 29-bit one in both the u64 and
      the u32 instantiation), over the IMF/OMF matrix and a ragged batch;
@@ -33,7 +40,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      with a column stride on DistNTT's exchanged blocks for D in {2, 4, 8,
      16, 128} (two launches above 64 rows) and lc from 256/D up to 2^14
      (N <= 2^20), K6 with a shard base for L from
-     2^10 to 2^16, and K16 at every stage of N in {2^10, 2^14, 2^17}, for
+     2^10 to 2^16 and with a shard base and a period for shards of 2^11
+     to 2^14 (both words, the lean schemes), and K16 at every stage of N in {2^10, 2^14, 2^17}, for
      q of 29 (q < 2^30, through the 64-bit walk), 30, 50, 60 and 61 bits;
   4. five main paths through the public entry points, each with the
      launch counts set to 0 just before it and read just after it.
@@ -79,8 +87,10 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      against the plain lean path, fully reduced ones against the exact
      outputs, the K18 chains against each other;
   5. timings with CUDA events (median of 20): each kernel and its plain
-     version at the main paths' shapes, beside the kernel's bound (and
-     K5 at N=2^20, where a thread holds 64 coefficients); the
+     version at the main paths' shapes, beside the kernel's bound (the
+     radix walk's rows, K1, K6, K6 with a shard base and the lean K1/K6,
+     on inputs that rotate beyond the 50 MB L2; and K5 at N=2^20, where a
+     thread holds 64 coefficients); the
      fwd+inv pairs/s at N=2^14, 60-bit, batch 256, and at N=2^17 for
      60-bit and 29-bit q at batch 16, each against the Xeon reference of
      benchmarks/reference_baseline/baseline_results.json; the latency and
@@ -765,6 +775,8 @@ def parallel_kernel_checks(rng, dev, nt, get_plan, hier, shard, pipeline,
     first, a middle and the last position for L from 2^10 to 2^14, and at
     L = 2^15 and 2^16 (K5 on the intra-shard stages, then K6 on 2^14
     sub-shards), a modulus of each size in turn over the K5 and K6 cases;
+    K6 launched with a shard base and a period (log_sub) for shards of
+    2^11 to 2^14, in both words and the lean schemes;
     K16 at every stage of N in {2^10, 2^14, 2^17} for every size, the
     fused final stage at OMF 1 and 2 (forward 1 and 4). Returns the
     number of checks."""
@@ -817,6 +829,36 @@ def parallel_kernel_checks(rng, dev, nt, get_plan, hier, shard, pipeline,
                         shard.local_inv_plain(x, plan, r, d),
                         f"local inv {what}")
                 checks += 3
+    # K6 launched with a shard base and a period: chunk c is shard
+    # base + (c mod 2^log_sub) of 2^log_d, on 5 chunks (a ragged period),
+    # for shards of 2^11 .. 2^14, in both words and every lean scheme q
+    # allows.
+    for log_n in range(11, 15):
+        for (log_d, base, log_sub), q_bits in zip(
+                ((2, 1, 1), (4, 8, 3), (20 - log_n, 5, 2)), (29, 50, 60)):
+            n = 1 << log_n
+            q = nt.generate_primes(1, q_bits, True, ntt_size=n << log_d)[0]
+            plan = get_plan(n << log_d, q)
+            forms = [(64, "exact")] + [(32, "exact")] * (q < 1 << 30) + [
+                (64, s_) for s_, bound in (("lean16", 1 << 60),
+                                           ("lean8", 1 << 61)) if q < bound]
+            for word, scheme in forms:
+                name = ("K6.shard" if (word, scheme) == (64, "exact") else
+                        hier.kernel_name("K6", word, scheme))
+                what = (f"log_n={log_n} log_d={log_d} base={base} "
+                        f"log_sub={log_sub} q_bits={q_bits} word={word} "
+                        f"{scheme}")
+                args = (log_n, log_d, base, log_sub, word, scheme)
+                x = rand((5, n), 4 * q)
+                for omf in (1, 4):
+                    compare(name, hier.local_launch(x, plan, True, omf, *args),
+                            hier.local_launch_plain(x, plan, True, omf, *args),
+                            f"shard-base local fwd {what} omf={omf}")
+                x = rand((5, n), 2 * q)
+                compare(name, hier.local_launch(x, plan, False, 1, *args),
+                        hier.local_launch_plain(x, plan, False, 1, *args),
+                        f"shard-base local inv {what}")
+                checks += 3
     for log_n in (10, 14, 17):
         n = 1 << log_n
         for q_bits in PARALLEL_Q_BITS:
@@ -839,10 +881,17 @@ def parallel_kernel_checks(rng, dev, nt, get_plan, hier, shard, pipeline,
     return checks
 
 
-# The lean instantiations and the chain kernels: mangled names with the
-# scheme argument 1 (lean16) or 2 (lean8) after a u64 word, and K17/K18.
-NEW_INSTANTIATION = re.compile(r"chain_kernel|kernelIyLi[12]E")
-NEW_INSTANTIATIONS = 4 + 2 * 6 * 3 + 2 + 3   # K1/K2/K6, K5 fwd/inv, chains
+# The instantiations whose registers are checked: the lean ones (mangled
+# names with the scheme argument 1 (lean16) or 2 (lean8) after a u64
+# word), the chain kernels K17/K18, and every radix walk of K1/K6: the
+# forward in four forms (three u64 schemes, u32), the inverse in seven
+# (with the final stage: the u64 schemes; without: those and u32), each
+# in seven shapes (ntt_block.cuh with_shape).
+NEW_INSTANTIATION = re.compile(
+    r"chain_kernel|kernelIyLi[12]E|radix_(fwd|inv)_kernel")
+RADIX_INSTANTIATIONS = (4 + 7) * 7
+# K2's lean stage walks, K5's lean passes, the chains, the radix walks.
+NEW_INSTANTIATIONS = 4 + 2 * 6 * 3 + 2 + 3 + RADIX_INSTANTIATIONS
 # Moduli of the lean checks: generate_primes(1, b) gives q in (2^b,
 # 2^(b+1)); "61" is the largest prime below 2^61, where 8q is just under
 # 2^64 (lean8's raw product range).
@@ -864,8 +913,8 @@ def lean_schemes(torch_ntt, q: int) -> list:
 
 def lean_kernel_checks(rng, dev, nt, get_plan, cuda_ntt, hier, torch_ntt,
                        to_tensor, compare, route):
-    """K1/K2 (N from 2 to 2^14) and K5/K6 (N in {2^15, 2^17, 2^20}) in
-    every lean scheme each modulus allows, against the plain lean walk, bit
+    """K1/K2 (every N from 2 to 2^14) and K5/K6 (every N from 2^15 to
+    2^20) in every lean scheme each modulus allows, against the plain lean walk, bit
     for bit, over the IMF/OMF matrix; every fully reduced (OMF 1) lean
     output also against the exact instantiation's. Returns the count."""
     import numpy as np
@@ -875,12 +924,15 @@ def lean_kernel_checks(rng, dev, nt, get_plan, cuda_ntt, hier, torch_ntt,
                          dev)
 
     checks = 0
-    for n in (2, 16, 1024, 4096, 1 << 13, 1 << 14):
+    for log_n in range(1, 15):
+        n = 1 << log_n
+        batches = ((3, 401) if n in (2, 16, 1024, 4096, 1 << 13, 1 << 14)
+                   else (1, 3))
         for q_bits in LEAN_Q_BITS:
             q = lean_modulus(nt, q_bits, n)
             plan = get_plan(n, q)
             for scheme, batch in itertools.product(lean_schemes(torch_ntt, q),
-                                                   (3, 401)):
+                                                   batches):
                 kernel = hier.kernel_name(route(n, batch), 64, scheme)
                 what = f"n={n} q_bits={q_bits} {scheme} batch={batch}"
                 for imf in (1, 2, 4):
@@ -909,7 +961,7 @@ def lean_kernel_checks(rng, dev, nt, get_plan, cuda_ntt, hier, torch_ntt,
                                 x, plan, imf, 1),
                                 f"inv {what} imf={imf} OMF 1 == exact")
                             checks += 1
-    for n in (1 << 15, 1 << 17, 1 << 20):
+    for n in (1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20):
         for q_bits in LEAN_Q_BITS:
             q = lean_modulus(nt, q_bits, n)
             plan = get_plan(n, q)
@@ -1002,6 +1054,174 @@ def ckks_words(coeffs, q_words):
     return torch.stack([lo, hi])
 
 
+def rotating(values):
+    """A function giving the next of `values` at each call."""
+    it = itertools.cycle(values)
+    return lambda: next(it)
+
+
+def graph_times(fn, inner, reps=20):
+    """Device ms of one call of fn in each of `reps` replays of a CUDA
+    graph holding `inner` calls (no host gaps between launches), after
+    three warm-up calls on a side stream."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    del graph
+    return times
+
+
+# The timing rows of the radix walk (rows 1, 6 and 10 and the lean row's
+# K1/K6), on inputs that rotate: each call runs one forward + inverse on
+# the next of several input sets, so that a graph's calls read more than
+# the 50 MB L2 holds (K1: 3 sets of 32 MB; K6: 4 of 2 x 16 MB; K6.shard:
+# 8 of 2 x 4 MB). K7, on the stage walk, is the A/B's control row.
+WALK_ROWS = ("K1", "K1.lean8", "K1.lean16", "K6", "K6.u32", "K6.lean16",
+             "K6.shard")
+
+
+def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
+              to_tensor) -> dict:
+    """{row: fn} for WALK_ROWS and K7, at the shapes of phase 5: the pair
+    (2^14, batch 256; 60-bit q, lean16 at 59 bits, K7 at 29 bits), the
+    local pass of N = 2^17 x 16 (60-bit, 29-bit u32, lean16 at 50 bits),
+    and position 3 of 8 at bench.py's shape (L = 2^11, batch 256).
+    Written against the wrappers' signatures, which the parent tree of
+    an A/B (`--walk-ab`) shares."""
+    import numpy as np
+
+    def rand(shape, bound):
+        return to_tensor(rng.integers(0, bound, size=shape, dtype=np.uint64),
+                         dev)
+
+    n14, n17 = 1 << 14, 1 << 17
+
+    def prime(bits, n):
+        return nt.generate_primes(1, bits, True, ntt_size=n)[0]
+
+    def pair(q, scheme, word=64, sets=3):
+        plan = get_plan(n14, q)
+        nxt = rotating([rand((256, n14), q) for _ in range(sets)])
+        return lambda: cuda_ntt.inv_ntt(
+            cuda_ntt.fwd_ntt(nxt(), plan, 1, 1, word, scheme), plan, 1, 1,
+            word, scheme)
+
+    def local(q, scheme, word=64, sets=4):
+        plan = get_plan(n17, q)
+        nxt = rotating([(rand((SPLIT_BATCH, n17), q),
+                         rand((SPLIT_BATCH, n17), 2 * q))
+                        for _ in range(sets)])
+
+        def run():
+            xf, xi = nxt()
+            return (hier.local(xf, plan, True, 1, word, scheme),
+                    hier.local(xi, plan, False, 1, word, scheme))
+        return run
+
+    q60 = prime(60, n14)
+    plan14 = get_plan(n14, q60)
+    nxt_shard = rotating([(rand((256, n14 // 8), q60),
+                           rand((256, n14 // 8), 2 * q60))
+                          for _ in range(8)])
+
+    def shard_run():
+        xf, xi = nxt_shard()
+        return (shard.local(xf, plan14, 3, 8, True, 1),
+                shard.local(xi, plan14, 3, 8, False))
+
+    return {"K1": pair(q60, "exact"), "K1.lean8": pair(q60, "lean8"),
+            "K1.lean16": pair(prime(59, n14), "lean16"),
+            "K6": local(prime(60, n17), "exact"),
+            "K6.u32": local(prime(29, n17), "exact", 32),
+            "K6.lean16": local(prime(50, n17), "lean16"),
+            "K6.shard": shard_run,
+            "K7": pair(prime(29, n14), "exact", 32)}
+
+
+def walk_times(root: pathlib.Path) -> int:
+    """`--walk-times ROOT`: build the port at ROOT and print, as one JSON
+    line, the device ms of each walk row (and K7) in 20 graph replays of
+    20 calls each."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root))
+    import hexl_tpu_torch
+    if not pathlib.Path(hexl_tpu_torch.__file__).is_relative_to(root):
+        raise AssertionError(f"imported {hexl_tpu_torch.__file__}, not the "
+                             f"port at {root}")
+    from hexl_tpu_torch import _build, nt
+    from hexl_tpu_torch.limb import to_tensor
+    from hexl_tpu_torch.ntt import cuda_ntt, get_plan, hier, shard
+    _build.build_all()
+    runs = walk_runs(np.random.default_rng(SEED), torch.device("cuda", 0),
+                     nt, get_plan, cuda_ntt, hier, shard, to_tensor)
+    print(json.dumps({name: graph_times(fn, 20) for name, fn in runs.items()}))
+    return 0
+
+
+def walk_ab(parent: pathlib.Path) -> int:
+    """`--walk-ab PARENT`: the walk rows of the port at PARENT (a `git
+    archive` of an earlier commit) against this tree's, on one card, in
+    turns parent, this tree, this tree, parent (`walk_times` in a process
+    each), with each side's median and spread over its 40 replays."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available", file=sys.stderr)
+        return 2
+    card = nvidia_smi("name,power.limit")
+    log(card)
+    times = {"parent": {}, "new": {}}
+    for side, root in (("parent", parent), ("new", ROOT), ("new", ROOT),
+                       ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--walk-times",
+             str(root.resolve())], capture_output=True, text=True,
+            timeout=900)
+        if proc.returncode:
+            log(proc.stdout[-4000:], proc.stderr[-4000:])
+            return 1
+        for row, v in json.loads(proc.stdout.strip().splitlines()[-1]).items():
+            times[side].setdefault(row, []).extend(v)
+    summary = {}
+    for row in times["new"]:
+        p_, n_ = times["parent"][row], times["new"][row]
+        summary[row] = {side: {"median": statistics.median(v), "min": min(v),
+                               "max": max(v)}
+                        for side, v in (("parent", p_), ("new", n_))}
+        summary[row]["new/parent"] = (statistics.median(n_)
+                                      / statistics.median(p_))
+        log(f"A/B {row}: parent {statistics.median(p_):.4f} ms "
+            f"[{min(p_):.4f}, {max(p_):.4f}], new {statistics.median(n_):.4f}"
+            f" ms [{min(n_):.4f}, {max(n_):.4f}], new/parent "
+            f"{summary[row]['new/parent']:.3f}")
+    log(card)
+    log(json.dumps({"walk_ab": summary, "card": card}))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1064,8 +1284,8 @@ def main() -> int:
     log(f"IMADs per product (SASS): {imads}")
     resources = _build.kernel_resources(info["log"])
     new = {k: v for k, v in resources.items() if NEW_INSTANTIATION.search(k)}
-    log(f"build: {len(new)} lean and chain instantiations (registers, stack, "
-        f"spill stores, spill loads): {new}")
+    log(f"build: {len(new)} lean, chain and radix-walk instantiations "
+        f"(registers, stack, spill stores, spill loads): {new}")
     spilled = {k: v for k, v in new.items() if v[2] or v[3] or v[2] is None}
     if spilled or len(new) < NEW_INSTANTIATIONS:
         raise AssertionError(f"of {NEW_INSTANTIATIONS} new instantiations "
@@ -1095,13 +1315,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     checks = 0
-    # Batches 1, 3 and 32 run one polynomial per CTA (K1); 401 packs P > 1
-    # per CTA wherever N <= 2^12 (K2), with a ragged last CTA.
-    for n in (2, 16, 1024, 4096, 16384):
+    # Batches 1, 3 and 32 run one polynomial per CTA (K1, the radix walk,
+    # at every degree: R = 2 below 16, then every split of the passes);
+    # 401 packs P > 1 per CTA wherever N <= 2^12 (K2), with a ragged last
+    # CTA.
+    for log_n in range(1, 15):
+        n = 1 << log_n
         for q_bits in (30, 50, 60, 61):
             q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
             plan = get_plan(n, q)
-            for batch in (1, 3, 32, 401):
+            for batch in ((1, 3, 32, 401) if n in (2, 16, 1024, 4096, 16384)
+                          else (1, 3)):
                 kernel = route(n, batch)
                 for imf in (1, 2, 4):
                     x = rand((batch, n), imf * q)
@@ -1137,9 +1361,10 @@ def main() -> int:
                     torch_kernels.mult_mod(a, b, q, imf),
                     f"mult_mod q_bits={q_bits} imf={imf}")
             checks += 1
-    # K5 and K6, each on inputs of its pass's range; batch 3 (or 2 at 2^20)
-    # is ragged against nothing but exercises several polynomials.
-    for n in (1 << 15, 1 << 16, 1 << 17, 1 << 20):
+    # K5 and K6, each on inputs of its pass's range, at every count of
+    # shards (2^log_d, log_d = 1 .. 6); batch 3 (or 2 at 2^20) is ragged
+    # against nothing but exercises several polynomials.
+    for n in (1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20):
         for q_bits in (29, 50, 60, 61, 62):
             # generate_primes gives q in (2^b, 2^(b+1)); "62" is the
             # largest prime below 2^62 instead.
@@ -1829,30 +2054,7 @@ def main() -> int:
     def graph_ms(fn, inner):
         """Median device ms of one call of fn over 20 replays of a CUDA
         graph holding `inner` calls (no host gaps between launches)."""
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            for _ in range(3):
-                fn()
-        torch.cuda.current_stream().wait_stream(stream)
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-            for _ in range(inner):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(20):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graph.replay()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / inner)
-        del graph
-        return statistics.median(times)
+        return statistics.median(graph_times(fn, inner))
 
     def forced_ms(p, fn, inner):
         """graph_ms with P polynomials per CTA instead of the rule's."""
@@ -1872,11 +2074,6 @@ def main() -> int:
         log_n = n.bit_length() - 1
         stages = log_n if forward else log_n + 1   # final stage: 2 Shoups
         return batch * stages * (n // 2) * shoup
-
-    def rotating(values):
-        """A function giving the next of `values` at each call."""
-        it = itertools.cycle(values)
-        return lambda: next(it)
 
     def bound(nbytes, nops, rate=None):
         """The larger of the bytes over the memory rate and the operations
@@ -1974,7 +2171,7 @@ def main() -> int:
 
     p10 = cuda_ntt.polys_per_cta(n10, K2_BATCH, sms)
     cases = {
-        "K1": ("ntt_fwd_kernel+ntt_inv_kernel, 1 poly/CTA",
+        "K1": ("radix_fwd_kernel+radix_inv_kernel<u64>, 1 poly/CTA",
                "hexl_tpu_torch/csrc/ntt.cu", "hexl_tpu/ntt/pallas_ntt.py:547",
                "fwd OMF1 + inv OMF1 pair, N=2^14, 60-bit q, batch 256", k1),
         "K2": ("ntt_fwd_kernel+ntt_inv_kernel, P polys/CTA",
@@ -1997,11 +2194,11 @@ def main() -> int:
                    "hexl_tpu/ntt/hier.py:164",
                    f"cross pass fwd + inv, N=2^17 (D=8), 29-bit q, batch "
                    f"{SPLIT_BATCH}", k5s),
-        "K6": ("ntt_fwd_kernel+ntt_inv_kernel<u64>, 1 shard/CTA",
+        "K6": ("radix_fwd_kernel+radix_inv_kernel<u64>, 1 shard/CTA",
                "hexl_tpu_torch/csrc/ntt_hier.cu", "hexl_tpu/ntt/hier.py:255",
                f"local pass fwd + inv, N=2^17 (8 shards), 60-bit q, batch "
                f"{SPLIT_BATCH}", k6),
-        "K6.u32": ("ntt_fwd_kernel+ntt_inv_kernel<u32>, 1 shard/CTA",
+        "K6.u32": ("radix_fwd_kernel+radix_inv_kernel<u32>, 1 shard/CTA",
                    "hexl_tpu_torch/csrc/ntt_hier.cu",
                    "hexl_tpu/ntt/hier.py:255",
                    f"local pass fwd + inv, N=2^17 (8 shards), 29-bit q, "
@@ -2213,7 +2410,7 @@ def main() -> int:
     bf, bi = rand((256, d8, l8 // d8), q60), rand((256, d8, l8 // d8), 2 * q60)
     butterflies = 256 * l8 // 2
     cases["K6.shard"] = (
-        "ntt_fwd_kernel+ntt_inv_kernel<u64>, shard base (a DistNTT "
+        "radix_fwd_kernel+radix_inv_kernel<u64>, shard base (a DistNTT "
         "position's local pass)", "hexl_tpu_torch/csrc/ntt_hier.cu",
         "hexl_tpu/parallel/dist_ntt.py:287", "local pass fwd + inv of "
         "position 3 of 8, 2^14, 60-bit q, batch 256 (L = 2^11)",
@@ -2263,13 +2460,13 @@ def main() -> int:
                      "butterflies of the XLA device body; the TPU kernel "
                      "%s runs the 'lean' form of pallas_ntt.py:53-61)")
     cases["K1.lean8"] = (
-        "ntt_fwd_kernel+ntt_inv_kernel<u64, LEAN8>, 1 poly/CTA",
+        "radix_fwd_kernel+radix_inv_kernel<u64, LEAN8>, 1 poly/CTA",
         "hexl_tpu_torch/csrc/ntt.cu",
         lean_replaces % "hexl_tpu/ntt/pallas_ntt.py:547",
         "fwd OMF1 + inv OMF1 pair, N=2^14, 60-bit q, batch 256, lean8",
         pair_case(n14, q60, 256, 1, "lean8"))
     cases["K1.lean16"] = (
-        "ntt_fwd_kernel+ntt_inv_kernel<u64, LEAN16>, 1 poly/CTA",
+        "radix_fwd_kernel+radix_inv_kernel<u64, LEAN16>, 1 poly/CTA",
         "hexl_tpu_torch/csrc/ntt.cu",
         lean_replaces % "hexl_tpu/ntt/pallas_ntt.py:547",
         "fwd OMF1 + inv OMF1 pair, N=2^14, 59-bit q, batch 256, lean16",
@@ -2287,7 +2484,7 @@ def main() -> int:
         f"cross pass fwd + inv, N=2^17 (D=8), 50-bit q, batch {SPLIT_BATCH}, "
         "lean16", pass_case(n17, q50_17, SPLIT_BATCH, 64, True, "lean16"))
     cases["K6.lean16"] = (
-        "ntt_fwd_kernel+ntt_inv_kernel<u64, LEAN16>, 1 shard/CTA",
+        "radix_fwd_kernel+radix_inv_kernel<u64, LEAN16>, 1 shard/CTA",
         "hexl_tpu_torch/csrc/ntt_hier.cu",
         lean_replaces % "hexl_tpu/ntt/hier.py:255",
         f"local pass fwd + inv, N=2^17 (8 shards), 50-bit q, batch "
@@ -2335,6 +2532,14 @@ def main() -> int:
              df_elems * (df_chain.REPS * (c["mul"] + 2 * c["add"])
                          + 2 * c["scale"]) + c["split"],
              SMS * lanes * sm_mhz * 1e6, None))
+    # Rows 1, 6, 10 and the lean row's K1/K6 on rotating inputs
+    # (`walk_runs`); their plain versions and bounds as above.
+    walk = walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard, to_tensor)
+    for name in WALK_ROWS:
+        desc, source, replaces, shape, case = cases[name]
+        cases[name] = (desc, source, replaces,
+                       f"{shape}, inputs rotating beyond the L2",
+                       (walk[name],) + tuple(case[1:]))
     # Entries whose launches are counted under another kernel's name: the
     # fifth path's K6 and K5 launches are all DistNTT positions'.
     counted_as = {"K6.shard": "K6", "K5.col": "K5"}
@@ -2720,4 +2925,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--walk-times":
+        sys.exit(walk_times(pathlib.Path(sys.argv[2]).resolve()))
+    if len(sys.argv) == 3 and sys.argv[1] == "--walk-ab":
+        sys.exit(walk_ab(pathlib.Path(sys.argv[2]).resolve()))
     sys.exit(main())

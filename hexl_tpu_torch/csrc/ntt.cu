@@ -5,40 +5,41 @@
 // _packed_call (K2, several small polynomials per grid step) and
 // hexl_tpu/ntt/ntt32.py::_run_pallas (K7, the single-word transform of
 // q < 2^30: one uint32 plane per polynomial, Shoup on a 32-bit mulhi,
-// twiddles preconditioned at 2^32). Here all three are the kernels of
-// ntt_block.cuh with log_d = 0 (the same kernels run the local pass K6),
-// one per direction: a CTA holds `polys_per_cta` polynomials in dynamic
-// shared memory, runs every stage there and writes each coefficient once.
-// `word` picks the instantiation. 64: K1 is the launch with one polynomial
-// per CTA (8N bytes, 128 KB at N = 2^14); K2 the launch with P > 1
-// (N <= 2^12), which fills a CTA with up to 2^13 coefficients where the
-// batch still gives every SM a CTA (ntt/cuda_ntt.py::polys_per_cta). A
-// ragged last CTA is masked. 32: K7, one polynomial per CTA; the int64
-// input is narrowed to u32 in shared memory (4N bytes, 128 KB at
-// N = 2^15), every stage runs with Shoup on __umulhi and the precon32
-// tables, and the store widens back. Every lazy value is < 4q < 2^32, so
-// the walk is bit-identical to hexl_tpu_torch/ntt/ntt32.py::fwd_ntt32/
-// inv_ntt32 and to the JAX single-word path, lazy outputs included. The
-// 64-bit walk also runs in the lean16 and lean8 schemes of the JAX engine's
-// device bodies (hexl_tpu/ntt/jnp_ntt.py::_bflys3, the approximate Shoup
-// quotient mulhi64_approx6): one more instantiation of each kernel per
-// scheme, bit-identical to the plain lean walk. On Hopper the approximate
+// twiddles preconditioned at 2^32). `word` and the polynomials per CTA
+// pick the kernel. 64 with one polynomial per CTA: K1, the radix walk of
+// ntt_block.cuh (the local pass K6 runs it too, with a shard index):
+// registers hold the coefficients through several stages a pass, shared
+// memory holds the transform between passes, each coefficient is read
+// and written once. 64 with P > 1 polynomials per CTA (N <= 2^12): K2,
+// which fills a CTA with up to 2^13 coefficients where the batch still
+// gives every SM a CTA (ntt/cuda_ntt.py::polys_per_cta), a ragged last
+// CTA masked. 32: K7, one polynomial per CTA, the int64 input narrowed to
+// u32 in shared memory (4N bytes, 128 KB at N = 2^15), every stage with
+// Shoup on __umulhi and the precon32 tables, the store widened back;
+// every lazy value is < 4q < 2^32, so it is bit-identical to
+// hexl_tpu_torch/ntt/ntt32.py::fwd_ntt32/inv_ntt32 and to the JAX
+// single-word path, lazy outputs included. K2 and K7 run the stage walk
+// of ntt_block.cuh (a barrier and a shared-memory round trip a stage);
+// they are the next redesigns. The 64-bit kernels also run in the lean16
+// and lean8 schemes of the JAX engine's device bodies
+// (hexl_tpu/ntt/jnp_ntt.py::_bflys3, the approximate Shoup quotient
+// mulhi64_approx6): one more instantiation of each kernel per scheme,
+// bit-identical to the plain lean walk. On Hopper the approximate
 // quotient saves no multiply: a 32x32 high product is one IMAD, so its
 // 16-bit partial products cost as much as the exact 64x64 high product,
 // and the exact Harvey forward already has one halver, as lean16 does.
 //
-// What bounds it on an H100: reading and writing each coefficient once
+// What bounds them on an H100: reading and writing each coefficient once
 // (plus the twiddle tables) moves 16 bytes per coefficient (the tensors
 // stay int64 in both words), while each of the N/2 log N butterflies
 // issues one 64x64 high product and two low products (K1, K2), or one
-// 32-bit high product and two low ones (K7, a third of the multiplies); at
-// N = 2^14 the two bounds are of the same order for K1, and the bytes
-// weigh more for K7. The design keeps every intermediate stage out of
-// device memory (one load, one store per coefficient) and reads twiddles
-// through L1/L2; K7's half footprint leaves room for a second CTA on an SM
-// at 2^14. What it does not do yet: warp-shuffle last stages, register
-// blocking of several stages per barrier, or table prefetch (bank
-// conflicts at small strides and one barrier per stage remain).
+// 32-bit high product and two low ones (K7); with the 64-bit adds,
+// compares and selects around them a 64-bit butterfly is about 50
+// instructions, so K1 is bound by instruction issue, and one CTA a SM at
+// 2^14 leaves its first load and last store exposed (ntt_block.cuh says
+// what the radix walk does about each). The stage walk of K2 and K7 adds a
+// barrier and a shared-memory round trip per stage, and bank conflicts at
+// small strides.
 #include "ntt_block.cuh"
 
 // word is 64, or 32 for q < 2^30, where the precon tables and constants
@@ -50,9 +51,12 @@ extern "C" int hexl_ntt_fwd(const u64* x, u64* y, const u64* rop,
                             cudaStream_t stream) {
   if (word == 32)
     return launch_fwd_scheme<u32>(scheme, x, y, rop, prop, q, log_n, batch,
-                                  polys_per_cta, omf, 0, 0, 0, stream);
+                                  polys_per_cta, omf, stream);
+  if (polys_per_cta == 1)
+    return launch_radix_fwd_scheme<u64>(scheme, x, y, rop, prop, q, log_n,
+                                        batch, omf, 0, 0, 0, stream);
   return launch_fwd_scheme<u64>(scheme, x, y, rop, prop, q, log_n, batch,
-                                polys_per_cta, omf, 0, 0, 0, stream);
+                                polys_per_cta, omf, stream);
 }
 
 extern "C" int hexl_ntt_inv(const u64* x, u64* y, const u64* irop,
@@ -64,9 +68,12 @@ extern "C" int hexl_ntt_inv(const u64* x, u64* y, const u64* irop,
     const InvFinal<u32> fin = {(u32)inv_n, (u32)inv_n_precon, (u32)inv_n_w,
                                (u32)inv_n_w_precon};
     return launch_inv_scheme<u32>(scheme, x, y, irop, pirop, q, fin, log_n,
-                                  batch, polys_per_cta, omf, 0, 0, 0, stream);
+                                  batch, polys_per_cta, omf, stream);
   }
   const InvFinal<u64> fin = {inv_n, inv_n_precon, inv_n_w, inv_n_w_precon};
+  if (polys_per_cta == 1)
+    return launch_radix_inv_scheme<u64, true>(scheme, x, y, irop, pirop, q, fin,
+                                        log_n, batch, omf, 0, 0, 0, stream);
   return launch_inv_scheme<u64>(scheme, x, y, irop, pirop, q, fin, log_n,
-                                batch, polys_per_cta, omf, 0, 0, 0, stream);
+                                batch, polys_per_cta, omf, stream);
 }

@@ -36,12 +36,11 @@
 // whole transform's stages (the tables then hold D entries).
 //
 // K6 (local pass) replaces hier.py::_local_call and, for a DistNTT
-// position, dist_ntt.py::DistNTT._pallas_local: the kernels of
+// position, dist_ntt.py::DistNTT._pallas_local: the radix walk of
 // ntt_block.cuh, one 2^log_n shard per CTA, the shard's twiddles read at
 // its offset in the flat tables (shard_base and log_sub pick each CTA's
 // shard). The forward applies the OMF reduction; the inverse stops before
-// the global final stage. With D = 1 the same kernels are K1 (u64) and K7
-// (u32).
+// the global final stage. With D = 1 the same walk is K1 (u64).
 //
 // Both passes run in the exact scheme and, for u64, in the lean16 and lean8
 // schemes of the JAX engine's device bodies (modarith.cuh), each a
@@ -51,9 +50,9 @@
 // What bounds them on an H100: each pass reads and writes every coefficient
 // once (16 bytes per coefficient, the tensors being int64 in both
 // regimes), against log2(D) butterflies per coefficient pair in K5 and
-// log_n in K6. K5 is bound by bytes; K6 by its multiplies at 64 bits, as
-// K1. The design keeps each pass to one load and one store of each
-// coefficient. At D = 64 the u64 K5 holds 64 coefficients (128 registers)
+// log_n in K6. K5 is bound by bytes; K6 by the issue of its butterflies'
+// instructions at 64 bits, as K1 (ntt_block.cuh). The design keeps each
+// pass to one load and one store of each coefficient. At D = 64 the u64 K5 holds 64 coefficients (128 registers)
 // per thread: the -Xptxas -v report shows whether that spills.
 #include "ntt_block.cuh"
 
@@ -62,25 +61,6 @@ constexpr int CROSS_THREADS = 128;
 // 2^11, 32 KB of u64 tables, within the 48 KB of shared memory a launch
 // gets without an opt-in. A DistNTT of degree 2^20 has at most 2^10 rows.
 constexpr int MAX_LOG_TABLE = 11;
-
-// A loop index known at compile time.
-template <int I>
-struct Index {
-  static constexpr int value = I;
-  __host__ __device__ constexpr operator int() const { return I; }
-};
-
-// f(i) for i = I .. N-1, each i an Index: every index into a thread's
-// coefficient array is a constant of the program, so the array stays in
-// registers whatever the unroller does (a #pragma unroll loop left the
-// inverse's array on the stack from D = 32 on).
-template <int I, int N, typename F>
-__device__ __forceinline__ void static_for(F&& f) {
-  if constexpr (I < N) {
-    f(Index<I>{});
-    static_for<I + 1, N>(f);
-  }
-}
 
 // v[d] = x[base + d * lc] (narrowed to W), and the store back.
 template <int D, typename W>
@@ -359,10 +339,12 @@ extern "C" int hexl_local_fwd(const u64* x, u64* y, const u64* rop,
                               int omf, int word, int scheme,
                               cudaStream_t stream) {
   if (word == 32)
-    return launch_fwd_scheme<u32>(scheme, x, y, rop, prop, q, log_n, chunks,
-                                  1, omf, log_d, shard_base, log_sub, stream);
-  return launch_fwd_scheme<u64>(scheme, x, y, rop, prop, q, log_n, chunks, 1,
-                                omf, log_d, shard_base, log_sub, stream);
+    return launch_radix_fwd_scheme<u32>(scheme, x, y, rop, prop, q, log_n,
+                                        chunks, omf, log_d, shard_base,
+                                        log_sub, stream);
+  return launch_radix_fwd_scheme<u64>(scheme, x, y, rop, prop, q, log_n,
+                                      chunks, omf, log_d, shard_base, log_sub,
+                                      stream);
 }
 
 extern "C" int hexl_local_inv(const u64* x, u64* y, const u64* irop,
@@ -370,10 +352,10 @@ extern "C" int hexl_local_inv(const u64* x, u64* y, const u64* irop,
                               int shard_base, int log_sub, int chunks,
                               int word, int scheme, cudaStream_t stream) {
   if (word == 32)
-    return launch_inv_scheme<u32>(scheme, x, y, irop, pirop, q,
-                                  InvFinal<u32>{}, log_n, chunks, 1, 2, log_d,
-                                  shard_base, log_sub, stream);
-  return launch_inv_scheme<u64>(scheme, x, y, irop, pirop, q, InvFinal<u64>{},
-                                log_n, chunks, 1, 2, log_d, shard_base,
-                                log_sub, stream);
+    return launch_radix_inv_scheme<u32, false>(scheme, x, y, irop, pirop, q,
+                                        InvFinal<u32>{}, log_n, chunks, 2,
+                                        log_d, shard_base, log_sub, stream);
+  return launch_radix_inv_scheme<u64, false>(scheme, x, y, irop, pirop, q,
+                                      InvFinal<u64>{}, log_n, chunks, 2,
+                                      log_d, shard_base, log_sub, stream);
 }

@@ -32,7 +32,7 @@ __global__ void __launch_bounds__(1024)
 #pragma unroll
   for (int k = 0; k < EPT; ++k) s[tid + k * T] = a[off + tid + k * T];
   __syncthreads();
-  block_fwd_stages<u64>(s, log_n, 1, rop, prop, q, 0, 0);
+  block_fwd_stages<u64>(s, log_n, 1, rop, prop, q);
   u64 fa[EPT];
 #pragma unroll
   for (int k = 0; k < EPT; ++k) fa[k] = reduce_lazy(s[tid + k * T], q, 4);
@@ -41,7 +41,7 @@ __global__ void __launch_bounds__(1024)
 #pragma unroll
   for (int k = 0; k < EPT; ++k) s[tid + k * T] = b[off + tid + k * T];
   __syncthreads();
-  block_fwd_stages<u64>(s, log_n, 1, rop, prop, q, 0, 0);
+  block_fwd_stages<u64>(s, log_n, 1, rop, prop, q);
 #pragma unroll
   for (int k = 0; k < EPT; ++k) {
     const int i = tid + k * T;
@@ -49,7 +49,7 @@ __global__ void __launch_bounds__(1024)
   }
   __syncthreads();
 
-  block_inv_stages<u64>(s, log_n, 1, irop, pirop, q, 0, 0);
+  block_inv_stages<u64>(s, log_n, 1, irop, pirop, q);
   block_inv_final<u64>(s, out + off, log_n, 1, fin, q, 1);
 }
 

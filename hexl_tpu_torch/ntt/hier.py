@@ -108,6 +108,30 @@ def cross_inv_plain(x: torch.Tensor, plan, omf: int, word: int = 64,
                                scheme).reshape(x.shape)
 
 
+def local_launch_plain(x: torch.Tensor, plan, forward: bool, omf: int,
+                       log_n: int, log_d: int, shard_base: int, log_sub: int,
+                       word: int = 64, scheme: str = "exact") -> torch.Tensor:
+    """The plain version of `local_launch`: the stages of stride < 2^log_n
+    of chunk c as shard shard_base + (c mod 2^log_sub) of 2^log_d, the
+    forward then a lean scheme's fixup and the OMF reduction."""
+    n, shards, period = 1 << log_n, 1 << log_d, 1 << log_sub
+    flat = x.reshape(-1, n)
+    out = torch.empty_like(flat)
+    for r in range(period):
+        v, shard = flat[r::period], shard_base + r
+        if forward:
+            v = torch_ntt.fwd_stages(v, plan, 1, n, word, shard, shards,
+                                     scheme)
+            v = torch_ntt.fwd_fixup(v, plan.q, scheme)
+            if omf == 1:
+                v = reduce_mod_lazy64(v, plan.q, 4)
+        else:
+            v = torch_ntt.inv_stages(v, plan, 1, n, word, shard, shards,
+                                     scheme)
+        out[r::period] = v
+    return out.reshape(x.shape)
+
+
 # -- the launches of K5 and K6 ----------------------------------------------
 
 def cross_launch(x: torch.Tensor, w: torch.Tensor, wp: torch.Tensor, plan,

@@ -749,6 +749,90 @@ def test_public_lean_regime_goes_through_the_kernels(cuda, monkeypatch):
         monkeypatch.setattr(config, "approx_butterflies", lambda d: False)
 
 
+# -- the radix walk of K1 and K6 ---------------------------------------------
+
+def _check_pair(x_fwd, x_inv, plan, scheme, word=64):
+    for imf, x in x_fwd:
+        for omf in (1, 4):
+            got = cuda_ntt.fwd_ntt(x, plan, imf, omf, word, scheme)
+            torch.cuda.synchronize()
+            assert torch.equal(got, torch_ntt.fwd_ntt(x, plan, imf, omf, word,
+                                                      scheme))
+    for imf, x in x_inv:
+        for omf in (1, 2):
+            got = cuda_ntt.inv_ntt(x, plan, imf, omf, word, scheme)
+            torch.cuda.synchronize()
+            assert torch.equal(got, torch_ntt.inv_ntt(x, plan, imf, omf, word,
+                                                      scheme))
+
+
+@pytest.mark.parametrize("log_n", range(1, 15))
+def test_radix_walk_at_every_degree(cuda, log_n):
+    """K1 (one polynomial per CTA) at every N from 2 to 2^14, batches 1
+    and 3: exact at 30 and 61 bits, and every lean scheme of a 59-bit q."""
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    for q_bits in (30, 59, 61):
+        q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+        plan = get_plan(n, q)
+        for scheme in ["exact"] + (_lean_schemes(q) if q_bits == 59 else []):
+            for batch in (1, 3):
+                _check_pair([(imf, _rand(rng, (batch, n), imf * q, cuda))
+                             for imf in (1, 2, 4)],
+                            [(imf, _rand(rng, (batch, n), imf * q, cuda))
+                             for imf in (1, 2)], plan, scheme)
+
+
+@pytest.mark.parametrize("log_d", range(1, 7))
+def test_radix_local_pass_at_every_shard_count(cuda, log_d):
+    """K6 on the 2^log_d shards of N = 2^(14 + log_d): u64 exact and lean8
+    at 60 bits, lean16 at 50, the u32 form at 29."""
+    n = 1 << (14 + log_d)
+    rng = np.random.default_rng(100 + log_d)
+    for q_bits, word, scheme in ((60, 64, "exact"), (60, 64, "lean8"),
+                                 (50, 64, "lean16"), (29, 32, "exact")):
+        q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+        plan = get_plan(n, q)
+        x = _rand(rng, (2, n), 4 * q, cuda)
+        for omf in (1, 4):
+            got = hier.local(x, plan, True, omf, word, scheme)
+            torch.cuda.synchronize()
+            assert torch.equal(got, hier.local_fwd_plain(x, plan, omf, word,
+                                                         scheme))
+        x = _rand(rng, (2, n), 2 * q, cuda)
+        got = hier.local(x, plan, False, 1, word, scheme)
+        torch.cuda.synchronize()
+        assert torch.equal(got, hier.local_inv_plain(x, plan, word, scheme))
+
+
+@pytest.mark.parametrize("log_n", [11, 12, 13, 14])
+def test_radix_shard_base_and_period(cuda, log_n):
+    """K6 launched with a shard base and a period: chunk c is shard
+    base + (c mod 2^log_sub) of 2^log_d, on 5 chunks, in both words and
+    the lean schemes."""
+    n = 1 << log_n
+    rng = np.random.default_rng(200 + log_n)
+    for (log_d, base, log_sub), q_bits in zip(
+            ((2, 1, 1), (4, 8, 3), (20 - log_n, 5, 2)), (29, 50, 60)):
+        q = nt.generate_primes(1, q_bits, True, ntt_size=n << log_d)[0]
+        plan = get_plan(n << log_d, q)
+        forms = [(64, "exact")] + [(32, "exact")] * (q < 1 << 30) + [
+            (64, s) for s in _lean_schemes(q)]
+        for word, scheme in forms:
+            args = (log_n, log_d, base, log_sub, word, scheme)
+            x = _rand(rng, (5, n), 4 * q, cuda)
+            for omf in (1, 4):
+                got = hier.local_launch(x, plan, True, omf, *args)
+                torch.cuda.synchronize()
+                assert torch.equal(got, hier.local_launch_plain(
+                    x, plan, True, omf, *args))
+            x = _rand(rng, (5, n), 2 * q, cuda)
+            got = hier.local_launch(x, plan, False, 1, *args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, hier.local_launch_plain(x, plan, False, 1,
+                                                            *args))
+
+
 @pytest.mark.parametrize("scheme", ["lean16", "exact"])
 def test_ntt_chain_kernel_matches_plain(cuda, scheme):
     from hexl_tpu_torch.ntt import chain
@@ -774,12 +858,15 @@ def test_df_chain_kernel_matches_plain(cuda, precision):
 
 
 def test_new_instantiations_do_not_spill(cuda):
-    """The lean instantiations of K1/K2/K5/K6 and the chain kernels, from
-    the -Xptxas -v report of the build."""
+    """The lean instantiations of K2/K5, the chain kernels and every radix
+    walk of K1/K6, from the -Xptxas -v report of the build."""
     import re
     res = _build.kernel_resources(_build.build_all()["log"])
     new = {k: v for k, v in res.items()
-           if "chain_kernel" in k or re.search(r"kernelIyLi[12]E", k)}
-    assert len(new) >= 2 * 2 + 2 * 6 * 3 + 2 + 3
+           if "chain_kernel" in k or re.search(r"kernelIyLi[12]E", k)
+           or re.search(r"radix_(fwd|inv)_kernel", k)}
+    radix = [k for k in new if "radix_" in k]
+    assert len(radix) == (4 + 7) * 7, radix
+    assert len(new) >= 2 * 2 + 2 * 6 * 3 + 2 + 3 + len(radix)
     spills = {k: v for k, v in new.items() if v[2] or v[3]}
     assert not spills, spills
