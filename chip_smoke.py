@@ -5,9 +5,10 @@ Run from the root of the repository on a machine with an H100:
 
     python3 chip_smoke.py
 
-and, to time the radix walk's rows against an earlier tree of the port
-unpacked at PARENT (a `git archive` in a directory .gitignore lists), on
-the same card in turns parent, this tree, this tree, parent:
+and, to time the radix walk's rows (K1, K6, K7 and K12, with K2 on the
+stage walk as the control) against an earlier tree of the port unpacked
+at PARENT (a `git archive` in a directory .gitignore lists), on the same
+card in turns parent, this tree, this tree, parent:
 
     python3 chip_smoke.py --walk-ab PARENT
 
@@ -15,9 +16,10 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
   1. the card: CUDA present; its name and power limit from nvidia-smi;
   2. build: every kernel compiled from csrc/ with nvcc for sm_90a, with
      the compiler's -Xptxas -v report (the run fails if a lean, chain or
-     radix-walk instantiation spills), and five probe kernels whose SASS gives the
-     IMADs of a 64x64 and of a 32x32 high and low product and of the lean
-     butterflies' approximate 64x64 high product;
+     radix-walk instantiation of the NTT or the FFT-like spills), five
+     probe kernels whose SASS gives the IMADs of a 64x64 and of a 32x32
+     high and low product and of the lean butterflies' approximate 64x64
+     high product, and a kernel with an empty body (K4's launch floor);
   3. every kernel against its plain PyTorch version on the card, bit-exact:
      K1/K2 over N x q x the IMF/OMF matrix x batch (K1 at every N from 2
      to 2^14), K3, K4; K5 and K6 (the cross and local passes of N > 2^14)
@@ -25,15 +27,16 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      for q just above 2^29, 2^50, 2^60 and 2^61 and the largest q below
      2^62, where 4q is just under 2^64 (the 29-bit one in both the u64 and
      the u32 instantiation), over the IMF/OMF matrix and a ragged batch;
-     K7 (the single-word NTT) at N in {2^10, 2^14, 2^15}; K4 and K8 (the
+     K7 (the single-word NTT) at every N from 2 to 2^15; K4 and K8 (the
      eltwise family: every op x word x IMF/OMF, every predicate with
      inputs and bounds on both sides of 2^63) for q of 20, 29, 49, 60 and
      61 bits and the largest prime below 2^62; K9 (the dyadic product, one
      and four weights, moduli of mixed bit lengths); K10 and K11 (the key
      switch's multiply-accumulate with its flush, and its mod-down); K12
-     and K13 (the FFT-like's block walk and cross pass) in f64, single and
-     double-float at n from 16 to 2^16, forward and inverse, with and
-     without a scalar, bit-exact (no FMA contraction in the kernels); K14
+     and K13 (the FFT-like's block walks and cross pass) in f64, single
+     and double-float at every n from 16 to 2^17, forward and inverse,
+     with and without a scalar, bit-exact (no FMA contraction in the
+     kernels); K14
      and K15 (the four-step NTT's folds) on the int32 planes of every pass
      at N in {2^8, 2^10, 2^14, 2^17} for five moduli over the IMF/OMF
      matrix; the parallel layer's kernels (parallel_kernel_checks): K5
@@ -88,9 +91,10 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      outputs, the K18 chains against each other;
   5. timings with CUDA events (median of 20): each kernel and its plain
      version at the main paths' shapes, beside the kernel's bound (the
-     radix walk's rows, K1, K6, K6 with a shard base and the lean K1/K6,
-     on inputs that rotate beyond the 50 MB L2; and K5 at N=2^20, where a
-     thread holds 64 coefficients); the
+     radix walk's rows, K1, K6, K6 with a shard base, the lean K1/K6, K7,
+     K12 and K2, on inputs that rotate beyond the 50 MB L2; K5 at N=2^20,
+     where a thread holds 64 coefficients; K4 beside the empty kernel at
+     its grid, its launch floor, and at 2^22 elements); the
      fwd+inv pairs/s at N=2^14, 60-bit, batch 256, and at N=2^17 for
      60-bit and 29-bit q at batch 16, each against the Xeon reference of
      benchmarks/reference_baseline/baseline_results.json; the latency and
@@ -100,7 +104,9 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      public eltwise ops and dyadic_multiply per call against their Xeon
      rows; each key switch's latency, its kernels and NTTs replayed from
      CUDA graphs, and its launches per call; the transform pair with each
-     number of polynomials per CTA forced, against the wrapper's choice;
+     number of polynomials per CTA forced, against the wrapper's choice,
+     and the FFT-like pair likewise (K12's radix walk against its stage
+     walk);
      K12/K13 per precision beside torch.fft.fft (the nearest library
      call, another function), K14/K15 beside torch._int_mm (the pass's
      matmul); the MXU pairs/s against the NTT's and the Xeon pair; the
@@ -239,6 +245,58 @@ def sass_imads(proc, cubin: pathlib.Path) -> dict:
             raise RuntimeError(f"no IMAD found for {kind}")
         counts[kind] = n
     return counts
+
+
+# A kernel with an empty body, launched with another kernel's grid: the
+# least time a launch of that grid takes on the card, the floor under a
+# bytes bound that a tiny shape cannot reach (K4 at 2 x 2^12 elements).
+# Built here only, not into the port's libraries.
+EMPTY_PROBE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_probe() {}
+extern "C" int launch_empty_probe(int blocks, int threads,
+                                  cudaStream_t stream) {
+  empty_probe<<<blocks, threads, 0, stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_empty_probe(nvcc: str, out_dir: pathlib.Path):
+    """Start nvcc on the empty probe (a shared library for sm_90a);
+    returns the process and the library's path."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, lib = out_dir / "empty_probe.cu", out_dir / "libempty_probe.so"
+    src.write_text(EMPTY_PROBE)
+    proc = subprocess.Popen(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
+         "-Xcompiler", "-fPIC", "-o", str(lib), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def empty_probe(proc, lib: pathlib.Path):
+    """launch(blocks, threads): the empty kernel on the current stream."""
+    import ctypes
+    import torch
+    text, _ = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the empty probe:\n{text}")
+    fn = ctypes.CDLL(str(lib)).launch_empty_probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(blocks, threads):
+        err = fn(blocks, threads, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"empty probe launch failed: cudaError {err}")
+    return launch
+
+
+def eltwise_grid(count: int, sms: int) -> tuple:
+    """(blocks, threads) of an eltwise launch of `count` elements
+    (csrc/eltwise.cu launch: 256 threads, at most 8 CTAs a SM)."""
+    return min(-(-count // 256), 8 * sms), 256
 
 
 def negacyclic_product(a, b, q: int):
@@ -683,19 +741,22 @@ def fft_value(rng, shape, precision, dev):
 
 def fft_kernel_cases(rng, dev, FFTLike, cuda_fft):
     """(kernel, precision, what, kernel's output, plain output) for K12 and
-    K13 against the plain walks on the card: every precision, n from 16 to
-    2^13 (K12 alone; batch 64 packs several transforms per CTA at small n)
-    and 2^14-2^16 (the split: K13 and K12 alone, and the whole transform),
+    K13 against the plain walks on the card: every precision, every n from
+    16 to 2^13 (K12 alone: the radix walk at batches 1 and 3, one
+    transform per CTA; batch 300 up to 2^12, several per CTA on the stage
+    walk below cuda_fft.PACK_BELOW, one per CTA from it on) and from 2^14
+    to 2^17 (the split: K13 and K12 alone, and the whole transform),
     forward and inverse, with and without a scalar."""
     for precision in FFT_PRECISIONS:
         k12 = cuda_fft.kernel_name("K12", precision)
         k13 = cuda_fft.kernel_name("K13", precision)
-        for n in (16, 64, 1024, 4096, 1 << 13, 1 << 14, 1 << 15, 1 << 16):
+        for n in (1 << k for k in range(4, 18)):
             split = n > cuda_fft.BLOCK_N
             for scalar in (None, FFT_SCALAR):
                 fft = FFTLike(n, scalar, precision=precision, device=dev)
                 tables = fft.tables(dev)
-                for batch in ((2,) if split else (1, 3, 64)):
+                for batch in ((2,) if split else
+                              (1, 3, 300) if n <= 1 << 12 else (1, 3)):
                     v = fft_value(rng, (batch, n), precision, dev)
                     for forward in (True, False):
                         s = fft.fused_scale(forward)
@@ -883,15 +944,20 @@ def parallel_kernel_checks(rng, dev, nt, get_plan, hier, shard, pipeline,
 
 # The instantiations whose registers are checked: the lean ones (mangled
 # names with the scheme argument 1 (lean16) or 2 (lean8) after a u64
-# word), the chain kernels K17/K18, and every radix walk of K1/K6: the
-# forward in four forms (three u64 schemes, u32), the inverse in seven
-# (with the final stage: the u64 schemes; without: those and u32), each
-# in seven shapes (ntt_block.cuh with_shape).
+# word), the chain kernels K17/K18, every radix walk of K1/K6/K7 (the
+# forward in four forms: three u64 schemes, u32; the inverse in eight:
+# with the final stage and without, each in the three u64 schemes and
+# u32; the u64 forms in seven shapes, the u32 ones in ten, ntt_block.cuh
+# with_shape), and K12's radix walk (fft.cu fft_radix_fwd_kernel and
+# fft_radix_inv_kernel: six shapes in complex double and float, three in
+# double-float, fft_with_shape).
 NEW_INSTANTIATION = re.compile(
     r"chain_kernel|kernelIyLi[12]E|radix_(fwd|inv)_kernel")
-RADIX_INSTANTIATIONS = (4 + 7) * 7
+RADIX_INSTANTIATIONS = (3 + 6) * 7 + (1 + 2) * 10
+FFT_RADIX_INSTANTIATIONS = 2 * (6 + 6 + 3)
 # K2's lean stage walks, K5's lean passes, the chains, the radix walks.
-NEW_INSTANTIATIONS = 4 + 2 * 6 * 3 + 2 + 3 + RADIX_INSTANTIATIONS
+NEW_INSTANTIATIONS = (4 + 2 * 6 * 3 + 2 + 3 + RADIX_INSTANTIATIONS
+                      + FFT_RADIX_INSTANTIATIONS)
 # Moduli of the lean checks: generate_primes(1, b) gives q in (2^b,
 # 2^(b+1)); "61" is the largest prime below 2^61, where 8q is just under
 # 2^64 (lean8's raw product range).
@@ -1091,24 +1157,36 @@ def graph_times(fn, inner, reps=20):
     return times
 
 
-# The timing rows of the radix walk (rows 1, 6 and 10 and the lean row's
-# K1/K6), on inputs that rotate: each call runs one forward + inverse on
-# the next of several input sets, so that a graph's calls read more than
-# the 50 MB L2 holds (K1: 3 sets of 32 MB; K6: 4 of 2 x 16 MB; K6.shard:
-# 8 of 2 x 4 MB). K7, on the stage walk, is the A/B's control row.
+# The timing rows of the radix walk, on inputs that rotate: each call runs
+# one forward + inverse on the next of several input sets, so that a
+# graph's calls read more than the 50 MB L2 holds. Rows 1, 6 and 10 and
+# the lean row's K1/K6 (K1: 3 sets of 32 MB; K6: 4 of 2 x 16 MB;
+# K6.shard: 8 of 2 x 4 MB); row 7, K7, at 2^14 (its phase-5 shape), 2^13,
+# 2^15 and 2^10 (3 sets of 32 MB each); row 11, K12's block pass in each
+# precision, and the whole f64 FFT-like pair (K13 + K12 each way), at
+# 2^14 x 64 (6 sets of 16 MB); K2, on the stage walk, the A/B's control
+# row (3 sets of 32 MB). "torch.fft" is torch.fft.fft + ifft of a
+# (64, 2^14) complex128, the nearest library call to the f64 pair (another
+# function), timed on both sides as a yardstick.
 WALK_ROWS = ("K1", "K1.lean8", "K1.lean16", "K6", "K6.u32", "K6.lean16",
-             "K6.shard")
+             "K6.shard", "K7", "K12.f64", "K12.f32", "K12.df", "K2")
 
 
 def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
               to_tensor) -> dict:
-    """{row: fn} for WALK_ROWS and K7, at the shapes of phase 5: the pair
-    (2^14, batch 256; 60-bit q, lean16 at 59 bits, K7 at 29 bits), the
-    local pass of N = 2^17 x 16 (60-bit, 29-bit u32, lean16 at 50 bits),
-    and position 3 of 8 at bench.py's shape (L = 2^11, batch 256).
-    Written against the wrappers' signatures, which the parent tree of
-    an A/B (`--walk-ab`) shares."""
+    """{row: fn} for WALK_ROWS and the A/B's other rows (K7.n13, K7.n15,
+    K7.n10, FFT.f64, torch.fft), at the shapes of phase 5: the pair (2^14,
+    batch 256; 60-bit q, lean16 at 59 bits, K7 at 29 bits; K7 also at
+    (2^13, 512), (2^15, 128) and (2^10, 4096); K2 at (2^10, 49-bit,
+    4096)), the local pass of N = 2^17 x 16 (60-bit, 29-bit u32, lean16 at
+    50 bits), position 3 of 8 at bench.py's shape (L = 2^11, batch 256),
+    and the FFT-like of the fourth path (2^14 x 64, scale 2^40). Written
+    against the wrappers' signatures, which the parent tree of an A/B
+    (`--walk-ab`) shares."""
     import numpy as np
+    import torch
+    from hexl_tpu_torch import FFTLike
+    from hexl_tpu_torch.experimental import cuda_fft
 
     def rand(shape, bound):
         return to_tensor(rng.integers(0, bound, size=shape, dtype=np.uint64),
@@ -1119,9 +1197,9 @@ def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
     def prime(bits, n):
         return nt.generate_primes(1, bits, True, ntt_size=n)[0]
 
-    def pair(q, scheme, word=64, sets=3):
-        plan = get_plan(n14, q)
-        nxt = rotating([rand((256, n14), q) for _ in range(sets)])
+    def pair(q, scheme, word=64, sets=3, n=n14, batch=256):
+        plan = get_plan(n, q)
+        nxt = rotating([rand((batch, n), q) for _ in range(sets)])
         return lambda: cuda_ntt.inv_ntt(
             cuda_ntt.fwd_ntt(nxt(), plan, 1, 1, word, scheme), plan, 1, 1,
             word, scheme)
@@ -1149,18 +1227,43 @@ def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
         return (shard.local(xf, plan14, 3, 8, True, 1),
                 shard.local(xi, plan14, 3, 8, False))
 
+    def fft_run(prec, fn):
+        e = FFTLike(FFT_N, FFT_SCALAR, precision=prec, device=dev)
+        fwd_t, inv_t = e.tables(dev)
+        sf, si = e.fused_scale(True), e.fused_scale(False)
+        nxt = rotating([fft_value(rng, (FFT_BATCH, FFT_N), prec, dev)
+                        for _ in range(6)])
+        if fn is None:   # the whole transform, forward then inverse
+            return lambda: cuda_fft.inverse(
+                cuda_fft.forward(nxt(), fwd_t, sf, prec), inv_t, si, prec)
+        return lambda: (fn(nxt(), fwd_t, sf, prec, True),
+                        fn(nxt(), inv_t, si, prec, False))
+
+    z = rotating([fft_value(rng, (FFT_BATCH, FFT_N), "f64", dev)
+                  for _ in range(6)])
+    q29 = prime(29, 1 << 15)
     return {"K1": pair(q60, "exact"), "K1.lean8": pair(q60, "lean8"),
             "K1.lean16": pair(prime(59, n14), "lean16"),
             "K6": local(prime(60, n17), "exact"),
             "K6.u32": local(prime(29, n17), "exact", 32),
             "K6.lean16": local(prime(50, n17), "lean16"),
             "K6.shard": shard_run,
-            "K7": pair(prime(29, n14), "exact", 32)}
+            "K7": pair(q29, "exact", 32),
+            "K7.n13": pair(q29, "exact", 32, n=1 << 13, batch=512),
+            "K7.n15": pair(q29, "exact", 32, n=1 << 15, batch=128),
+            "K7.n10": pair(q29, "exact", 32, n=1 << 10, batch=K2_BATCH),
+            "K12.f64": fft_run("f64", cuda_fft.block),
+            "K12.f32": fft_run("single", cuda_fft.block),
+            "K12.df": fft_run("double_float", cuda_fft.block),
+            "FFT.f64": fft_run("f64", None),
+            "torch.fft": lambda: torch.fft.ifft(torch.fft.fft(z())),
+            "K2": pair(prime(49, 1 << 10), "exact", n=1 << 10,
+                       batch=K2_BATCH)}
 
 
 def walk_times(root: pathlib.Path) -> int:
     """`--walk-times ROOT`: build the port at ROOT and print, as one JSON
-    line, the device ms of each walk row (and K7) in 20 graph replays of
+    line, the device ms of each row of `walk_runs` in 20 graph replays of
     20 calls each."""
     import numpy as np
     import torch
@@ -1276,11 +1379,14 @@ def main() -> int:
     # -- 2. build -----------------------------------------------------------
     probes = start_sass_probes(_build.nvcc_path(),
                                _build.BUILD_ROOT / "sass_probes")
+    empty = start_empty_probe(_build.nvcc_path(),
+                              _build.BUILD_ROOT / "sass_probes")
     info = _build.build_all()
     log(f"build: {info['seconds']:.1f} s (built={info['built']}) "
         f"in {info['dir']}")
     log(info["log"])
     imads = sass_imads(*probes)
+    launch_empty = empty_probe(*empty)
     log(f"IMADs per product (SASS): {imads}")
     resources = _build.kernel_resources(info["log"])
     new = {k: v for k, v in resources.items() if NEW_INSTANTIATION.search(k)}
@@ -1401,12 +1507,17 @@ def main() -> int:
                                     hier.cross_inv_plain(loc, plan, omf, word),
                                     f"cross inv {what} imf={imf} omf={omf}")
                         checks += 3
-    # K7, the single-word NTT, against the plain single-word walk.
-    for n in (1 << 10, 1 << 14, 1 << 15):
+    # K7, the single-word NTT on the radix walk, against the plain
+    # single-word walk at every N from 2 to 2^15 (batch 256 too at the
+    # main paths' 2^10, 2^14 and 2^15, and at 2^13: more CTAs than SMs
+    # take the 512-thread form at 2^13 and 2^14).
+    for log_n in range(1, 16):
+        n = 1 << log_n
         for q_bits in (20, 29):
             q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
             plan = get_plan(n, q)
-            for batch in (1, 3, 256):
+            for batch in ((1, 3, 256) if log_n in (10, 13, 14, 15)
+                          else (1, 3)):
                 for imf in (1, 2, 4):
                     x = rand((batch, n), imf * q)
                     for omf in (1, 4):
@@ -2056,14 +2167,16 @@ def main() -> int:
         graph holding `inner` calls (no host gaps between launches)."""
         return statistics.median(graph_times(fn, inner))
 
-    def forced_ms(p, fn, inner):
-        """graph_ms with P polynomials per CTA instead of the rule's."""
-        choose = cuda_ntt.polys_per_cta
-        cuda_ntt.polys_per_cta = lambda degree, batch, sms: min(p, batch)
+    def forced_ms(module, rule, p, fn, inner):
+        """graph_ms with P polynomials (transforms) per CTA instead of
+        what the packing rule `module.rule` (its second argument the
+        batch) gives."""
+        choose = getattr(module, rule)
+        setattr(module, rule, lambda *args: min(p, args[1]))
         try:
             return graph_ms(fn, inner)
         finally:
-            cuda_ntt.polys_per_cta = choose
+            setattr(module, rule, choose)
 
     imad_rate = SMS * INT32_LANES_PER_SM * sm_mhz * 1e6
     per_shoup = imads["mulhi64"] + 2 * imads["mullo64"]
@@ -2203,7 +2316,7 @@ def main() -> int:
                    "hexl_tpu/ntt/hier.py:255",
                    f"local pass fwd + inv, N=2^17 (8 shards), 29-bit q, "
                    f"batch {SPLIT_BATCH}", k6s),
-        "K7": ("ntt_fwd_kernel+ntt_inv_kernel<u32>, 1 poly/CTA",
+        "K7": ("radix_fwd_kernel+radix_inv_kernel<u32>, 1 poly/CTA",
                "hexl_tpu_torch/csrc/ntt.cu", "hexl_tpu/ntt/ntt32.py:205",
                "fwd OMF1 + inv OMF1 pair, N=2^14, 29-bit q, batch 256", k7),
     }
@@ -2347,7 +2460,8 @@ def main() -> int:
                        for forward in (True, False))
             name = cuda_fft.kernel_name(kernel, prec)
             desc = ("fft_cross_kernel" if kernel == "K13"
-                    else "fft_block_kernel, 1 block of a split/CTA")
+                    else "fft_radix_fwd_kernel+fft_radix_inv_kernel, 1 "
+                         "block of a split/CTA")
             cases[name] = (
                 f"{desc} ({prec})", "hexl_tpu_torch/csrc/fft.cu",
                 "hexl_tpu/experimental/pallas_fft.py:183",
@@ -2532,8 +2646,8 @@ def main() -> int:
              df_elems * (df_chain.REPS * (c["mul"] + 2 * c["add"])
                          + 2 * c["scale"]) + c["split"],
              SMS * lanes * sm_mhz * 1e6, None))
-    # Rows 1, 6, 10 and the lean row's K1/K6 on rotating inputs
-    # (`walk_runs`); their plain versions and bounds as above.
+    # Rows 1, 2, 6, 7, 10, 11 (K12) and the lean row's K1/K6 on rotating
+    # inputs (`walk_runs`); their plain versions and bounds as above.
     walk = walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard, to_tensor)
     for name in WALK_ROWS:
         desc, source, replaces, shape, case = cases[name]
@@ -2570,6 +2684,28 @@ def main() -> int:
         if near:
             entry["nearest_library"] = near
         entries.append(entry)
+
+    # K4's floor: the empty probe with K4's grid at the main path's 2 x 2^12
+    # elements (32 CTAs of 256 threads), in the same graph harness; and K4
+    # at 2^22 elements (2 x 16 x 2^17, IMF 4, 60-bit q), where its bound is
+    # bytes. PERF.md row 4 takes the larger of the floor and the bytes
+    # bound as K4's bound at 2 x 2^12.
+    k4_blocks, k4_threads = eltwise_grid(2 * n12, sms)
+    floor_ms = graph_ms(lambda: launch_empty(k4_blocks, k4_threads), 20)
+    e60x4 = [rand(BIG, 4 * q60b) for _ in range(2)]
+    k4_big_ms = graph_ms(lambda: ops.mult_mod(*e60x4, q60b, 4), 20)
+    k4_big_bound, k4_big_by = bound(8 * 3 * elems,
+                                    elems * per_barrett)
+    k4_entry = next(e for e in entries if e["name"].startswith("K4 "))
+    k4_entry.update({"launch_floor_ms": floor_ms,
+                     "launch_floor_grid": [k4_blocks, k4_threads],
+                     "ms_2^22": k4_big_ms, "bound_ms_2^22": k4_big_bound})
+    log(f"K4 floor: the empty kernel at K4's grid ({k4_blocks} x "
+        f"{k4_threads}) {floor_ms:.4f} ms; K4 at 2 x 2^12 "
+        f"{k4_entry['ms']:.4f} ms ({floor_ms / k4_entry['ms']:.1%} of it "
+        f"the floor); K4 at 2^22 elements (IMF 4, 60-bit) {k4_big_ms:.4f} "
+        f"ms, bound {k4_big_bound:.4f} ms ({k4_big_by}), "
+        f"{k4_big_bound / k4_big_ms:.1%} of bound")
 
     # K5 at the largest degree, where a thread holds D = 64 coefficients
     # (128 registers of them at 64 bits; phase 2's -Xptxas -v report gives
@@ -2911,11 +3047,36 @@ def main() -> int:
         kernel = pair_case(n, q, batch, 1)[0]
         ps = [1 << i for i in range(14) if (1 << i) <= min(
             cuda_ntt.PACK_COEFFS // n, batch)]
-        got = {p: forced_ms(p, kernel, 10) for p in ps}
+        got = {p: forced_ms(cuda_ntt, "polys_per_cta", p, kernel, 10)
+               for p in ps}
         rule = cuda_ntt.polys_per_cta(n, batch, sms)
         best = min(got, key=got.get)
         log(f"pack N={n} batch={batch}: rule P={rule}, best P={best}; ms "
             + " ".join(f"P{p}={v:.4f}" for p, v in got.items()))
+
+    # The FFT-like's packing: the forward + inverse pair (scale 2^40) with
+    # P transforms per CTA forced to each power of two up to the packing
+    # rule's (P = 1: K12's radix walk; P > 1: its stage walk), on both
+    # sides of each precision's PACK_BELOW; "rule" is the wrapper's choice.
+    for prec in FFT_PRECISIONS:
+        for n, batch in ((64, 8192), (128, 8192), (256, 512), (256, 8192),
+                         (512, 4096), (n10, K2_BATCH), (n12, 1024)):
+            e = FFTLike(n, FFT_SCALAR, precision=prec, device=dev)
+            fwd_t, inv_t = e.tables(dev)
+            sf, si = e.fused_scale(True), e.fused_scale(False)
+            v = fft_value(rng, (batch, n), prec, dev)
+            run = (lambda v=v, fwd_t=fwd_t, inv_t=inv_t, sf=sf, si=si,
+                   prec=prec: cuda_fft.inverse(
+                       cuda_fft.forward(v, fwd_t, sf, prec), inv_t, si,
+                       prec))
+            most = cuda_ntt.polys_per_cta(n, batch, sms)
+            got = {p: forced_ms(cuda_fft, "transforms_per_cta", p, run, 10)
+                   for p in (1 << i for i in range(most.bit_length()))}
+            rule = cuda_fft.transforms_per_cta(n, batch, prec, sms)
+            best = min(got, key=got.get)
+            log(f"FFT pack {prec} n={n} batch={batch}: rule P={rule}, best "
+                f"P={best}; ms " + " ".join(f"P{p}={t:.4f}"
+                                          for p, t in got.items()))
 
     log(card)
     log(json.dumps({"kernels": entries}))

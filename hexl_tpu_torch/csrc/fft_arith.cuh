@@ -4,8 +4,11 @@
 // op). Each policy loads and stores a value from its planes (Ptrs), adds,
 // subtracts, multiplies by a twiddle (the presplit product cdf_mul_ps in
 // double-float), takes the full product of the inverse's scaled final stage
-// (cdf_mul) and scales by a real. Shared by K12/K13 (fft.cu) and the
-// double-float butterfly chain K18 (chain.cu).
+// (cdf_mul) and scales by a real; `twiddle` and `mul_tw` take the product
+// by a twiddle in two steps, so that the radix walk prepares each twiddle
+// (its splits in double-float) once for every product that uses it.
+// Shared by K12/K13 (fft.cu) and the double-float butterfly chain K18
+// (chain.cu).
 //
 // No arithmetic here is contracted: every add, subtract and multiply is a
 // round-to-nearest intrinsic (__dadd_rn, __fmul_rn, ...), which nvcc never
@@ -78,6 +81,13 @@ struct Cx {
   }
   static __device__ __forceinline__ V scale(const V& a, const S& s) {
     return {mul_rn(a.re, s.v), mul_rn(a.im, s.v)};
+  }
+  // A twiddle as the radix walk holds it for the products of its block:
+  // here the value itself.
+  using Tw = V;
+  static __device__ __forceinline__ Tw twiddle(const V& w) { return w; }
+  static __device__ __forceinline__ V mul_tw(const V& a, const Tw& w) {
+    return mul(a, w);
   }
 };
 
@@ -176,23 +186,38 @@ struct DfP {
   static __device__ __forceinline__ V sub(const V& a, const V& b) {
     return {df_sub(a.re, b.re), df_sub(a.im, b.im)};
   }
+  // A twiddle with the 4097-splits of its high words (cdf_presplit): the
+  // radix walk splits each twiddle it reads once, for every product of
+  // its block.
+  struct Tw {
+    V w;
+    float r_shi, r_slo, i_shi, i_slo;
+  };
+  static __device__ __forceinline__ Tw twiddle(const V& w) {
+    Tw t;
+    t.w = w;
+    split(w.re.hi, t.r_shi, t.r_slo);
+    split(w.im.hi, t.i_shi, t.i_slo);
+    return t;
+  }
   // cdf_mul_ps(x, cdf_presplit(w)).
-  static __device__ __forceinline__ V mul(const V& x, const V& w) {
-    float xr_shi, xr_slo, xi_shi, xi_slo, wr_shi, wr_slo, wi_shi, wi_slo;
+  static __device__ __forceinline__ V mul_tw(const V& x, const Tw& t) {
+    float xr_shi, xr_slo, xi_shi, xi_slo;
     split(x.re.hi, xr_shi, xr_slo);
     split(x.im.hi, xi_shi, xi_slo);
-    split(w.re.hi, wr_shi, wr_slo);
-    split(w.im.hi, wi_shi, wi_slo);
     float prr, err, pii, eii, pri, eri, pir, eir;
-    mul_ps(x.re, xr_shi, xr_slo, w.re, wr_shi, wr_slo, prr, err);
-    mul_ps(x.im, xi_shi, xi_slo, w.im, wi_shi, wi_slo, pii, eii);
-    mul_ps(x.re, xr_shi, xr_slo, w.im, wi_shi, wi_slo, pri, eri);
-    mul_ps(x.im, xi_shi, xi_slo, w.re, wr_shi, wr_slo, pir, eir);
+    mul_ps(x.re, xr_shi, xr_slo, t.w.re, t.r_shi, t.r_slo, prr, err);
+    mul_ps(x.im, xi_shi, xi_slo, t.w.im, t.i_shi, t.i_slo, pii, eii);
+    mul_ps(x.re, xr_shi, xr_slo, t.w.im, t.i_shi, t.i_slo, pri, eri);
+    mul_ps(x.im, xi_shi, xi_slo, t.w.re, t.r_shi, t.r_slo, pir, eir);
     float sr, er, si, ei;
     two_sum(prr, -pii, sr, er);
     two_sum(pri, pir, si, ei);
     return {norm(sr, __fadd_rn(er, __fsub_rn(err, eii))),
             norm(si, __fadd_rn(ei, __fadd_rn(eri, eir)))};
+  }
+  static __device__ __forceinline__ V mul(const V& x, const V& w) {
+    return mul_tw(x, twiddle(w));
   }
   // cdf_mul, the final inverse stage's product.
   static __device__ __forceinline__ V mul_full(const V& x, const V& y) {

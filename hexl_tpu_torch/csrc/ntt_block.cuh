@@ -24,30 +24,30 @@
 // 2^14-coefficient sub-shard and their count when it holds more.
 //
 // Two walks. The radix walk (radix_fwd_kernel/radix_inv_kernel) runs K1
-// (one 64-bit polynomial per CTA) and K6 (one shard per CTA, both words).
-// The transform is cut into n/R groups of R = 2^LOGR coefficients (R = 8
-// from n = 8 on, 2 below); a thread takes G of them (G = 2 at n = 2^14,
-// 1024 threads; else 1) and holds a group's R coefficients in registers
-// while it runs up to LOGR consecutive stages on them, a radix pass, with
-// no barrier and no shared-memory access: in the pass whose stages have
-// strides 2^s .. 2^(s + LOGR - 1), group u holds the coefficients
-// base + i 2^s (i < R), base the group index with LOGR zero bits inserted
-// at bit s, and its stages read 2^LOGR - 1 twiddle pairs, once each.
-// Between passes the transform rests in shared memory: a group is loaded
-// in the next pass's layout and stored back to the same slots, so one
-// barrier ends a pass, and a swizzle (radix_slot) keeps every 8-byte and
-// 4-byte access of every pass free of bank conflicts. There is no fill
-// phase: the forward's first pass loads from global memory (group u reads
-// x[u + i n/R], coalesced), the inverse's a row of R consecutive words;
-// the inverse's last pass stores (coalesced, through the final stage
-// fused with N^-1 and the OMF reduction for a whole transform, as it
-// stands for a shard), the forward's last pass ends with the lean fixup
-// and the OMF reduction, and one more barrier turns its groups back into
-// the coalesced layout for the store. At 2^14 that is 5 passes and 4
-// barriers (the forward 5) where the stage walk makes 14 shared-memory
-// round trips and 15 barriers. Inside a stage only the order of the
-// butterflies differs from the flat walk, so every output, lazy ones
-// included, is bit-identical to it.
+// (one 64-bit polynomial per CTA), K7 (one single-word polynomial per CTA,
+// up to 2^15) and K6 (one shard per CTA, both words). The transform is
+// cut into n/R groups of R = 2^LOGR coefficients (R = 8 from n = 8 on, 2
+// below); a thread takes G of them (with_shape: 1024 threads from 2^13
+// on, G = 2 at 2^14, 4 at 2^15; else one group a thread) and holds a
+// group's R coefficients in registers while it runs up to LOGR
+// consecutive stages on them, a radix pass, with no barrier and no
+// shared-memory access; radix.cuh has the pass layout, the swizzle and the
+// twiddle bases, which the FFT-like's K12 shares. Each stage of a pass
+// reads its 2^(LOGR-1-j) twiddle pairs once. Between passes the transform
+// rests in shared memory: a group is loaded in the next pass's layout and
+// stored back to the same slots, so one barrier ends a pass, and the
+// swizzle (radix_slot) keeps every access of every pass free of bank
+// conflicts. There is no fill phase: the forward's first pass loads from
+// global memory (group u reads x[u + i n/R], coalesced), the inverse's a
+// row of R consecutive words; the inverse's last pass stores (coalesced,
+// through the final stage fused with N^-1 and the OMF reduction for a
+// whole transform, as it stands for a shard), the forward's last pass
+// ends with the lean fixup and the OMF reduction, and one more barrier
+// turns its groups back into the coalesced layout for the store. At 2^14
+// that is 5 passes and 4 barriers (the forward 5) where the stage walk
+// makes 14 shared-memory round trips and 15 barriers. Inside a stage only
+// the order of the butterflies differs from the flat walk, so every
+// output, lazy ones included, is bit-identical to it.
 //
 // What bounds it on an H100: at 2^14 u64 a transform is 128 KB, so one
 // CTA fits an SM (registers and shared memory both), and 1024 threads
@@ -58,15 +58,17 @@
 // the store of its last exposed (one CTA a SM leaves nothing to overlap
 // them with). R = 16 a thread (4 stages a pass) spills at 64 registers
 // whatever the order of the twiddle loads; R = 8 in two groups does not,
-// and runs faster. log_n is a constant of the instantiation from 2^10 to
-// 2^14, where the pass schedule then unrolls at compile time.
+// and runs faster. In u32 a 2^14 transform is 64 KB, and a u32 butterfly
+// (one 32-bit high product, two low ones) far fewer instructions: K7 and
+// the u32 K6 are bound by bytes. log_n is a constant of the instantiation
+// from 2^10 up, where the pass schedule then unrolls at compile time.
 //
 // The stage walk (block_fwd_stages/block_inv_stages/block_inv_final):
 // `polys` transforms resident in shared memory, the threads of the block
 // looping over the `polys * n/2` butterflies of a stage with a barrier
 // between stages, every butterfly reading its twiddle through the
-// read-only path. K2 (several polynomials per CTA), K7 (the single-word
-// whole transform) and K3 (csrc/poly.cu) still run it.
+// read-only path. K2 (several 64-bit polynomials per CTA) and K3
+// (csrc/poly.cu) still run it.
 //
 // W is the word the coefficients occupy on chip: u64, or u32 for
 // q < 2^30, where every lazy value is < 4q < 2^32 (the single-word regime
@@ -77,27 +79,9 @@
 #pragma once
 
 #include "modarith.cuh"
+#include "radix.cuh"
 
-// A loop index known at compile time.
-template <int I>
-struct Index {
-  static constexpr int value = I;
-  __host__ __device__ constexpr operator int() const { return I; }
-};
-
-// f(i) for i = I .. N-1, each i an Index: every index into a thread's
-// coefficient array is a constant of the program, so the array stays in
-// registers whatever the unroller does (a #pragma unroll loop left K5's
-// inverse array on the stack from D = 32 on).
-template <int I, int N, typename F>
-__device__ __forceinline__ void static_for(F&& f) {
-  if constexpr (I < N) {
-    f(Index<I>{});
-    static_for<I + 1, N>(f);
-  }
-}
-
-// -- the stage walk (K2, K3, K7) ----------------------------------------------
+// -- the stage walk (K2, K3) -------------------------------------------------
 
 // Forward stages of `polys` transforms of n = 2^log_n coefficients stored
 // back to back in s. Exact inputs [0, 4q) -> [0, 4q).
@@ -223,14 +207,6 @@ __global__ void __launch_bounds__(1024)
   block_inv_final<W, S>(s, dst, log_n, polys, fin, (W)q, omf);
 }
 
-// Dynamic shared memory above 48 KB needs an explicit opt-in per kernel.
-template <typename Kernel>
-static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 static int threads_for(int log_n, int polys_per_cta) {
   const long long butterflies = (long long)polys_per_cta << (log_n - 1);
   return butterflies >= 1024 ? 1024 : (int)butterflies;
@@ -265,80 +241,42 @@ static int launch_inv(const u64* x, u64* y, const u64* irop,
   return (int)cudaGetLastError();
 }
 
-// The launch of scheme code `scheme` (modarith.cuh Scheme): the exact
-// instantiation for either word, the lean ones for u64 only.
-template <typename W>
+// The stage walk's launch of scheme code `scheme` (modarith.cuh Scheme),
+// in u64: K2 (every word-32 launch runs the radix walk).
 static int launch_fwd_scheme(int scheme, const u64* x, u64* y,
                              const u64* rop, const u64* prop, u64 q,
                              int log_n, int chunks, int polys_per_cta,
                              int omf, cudaStream_t stream) {
   if (scheme == EXACT)
-    return launch_fwd<W, EXACT>(x, y, rop, prop, q, log_n, chunks,
-                                polys_per_cta, omf, stream);
-  if constexpr (sizeof(W) == 8) {
-    if (scheme == LEAN16)
-      return launch_fwd<W, LEAN16>(x, y, rop, prop, q, log_n, chunks,
-                                   polys_per_cta, omf, stream);
-    if (scheme == LEAN8)
-      return launch_fwd<W, LEAN8>(x, y, rop, prop, q, log_n, chunks,
+    return launch_fwd<u64, EXACT>(x, y, rop, prop, q, log_n, chunks,
                                   polys_per_cta, omf, stream);
-  }
+  if (scheme == LEAN16)
+    return launch_fwd<u64, LEAN16>(x, y, rop, prop, q, log_n, chunks,
+                                   polys_per_cta, omf, stream);
+  if (scheme == LEAN8)
+    return launch_fwd<u64, LEAN8>(x, y, rop, prop, q, log_n, chunks,
+                                  polys_per_cta, omf, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename W>
 static int launch_inv_scheme(int scheme, const u64* x, u64* y,
                              const u64* irop, const u64* pirop, u64 q,
-                             const InvFinal<W>& fin, int log_n, int chunks,
+                             const InvFinal<u64>& fin, int log_n, int chunks,
                              int polys_per_cta, int omf,
                              cudaStream_t stream) {
   if (scheme == EXACT)
-    return launch_inv<W, EXACT>(x, y, irop, pirop, q, fin, log_n, chunks,
-                                polys_per_cta, omf, stream);
-  if constexpr (sizeof(W) == 8) {
-    if (scheme == LEAN16)
-      return launch_inv<W, LEAN16>(x, y, irop, pirop, q, fin, log_n, chunks,
-                                   polys_per_cta, omf, stream);
-    if (scheme == LEAN8)
-      return launch_inv<W, LEAN8>(x, y, irop, pirop, q, fin, log_n, chunks,
+    return launch_inv<u64, EXACT>(x, y, irop, pirop, q, fin, log_n, chunks,
                                   polys_per_cta, omf, stream);
-  }
+  if (scheme == LEAN16)
+    return launch_inv<u64, LEAN16>(x, y, irop, pirop, q, fin, log_n, chunks,
+                                   polys_per_cta, omf, stream);
+  if (scheme == LEAN8)
+    return launch_inv<u64, LEAN8>(x, y, irop, pirop, q, fin, log_n, chunks,
+                                  polys_per_cta, omf, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// -- the radix walk (K1, K6) -------------------------------------------------
-
-// The shared-memory slot of coefficient i in the radix walk's exchange:
-// bits 0-4 XORed with bits LOGR .. LOGR + 4, a bijection on [0, n) that
-// makes every pass's stores and loads (a warp's lanes at radix_base, each
-// register at its own stride) free of bank conflicts in both words.
-template <int LOGR>
-__device__ __forceinline__ int radix_slot(int i) {
-  return i ^ ((i >> LOGR) & 31);
-}
-
-// The first of thread t's coefficients in the pass of strides 2^s ..
-// 2^(s + LOGR - 1): t with LOGR zero bits inserted at bit s.
-template <int LOGR>
-__device__ __forceinline__ int radix_base(int t, int s) {
-  return (t & ((1 << s) - 1)) | ((t >> s) << (s + LOGR));
-}
-
-template <typename W, int LOGR>
-__device__ __forceinline__ void radix_put(W* sm, const W (&v)[1 << LOGR],
-                                          int t, int s) {
-  const int base = radix_base<LOGR>(t, s);
-  static_for<0, (1 << LOGR)>(
-      [&](auto i) { sm[radix_slot<LOGR>(base + (decltype(i)::value << s))] = v[i]; });
-}
-
-template <typename W, int LOGR>
-__device__ __forceinline__ void radix_get(const W* sm, W (&v)[1 << LOGR],
-                                          int t, int s) {
-  const int base = radix_base<LOGR>(t, s);
-  static_for<0, (1 << LOGR)>(
-      [&](auto i) { v[i] = sm[radix_slot<LOGR>(base + (decltype(i)::value << s))]; });
-}
+// -- the radix walk (K1, K6, K7) ---------------------------------------------
 
 // The R consecutive words row[0 .. R) in 16-byte loads where row is
 // aligned (it is at every offset the wrappers give, but a tensor's storage
@@ -386,11 +324,6 @@ __device__ __forceinline__ void radix_fwd_pass(
   });
 }
 
-__device__ __forceinline__ int radix_fwd_g(int first_block, int log_n, int s,
-                                           int t, int logr) {
-  return (first_block << (log_n - 1 - s)) + ((t >> s) << (logr - 1));
-}
-
 // Inverse, j in [lo, hi) ascending: block k at stride 2^b (b = s + j) at
 // irop[1 + N - N/2^b + shard n/2^(b+1) + k] (N = n 2^log_d); irop1 and
 // pirop1 point at the tables' entry 1 + N, g (negative) is the rest.
@@ -411,13 +344,6 @@ __device__ __forceinline__ void radix_inv_pass(
       });
     }
   });
-}
-
-__device__ __forceinline__ int radix_inv_g(int shard, int log_n,
-                                           int log_big_n, int s, int t,
-                                           int logr) {
-  return (shard << (log_n - 1 - s)) - (1 << (log_big_n - s)) +
-         ((t >> s) << (logr - 1));
 }
 
 // One transform or shard of n = 2^log_n per CTA. Its n/R coefficient
@@ -553,17 +479,31 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-// The shape of the radix walk follows log_n: R = 8 from n = 8 on, one
-// group a thread up to 2^13 (n/8 threads), two at n = 2^14 (1024
-// threads); R = 2 below n = 8. From 2^10 to 2^14, the sizes of K1's and
-// K6's main paths, log_n is a constant of the instantiation.
+// The shape of the radix walk follows the word, log_n and the grid: R = 8
+// from n = 8 on, one group a thread up to 2^13 (n/8 threads), two at 2^14
+// and four at 2^15 (u32 only: 128 KB), 1024 threads; R = 2 below n = 8.
+// In u32, 2^13 and 2^14 also have a form of 512 threads (G = 2 and 4) that
+// fits two CTAs a SM (registers and shared memory both), so that one
+// CTA's first load overlaps the other's passes: `two_per_sm` takes it
+// where the launch has more CTAs than the card has SMs; a launch of one
+// wave or less keeps 1024 threads a CTA (PERF.md's findings). From
+// 2^10 up, the sizes of K1's, K6's and K7's main paths, log_n is a
+// constant of the instantiation.
 // f(Index<LOGR>{}, Index<G>{}, Index<LOGN>{}).
-template <typename F>
-static int with_shape(int log_n, F&& f) {
+template <typename W, typename F>
+static int with_shape(int log_n, bool two_per_sm, F&& f) {
+  constexpr bool U32 = sizeof(W) == 4;
   switch (log_n) {
+    case 15:
+      if constexpr (U32) return f(Index<3>{}, Index<4>{}, Index<15>{});
+      return (int)cudaErrorInvalidValue;
     case 14:
+      if constexpr (U32)
+        if (two_per_sm) return f(Index<3>{}, Index<4>{}, Index<14>{});
       return f(Index<3>{}, Index<2>{}, Index<14>{});
     case 13:
+      if constexpr (U32)
+        if (two_per_sm) return f(Index<3>{}, Index<2>{}, Index<13>{});
       return f(Index<3>{}, Index<1>{}, Index<13>{});
     case 12:
       return f(Index<3>{}, Index<1>{}, Index<12>{});
@@ -577,12 +517,23 @@ static int with_shape(int log_n, F&& f) {
   }
 }
 
+// The SMs of the current device (0 if the runtime cannot say).
+static int sm_count() {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess)
+    return 0;
+  return sms;
+}
+
 template <typename W, int S>
 static int launch_radix_fwd(const u64* x, u64* y, const u64* rop,
                             const u64* prop, u64 q, int log_n, int chunks,
                             int omf, int log_d, int shard_base, int log_sub,
                             cudaStream_t stream) {
-  return with_shape(log_n, [&](auto logr, auto g, auto logn) {
+  const bool two_per_sm = chunks > sm_count();
+  return with_shape<W>(log_n, two_per_sm, [&](auto logr, auto g, auto logn) {
     constexpr int LOGR = decltype(logr)::value, G = decltype(g)::value;
     constexpr int LOGN = decltype(logn)::value;
     const size_t smem = ((size_t)1 << log_n) * sizeof(W);
@@ -602,7 +553,8 @@ static int launch_radix_inv(const u64* x, u64* y, const u64* irop,
                             int log_n, int chunks, int omf, int log_d,
                             int shard_base, int log_sub,
                             cudaStream_t stream) {
-  return with_shape(log_n, [&](auto logr, auto g, auto logn) {
+  const bool two_per_sm = chunks > sm_count();
+  return with_shape<W>(log_n, two_per_sm, [&](auto logr, auto g, auto logn) {
     constexpr int LOGR = decltype(logr)::value, G = decltype(g)::value;
     constexpr int LOGN = decltype(logn)::value;
     const size_t smem = ((size_t)1 << log_n) * sizeof(W);

@@ -8,10 +8,12 @@ planes ("double_float"), shaped (..., n); a table is the same form of shape
 for single), a DF (double_float), or None.
 
 Up to BLOCK_N = 2^13 coefficients the whole transform is K12 (`csrc/fft.cu`,
-one or several transforms per CTA in shared memory). Above, the transform
+in shared memory: one transform per CTA on the radix walk, or several per
+CTA on the stage walk below PACK_BELOW, `transforms_per_cta`). Above, the
+transform
 of n = D * 2^13 is split as the NTT's is (`ntt/hier.py`): the stages of
-stride >= 2^13 are the cross pass K13, the others the block pass K12 on
-each of the D blocks; the forward runs cross then block, the inverse block
+stride >= 2^13 are the cross pass K13, the others the block pass K12 (the
+radix walk, one block per CTA) on each of the D blocks; the forward runs cross then block, the inverse block
 then cross (whose last stage carries the scalar). The kernels take n up to
 MAX_KERNEL_N = 2^17 (D <= 16 coefficients per thread in K13).
 
@@ -34,6 +36,10 @@ from . import fft_like
 
 BLOCK_N = 1 << 13
 MAX_KERNEL_N = 1 << 17
+# Below these degrees K12 packs several transforms per CTA (the stage walk)
+# where the batch leaves CTAs to spare; from them on one transform per CTA
+# (the radix walk) was faster at every batch timed (PERF.md's findings).
+PACK_BELOW = {"f64": 1 << 7, "single": 1 << 7, "double_float": 1 << 9}
 _CODE = {"f64": 0, "single": 1, "double_float": 2}
 _SUFFIX = {"f64": "f64", "single": "f32", "double_float": "df"}
 _DTYPE = {"f64": torch.complex128, "single": torch.complex64,
@@ -181,6 +187,16 @@ def _scalar_args(scalar, precision: str) -> tuple:
     return float(scalar), 0.0, 1
 
 
+def transforms_per_cta(n: int, batch: int, precision: str,
+                       sms: int) -> int:
+    """K12's transforms per CTA for a whole transform of degree n: 1 (the
+    radix walk) from PACK_BELOW on, else the NTT's packing rule
+    (`cuda_ntt.polys_per_cta`, the stage walk where it gives P > 1)."""
+    if n >= PACK_BELOW[precision]:
+        return 1
+    return polys_per_cta(n, batch, sms)
+
+
 def _device_of(v, precision: str) -> torch.device:
     return planes(v, precision)[0].device
 
@@ -199,7 +215,7 @@ def block(v, table, scalar, precision: str, forward: bool):
     dev = _device_of(v, precision)
     if n <= BLOCK_N:
         log_n, log_d, chunks = nt.log2_exact(n), 0, batch
-        pp = polys_per_cta(n, batch, sm_count(dev))
+        pp = transforms_per_cta(n, batch, precision, sm_count(dev))
     else:
         log_n, log_d = nt.log2_exact(BLOCK_N), nt.log2_exact(n // BLOCK_N)
         chunks = _build.batch_of(planes(v, precision)[0], BLOCK_N)

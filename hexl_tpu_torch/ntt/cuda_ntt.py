@@ -7,8 +7,9 @@ CTA (`csrc/ntt.cu`): at 64 bits and N <= 2^14, K1 replaces
 pallas_ntt.py::_run (one polynomial per CTA, the radix walk: several
 stages a pass in registers, the transform in shared memory between
 passes) and K2 replaces ::_packed_stage_kernel/_packed_call (several
-polynomials of N <= 2^12 per CTA, one stage at a time); at 32 bits and N <= 2^15, K7 replaces
-ntt32.py::_run_pallas (one polynomial per CTA, 4N bytes). The source note
+polynomials of N <= 2^12 per CTA, one stage at a time); at 32 bits and
+N <= 2^15, K7 replaces ntt32.py::_run_pallas (one polynomial per CTA,
+4N bytes, the radix walk in u32). The source note
 in `csrc/ntt.cu` says what bounds them on an H100 and what the design does
 about it. Larger N runs the two-pass split of `hier` (K5, K6) in the same
 word. The public `NTT` picks word 32 for q < 2^30 with N >= 1024, as the

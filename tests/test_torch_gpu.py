@@ -113,22 +113,33 @@ def test_split_kernels_match_plain(cuda, n, batch, q_bits):
                                                          omf, word))
 
 
-@pytest.mark.parametrize("n,batch", [(1 << 10, 401), (1 << 15, 3)])
-def test_single_word_kernel_matches_plain(cuda, n, batch):
-    """K7 against the plain single-word walk."""
-    q = nt.generate_primes(1, 29, True, ntt_size=n)[0]
-    plan = get_plan(n, q)
-    rng = np.random.default_rng(n)
-    for imf, omf in ((1, 1), (4, 4), (2, 1)):
-        x = _rand(rng, (batch, n), imf * q, cuda)
-        got = cuda_ntt.fwd_ntt(x, plan, imf, omf, word=32)
-        torch.cuda.synchronize()
-        assert torch.equal(got, ntt32.fwd_ntt32(x, plan, imf, omf))
-    for imf, omf in ((1, 1), (2, 2)):
-        x = _rand(rng, (batch, n), imf * q, cuda)
-        got = cuda_ntt.inv_ntt(x, plan, imf, omf, word=32)
-        torch.cuda.synchronize()
-        assert torch.equal(got, ntt32.inv_ntt32(x, plan, imf, omf))
+@pytest.mark.parametrize("log_n", range(3, 16))
+def test_single_word_kernel_matches_plain(cuda, log_n):
+    """K7 (the radix walk in u32, one polynomial per CTA) against the
+    plain single-word walk at every N from 2^3 to 2^15, ragged batches,
+    every IMF/OMF pair it takes, lazy outputs included. Batch 133 is
+    more CTAs than an H100 has SMs: the 512-thread form at 2^13 and
+    2^14."""
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    for q_bits in (20, 29):
+        q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+        plan = get_plan(n, q)
+        for batch in (1, 37, 133):
+            for imf in (1, 2, 4):
+                x = _rand(rng, (batch, n), imf * q, cuda)
+                for omf in (1, 4):
+                    got = cuda_ntt.fwd_ntt(x, plan, imf, omf, word=32)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, ntt32.fwd_ntt32(x, plan, imf,
+                                                            omf))
+            for imf in (1, 2):
+                x = _rand(rng, (batch, n), imf * q, cuda)
+                for omf in (1, 2):
+                    got = cuda_ntt.inv_ntt(x, plan, imf, omf, word=32)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, ntt32.inv_ntt32(x, plan, imf,
+                                                            omf))
 
 
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
@@ -412,33 +423,95 @@ def _same_value(got, want, precision):
         cuda_fft.planes(got, precision), cuda_fft.planes(want, precision)))
 
 
+def _tiny_block(v, table, scalar, precision, forward):
+    """K12 at n <= 8, which the wrappers refuse (FFTLike takes n > 8),
+    through its C entry with one transform per CTA: the radix walk with
+    R = 2 (n = 2, 4) or one group of 8."""
+    out = cuda_fft.empty_like(v, precision)
+    first = cuda_fft.planes(v, precision)[0]
+    n = first.shape[-1]
+    fn = _build.function("fft", "hexl_fft_block", cuda_fft._BLOCK_ARGS)
+    _build.launch_on(cuda_fft._device_of(v, precision), "K12", fn,
+                     cuda_fft._CODE[precision],
+                     *cuda_fft.pointers(v, precision),
+                     *cuda_fft.pointers(out, precision),
+                     *cuda_fft.pointers(table, precision),
+                     *cuda_fft._scalar_args(scalar, precision), int(forward),
+                     nt.log2_exact(n), 0, first.numel() // n, 1)
+    return out
+
+
+def _tiny_plain(v, table, scalar, precision, forward):
+    n = cuda_fft.planes(v, precision)[0].shape[-1]
+    walk = fft_like.fwd_walk if forward else fft_like.inv_walk
+    return cuda_fft.value(walk(cuda_fft.planes(v, precision),
+                               cuda_fft.planes(table, precision), n, scalar,
+                               fft_like.arith(precision)), precision)
+
+
+def _tiny_tables(n, scalar, precision, dev):
+    """(tables, forward scale, inverse scale) of degree n in the
+    precision's form, as FFTLike makes them for n > 8."""
+    tabs = [torch.from_numpy(t) for t in fft_like.build_tables(n)]
+    if precision == "double_float":
+        tabs = [df32.cdf_from_complex128(t, dev) for t in tabs]
+    else:
+        tabs = [t.to(dev, fft_like._CTYPE[precision]) for t in tabs]
+    if scalar is None:
+        return tabs, None, None
+    scales = (1.0 / scalar, scalar / n)
+    if precision == "double_float":
+        scales = tuple(df32.df_from_f64(np.float64(s)) for s in scales)
+    elif precision == "single":
+        scales = tuple(float(np.float32(s)) for s in scales)
+    return tabs, scales[0], scales[1]
+
+
 @pytest.mark.parametrize("precision", ["f64", "single", "double_float"])
-@pytest.mark.parametrize("n,batch", [(16, 3), (16, 401), (1024, 2),
-                                     (8192, 1), (1 << 14, 2), (1 << 17, 1)])
-def test_fft_kernels_match_plain(cuda, precision, n, batch):
+@pytest.mark.parametrize("log_n", range(1, 18))
+def test_fft_kernels_match_plain(cuda, precision, log_n):
     """K12 (and K13 above 2^13) bit-exact against the plain walk on the
-    card, with and without a scalar; above 2^13 each pass alone too."""
-    rng = np.random.default_rng(n + batch)
+    card at every n from 2 to 2^17, with and without a scalar: one
+    transform per CTA (the radix walk) at batches 1 and 3; batch 300 up to
+    2^12, several per CTA (the stage walk) below cuda_fft.PACK_BELOW; above
+    2^13 each pass alone too. n <= 8 goes through K12's C entry (FFTLike
+    takes n > 8)."""
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    if n <= cuda_fft.BLOCK_N:
+        batches = (1, 3, 300) if n <= 1 << 12 else (1, 3)
+    else:
+        batches = (2,)
     for scalar in (None, 2.0 ** 40):
-        fft = FFTLike(n, scalar, precision=precision, device=cuda)
-        tables = fft.tables(cuda)
-        v = _fft_value(rng, (batch, n), precision, cuda)
-        for forward in (True, False):
-            s = fft.fused_scale(forward)
-            tab = tables[0 if forward else 1]
-            fn = cuda_fft.forward if forward else cuda_fft.inverse
-            assert _same_value(fn(v, tab, s, precision),
-                               cuda_fft.walk_plain(v, tab, s, precision,
-                                                   forward), precision)
-            if n > cuda_fft.BLOCK_N:
-                assert _same_value(
-                    cuda_fft.cross(v, tab, s, precision, forward),
-                    cuda_fft.cross_plain(v, tab, s, precision, forward),
-                    precision)
-                assert _same_value(
-                    cuda_fft.block(v, tab, s, precision, forward),
-                    cuda_fft.block_plain(v, tab, s, precision, forward),
-                    precision)
+        if n <= 8:
+            tables, sf, si = _tiny_tables(n, scalar, precision, cuda)
+        else:
+            fft = FFTLike(n, scalar, precision=precision, device=cuda)
+            tables = fft.tables(cuda)
+            sf, si = fft.fused_scale(True), fft.fused_scale(False)
+        for batch in batches:
+            v = _fft_value(rng, (batch, n), precision, cuda)
+            for forward in (True, False):
+                s = sf if forward else si
+                tab = tables[0 if forward else 1]
+                if n <= 8:
+                    assert _same_value(
+                        _tiny_block(v, tab, s, precision, forward),
+                        _tiny_plain(v, tab, s, precision, forward), precision)
+                    continue
+                fn = cuda_fft.forward if forward else cuda_fft.inverse
+                assert _same_value(fn(v, tab, s, precision),
+                                   cuda_fft.walk_plain(v, tab, s, precision,
+                                                       forward), precision)
+                if n > cuda_fft.BLOCK_N:
+                    assert _same_value(
+                        cuda_fft.cross(v, tab, s, precision, forward),
+                        cuda_fft.cross_plain(v, tab, s, precision, forward),
+                        precision)
+                    assert _same_value(
+                        cuda_fft.block(v, tab, s, precision, forward),
+                        cuda_fft.block_plain(v, tab, s, precision, forward),
+                        precision)
 
 
 @pytest.mark.parametrize("precision", ["auto", "single", "double_float"])
@@ -858,15 +931,17 @@ def test_df_chain_kernel_matches_plain(cuda, precision):
 
 
 def test_new_instantiations_do_not_spill(cuda):
-    """The lean instantiations of K2/K5, the chain kernels and every radix
-    walk of K1/K6, from the -Xptxas -v report of the build."""
+    """The lean instantiations of K2/K5, the chain kernels, every radix
+    walk of K1/K6/K7 and of K12, from the -Xptxas -v report of the
+    build."""
     import re
     res = _build.kernel_resources(_build.build_all()["log"])
     new = {k: v for k, v in res.items()
            if "chain_kernel" in k or re.search(r"kernelIyLi[12]E", k)
            or re.search(r"radix_(fwd|inv)_kernel", k)}
     radix = [k for k in new if "radix_" in k]
-    assert len(radix) == (4 + 7) * 7, radix
+    assert len(radix) == ((3 + 6) * 7 + (1 + 2) * 10
+                          + 2 * (6 + 6 + 3)), radix
     assert len(new) >= 2 * 2 + 2 * 6 * 3 + 2 + 3 + len(radix)
     spills = {k: v for k, v in new.items() if v[2] or v[3]}
     assert not spills, spills

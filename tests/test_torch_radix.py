@@ -97,17 +97,156 @@ def test_shard_runs_in_every_form(q_bits, word, scheme):
             hier.local_inv_plain(x, plan, word, scheme))
 
 
+CSRC = pathlib.Path(chip_smoke.ROOT) / "hexl_tpu_torch" / "csrc"
+_RETURN = re.compile(r"return f\(Index<(\d+)>\{\}, Index<(\w+)>\{\}, "
+                     r"Index<(\d+)>\{\}\)")
+
+
+def _shapes(source, function, **constants):
+    """The shapes a with_shape-style dispatch returns, statement by
+    statement: [(case, conditions, LOGR, G, LOGN)], case the log_n of the
+    enclosing `case` (or of `if (log_n == k)`), "ge3" for the default's
+    `if (log_n >= 3)` and "lt3" for its last return; conditions the
+    guards before the return (`U32`, `two_per_sm`, `fft_unrolled`, or
+    "else" for the branch after `} else {`). G may name one of
+    `constants`."""
+    src = (CSRC / source).read_text()
+    body = src[src.index(f"static int {function}("):]
+    body = body[:body.index("\n}\n")]
+    out, case, branch = [], None, set()
+    for statement in body.split(";"):
+        m = re.search(r"case (\d+):", statement)
+        if m:
+            case = int(m.group(1))
+        if "} else {" in statement or "default:" in statement:
+            branch, case = ({"else"} if "else" in statement else set()), None
+        if "fft_unrolled" in statement:
+            branch = {"fft_unrolled"}
+        m = _RETURN.search(statement)
+        if not m:
+            continue
+        where = case
+        k = re.search(r"if \(log_n == (\d+)\)", statement)
+        if k:
+            where = int(k.group(1))
+        if "log_n >= 3" in statement:
+            where, branch = "ge3", set()
+        elif where is None:
+            where = "lt3"
+        guards = set(branch) | {g for g in ("U32", "two_per_sm")
+                                if g in statement}
+        g = m.group(2)
+        out.append((where, guards, int(m.group(1)),
+                    constants[g] if g in constants else int(g),
+                    int(m.group(3))))
+    return out
+
+
+def _threads_ok(logr, g, logn, served, limit):
+    """G groups of R = 2^LOGR a thread over 2^log_n / (G R) <= limit
+    threads cover every transform of log_n in `served`; LOGN is 0 or
+    log_n."""
+    for log_n in served:
+        threads = (1 << log_n) // (g << logr)
+        assert g * threads * (1 << logr) == 1 << log_n, (log_n, g)
+        assert 1 <= threads <= limit and logn in (0, log_n), (log_n, g)
+
+
 def test_spill_check_counts_every_radix_shape():
     """chip_smoke.py's register check expects one radix instantiation per
-    form and shape: the shapes are those `with_shape` dispatches to."""
-    src = (pathlib.Path(chip_smoke.ROOT) / "hexl_tpu_torch" / "csrc"
-           / "ntt_block.cuh").read_text()
-    body = src[src.index("static int with_shape"):]
-    body = body[:body.index("\n}\n")]
-    shapes = len(re.findall(r"return f\(Index<", body))
-    assert shapes == 7
-    assert chip_smoke.RADIX_INSTANTIATIONS == (4 + 7) * shapes
+    form and shape: the shapes are those `with_shape` (the NTT's: seven
+    for u64, ten for u32: 2^15, K7's, and the two-CTAs-a-SM forms of 2^13
+    and 2^14) and `fft_with_shape` (K12's: six in complex double and
+    float, three in double-float) dispatch to."""
+    ntt = _shapes("ntt_block.cuh", "with_shape")
+    u64 = [sh for sh in ntt if "U32" not in sh[1]]
+    assert (len(ntt), len(u64)) == (10, 7)
+    # Forward: three u64 schemes and u32; inverse: with and without the
+    # final stage, each in the three u64 schemes and u32.
+    assert chip_smoke.RADIX_INSTANTIATIONS == (3 + 6) * 7 + (1 + 2) * 10
+    fft = _shapes("fft.cu", "fft_with_shape", G13=1)
+    unrolled = [sh for sh in fft if "else" not in sh[1]]
+    rolled = [sh for sh in fft if "fft_unrolled" not in sh[1]]
+    assert (len(unrolled), len(rolled)) == (6, 3)
+    assert chip_smoke.FFT_RADIX_INSTANTIATIONS == 2 * (6 + 6 + 3)
     for name in ("_Z16radix_fwd_kernelIyLi0ELi3ELi2ELi14EEvPKyPyS1_S1_yiiiii",
                  "_Z16radix_inv_kernelIjLi0ELi3ELi1ELi0ELb0EEvPKyPyS1_S1_y8"
-                 "InvFinalIT_Eiiiii"):
+                 "InvFinalIT_Eiiiii",
+                 "_Z20fft_radix_fwd_kernelI2CxIdELi3ELi1ELi13EEv4PtrsS2_S2_"
+                 "NT_1SEiii"):
         assert chip_smoke.NEW_INSTANTIATION.search(name)
+
+
+@pytest.mark.parametrize("word", [64, 32])
+def test_every_ntt_radix_shape_fits_a_cta(word):
+    """Every shape `with_shape` gives a word (u64 up to 2^14, u32 up to
+    2^15, its 512-thread forms too) covers the transforms it serves with
+    G x threads x R = 2^log_n and at most 1024 threads; u64 refuses
+    2^15."""
+    shapes = [sh for sh in _shapes("ntt_block.cuh", "with_shape")
+              if word == 32 or "U32" not in sh[1]]
+    explicit = {sh[0] for sh in shapes if isinstance(sh[0], int)}
+    assert explicit == ({10, 11, 12, 13, 14, 15} if word == 32
+                        else {10, 11, 12, 13, 14})
+    for where, guards, logr, g, logn in shapes:
+        served = ([where] if isinstance(where, int) else
+                  range(3, 10) if where == "ge3" else range(1, 3))
+        _threads_ok(logr, g, logn, served, 1024)
+        if "two_per_sm" in guards:
+            assert (1 << where) // (g << logr) == 512
+
+
+@pytest.mark.parametrize("policy,threads", [("F64", 1024), ("F32", 1024),
+                                            ("DfP", 512)])
+def test_every_fft_radix_shape_fits_a_cta(policy, threads):
+    """K12's radix walk at every log_n 1..13: each shape `fft_with_shape`
+    gives the policy covers what it serves with G x threads x R = 2^log_n
+    and at most the policy's THREADS (read from fft_arith.cuh)."""
+    arith = (CSRC / "fft_arith.cuh").read_text()
+    declared = [int(v) for v in re.findall(
+        r"static constexpr int THREADS = (\d+);", arith)]
+    assert declared == [1024, 512]       # Cx<T> (F64, F32), then DfP
+    unrolled = policy != "DfP"
+    shapes = [sh for sh in _shapes("fft.cu", "fft_with_shape",
+                                   G13=(1 << 10) // threads)
+              if ("else" if unrolled else "fft_unrolled") not in sh[1]]
+    explicit = {sh[0] for sh in shapes if isinstance(sh[0], int)}
+    assert explicit == ({10, 11, 12, 13} if unrolled else {13})
+    top = min(explicit) - 1
+    for where, _, logr, g, logn in shapes:
+        served = ([where] if isinstance(where, int) else
+                  range(3, top + 1) if where == "ge3" else range(1, 3))
+        _threads_ok(logr, g, logn, served, threads)
+
+
+def _slot(i, logr):
+    return i ^ ((i >> logr) & 31)
+
+
+@pytest.mark.parametrize("log_n", range(1, 16))
+def test_radix_exchange_is_free_of_bank_conflicts(log_n):
+    """radix.cuh's swizzle: in every pass's layout (each register of a
+    warp's 32 consecutive groups), the shared-memory accesses of 4-, 8-
+    and 16-byte values fall on distinct banks within each phase of the
+    request (32 lanes, 16 and 8), and the slots of a pass are a
+    permutation of [0, n)."""
+    logr = 3 if log_n >= 3 else 1
+    n = 1 << log_n
+    u = np.arange(n >> logr)
+    passes = (log_n + logr - 1) // logr
+    layouts = {max(log_n - p * logr - logr, 0) for p in range(passes)}
+    layouts |= {min(p * logr, log_n - logr) for p in range(passes)}
+    for s in layouts:
+        base = (u & ((1 << s) - 1)) | ((u >> s) << (s + logr))
+        slots = _slot(base[:, None] + (np.arange(1 << logr)[None, :] << s),
+                      logr)
+        assert np.array_equal(np.sort(slots.ravel()), np.arange(n))
+        for nbytes in (4, 8, 16):
+            words = nbytes // 4
+            lanes = 32 // words
+            for w0 in range(0, len(u), lanes):
+                phase = slots[w0:w0 + lanes]            # (lanes, R)
+                banks = ((phase[:, None, :] * words
+                          + np.arange(words)[None, :, None]) % 32)
+                banks = np.sort(banks.reshape(-1, phase.shape[1]), axis=0)
+                assert not (banks[1:] == banks[:-1]).any(), (s, nbytes)
