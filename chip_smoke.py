@@ -5,8 +5,8 @@ Run from the root of the repository on a machine with an H100:
 
     python3 chip_smoke.py
 
-and, to time the radix walk's rows (K1, K6, K7 and K12, with K2 on the
-stage walk as the control) against an earlier tree of the port unpacked
+and, to time the radix walk's rows (K1, K2, K3, K6, K7 and K12) against an
+earlier tree of the port unpacked
 at PARENT (a `git archive` in a directory .gitignore lists), on the same
 card in turns parent, this tree, this tree, parent:
 
@@ -15,15 +15,19 @@ card in turns parent, this tree, this tree, parent:
 Phases, each of which fails the run (non-zero exit) if anything is wrong:
   1. the card: CUDA present; its name and power limit from nvidia-smi;
   2. build: every kernel compiled from csrc/ with nvcc for sm_90a, with
-     the compiler's -Xptxas -v report (the run fails if a lean, chain or
-     radix-walk instantiation of the NTT or the FFT-like spills), five
+     the compiler's -Xptxas -v report (the run fails if a lean, chain,
+     radix-walk, K2 or K3 instantiation of the NTT or the FFT-like
+     spills), K3's most active clusters per degree, five
      probe kernels whose SASS gives the IMADs of a 64x64 and of a 32x32
      high and low product and of the lean butterflies' approximate 64x64
      high product, and a kernel with an empty body (K4's launch floor);
   3. every kernel against its plain PyTorch version on the card, bit-exact:
      K1/K2 over N x q x the IMF/OMF matrix x batch (K1 at every N from 2
-     to 2^14), K3, K4; K5 and K6 (the cross and local passes of N > 2^14)
-     at every N from 2^15 to 2^20
+     to 2^14); K2 at every N from 2 to 2^12, at every P its rule gives
+     and every power-of-two P its kernel takes, in every scheme and
+     IMF/OMF pair; K3 at every N from 2 to 2^14, batches 1, 2, 64 and
+     133, in every form it takes (cluster, one CTA); K4; K5 and K6 (the
+     cross and local passes of N > 2^14) at every N from 2^15 to 2^20
      for q just above 2^29, 2^50, 2^60 and 2^61 and the largest q below
      2^62, where 4q is just under 2^64 (the 29-bit one in both the u64 and
      the u32 instantiation), over the IMF/OMF matrix and a ragged batch;
@@ -52,8 +56,10 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      from numpy (K1); the __graft_entry__ pipeline (fwd OMF 4 ->
      eltwise_mult_mod IMF 4 -> inv) at 2^12, 50-bit, batch 2 (K1, K4);
      NTT(2^10, 29-bit) forward and inverse at batch 4096 (the single-word
-     K7, as in the JAX engine); NTT(2^10, 49-bit) at batch 4096 (K2);
-     poly_mult_mod at (2^12, 50-bit, 2) and (2^14, 60-bit, 64) (K3).
+     K7, as in the JAX engine); NTT(2^10, 49-bit) at batch 4096 (K1);
+     NTT(2^6, 49-bit) at batch 8192 (K2); poly_mult_mod at (2^12, 50-bit,
+     2) and (2^14, 60-bit, 64) (K3, the cluster form) and at (2^13,
+     60-bit, 132) (K3.cta, the one-CTA form).
      The second (N above 2^14 and the single-word regime): NTT(2^17,
      60-bit) and NTT(2^17, 29-bit) forward and inverse at batch 16 (K5/K6,
      then their u32 instantiation); NTT(2^14, 29-bit) at batch 256 (K7);
@@ -85,14 +91,16 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      The sixth (see its comment in main): the approximate-butterfly regime
      forced on: NTT(2^14) at 60 bits (lean8) and 59 bits (lean16) at batch
      256, NTT(2^17, 50-bit) at batch 16 (lean16, K5/K6), NTT(2^10, 49-bit)
-     at batch 4096 (lean8, K2), rns_poly_mult_mod at N=2^17 x 16 primes of
+     at batch 4096 (lean8, K1), NTT(2^6, 49-bit) at batch 8192 (lean8,
+     K2), rns_poly_mult_mod at N=2^17 x 16 primes of
      50 bits; the K17 and K18 chains at the probes' shapes; every output
      against the plain lean path, fully reduced ones against the exact
      outputs, the K18 chains against each other;
   5. timings with CUDA events (median of 20): each kernel and its plain
      version at the main paths' shapes, beside the kernel's bound (the
-     radix walk's rows, K1, K6, K6 with a shard base, the lean K1/K6, K7,
-     K12 and K2, on inputs that rotate beyond the 50 MB L2; K5 at N=2^20,
+     radix walk's rows, K1, K2, K3, K3.cta, K6, K6 with a shard base, the
+     lean K1/K6, K7 and K12, on inputs that rotate beyond the 50 MB L2; K5
+     at N=2^20,
      where a thread holds 64 coefficients; K4 beside the empty kernel at
      its grid, its launch floor, and at 2^22 elements); the
      fwd+inv pairs/s at N=2^14, 60-bit, batch 256, and at N=2^17 for
@@ -105,7 +113,9 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      rows; each key switch's latency, its kernels and NTTs replayed from
      CUDA graphs, and its launches per call; the transform pair with each
      number of polynomials per CTA forced, against the wrapper's choice,
-     and the FFT-like pair likewise (K12's radix walk against its stage
+     at every N from 2 to 2^12; the product with each of K3's forms
+     forced at N from 2^9 to 2^14; the FFT-like pair with each number of
+     transforms per CTA forced (K12's radix walk against its stage
      walk);
      K12/K13 per precision beside torch.fft.fft (the nearest library
      call, another function), K14/K15 beside torch._int_mm (the pass's
@@ -123,6 +133,7 @@ It then prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import importlib
 import itertools
 import json
@@ -145,7 +156,9 @@ SMS = 132
 INT32_LANES_PER_SM = 64
 
 SEED = 20261016
-K2_BATCH = 4096    # the N=2^10 transforms of the main path's packed route
+N10_BATCH = 4096   # the N=2^10 transforms of the first main path
+PACKED_N, PACKED_BATCH = 1 << 6, 8192   # the first path's K2 pair
+CTA_N, CTA_BATCH = 1 << 13, 132   # the first path's one-CTA product (K3.cta)
 SPLIT_BATCH = 16   # the N=2^17 transforms of the second main path
 RNS_PRIMES = 16    # BASELINE.json's RNS poly-mult: N=2^17 x 16 primes
 
@@ -948,15 +961,21 @@ def parallel_kernel_checks(rng, dev, nt, get_plan, hier, shard, pipeline,
 # forward in four forms: three u64 schemes, u32; the inverse in eight:
 # with the final stage and without, each in the three u64 schemes and
 # u32; the u64 forms in seven shapes, the u32 ones in ten, ntt_block.cuh
-# with_shape), and K12's radix walk (fft.cu fft_radix_fwd_kernel and
-# fft_radix_inv_kernel: six shapes in complex double and float, three in
-# double-float, fft_with_shape).
+# with_shape), K2's packed walk (forward and inverse, three schemes, R = 8
+# and R = 2), K3's kernels (poly.cu: the cluster form at 2^12-2^14, the
+# one-CTA form at R = 2, R = 8 and 2^10-2^13), and K12's radix walk (fft.cu
+# fft_radix_fwd_kernel and fft_radix_inv_kernel: six shapes in complex
+# double and float, three in double-float, fft_with_shape).
 NEW_INSTANTIATION = re.compile(
-    r"chain_kernel|kernelIyLi[12]E|radix_(fwd|inv)_kernel")
+    r"chain_kernel|kernelIyLi[12]E|radix_(packed_)?(fwd|inv)_kernel|"
+    r"poly_(cluster|cta)_kernel")
 RADIX_INSTANTIATIONS = (3 + 6) * 7 + (1 + 2) * 10
+PACKED_INSTANTIATIONS = 2 * 3 * 2
+POLY_INSTANTIATIONS = 3 + 6
 FFT_RADIX_INSTANTIATIONS = 2 * (6 + 6 + 3)
-# K2's lean stage walks, K5's lean passes, the chains, the radix walks.
-NEW_INSTANTIATIONS = (4 + 2 * 6 * 3 + 2 + 3 + RADIX_INSTANTIATIONS
+# K5's lean passes, the chains, the radix walks, K2, K3.
+NEW_INSTANTIATIONS = (2 * 6 * 3 + 2 + 3 + RADIX_INSTANTIATIONS
+                      + PACKED_INSTANTIATIONS + POLY_INSTANTIATIONS
                       + FFT_RADIX_INSTANTIATIONS)
 # Moduli of the lean checks: generate_primes(1, b) gives q in (2^b,
 # 2^(b+1)); "61" is the largest prime below 2^61, where 8q is just under
@@ -1072,6 +1091,67 @@ def lean_kernel_checks(rng, dev, nt, get_plan, cuda_ntt, hier, torch_ntt,
     return checks
 
 
+def packed_kernel_checks(rng, dev, nt, get_plan, cuda_ntt, hier, torch_ntt,
+                         to_tensor, compare):
+    """K2 (several polynomials per CTA) against the plain walk, bit for bit,
+    at every N from 2 to 2^12 (49-bit q): through the packing rule at the
+    batches 2^k and 2^k + 1 up to PACK_COEFFS and 3 PACK_COEFFS + 1, every
+    P the rule gives (exact, every IMF/OMF pair), and with P forced to
+    every power of two the kernel takes, on 2P + 1 polynomials (a ragged
+    last CTA), in every scheme and every IMF/OMF pair. Returns the
+    count."""
+    import numpy as np
+
+    def rand(shape, bound):
+        return to_tensor(rng.integers(0, bound, size=shape, dtype=np.uint64),
+                         dev)
+
+    rule = cuda_ntt.polys_per_cta
+    checks = 0
+    for log_n in range(1, 13):
+        n = 1 << log_n
+        q = nt.generate_primes(1, 49, True, ntt_size=n)[0]
+        plan = get_plan(n, q)
+        top = cuda_ntt.PACK_COEFFS
+        batches = sorted({*(1 << k for k in range(1, top.bit_length())),
+                          *((1 << k) + 1 for k in range(1, top.bit_length())),
+                          3 * top + 1})
+        runs = [(batch, None, ("exact",)) for batch in batches
+                if rule(n, batch) > 1]
+        p = 2
+        while p <= cuda_ntt.max_polys_per_cta(n):
+            runs.append((2 * p + 1, p, torch_ntt.SCHEMES))
+            p *= 2
+        for batch, forced, schemes in runs:
+            if forced:
+                cuda_ntt.polys_per_cta = lambda *args, p=forced: p
+            try:
+                for scheme in schemes:
+                    kernel = hier.kernel_name("K2", 64, scheme)
+                    what = f"n={n} batch={batch} P={forced or 'rule'} {scheme}"
+                    for imf in torch_ntt.FWD_IMF:
+                        for omf in torch_ntt.FWD_OMF:
+                            x = rand((batch, n), imf * q)
+                            compare(kernel, cuda_ntt.fwd_ntt(
+                                x, plan, imf, omf, 64, scheme),
+                                torch_ntt.fwd_ntt(x, plan, imf, omf, 64,
+                                                  scheme),
+                                f"K2 fwd {what} imf={imf} omf={omf}")
+                            checks += 1
+                    for imf in torch_ntt.INV_IMF:
+                        for omf in torch_ntt.INV_OMF:
+                            x = rand((batch, n), imf * q)
+                            compare(kernel, cuda_ntt.inv_ntt(
+                                x, plan, imf, omf, 64, scheme),
+                                torch_ntt.inv_ntt(x, plan, imf, omf, 64,
+                                                  scheme),
+                                f"K2 inv {what} imf={imf} omf={omf}")
+                            checks += 1
+            finally:
+                cuda_ntt.polys_per_cta = rule
+    return checks
+
+
 def chain_kernel_checks(rng, dev, chain, df_chain, compare, compare_fft):
     """K17 (lean16 and its exact sibling) and K18 in every precision, at
     the probes' shapes and on a ragged 7 x 143 elements, each against its
@@ -1120,6 +1200,17 @@ def ckks_words(coeffs, q_words):
     return torch.stack([lo, hi])
 
 
+@contextlib.contextmanager
+def forced_form(poly, form):
+    """poly_mult runs K3 in `form` instead of `poly.form_for`'s pick."""
+    choose = poly.form_for
+    poly.form_for = lambda *args: form
+    try:
+        yield
+    finally:
+        poly.form_for = choose
+
+
 def rotating(values):
     """A function giving the next of `values` at each call."""
     it = itertools.cycle(values)
@@ -1164,28 +1255,39 @@ def graph_times(fn, inner, reps=20):
 # K6.shard: 8 of 2 x 4 MB); row 7, K7, at 2^14 (its phase-5 shape), 2^13,
 # 2^15 and 2^10 (3 sets of 32 MB each); row 11, K12's block pass in each
 # precision, and the whole f64 FFT-like pair (K13 + K12 each way), at
-# 2^14 x 64 (6 sets of 16 MB); K2, on the stage walk, the A/B's control
-# row (3 sets of 32 MB). "torch.fft" is torch.fft.fft + ifft of a
-# (64, 2^14) complex128, the nearest library call to the f64 pair (another
-# function), timed on both sides as a yardstick.
-WALK_ROWS = ("K1", "K1.lean8", "K1.lean16", "K6", "K6.u32", "K6.lean16",
-             "K6.shard", "K7", "K12.f64", "K12.f32", "K12.df", "K2")
+# 2^14 x 64 (6 sets of 16 MB); row 2: "K2" the public pair at (2^10,
+# 49-bit, 4096) (3 sets of 32 MB; one polynomial per CTA by the packing
+# rule, so K1 there), "K2.n6" K2's packed pair at (2^6, 49-bit,
+# 8192) (16 sets of 4 MB); row 3: "K3" the product at (2^14, 60-bit, 64)
+# (3 sets of a, b and the output, 24 MB), "K3.cta" at (2^13, 60-bit, 132)
+# (3 sets of 26 MB, the one-CTA form), "K3.n10" at (2^10, 60-bit, 64)
+# (the one-CTA form) and "K3.n12" at (2^12, 50-bit, 2). "torch.fft" is
+# torch.fft.fft + ifft of a (64, 2^14) complex128, the nearest library
+# call to the f64 pair (another function), timed on both sides as a
+# yardstick. WALK_ROWS maps each kernels-line entry timed here to its
+# row.
+WALK_ROWS = {name: name for name in (
+    "K1", "K1.lean8", "K1.lean16", "K6", "K6.u32", "K6.lean16", "K6.shard",
+    "K7", "K12.f64", "K12.f32", "K12.df", "K3", "K3.cta")}
+WALK_ROWS["K2"] = "K2.n6"
 
 
 def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
               to_tensor) -> dict:
-    """{row: fn} for WALK_ROWS and the A/B's other rows (K7.n13, K7.n15,
-    K7.n10, FFT.f64, torch.fft), at the shapes of phase 5: the pair (2^14,
-    batch 256; 60-bit q, lean16 at 59 bits, K7 at 29 bits; K7 also at
-    (2^13, 512), (2^15, 128) and (2^10, 4096); K2 at (2^10, 49-bit,
-    4096)), the local pass of N = 2^17 x 16 (60-bit, 29-bit u32, lean16 at
-    50 bits), position 3 of 8 at bench.py's shape (L = 2^11, batch 256),
-    and the FFT-like of the fourth path (2^14 x 64, scale 2^40). Written
-    against the wrappers' signatures, which the parent tree of an A/B
-    (`--walk-ab`) shares."""
+    """{row: fn} for WALK_ROWS' rows and the A/B's other rows (K7.n13,
+    K7.n15, K7.n10, FFT.f64, torch.fft, K2, K3.n10, K3.n12), at the shapes
+    of phase 5: the pair (2^14, batch 256; 60-bit q, lean16 at 59 bits, K7
+    at 29 bits; K7 also at (2^13, 512), (2^15, 128) and (2^10, 4096); the
+    public route at (2^10, 49-bit, 4096), K2 at (2^6, 49-bit, 8192)), the
+    local pass of N = 2^17 x 16 (60-bit, 29-bit u32, lean16 at 50 bits),
+    position 3 of 8 at bench.py's shape (L = 2^11, batch 256), the
+    FFT-like of the fourth path (2^14 x 64, scale 2^40), and poly_mult at
+    (2^14, 60-bit, 64), (2^13, 60-bit, 132), (2^10, 60-bit, 64) and
+    (2^12, 50-bit, 2). Written against the wrappers' signatures, which the
+    parent tree of an A/B (`--walk-ab`) shares."""
     import numpy as np
     import torch
-    from hexl_tpu_torch import FFTLike
+    from hexl_tpu_torch import FFTLike, poly
     from hexl_tpu_torch.experimental import cuda_fft
 
     def rand(shape, bound):
@@ -1242,6 +1344,13 @@ def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
     z = rotating([fft_value(rng, (FFT_BATCH, FFT_N), "f64", dev)
                   for _ in range(6)])
     q29 = prime(29, 1 << 15)
+
+    def product(n, bits, batch):
+        plan = get_plan(n, prime(bits, n))
+        nxt = rotating([(rand((batch, n), plan.q), rand((batch, n), plan.q))
+                        for _ in range(3)])
+        return lambda: poly.poly_mult(*nxt(), plan)
+
     return {"K1": pair(q60, "exact"), "K1.lean8": pair(q60, "lean8"),
             "K1.lean16": pair(prime(59, n14), "lean16"),
             "K6": local(prime(60, n17), "exact"),
@@ -1251,14 +1360,20 @@ def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
             "K7": pair(q29, "exact", 32),
             "K7.n13": pair(q29, "exact", 32, n=1 << 13, batch=512),
             "K7.n15": pair(q29, "exact", 32, n=1 << 15, batch=128),
-            "K7.n10": pair(q29, "exact", 32, n=1 << 10, batch=K2_BATCH),
+            "K7.n10": pair(q29, "exact", 32, n=1 << 10, batch=N10_BATCH),
             "K12.f64": fft_run("f64", cuda_fft.block),
             "K12.f32": fft_run("single", cuda_fft.block),
             "K12.df": fft_run("double_float", cuda_fft.block),
             "FFT.f64": fft_run("f64", None),
             "torch.fft": lambda: torch.fft.ifft(torch.fft.fft(z())),
             "K2": pair(prime(49, 1 << 10), "exact", n=1 << 10,
-                       batch=K2_BATCH)}
+                       batch=N10_BATCH),
+            "K2.n6": pair(prime(49, PACKED_N), "exact", sets=16, n=PACKED_N,
+                          batch=PACKED_BATCH),
+            "K3": product(n14, 60, 64),
+            "K3.cta": product(CTA_N, 60, CTA_BATCH),
+            "K3.n10": product(1 << 10, 60, 64),
+            "K3.n12": product(1 << 12, 50, 2)}
 
 
 def walk_times(root: pathlib.Path) -> int:
@@ -1310,7 +1425,14 @@ def walk_ab(parent: pathlib.Path) -> int:
             times[side].setdefault(row, []).extend(v)
     summary = {}
     for row in times["new"]:
-        p_, n_ = times["parent"][row], times["new"][row]
+        n_ = times["new"][row]
+        if row not in times["parent"]:
+            summary[row] = {"new": {"median": statistics.median(n_),
+                                    "min": min(n_), "max": max(n_)}}
+            log(f"A/B {row}: new only {statistics.median(n_):.4f} ms "
+                f"[{min(n_):.4f}, {max(n_):.4f}]")
+            continue
+        p_ = times["parent"][row]
         summary[row] = {side: {"median": statistics.median(v), "min": min(v),
                                "max": max(v)}
                         for side, v in (("parent", p_), ("new", n_))}
@@ -1374,7 +1496,7 @@ def main() -> int:
                          dev)
 
     def route(n, batch):
-        return "K2" if cuda_ntt.polys_per_cta(n, batch, sms) > 1 else "K1"
+        return "K2" if cuda_ntt.polys_per_cta(n, batch) > 1 else "K1"
 
     # -- 2. build -----------------------------------------------------------
     probes = start_sass_probes(_build.nvcc_path(),
@@ -1390,12 +1512,18 @@ def main() -> int:
     log(f"IMADs per product (SASS): {imads}")
     resources = _build.kernel_resources(info["log"])
     new = {k: v for k, v in resources.items() if NEW_INSTANTIATION.search(k)}
-    log(f"build: {len(new)} lean, chain and radix-walk instantiations "
-        f"(registers, stack, spill stores, spill loads): {new}")
+    log(f"build: {len(new)} lean, chain, radix-walk, K2 and K3 "
+        f"instantiations (registers, stack, spill stores, spill loads): "
+        f"{new}")
     spilled = {k: v for k, v in new.items() if v[2] or v[3] or v[2] is None}
     if spilled or len(new) < NEW_INSTANTIATIONS:
         raise AssertionError(f"of {NEW_INSTANTIATIONS} new instantiations "
                              f"{len(new)} reported, spills: {spilled}")
+    # K3's cluster form: how many clusters of two CTAs the card holds at
+    # once (cudaOccupancyMaxActiveClusters), per degree.
+    log("K3 cluster form, most active clusters: " + ", ".join(
+        f"N=2^{k} {poly.max_active_clusters(1 << k, dev)}"
+        for k in range(12, 15)))
 
     # -- 3. each kernel against its plain version, bit-exact ----------------
     max_err = {}
@@ -1451,14 +1579,25 @@ def main() -> int:
                                 f"inv n={n} q_bits={q_bits} batch={batch} "
                                 f"imf={imf} omf={omf}")
                         checks += 1
-    for n, q_bits, batch in ((1 << 12, 50, 2), (1 << 14, 60, 64)):
-        q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+    # K3 at every N from 2 to 2^14, at batches 1, 2, 64 and 133, in every
+    # form the wrapper takes at that degree (form_for's pick forced).
+    for log_n in range(1, 15):
+        n = 1 << log_n
+        q = nt.generate_primes(1, 60, True, ntt_size=n)[0]
         plan = get_plan(n, q)
-        a, b = rand((batch, n), q), rand((batch, n), q)
-        compare("K3", poly.poly_mult(a, b, plan),
-                poly.poly_mult_plain(a, b, plan),
-                f"poly_mult n={n} q_bits={q_bits} batch={batch}")
-        checks += 1
+        for batch in (1, 2, 64, 133):
+            a, b = rand((batch, n), q), rand((batch, n), q)
+            want = poly.poly_mult_plain(a, b, plan)
+            for form in poly.forms_of(n):
+                with forced_form(poly, form):
+                    got = poly.poly_mult(a, b, plan)
+                compare(poly.FORMS[form], got, want,
+                        f"poly_mult n={n} batch={batch} form={form}")
+                checks += 1
+    # K2 at every N from 2 to 2^12 and every P its rule gives, and at every
+    # power-of-two P its kernel takes.
+    checks += packed_kernel_checks(rng, dev, nt, get_plan, cuda_ntt, hier,
+                                   torch_ntt, to_tensor, compare)
     for q_bits in (30, 50, 60, 61):
         q = nt.generate_primes(1, q_bits, True, ntt_size=1 << 10)[0]
         for imf in (1, 2, 4):
@@ -1600,23 +1739,32 @@ def main() -> int:
     # __graft_entry__ pipeline (2^12, 50-bit, batch 2); the repo's 29-bit
     # Xeon row, NTT(2^10), at a batch that fills the card (a q < 2^30 there
     # takes the single-word K7, as in the JAX engine), and the same
-    # transform at 49 bits (the packed route K2); poly_mult_mod at (2^12,
-    # 50-bit, 2) and (2^14, 60-bit, 64).
+    # transform at 49 bits (one polynomial per CTA, K1); NTT(2^6, 49-bit) at
+    # batch 8192 (the packed route K2, a CTA of one warp holding four
+    # polynomials); poly_mult_mod at (2^12, 50-bit, 2) and (2^14, 60-bit,
+    # 64) (K3's cluster form) and at (2^13, 60-bit, 132) (its one-CTA form:
+    # 2 x 132 CTAs would outnumber the SMs).
     n14, n12, n10 = 1 << 14, 1 << 12, 1 << 10
     q60 = nt.generate_primes(1, 60, True, ntt_size=n14)[0]
     q50 = nt.generate_primes(1, 50, True, ntt_size=n12)[0]
     q49 = nt.generate_primes(1, 49, True, ntt_size=n10)[0]
     q29 = nt.generate_primes(1, 29, True, ntt_size=n10)[0]
+    q49_6 = nt.generate_primes(1, 49, True, ntt_size=PACKED_N)[0]
     x14 = rng.integers(0, q60, size=(256, n14), dtype=np.uint64)
     a12, b12 = (rng.integers(0, q50, size=(2, n12), dtype=np.uint64)
                 for _ in range(2))
-    x10 = rng.integers(0, q49, size=(K2_BATCH, n10), dtype=np.uint64)
-    x10s = rng.integers(0, q29, size=(K2_BATCH, n10), dtype=np.uint64)
+    x10 = rng.integers(0, q49, size=(N10_BATCH, n10), dtype=np.uint64)
+    x10s = rng.integers(0, q29, size=(N10_BATCH, n10), dtype=np.uint64)
+    x6 = rng.integers(0, q49_6, size=(PACKED_BATCH, PACKED_N),
+                      dtype=np.uint64)
     a14, b14 = (rng.integers(0, q60, size=(64, n14), dtype=np.uint64)
                 for _ in range(2))
+    a13, b13 = (rng.integers(0, q60, size=(CTA_BATCH, CTA_N),
+                             dtype=np.uint64) for _ in range(2))
     ta12, tb12 = to_tensor(a12, dev), to_tensor(b12, dev)
     ntt14, ntt12, ntt10 = NTT(n14, q60), NTT(n12, q50), NTT(n10, q49)
     ntt10s = NTT(n10, q29)
+    ntt6 = NTT(PACKED_N, q49_6)
     torch.cuda.synchronize()
 
     _build.reset_launches()
@@ -1630,15 +1778,22 @@ def main() -> int:
     back10s = ntt10s.inverse(y10s)
     y10 = ntt10.forward(x10)
     back10 = ntt10.inverse(y10)
+    y6 = ntt6.forward(x6)
+    back6 = ntt6.inverse(y6)
     c12 = poly_mult_mod(a12, b12, n12, q50)
     c14 = poly_mult_mod(a14, b14, n14, q60)
+    c13 = poly_mult_mod(a13, b13, CTA_N, q60)
     torch.cuda.synchronize()
     launches1 = dict(_build.launches)
     log(f"phase 4: first main path's launches {launches1}; routes: "
         f"(2^14, 256) {route(n14, 256)}, (2^12, 2) {route(n12, 2)}, "
-        f"(2^10, {K2_BATCH}) {route(n10, K2_BATCH)} with "
-        f"P={cuda_ntt.polys_per_cta(n10, K2_BATCH, sms)} on {sms} SMs")
-    missing = [k for k in ("K1", "K2", "K3", "K4", "K7")
+        f"(2^10, {N10_BATCH}) {route(n10, N10_BATCH)}, (2^6, {PACKED_BATCH}) "
+        f"{route(PACKED_N, PACKED_BATCH)} with "
+        f"P={cuda_ntt.polys_per_cta(PACKED_N, PACKED_BATCH)}; K3 forms on "
+        f"{sms} SMs: (2^12, 2) {poly.form_for(n12, 2, sms)}, (2^13, "
+        f"{CTA_BATCH}) {poly.form_for(CTA_N, CTA_BATCH, sms)}, (2^14, 64) "
+        f"{poly.form_for(n14, 64, sms)}")
+    missing = [k for k in ("K1", "K2", "K3", "K3.cta", "K4", "K7")
                if launches1.get(k, 0) < 1]
     if missing:
         raise AssertionError(f"first main path launched no {missing}")
@@ -1647,6 +1802,7 @@ def main() -> int:
     plan14, plan12, plan10 = (get_plan(n14, q60), get_plan(n12, q50),
                               get_plan(n10, q49))
     plan10s = get_plan(n10, q29)
+    plan6 = get_plan(PACKED_N, q49_6)
     t = lambda v: to_tensor(v, dev)
     compare(route(n14, 256), t(y14), torch_ntt.fwd_ntt(t(x14), plan14),
             "main path: NTT(2^14, 60-bit).forward, batch 256")
@@ -1661,19 +1817,29 @@ def main() -> int:
     compare(route(n12, 2), step, torch_ntt.inv_ntt(prod, plan12),
             "main path: pipeline inverse")
     compare("K7", t(y10s), ntt32.fwd_ntt32(t(x10s), plan10s),
-            f"main path: NTT(2^10, 29-bit).forward, batch {K2_BATCH}")
+            f"main path: NTT(2^10, 29-bit).forward, batch {N10_BATCH}")
     compare("K7", t(back10s), ntt32.inv_ntt32(t(y10s), plan10s),
-            f"main path: NTT(2^10, 29-bit).inverse, batch {K2_BATCH}")
-    compare(route(n10, K2_BATCH), t(y10), torch_ntt.fwd_ntt(t(x10), plan10),
-            f"main path: NTT(2^10, 49-bit).forward, batch {K2_BATCH}")
-    compare(route(n10, K2_BATCH), t(back10),
+            f"main path: NTT(2^10, 29-bit).inverse, batch {N10_BATCH}")
+    compare(route(n10, N10_BATCH), t(y10), torch_ntt.fwd_ntt(t(x10), plan10),
+            f"main path: NTT(2^10, 49-bit).forward, batch {N10_BATCH}")
+    compare(route(n10, N10_BATCH), t(back10),
             torch_ntt.inv_ntt(t(y10), plan10),
-            f"main path: NTT(2^10, 49-bit).inverse, batch {K2_BATCH}")
-    for c, a, b, plan in ((c12, a12, b12, plan12), (c14, a14, b14, plan14)):
-        compare("K3", t(c), poly.poly_mult_plain(t(a), t(b), plan),
+            f"main path: NTT(2^10, 49-bit).inverse, batch {N10_BATCH}")
+    compare(route(PACKED_N, PACKED_BATCH), t(y6),
+            torch_ntt.fwd_ntt(t(x6), plan6),
+            f"main path: NTT(2^6, 49-bit).forward, batch {PACKED_BATCH}")
+    compare(route(PACKED_N, PACKED_BATCH), t(back6),
+            torch_ntt.inv_ntt(t(y6), plan6),
+            f"main path: NTT(2^6, 49-bit).inverse, batch {PACKED_BATCH}")
+    plan13 = get_plan(CTA_N, q60)
+    for c, a, b, plan in ((c12, a12, b12, plan12), (c14, a14, b14, plan14),
+                          (c13, a13, b13, plan13)):
+        compare(poly.FORMS[poly.form_for(plan.n, a.shape[0], sms)], t(c),
+                poly.poly_mult_plain(t(a), t(b), plan),
                 f"main path: poly_mult_mod n={plan.n}")
     if not (np.array_equal(back14, x14) and np.array_equal(back10, x10)
-            and np.array_equal(back10s, x10s)):
+            and np.array_equal(back10s, x10s)
+            and np.array_equal(back6, x6)):
         raise AssertionError("NTT round trip failed")
     if not np.array_equal(to_numpy(step), c12):
         raise AssertionError("__graft_entry__ pipeline != poly_mult_mod")
@@ -2047,7 +2213,8 @@ def main() -> int:
     # bodies, forced on (config.approx_butterflies, as the JAX tests force
     # theirs): bench.py's shape at 60 bits (lean8) and 59 bits (lean16),
     # NTT(2^17, 50-bit) at batch 16 (lean16 through K5/K6), NTT(2^10,
-    # 49-bit) at batch 4096 (lean8 through K2), BASELINE.json's RNS product
+    # 49-bit) at batch 4096 (lean8 through K1) and NTT(2^6, 49-bit) at batch
+    # 8192 (lean8 through K2), BASELINE.json's RNS product
     # at N=2^17 x 16 primes of 50 bits (lean16); and the two probes as their
     # benchmarks run them: K17's lean16 chain and its exact sibling on two
     # 16384 x 128 planes, K18 on 8192 x 128 in double-float, f64 and single.
@@ -2060,8 +2227,10 @@ def main() -> int:
                    rand((256, n14), q59)),
         "lean16 split": ("NTT(2^17, 50-bit), batch 16", NTT(n17, q50_17),
                          rand((SPLIT_BATCH, n17), q50_17)),
-        "lean8 packed": (f"NTT(2^10, 49-bit), batch {K2_BATCH}", ntt10,
-                         rand((K2_BATCH, n10), q49)),
+        "lean8 n10": (f"NTT(2^10, 49-bit), batch {N10_BATCH}", ntt10,
+                      rand((N10_BATCH, n10), q49)),
+        "lean8 packed": (f"NTT(2^6, 49-bit), batch {PACKED_BATCH}", ntt6,
+                         rand((PACKED_BATCH, PACKED_N), q49_6)),
     }
     cx, cy = chain.probe_inputs(rng, dev)
     # One set of complex values in every precision, so that the three K18
@@ -2108,7 +2277,7 @@ def main() -> int:
         scheme = key.split()[0]
         y, lazy, back = outs6[key]
         fwd_k = ("K6" if e.plan.n > n14 else
-                 "K2" if key.endswith("packed") else "K1") + "." + scheme
+                 route(e.plan.n, x.shape[0])) + "." + scheme
         inv_k = ("K5" if e.plan.n > n14 else fwd_k.split(".")[0]) + "." + \
             scheme
         compare(fwd_k, y, torch_ntt.fwd_ntt(x, e.plan, 1, 1, 64, scheme),
@@ -2222,13 +2391,21 @@ def main() -> int:
         return kernel, plain, nbytes, nimads
 
     k1 = pair_case(n14, q60, 256, 1)
-    k2 = pair_case(n10, q49, K2_BATCH, 1)
-    pa, pb = rand((64, n14), q60), rand((64, n14), q60)
-    k3 = (lambda: poly.poly_mult(pa, pb, plan14),
-          lambda: poly.poly_mult_plain(pa, pb, plan14),
-          3 * 8 * 64 * n14 + 4 * 8 * n14,
-          2 * ntt_imads(n14, 64, True) + ntt_imads(n14, 64, False)
-          + 64 * n14 * per_barrett)
+    k2 = pair_case(PACKED_N, q49_6, PACKED_BATCH, 1)
+    def product_case(n, q, batch):
+        """poly_mult: a and b read, the product written, the four tables
+        read once; two forwards, one inverse and a Barrett product a
+        coefficient."""
+        plan = get_plan(n, q)
+        pa, pb = rand((batch, n), q), rand((batch, n), q)
+        return (lambda: poly.poly_mult(pa, pb, plan),
+                lambda: poly.poly_mult_plain(pa, pb, plan),
+                3 * 8 * batch * n + 4 * 8 * n,
+                2 * ntt_imads(n, batch, True) + ntt_imads(n, batch, False)
+                + batch * n * per_barrett)
+
+    k3 = product_case(n14, q60, 64)
+    k3c = product_case(CTA_N, q60, CTA_BATCH)
     ea, eb = rand((2, n12), 4 * q50), rand((2, n12), 4 * q50)
     k4 = (lambda: ops.mult_mod(ea, eb, q50, 4),
           lambda: torch_kernels.mult_mod(ea, eb, q50, 4),
@@ -2282,18 +2459,21 @@ def main() -> int:
           ntt_imads(n14, 256, True, per_shoup32)
           + ntt_imads(n14, 256, False, per_shoup32))
 
-    p10 = cuda_ntt.polys_per_cta(n10, K2_BATCH, sms)
+    p6 = cuda_ntt.polys_per_cta(PACKED_N, PACKED_BATCH)
     cases = {
         "K1": ("radix_fwd_kernel+radix_inv_kernel<u64>, 1 poly/CTA",
                "hexl_tpu_torch/csrc/ntt.cu", "hexl_tpu/ntt/pallas_ntt.py:547",
                "fwd OMF1 + inv OMF1 pair, N=2^14, 60-bit q, batch 256", k1),
-        "K2": ("ntt_fwd_kernel+ntt_inv_kernel, P polys/CTA",
+        "K2": ("radix_packed_fwd_kernel+radix_packed_inv_kernel, P polys/CTA",
                "hexl_tpu_torch/csrc/ntt.cu", "hexl_tpu/ntt/pallas_ntt.py:230",
-               f"fwd OMF1 + inv OMF1 pair, N=2^10, 49-bit q, batch "
-               f"{K2_BATCH} (P={p10})", k2),
-        "K3": ("poly_mult_kernel", "hexl_tpu_torch/csrc/poly.cu",
-               "hexl_tpu/poly.py:72",
+               f"fwd OMF1 + inv OMF1 pair, N=2^6, 49-bit q, batch "
+               f"{PACKED_BATCH} (P={p6})", k2),
+        "K3": ("poly_cluster_kernel, a cluster of two CTAs per pair",
+               "hexl_tpu_torch/csrc/poly.cu", "hexl_tpu/poly.py:72",
                "poly_mult N=2^14, 60-bit q, batch 64", k3),
+        "K3.cta": ("poly_cta_kernel, both operands in one CTA",
+                   "hexl_tpu_torch/csrc/poly.cu", "hexl_tpu/poly.py:72",
+                   f"poly_mult N=2^13, 60-bit q, batch {CTA_BATCH}", k3c),
         "K4": ("eltwise_kernel (mult_mod, 64-bit)",
                "hexl_tpu_torch/csrc/eltwise.cu",
                "hexl_tpu/eltwise/pallas_kernels.py:65",
@@ -2586,11 +2766,12 @@ def main() -> int:
         "fwd OMF1 + inv OMF1 pair, N=2^14, 59-bit q, batch 256, lean16",
         pair_case(n14, q59, 256, 1, "lean16"))
     cases["K2.lean8"] = (
-        "ntt_fwd_kernel+ntt_inv_kernel<u64, LEAN8>, P polys/CTA",
-        "hexl_tpu_torch/csrc/ntt.cu",
+        "radix_packed_fwd_kernel+radix_packed_inv_kernel<LEAN8>, P "
+        "polys/CTA", "hexl_tpu_torch/csrc/ntt.cu",
         lean_replaces % "hexl_tpu/ntt/pallas_ntt.py:230",
-        f"fwd OMF1 + inv OMF1 pair, N=2^10, 49-bit q, batch {K2_BATCH} "
-        f"(P={p10}), lean8", pair_case(n10, q49, K2_BATCH, 1, "lean8"))
+        f"fwd OMF1 + inv OMF1 pair, N=2^6, 49-bit q, batch {PACKED_BATCH} "
+        f"(P={p6}), lean8",
+        pair_case(PACKED_N, q49_6, PACKED_BATCH, 1, "lean8"))
     cases["K5.lean16"] = (
         "cross_fwd_kernel+cross_inv_kernel<u64, LEAN16, 3>",
         "hexl_tpu_torch/csrc/ntt_hier.cu",
@@ -2646,14 +2827,14 @@ def main() -> int:
              df_elems * (df_chain.REPS * (c["mul"] + 2 * c["add"])
                          + 2 * c["scale"]) + c["split"],
              SMS * lanes * sm_mhz * 1e6, None))
-    # Rows 1, 2, 6, 7, 10, 11 (K12) and the lean row's K1/K6 on rotating
+    # Rows 1, 2, 3, 6, 7, 10, 11 (K12) and the lean row's K1/K6 on rotating
     # inputs (`walk_runs`); their plain versions and bounds as above.
     walk = walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard, to_tensor)
-    for name in WALK_ROWS:
+    for name, row in WALK_ROWS.items():
         desc, source, replaces, shape, case = cases[name]
         cases[name] = (desc, source, replaces,
                        f"{shape}, inputs rotating beyond the L2",
-                       (walk[name],) + tuple(case[1:]))
+                       (walk[row],) + tuple(case[1:]))
     # Entries whose launches are counted under another kernel's name: the
     # fifth path's K6 and K5 launches are all DistNTT positions'.
     counted_as = {"K6.shard": "K6", "K5.col": "K5"}
@@ -2753,7 +2934,7 @@ def main() -> int:
     public_pairs(ntt14, rand((256, n14), q60), 60)
     public_pairs(e17, rand((SPLIT_BATCH, n17), q60_17), 60)
     public_pairs(e17s, rand((SPLIT_BATCH, n17), q29_17), 29)
-    public_pairs(ntt10s, rand((K2_BATCH, n10), q29), 29)
+    public_pairs(ntt10s, rand((N10_BATCH, n10), q29), 29)
 
     # The lean regime against the exact one, the A/B behind
     # config.approx_butterflies' CUDA default: the public fwd+inv pair (OMF
@@ -3038,21 +3219,48 @@ def main() -> int:
         f"{k} {v:.2f}" for k, v in host.items()))
 
     # Polynomials per CTA: the fwd+inv pair (60-bit q) with P forced to
-    # each power of two up to 2^13/N, at the graft shape (N=2^12, batch 2)
-    # and at batches that fill the card; "rule" is the wrapper's choice.
-    for n, batch in ((n12, 2), (16, 512), (16, 8192), (64, 512), (64, 8192),
-                     (256, 512), (256, 8192), (n10, 512), (n10, K2_BATCH),
-                     (n10, 8192), (n12, 512), (n12, 8192)):
+    # each power of two K2 takes (P = 1: K1), at the graft shape (N=2^12,
+    # batch 2) and at every N from 2 to 2^12 at batches 512, 4096 and 8192,
+    # on inputs rotating beyond the L2; "rule" is the wrapper's choice.
+    for n, batch in ((n12, 2), *itertools.product(
+            [1 << k for k in range(1, 13)], (512, 4096, 8192))):
         q = nt.generate_primes(1, 60, True, ntt_size=n)[0]
-        kernel = pair_case(n, q, batch, 1)[0]
+        plan = get_plan(n, q)
+        nxt = rotating([rand((batch, n), q) for _ in range(
+            max(3, min(16, -(-150_000_000 // (16 * batch * n)))))])
+        kernel = lambda: cuda_ntt.inv_ntt(cuda_ntt.fwd_ntt(nxt(), plan),
+                                          plan)
         ps = [1 << i for i in range(14) if (1 << i) <= min(
-            cuda_ntt.PACK_COEFFS // n, batch)]
+            cuda_ntt.max_polys_per_cta(n), batch)]
         got = {p: forced_ms(cuda_ntt, "polys_per_cta", p, kernel, 10)
                for p in ps}
-        rule = cuda_ntt.polys_per_cta(n, batch, sms)
+        rule = cuda_ntt.polys_per_cta(n, batch)
         best = min(got, key=got.get)
-        log(f"pack N={n} batch={batch}: rule P={rule}, best P={best}; ms "
+        log(f"pack N={n} batch={batch}: rule P={rule}, best P={best}, "
+            f"rule/best {got[rule] / got[best]:.3f}; ms "
             + " ".join(f"P{p}={v:.4f}" for p, v in got.items()))
+
+    # K3's forms: the product with each form the wrapper takes forced, at
+    # N from 2^9 to 2^14 and batches 2 to 512, on inputs rotating beyond
+    # the L2 (median [min, max] of 20 graph replays of 10 calls); "rule" is
+    # form_for's pick.
+    for log_n in range(9, 15):
+        n = 1 << log_n
+        q = nt.generate_primes(1, 60, True, ntt_size=n)[0]
+        plan = get_plan(n, q)
+        for batch in (2, 64, 100, 132, 512):
+            nxt = rotating([(rand((batch, n), q), rand((batch, n), q))
+                            for _ in range(max(3, min(16, -(
+                                -150_000_000 // (24 * batch * n)))))])
+            got = {}
+            for f in poly.forms_of(n):
+                with forced_form(poly, f):
+                    got[f] = graph_times(lambda: poly.poly_mult(*nxt(), plan),
+                                         10)
+            log(f"K3 form N=2^{log_n} batch={batch}: rule "
+                f"{poly.form_for(n, batch, sms)}; ms " + " ".join(
+                    f"{f}={statistics.median(v):.4f} [{min(v):.4f}, "
+                    f"{max(v):.4f}]" for f, v in got.items()))
 
     # The FFT-like's packing: the forward + inverse pair (scale 2^40) with
     # P transforms per CTA forced to each power of two up to the packing
@@ -3060,7 +3268,7 @@ def main() -> int:
     # sides of each precision's PACK_BELOW; "rule" is the wrapper's choice.
     for prec in FFT_PRECISIONS:
         for n, batch in ((64, 8192), (128, 8192), (256, 512), (256, 8192),
-                         (512, 4096), (n10, K2_BATCH), (n12, 1024)):
+                         (512, 4096), (n10, N10_BATCH), (n12, 1024)):
             e = FFTLike(n, FFT_SCALAR, precision=prec, device=dev)
             fwd_t, inv_t = e.tables(dev)
             sf, si = e.fused_scale(True), e.fused_scale(False)
@@ -3069,7 +3277,7 @@ def main() -> int:
                    prec=prec: cuda_fft.inverse(
                        cuda_fft.forward(v, fwd_t, sf, prec), inv_t, si,
                        prec))
-            most = cuda_ntt.polys_per_cta(n, batch, sms)
+            most = cuda_fft.stage_walk_packing(n, batch, sms)
             got = {p: forced_ms(cuda_fft, "transforms_per_cta", p, run, 10)
                    for p in (1 << i for i in range(most.bit_length()))}
             rule = cuda_fft.transforms_per_cta(n, batch, prec, sms)

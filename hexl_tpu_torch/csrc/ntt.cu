@@ -6,30 +6,30 @@
 // hexl_tpu/ntt/ntt32.py::_run_pallas (K7, the single-word transform of
 // q < 2^30: one uint32 plane per polynomial, Shoup on a 32-bit mulhi,
 // twiddles preconditioned at 2^32). `word` and the polynomials per CTA
-// pick the kernel. One polynomial per CTA runs the radix walk of
-// ntt_block.cuh (the local pass K6 runs it too, with a shard index):
-// registers hold the coefficients through several stages a pass, shared
-// memory holds the transform between passes, each coefficient is read
-// and written once. Word 64 with one polynomial per CTA is K1 (N <= 2^14,
-// 8N bytes). Word 32 is K7, always one polynomial per CTA (N <= 2^15):
-// the int64 input narrowed to u32 on the load (4N bytes of shared memory,
+// pick the kernel; every one runs the radix walk of ntt_block.cuh
+// (registers hold the coefficients through several stages a pass, shared
+// memory holds the transform between passes, each coefficient is read and
+// written once). Word 64 with one polynomial per CTA is K1 (N <= 2^14, 8N
+// bytes). Word 32 is K7, always one polynomial per CTA (N <= 2^15): the
+// int64 input narrowed to u32 on the load (4N bytes of shared memory,
 // 128 KB at N = 2^15), Shoup on __umulhi and the precon32 tables, the
 // whole-transform inverse's last stage fused with N^-1 and the OMF
 // reduction, the store widened back; every lazy value is < 4q < 2^32, so
 // it is bit-identical to hexl_tpu_torch/ntt/ntt32.py::fwd_ntt32/inv_ntt32
 // and to the JAX single-word path, lazy outputs included. Word 64 with
-// P > 1 polynomials per CTA (N <= 2^12) is K2, which fills a CTA with up
-// to 2^13 coefficients where the batch still gives every SM a CTA
-// (ntt/cuda_ntt.py::polys_per_cta), a ragged last CTA masked; it runs the
-// stage walk of ntt_block.cuh (a barrier and a shared-memory round trip a
-// stage). The 64-bit kernels also run in the lean16 and lean8 schemes of
-// the JAX engine's device bodies (hexl_tpu/ntt/jnp_ntt.py::_bflys3, the
-// approximate Shoup quotient mulhi64_approx6): one more instantiation of
-// each kernel per scheme, bit-identical to the plain lean walk. On Hopper
-// the approximate quotient saves no multiply: a 32x32 high product is one
-// IMAD, so its 16-bit partial products cost as much as the exact 64x64
-// high product, and the exact Harvey forward already has one halver, as
-// lean16 does.
+// P > 1 polynomials per CTA is K2 (the packed radix walk: the P
+// transforms' groups one virtual transform of the slots, a ragged last
+// CTA masked, a warp's barrier ending a pass where a transform's groups
+// lie in one warp); ntt/cuda_ntt.py::polys_per_cta packs only where the
+// card showed it faster than one polynomial per CTA, the small N at which
+// one polynomial gives a CTA of less than a warp. The 64-bit kernels also
+// run in the lean16 and lean8 schemes of the JAX engine's device bodies
+// (hexl_tpu/ntt/jnp_ntt.py::_bflys3, the approximate Shoup quotient
+// mulhi64_approx6): one more instantiation of each kernel per scheme,
+// bit-identical to the plain lean walk. On Hopper the approximate
+// quotient saves no multiply: a 32x32 high product is one IMAD, so its
+// 16-bit partial products cost as much as the exact 64x64 high product,
+// and the exact Harvey forward already has one halver, as lean16 does.
 //
 // What bounds them on an H100: reading and writing each coefficient once
 // (plus the twiddle tables) moves 16 bytes per coefficient (the tensors
@@ -39,9 +39,10 @@
 // compares and selects around them a 64-bit butterfly is about 50
 // instructions, so K1 is bound by instruction issue, K7 by bytes, and one
 // CTA a SM at 2^14 leaves K1's first load and last store exposed
-// (ntt_block.cuh says what the radix walk does about each). The stage
-// walk of K2 adds a barrier and a shared-memory round trip per stage, and
-// bank conflicts at small strides.
+// (ntt_block.cuh says what the radix walk does about each). K2's small
+// transforms do few butterflies a coefficient: they are bound by bytes,
+// and a CTA of a few threads by the launch of its CTAs, which packing
+// amortises.
 #include "ntt_block.cuh"
 
 // word is 64, or 32 for q < 2^30, where the precon tables and constants
@@ -59,7 +60,7 @@ extern "C" int hexl_ntt_fwd(const u64* x, u64* y, const u64* rop,
   if (polys_per_cta == 1)
     return launch_radix_fwd_scheme<u64>(scheme, x, y, rop, prop, q, log_n,
                                         batch, omf, 0, 0, 0, stream);
-  return launch_fwd_scheme(scheme, x, y, rop, prop, q, log_n, batch,
+  return launch_packed_fwd(scheme, x, y, rop, prop, q, log_n, batch,
                            polys_per_cta, omf, stream);
 }
 
@@ -81,6 +82,6 @@ extern "C" int hexl_ntt_inv(const u64* x, u64* y, const u64* irop,
     return launch_radix_inv_scheme<u64, true>(scheme, x, y, irop, pirop, q,
                                               fin, log_n, batch, omf, 0, 0,
                                               0, stream);
-  return launch_inv_scheme(scheme, x, y, irop, pirop, q, fin, log_n, batch,
+  return launch_packed_inv(scheme, x, y, irop, pirop, q, fin, log_n, batch,
                            polys_per_cta, omf, stream);
 }

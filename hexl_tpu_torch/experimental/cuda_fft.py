@@ -30,7 +30,7 @@ import ctypes
 import torch
 
 from .. import _build, nt
-from ..ntt.cuda_ntt import polys_per_cta, sm_count
+from ..ntt.cuda_ntt import sm_count
 from . import df32 as D
 from . import fft_like
 
@@ -40,6 +40,7 @@ MAX_KERNEL_N = 1 << 17
 # where the batch leaves CTAs to spare; from them on one transform per CTA
 # (the radix walk) was faster at every batch timed (PERF.md's findings).
 PACK_BELOW = {"f64": 1 << 7, "single": 1 << 7, "double_float": 1 << 9}
+STAGE_WALK_COEFFS = 1 << 13   # the stage walk fills a CTA with at most these
 _CODE = {"f64": 0, "single": 1, "double_float": 2}
 _SUFFIX = {"f64": "f64", "single": "f32", "double_float": "df"}
 _DTYPE = {"f64": torch.complex128, "single": torch.complex64,
@@ -187,14 +188,22 @@ def _scalar_args(scalar, precision: str) -> tuple:
     return float(scalar), 0.0, 1
 
 
+def stage_walk_packing(n: int, batch: int, sms: int) -> int:
+    """The stage walk's transforms per CTA below PACK_BELOW: the largest
+    count that keeps a CTA within STAGE_WALK_COEFFS coefficients and gives
+    every one of the card's `sms` SMs a CTA (ceil(batch/P) >= sms). K12's
+    figures below PACK_BELOW were measured with this rule (PERF.md)."""
+    return max(1, min(STAGE_WALK_COEFFS // n, batch // sms))
+
+
 def transforms_per_cta(n: int, batch: int, precision: str,
                        sms: int) -> int:
     """K12's transforms per CTA for a whole transform of degree n: 1 (the
-    radix walk) from PACK_BELOW on, else the NTT's packing rule
-    (`cuda_ntt.polys_per_cta`, the stage walk where it gives P > 1)."""
+    radix walk) from PACK_BELOW on, else `stage_walk_packing` (the stage
+    walk where it gives P > 1)."""
     if n >= PACK_BELOW[precision]:
         return 1
-    return polys_per_cta(n, batch, sms)
+    return stage_walk_packing(n, batch, sms)
 
 
 def _device_of(v, precision: str) -> torch.device:

@@ -281,8 +281,8 @@ def test_radix_schedule_matches_jax_fft_like(precision, tol, n):
 @pytest.mark.parametrize("precision", PRECISIONS)
 def test_transforms_per_cta_packs_only_below_pack_below(precision):
     """K12 takes one transform per CTA (the radix walk) from PACK_BELOW on
-    at any batch; below it, the NTT's packing rule."""
-    from hexl_tpu_torch.ntt.cuda_ntt import polys_per_cta
+    at any batch; below it, the stage walk's packing rule."""
+    polys_per_cta = cuda_fft.stage_walk_packing
     low = cuda_fft.PACK_BELOW[precision]
     for n in (16, low // 2, low, 1 << 10, 1 << 13):
         for batch in (1, 200, 8192):

@@ -160,9 +160,15 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
     np.testing.assert_array_equal(engine.inverse(y), x)
     poly_mult_mod(x, x, n, q)
     eltwise_mult_mod(x, x, q)
-    assert dict(_build.launches) == {"K1": 2, "K3": 1, "K4": 1}
-    big = rng.integers(0, q, size=(4096, n), dtype=np.uint64)
-    np.testing.assert_array_equal(engine.inverse(engine.forward(big)), big)
+    # At N = 2^10 a product runs K3's one-CTA form (poly.form_for).
+    assert dict(_build.launches) == {"K1": 2, "K3.cta": 1, "K4": 1}
+    # The packed route: N = 64, where a polynomial alone gives a CTA of
+    # less than a warp (cuda_ntt.polys_per_cta).
+    n64 = 64
+    q64 = nt.generate_primes(1, 50, True, ntt_size=n64)[0]
+    small = NTT(n64, q64)
+    big = rng.integers(0, q64, size=(4096, n64), dtype=np.uint64)
+    np.testing.assert_array_equal(small.inverse(small.forward(big)), big)
     assert _build.launches["K2"] == 2
 
 
@@ -931,17 +937,78 @@ def test_df_chain_kernel_matches_plain(cuda, precision):
 
 
 def test_new_instantiations_do_not_spill(cuda):
-    """The lean instantiations of K2/K5, the chain kernels, every radix
-    walk of K1/K6/K7 and of K12, from the -Xptxas -v report of the
-    build."""
+    """The lean instantiations of K5, the chain kernels, every radix walk
+    of K1/K6/K7, K2's packed walk, K3's kernels and K12's radix walk, from
+    the -Xptxas -v report of the build."""
     import re
     res = _build.kernel_resources(_build.build_all()["log"])
     new = {k: v for k, v in res.items()
            if "chain_kernel" in k or re.search(r"kernelIyLi[12]E", k)
-           or re.search(r"radix_(fwd|inv)_kernel", k)}
+           or re.search(r"radix_(packed_)?(fwd|inv)_kernel", k)
+           or re.search(r"poly_\w+_kernel", k)}
     radix = [k for k in new if "radix_" in k]
-    assert len(radix) == ((3 + 6) * 7 + (1 + 2) * 10
+    assert len(radix) == ((3 + 6) * 7 + (1 + 2) * 10 + 2 * 3 * 2
                           + 2 * (6 + 6 + 3)), radix
-    assert len(new) >= 2 * 2 + 2 * 6 * 3 + 2 + 3 + len(radix)
+    k3 = [k for k in new if "poly_" in k]
+    assert len(k3) == 3 + 6, k3
+    assert len(new) >= 2 * 6 * 3 + 2 + 3 + len(radix) + len(k3)
     spills = {k: v for k, v in new.items() if v[2] or v[3]}
     assert not spills, spills
+
+
+@pytest.mark.parametrize("log_n", range(1, 15))
+def test_poly_kernel_every_degree_and_form(cuda, log_n, monkeypatch):
+    """K3 in every form it takes at N = 2^log_n (the cluster at
+    2^12-2^14, the one-CTA form up to 2^13, each forced in place of
+    form_for's pick), at batches 1, 2, 64 and 133, against the plain
+    chain; the default form is form_for's and launches once."""
+    n = 1 << log_n
+    q = nt.generate_primes(1, 60, True, ntt_size=n)[0]
+    plan = get_plan(n, q)
+    rng = np.random.default_rng(300 + log_n)
+    for batch in (1, 2, 64, 133):
+        a, b = (_rand(rng, (batch, n), q, cuda) for _ in range(2))
+        want = poly.poly_mult_plain(a, b, plan)
+        rule = poly.form_for
+        for form in poly.forms_of(n):
+            monkeypatch.setattr(poly, "form_for", lambda *args, f=form: f)
+            _build.reset_launches()
+            got = poly.poly_mult(a, b, plan)
+            torch.cuda.synchronize()
+            assert dict(_build.launches) == {poly.FORMS[form]: 1}
+            assert torch.equal(got, want), (form, batch)
+        monkeypatch.setattr(poly, "form_for", rule)
+        _build.reset_launches()
+        got = poly.poly_mult(a, b, plan)
+        torch.cuda.synchronize()
+        form = poly.form_for(n, batch, cuda_ntt.sm_count(cuda))
+        assert dict(_build.launches) == {poly.FORMS[form]: 1}
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("log_n", range(1, 13))
+def test_packed_kernel_every_p(cuda, log_n, monkeypatch):
+    """K2 at N = 2^log_n with P forced to every power of two it takes, on
+    2P + 1 polynomials (a ragged last CTA), in every scheme, and through
+    the rule at the batches 2^k and 2^k + 1 up to 2^8 where it packs."""
+    n = 1 << log_n
+    q = nt.generate_primes(1, 49, True, ntt_size=n)[0]
+    plan = get_plan(n, q)
+    rng = np.random.default_rng(400 + log_n)
+    runs = [(batch, "exact") for k in range(1, 9) for batch in
+            (1 << k, (1 << k) + 1)
+            if cuda_ntt.polys_per_cta(n, batch) > 1]
+    p = 2
+    while p <= cuda_ntt.max_polys_per_cta(n):
+        runs += [(2 * p + 1, s, p) for s in torch_ntt.SCHEMES]
+        p *= 2
+    rule = cuda_ntt.polys_per_cta
+    for batch, scheme, *forced in runs:
+        monkeypatch.setattr(cuda_ntt, "polys_per_cta",
+                            (lambda *a, p=forced[0]: p) if forced else rule)
+        _build.reset_launches()
+        _check_pair([(imf, _rand(rng, (batch, n), imf * q, cuda))
+                     for imf in (1, 2, 4)],
+                    [(imf, _rand(rng, (batch, n), imf * q, cuda))
+                     for imf in (1, 2)], plan, scheme)
+        assert set(_build.launches) == {hier.kernel_name("K2", 64, scheme)}

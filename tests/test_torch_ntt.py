@@ -152,18 +152,21 @@ def test_numpy_and_tensor_in_and_out():
     assert engine.root == nt.minimal_primitive_root(2 * n, q)
 
 
-@pytest.mark.parametrize("n,batch,sms,expected", [
-    (2, 1, 132, 1), (2, 32, 132, 1), (16, 3, 132, 1), (16, 8192, 132, 62),
-    (1024, 8, 132, 1), (1024, 256, 132, 1), (1024, 401, 132, 3),
-    (1024, 4096, 132, 8), (1024, 8, 4, 2), (4096, 1, 132, 1),
-    (4096, 2, 132, 1), (4096, 263, 132, 1), (4096, 264, 132, 2),
-    (8192, 64, 132, 1), (16384, 256, 132, 1)])
-def test_polys_per_cta(n, batch, sms, expected):
-    """K2 packs up to 2^13/N polynomials per CTA for N <= 2^12, but only as
-    many as leave every SM a CTA; everything else runs one per CTA (K1)."""
-    assert cuda_ntt.polys_per_cta(n, batch, sms) == expected
+@pytest.mark.parametrize("n,batch,expected", [
+    (2, 1, 1), (2, 32, 32), (16, 3, 2), (16, 8192, 16), (1024, 8, 1),
+    (1024, 256, 1), (1024, 401, 1), (1024, 4096, 1), (32, 4096, 8),
+    (4096, 1, 1), (4096, 2, 1), (4096, 263, 1), (4096, 264, 1),
+    (8192, 64, 1), (16384, 256, 1), (4, 4096, 64), (8, 4096, 32),
+    (64, 8192, 4), (128, 4096, 2), (256, 8192, 1)])
+def test_polys_per_cta(n, batch, expected):
+    """K2 packs where one polynomial gives a CTA of less than a warp (N <
+    2^8): as many as make a CTA of 256 coefficients, at most the largest
+    power of two in the batch; everything else runs one per CTA (K1)."""
+    assert cuda_ntt.polys_per_cta(n, batch) == expected
     if expected > 1:
-        assert -(-batch // expected) >= sms
+        assert expected <= batch and expected & (expected - 1) == 0
+        assert expected * n <= cuda_ntt.PACK_COEFFS
+        assert expected <= cuda_ntt.max_polys_per_cta(n)
 
 
 def test_errors():

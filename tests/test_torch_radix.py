@@ -26,7 +26,8 @@ from hexl_tpu.ntt import NTT as JaxNTT
 from hexl_tpu.ntt import get_plan as jax_get_plan
 from hexl_tpu_torch import get_plan
 from hexl_tpu_torch.limb import to_numpy, to_tensor
-from hexl_tpu_torch.ntt import hier, torch_ntt
+from hexl_tpu_torch import poly
+from hexl_tpu_torch.ntt import cuda_ntt, hier, torch_ntt
 
 import chip_smoke
 
@@ -156,8 +157,9 @@ def test_spill_check_counts_every_radix_shape():
     """chip_smoke.py's register check expects one radix instantiation per
     form and shape: the shapes are those `with_shape` (the NTT's: seven
     for u64, ten for u32: 2^15, K7's, and the two-CTAs-a-SM forms of 2^13
-    and 2^14) and `fft_with_shape` (K12's: six in complex double and
-    float, three in double-float) dispatch to."""
+    and 2^14), `with_packed_shape` (K2's two), poly.cu's (K3's) and
+    `fft_with_shape` (K12's: six in complex double and float, three in
+    double-float) dispatch to."""
     ntt = _shapes("ntt_block.cuh", "with_shape")
     u64 = [sh for sh in ntt if "U32" not in sh[1]]
     assert (len(ntt), len(u64)) == (10, 7)
@@ -169,11 +171,31 @@ def test_spill_check_counts_every_radix_shape():
     rolled = [sh for sh in fft if "fft_unrolled" not in sh[1]]
     assert (len(unrolled), len(rolled)) == (6, 3)
     assert chip_smoke.FFT_RADIX_INSTANTIATIONS == 2 * (6 + 6 + 3)
+    # K2: forward and inverse in three schemes at the two packed shapes.
+    block = (CSRC / "ntt_block.cuh").read_text()
+    packed = block[block.index("static int with_packed_shape("):]
+    packed = packed[:packed.index("\n}\n")]
+    assert len(re.findall(r"return f\(Index<(\d)>\{\}", packed)) == 2
+    assert chip_smoke.PACKED_INSTANTIATIONS == 2 * 3 * 2
+    # K3: the cluster form's degrees and the one-CTA form's kernels.
+    src = (CSRC / "poly.cu").read_text()
+    cluster = re.findall(r"f\(poly_cluster_kernel<(\d+)>", src)
+    cta = re.findall(r"f\(poly_cta_kernel<(\d+), (\d+)>", src)
+    assert sorted(int(k) for k in cluster) == [12, 13, 14]
+    assert len(set(cta)) == 6
+    assert chip_smoke.POLY_INSTANTIATIONS == len(cluster) + len(set(cta))
+    # Every other launch is the cluster's, through cudaLaunchKernelEx.
+    assert "<<<" not in src.replace("kernel<<<batch", "")
     for name in ("_Z16radix_fwd_kernelIyLi0ELi3ELi2ELi14EEvPKyPyS1_S1_yiiiii",
                  "_Z16radix_inv_kernelIjLi0ELi3ELi1ELi0ELb0EEvPKyPyS1_S1_y8"
                  "InvFinalIT_Eiiiii",
                  "_Z20fft_radix_fwd_kernelI2CxIdELi3ELi1ELi13EEv4PtrsS2_S2_"
-                 "NT_1SEiii"):
+                 "NT_1SEiii",
+                 "_Z23radix_packed_fwd_kernelILi0ELi3EEvPKyPyS1_S1_yiiii",
+                 "_Z19poly_cluster_kernelILi14EEvPKyS1_PyS1_S1_S1_S1_7Barrett8"
+                 "InvFinalIyE",
+                 "_Z15poly_cta_kernelILi3ELi13EEvPKyS1_PyS1_S1_S1_S1_7Barrett8"
+                 "InvFinalIyEi"):
         assert chip_smoke.NEW_INSTANTIATION.search(name)
 
 
@@ -223,6 +245,35 @@ def _slot(i, logr):
     return i ^ ((i >> logr) & 31)
 
 
+def _base(u, s, logr):
+    return (u & ((1 << s) - 1)) | ((u >> s) << (s + logr))
+
+
+def _conflict_free(slots, nbytes):
+    """slots (lanes, R): the slot each consecutive lane accesses with each
+    register. True if, for every register, the lanes of each phase of a
+    warp's request (32 lanes of 4-byte values, 16 of 8, 8 of 16) fall on
+    distinct banks."""
+    words = nbytes // 4
+    lanes = 32 // words
+    for w0 in range(0, len(slots), lanes):
+        phase = slots[w0:w0 + lanes]            # (lanes, R)
+        banks = ((phase[:, None, :] * words
+                  + np.arange(words)[None, :, None]) % 32)
+        banks = np.sort(banks.reshape(-1, phase.shape[1]), axis=0)
+        if (banks[1:] == banks[:-1]).any():
+            return False
+    return True
+
+
+def _passes(log_n, logr):
+    """The register-bit positions s of every pass of the forward and the
+    inverse (radix_fwd_passes, radix_inv_passes)."""
+    passes = (log_n + logr - 1) // logr
+    return ({max(log_n - p * logr - logr, 0) for p in range(passes)}
+            | {min(p * logr, log_n - logr) for p in range(passes)})
+
+
 @pytest.mark.parametrize("log_n", range(1, 16))
 def test_radix_exchange_is_free_of_bank_conflicts(log_n):
     """radix.cuh's swizzle: in every pass's layout (each register of a
@@ -233,20 +284,92 @@ def test_radix_exchange_is_free_of_bank_conflicts(log_n):
     logr = 3 if log_n >= 3 else 1
     n = 1 << log_n
     u = np.arange(n >> logr)
-    passes = (log_n + logr - 1) // logr
-    layouts = {max(log_n - p * logr - logr, 0) for p in range(passes)}
-    layouts |= {min(p * logr, log_n - logr) for p in range(passes)}
-    for s in layouts:
-        base = (u & ((1 << s) - 1)) | ((u >> s) << (s + logr))
-        slots = _slot(base[:, None] + (np.arange(1 << logr)[None, :] << s),
-                      logr)
+    for s in _passes(log_n, logr):
+        slots = _slot(_base(u, s, logr)[:, None]
+                      + (np.arange(1 << logr)[None, :] << s), logr)
         assert np.array_equal(np.sort(slots.ravel()), np.arange(n))
         for nbytes in (4, 8, 16):
-            words = nbytes // 4
-            lanes = 32 // words
-            for w0 in range(0, len(u), lanes):
-                phase = slots[w0:w0 + lanes]            # (lanes, R)
-                banks = ((phase[:, None, :] * words
-                          + np.arange(words)[None, :, None]) % 32)
-                banks = np.sort(banks.reshape(-1, phase.shape[1]), axis=0)
-                assert not (banks[1:] == banks[:-1]).any(), (s, nbytes)
+            assert _conflict_free(slots, nbytes), (s, nbytes)
+
+
+@pytest.mark.parametrize("log_n", range(1, 13))
+def test_packed_layout_is_free_of_bank_conflicts(log_n):
+    """K2's P transforms a CTA (ntt_block.cuh PACKED): virtual group U =
+    p n/R + u sits where K1's group U of a P n transform would, at p n plus
+    the base of group u of transform p, in every pass of every P the
+    kernel takes (up to 1024 threads); the slots are a permutation of
+    [0, P n), every pass's 8-byte accesses are free of bank conflicts, and
+    where a transform's groups lie in one warp (n/R <= 32) every slot is
+    only ever touched by one warp, so that the warp's barrier suffices."""
+    logr = 3 if log_n >= 3 else 1
+    n, g = 1 << log_n, log_n - logr
+    top = cuda_ntt.max_polys_per_cta(n)
+    assert top << g == cuda_ntt.MAX_PACK_THREADS
+    p = 2
+    while p <= top:
+        big = np.arange(p << g)
+        poly, u = big >> g, big & ((1 << g) - 1)
+        owner = {}
+        for s in _passes(log_n, logr) | {log_n - logr}:
+            base = _base(big, s, logr)
+            assert np.array_equal(base, poly * n + _base(u, s, logr))
+            slots = _slot(base[:, None]
+                          + (np.arange(1 << logr)[None, :] << s), logr)
+            assert np.array_equal(np.sort(slots.ravel()), np.arange(p * n))
+            assert _conflict_free(slots, 8), (p, s)
+            if g <= 5:
+                for lane, row in enumerate(slots):
+                    for slot in row:
+                        assert owner.setdefault(slot, lane // 32) == \
+                            lane // 32, (p, s, slot)
+        p *= 2
+
+
+@pytest.mark.parametrize("log_n", range(12, 15))
+def test_cluster_product_mapping_is_free_of_bank_conflicts(log_n):
+    """K3's cluster form (csrc/poly.cu): CTA r reads position r N/2 + j of
+    both forward outputs (one local, one remote) at the forward's slot of
+    r N/2 + j, which is r N/2 plus the half's own slot of j from N = 2^9
+    on (the form serves 2^12-2^14), so the product lands in the inverse's
+    layout with no exchange; the
+    inverse's first-pass rows then read free of bank conflicts, and so do
+    the final stage's reads of consecutive positions i and N/2 + i."""
+    n, logr = 1 << log_n, 3
+    half, threads = n // 2, n // 16
+    j = np.arange(half)
+    for r in (0, 1):
+        assert np.array_equal(_slot(r * half + j, logr),
+                              r * half + _slot(j, logr))
+        rows = _slot(r * half + np.arange(threads)[:, None] * 8
+                     + np.arange(8)[None, :], logr)
+        assert _conflict_free(rows, 8)
+        i = (r * half // 2 + np.arange(threads)[:, None]
+             + np.arange(4)[None, :] * threads)
+        assert _conflict_free(_slot(i, logr), 8)
+        assert np.array_equal(_slot(i + half, logr), half + _slot(i, logr))
+
+
+def test_cluster_form_needs_two_to_the_nine():
+    """Below N = 2^9 the slot of N/2 + j is not N/2 plus the slot of j:
+    the halves' layouts differ, so the cluster form (CLUSTER_DEGREES,
+    from 2^12 where the card showed it faster) could not start lower."""
+    for log_n in range(4, 9):
+        half = 1 << (log_n - 1)
+        j = np.arange(half)
+        assert not np.array_equal(_slot(half + j, 3), half + _slot(j, 3))
+    assert poly.CLUSTER_DEGREES == (1 << 12, 1 << 14)
+
+
+@pytest.mark.parametrize("log_n", range(1, 14))
+def test_one_cta_product_reads_both_operands(log_n):
+    """K3's one-CTA form: b's position j rests at the slot of n + j, which
+    lies in [n, 2n) (a's slots fill [0, n)), so writing the product over
+    a's slots never touches b's; the inverse's first-pass rows read both
+    free of bank conflicts."""
+    logr = 3 if log_n >= 3 else 1
+    n = 1 << log_n
+    j = np.arange(n)
+    assert np.array_equal(np.sort(_slot(n + j, logr)), n + j)
+    rows = (np.arange(n >> logr)[:, None] << logr) + np.arange(1 << logr)
+    for offset in (0, n):
+        assert _conflict_free(_slot(offset + rows, logr), 8)
