@@ -50,7 +50,7 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      2^10 to 2^16 and with a shard base and a period for shards of 2^11
      to 2^14 (both words, the lean schemes), and K16 at every stage of N in {2^10, 2^14, 2^17}, for
      q of 29 (q < 2^30, through the 64-bit walk), 30, 50, 60 and 61 bits;
-  4. five main paths through the public entry points, each with the
+  4. seven main paths through the public entry points, each with the
      launch counts set to 0 just before it and read just after it.
      The first: NTT(2^14, 60-bit) forward and inverse at batch 256
      from numpy (K1); the __graft_entry__ pipeline (fwd OMF 4 ->
@@ -96,6 +96,22 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      50 bits; the K17 and K18 chains at the probes' shapes; every output
      against the plain lean path, fully reduced ones against the exact
      outputs, the K18 chains against each other;
+     The seventh (seventh_path): the host-side modules through their entry
+     points, in fresh processes where a cold start is what is measured:
+     `prewarm` at (2^14, 60-bit, 256), (2^17, 60-bit, 16), (2^20, 60-bit,
+     2) and (2^14, 29-bit, 256) and its MXU backend at 2^14 (K1, K5/K6,
+     K7, K14/K15), its records printed, then the first public pair of each
+     config against the same pair in a process that was not prewarmed;
+     those plans saved to a file in one process and loaded in another,
+     with the g++-built host library and with HEXL_TPU_DISABLE_NATIVE=1
+     (build against load seconds; the first pairs on the loaded plans
+     bit-equal to freshly built plans'); examples/example_torch.py on the
+     card ("All examples passed."; K1-K7, K9-K11, K12/K13); and a
+     torch.profiler trace (utils.profiling.trace) of 20 calls each of the
+     graft pipeline, the N=2^15 x ds 14 key switch and eltwise_mult_mod
+     at (2^13, 60-bit), broken down per call into wall time, device-busy
+     time, idle share, launches and the host ops with the most self time,
+     each traced output against its plain version;
   5. timings with CUDA events (median of 20): each kernel and its plain
      version at the main paths' shapes, beside the kernel's bound (the
      radix walk's rows, K1, K2, K3, K3.cta, K6, K6 with a shard base, the
@@ -133,6 +149,7 @@ It then prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}.
 """
 
+import collections
 import contextlib
 import importlib
 import itertools
@@ -1447,6 +1464,369 @@ def walk_ab(parent: pathlib.Path) -> int:
     return 0
 
 
+# -- the seventh main path: the host-side modules ------------------------------
+# The cold start as `prewarm` measures it, at bench.py's shape, the second
+# path's N = 2^17 and 2^20 transforms and the single-word 2^14 (degree,
+# q bits, batch); the plan file; the example; a profiler trace.
+SEVENTH_CONFIGS = ((1 << 14, 60, 256), (1 << 17, 60, 16), (1 << 20, 60, 2),
+                   (1 << 14, 29, 256))
+SEVENTH_RESULT = "seventh-result: "
+PREWARM_KERNELS = ("K1", "K5", "K6", "K7", "K14", "K15")
+EXAMPLE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9", "K10",
+                   "K11", "K12.f64", "K13.f64")
+TRACE_CALLS = 20
+TRACE_KEY_SWITCH = (1 << 15, 14)   # (N, ds): the third path's largest
+
+
+def seventh_child(task: str, arg: str, device: str) -> int:
+    """One step of the seventh path in a fresh process on `device`, run as
+    `chip_smoke.py --seventh-child TASK ARG DEVICE`; prints its result as
+    one JSON line after SEVENTH_RESULT, with the process's kernel launches.
+
+    prewarm: `prewarm` at each of SEVENTH_CONFIGS (backend "xla") and the
+      MXU backend at 2^14, then the first public pair of each config;
+    cold: the first public pair of each config in a process that was not
+      prewarmed;
+    save ARG: build the configs' plans and write them to the file ARG
+      (host work only: the card is not touched);
+    load ARG: load the file ARG, run the first pair of each config on the
+      loaded plans, and hold each output against a freshly built plan's;
+    example: examples/example_torch.py on the card.
+    A first pair is NTT(n, q) constructed, forward and inverse,
+    synchronised; five more of the same give the warm pair's median."""
+    import runpy
+
+    import numpy as np
+    import torch
+
+    import hexl_tpu_torch as port
+    from hexl_tpu_torch import NTT, _build, native, nt
+    from hexl_tpu_torch.limb import to_tensor
+    from hexl_tpu_torch.ntt import plan as plan_mod
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {"task": task, "native": native.available()}
+    qs = [nt.generate_primes(1, bits, True, ntt_size=n)[0]
+          for n, bits, _ in SEVENTH_CONFIGS]
+
+    def first_pairs():
+        rng = np.random.default_rng(SEED)
+        xs = [to_tensor(rng.integers(0, q, size=(batch, n), dtype=np.uint64),
+                        dev) for (n, _, batch), q in zip(SEVENTH_CONFIGS, qs)]
+        sync()
+        first, warm, ys = [], [], []
+        for (n, _, _), q, x in zip(SEVENTH_CONFIGS, qs, xs):
+            times = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                e = NTT(n, q, device=dev)
+                y = e.forward(x)
+                back = e.inverse(y)
+                sync()
+                times.append(time.perf_counter() - t0)
+            if not torch.equal(back, x):
+                raise AssertionError(f"first pair at N={n}, q={q}: round "
+                                     "trip failed")
+            first.append(times[0])
+            warm.append(statistics.median(times[1:]))
+            ys.append(y)
+        out["first_s"], out["warm_s"] = first, warm
+        return xs, ys
+
+    if task == "prewarm":
+        records = []
+        for n, bits, batch in SEVENTH_CONFIGS:
+            records += port.prewarm([(n, bits)], batch=batch, device=dev)
+        n, bits, batch = SEVENTH_CONFIGS[0]
+        records += port.prewarm([(n, bits)], batch=batch, backends=("mxu",),
+                                device=dev)
+        out["records"] = records
+        first_pairs()
+    elif task == "cold":
+        first_pairs()
+    elif task == "save":
+        build = []
+        for (n, _, _), q in zip(SEVENTH_CONFIGS, qs):
+            t0 = time.perf_counter()
+            plan_mod.get_plan(n, q)
+            build.append(time.perf_counter() - t0)
+        out["build_s"] = build
+        out["saved"] = plan_mod.save_plan_cache(arg)
+    elif task == "load":
+        t0 = time.perf_counter()
+        out["loaded"] = plan_mod.load_plan_cache(arg)
+        out["load_s"] = time.perf_counter() - t0
+        loaded = [plan_mod.get_plan(n, q)
+                  for (n, _, _), q in zip(SEVENTH_CONFIGS, qs)]
+        xs, ys = first_pairs()
+        # The same first pair on freshly built plans, bit for bit.
+        plan_mod.clear_plan_cache()
+        for (n, _, _), q, x, y, old in zip(SEVENTH_CONFIGS, qs, xs, ys,
+                                           loaded):
+            e = NTT(n, q, device=x.device)
+            if e.plan is old or not torch.equal(e.forward(x), y):
+                raise AssertionError(f"loaded plan (N={n}, q={q}) != a "
+                                     "freshly built one")
+        out["equal_to_built"] = True
+    elif task == "example":
+        sys.argv = [str(ROOT / "examples" / "example_torch.py"), "--device",
+                    device]
+        runpy.run_path(sys.argv[0], run_name="__main__")
+        sync()
+    else:
+        raise ValueError(f"unknown task {task!r}")
+    out["launches"] = dict(_build.launches)
+    print(SEVENTH_RESULT + json.dumps(out), flush=True)
+    return 0
+
+
+def run_seventh_child(task: str, arg: str, env, device) -> tuple:
+    """(result dict, wall seconds, its other output) of one seventh_child
+    process; raises if it fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--seventh-child", task,
+         arg, str(device)], cwd=ROOT, env=dict(os.environ, **(env or {})),
+        capture_output=True, text=True, timeout=400)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"seventh path: {task} {env or ''} failed "
+                             f"(rc {proc.returncode}):\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-6000:]}")
+    lines = proc.stdout.splitlines()
+    result = json.loads(lines[-1][len(SEVENTH_RESULT):])
+    return result, wall, "\n".join(lines[:-1])
+
+
+def trace_breakdown(path: str, calls: int) -> dict:
+    """Per workload of a Chrome trace whose calls are ranges named
+    "workload#i" (record_function, each ending in a synchronise), means
+    over its calls: the wall time of a call, its device-busy time (the
+    union of the kernel events it launched), the idle share 1 - busy/wall,
+    the kernel launches, and the five host ops and ranges of the process
+    with the most self time (self: own time less that of the events nested
+    in it; "(python)" is the range's own, the interpreter between traced
+    ops). A kernel belongs to the call whose range holds its launch (the
+    runtime call with the same correlation id): the device clock's offset
+    from the host's in the trace is tens of microseconds, as long as a
+    short call. Times in microseconds."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    kernel_of = {e["args"]["correlation"]: (e["ts"], e["ts"] + e["dur"])
+                 for e in events if e.get("cat") == "kernel"}
+    host = [e for e in events if e.get("cat") in (
+        "cpu_op", "cuda_runtime", "user_annotation")]
+    windows = [e for e in events if e.get("cat") == "user_annotation"
+               and "#" in e["name"]]
+    out = {}
+    for w in windows:
+        name = w["name"].split("#")[0]
+        lo, hi = w["ts"], w["ts"] + w["dur"]
+        stats = out.setdefault(name, {"wall": [], "busy": [], "launches": [],
+                                      "self": collections.Counter()})
+        nested = sorted((e for e in host if e["pid"] == w["pid"]
+                         and lo <= e["ts"]
+                         and e["ts"] + e["dur"] <= hi + 1e-3),
+                        key=lambda e: (e["ts"], -e["dur"]))
+        spans = sorted(kernel_of[c] for c in (
+            e.get("args", {}).get("correlation") for e in nested
+            if e.get("cat") == "cuda_runtime") if c in kernel_of)
+        busy, reach = 0.0, float("-inf")
+        for a, b in spans:
+            if b > reach:
+                busy += b - max(a, reach)
+                reach = b
+        stats["wall"].append(w["dur"])
+        stats["busy"].append(busy)
+        stats["launches"].append(len(spans))
+        stack = []
+        for e in nested:
+            label = "(python)" if e is w else e["name"]
+            while stack and stack[-1][1] <= e["ts"]:
+                stack.pop()
+            if stack:
+                stats["self"][stack[-1][0]] -= e["dur"]
+            stats["self"][label] += e["dur"]
+            stack.append((label, e["ts"] + e["dur"]))
+    for name, s in out.items():
+        if len(s["wall"]) != calls:
+            raise AssertionError(f"trace: {len(s['wall'])} calls of {name}, "
+                                 f"expected {calls}")
+        s["top"] = [(k, v / calls) for k, v in s["self"].most_common(5)]
+        s["idle"] = 1 - sum(s["busy"]) / sum(s["wall"])
+        s["wall_us"] = statistics.mean(s["wall"])
+        s["busy_us"] = statistics.mean(s["busy"])
+        s["launches_per_call"] = sum(s["launches"]) / calls
+    return out
+
+
+def seventh_path(rng, dev, compare) -> dict:
+    """The seventh main path (see its comment in main); returns the
+    launches of every process and call it ran."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import hexl_tpu_torch as port
+    from hexl_tpu_torch import NTT, _build, native, nt
+    from hexl_tpu_torch.eltwise import torch_kernels
+    from hexl_tpu_torch.limb import to_tensor
+    from hexl_tpu_torch.ntt import torch_ntt
+    from hexl_tpu_torch.utils.profiling import trace
+    ks = importlib.import_module("hexl_tpu_torch.experimental.key_switch")
+
+    if not native.available():
+        raise AssertionError("seventh path: the host library is not "
+                             "available on the card machine")
+    launches = collections.Counter()
+    t_path = time.perf_counter()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def child(task, arg="", env=None):
+        result, wall, text = run_seventh_child(task, arg, env, dev)
+        if text:
+            log(text)
+        launches.update(result["launches"])
+        log(f"seventh path: {task}{' ' + str(env) if env else ''}: "
+            f"{wall:.2f} s in its process; launches {result['launches']}")
+        result["stdout"] = text
+        return result
+
+    # Cold start: prewarm in a fresh process (the nvcc build is on disk
+    # from phase 2), then the first public pair of each config, against
+    # the same first pair in a process that was not prewarmed.
+    warm = child("prewarm")
+    for n, q, backend, seconds in warm["records"]:
+        log(f"prewarm record: n=2^{n.bit_length() - 1} q={q} [{backend}] "
+            f"{seconds:.4f} s")
+    cold = child("cold")
+    for i, (n, bits, batch) in enumerate(SEVENTH_CONFIGS):
+        log(f"first pair N=2^{n.bit_length() - 1} {bits}-bit batch {batch}: "
+            f"prewarmed {warm['first_s'][i] * 1e3:.3f} ms, not prewarmed "
+            f"{cold['first_s'][i] * 1e3:.3f} ms, warm pair "
+            f"{warm['warm_s'][i] * 1e3:.3f} ms (prewarmed process), "
+            f"{cold['warm_s'][i] * 1e3:.3f} ms (the other); prewarmed first "
+            f"/ warm {warm['first_s'][i] / warm['warm_s'][i]:.2f}")
+    missing = [k for k in PREWARM_KERNELS if warm["launches"].get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"seventh path: prewarm launched no {missing}")
+
+    # The plan file: built and saved in one process, loaded and driven in
+    # another, with the host library and without it.
+    with tempfile.TemporaryDirectory() as tmp:
+        for env, tag in ((None, "native"),
+                         ({"HEXL_TPU_DISABLE_NATIVE": "1"}, "python")):
+            path = os.path.join(tmp, f"plans_{tag}.npz")
+            saved = child("save", path, env)
+            loaded = child("load", path, env)
+            if not saved["native"] == loaded["native"] == (tag == "native"):
+                raise AssertionError(f"plan file ({tag}): native "
+                                     f"{saved['native']}/{loaded['native']}")
+            if not (saved["saved"] == loaded["loaded"] == len(
+                    SEVENTH_CONFIGS) and loaded["equal_to_built"]):
+                raise AssertionError(f"plan file ({tag}): {saved} {loaded}")
+            log(f"plan file ({tag} tables): build "
+                + ", ".join(f"N=2^{n.bit_length() - 1} {bits}-bit {s:.4f} s"
+                            for (n, bits, _), s in zip(SEVENTH_CONFIGS,
+                                                       saved["build_s"]))
+                + f" (total {sum(saved['build_s']):.4f} s); load of all "
+                f"{loaded['loaded']} {loaded['load_s']:.4f} s; file "
+                f"{os.path.getsize(path)} bytes; first pairs on the loaded "
+                "plans == on freshly built ones")
+
+    # The example on the card.
+    example = child("example")
+    if not example["stdout"].endswith("All examples passed."):
+        raise AssertionError("seventh path: the example did not pass")
+    missing = [k for k in EXAMPLE_KERNELS
+               if not any(name == k or name.startswith(k + ".")
+                          for name in example["launches"])]
+    if missing:
+        raise AssertionError(f"seventh path: the example launched no "
+                             f"{missing}")
+
+    # The trace: utils.profiling.trace around TRACE_CALLS calls each of
+    # the graft pipeline (2^12, 50-bit, batch 2), the key switch at
+    # N = 2^15 x ds 14 and one eltwise_mult_mod at its Xeon row's shape
+    # (2^13, 60-bit), each call a record_function range ending in a
+    # synchronise; the same calls without the profiler, before and after
+    # it, beside them (mean us of TRACE_CALLS, each synchronised).
+    n12, n13 = 1 << 12, 1 << 13
+    n15, ds = TRACE_KEY_SWITCH
+    q50 = nt.generate_primes(1, 50, True, ntt_size=n12)[0]
+    q60 = nt.generate_primes(1, 60, True, ntt_size=n13)[0]
+    ga, gb = (to_tensor(rng.integers(0, q50, size=(2, n12), dtype=np.uint64),
+                        dev) for _ in range(2))
+    e12 = NTT(n12, q50, device=dev)
+    ea, eb = (to_tensor(rng.integers(0, q60, size=n13, dtype=np.uint64), dev)
+              for _ in range(2))
+    result, t, keys, ks_moduli, msf = key_switch_inputs(
+        rng, n15, (49,) * (ds + 1), 2, dev, nt, to_tensor)
+    workloads = {
+        "graft": lambda: e12.inverse(port.eltwise_mult_mod(
+            e12.forward(ga, 1, 4), e12.forward(gb, 1, 4), q50, 4)),
+        "key_switch": lambda: port.key_switch(result, t, n15, ds, ds + 1,
+                                              ds + 1, 2, ks_moduli, keys, msf),
+        "eltwise_mult_mod": lambda: port.eltwise_mult_mod(ea, eb, q60, 1),
+    }
+    plain = {
+        "graft": lambda: torch_ntt.inv_ntt(torch_kernels.mult_mod(
+            torch_ntt.fwd_ntt(ga, e12.plan, 1, 4),
+            torch_ntt.fwd_ntt(gb, e12.plan, 1, 4), q50, 4), e12.plan),
+        "key_switch": lambda: ks.key_switch_plain(
+            result, t, n15, ds, ds + 1, ds + 1, 2, ks_moduli, keys, msf),
+        "eltwise_mult_mod": lambda: torch_kernels.mult_mod(ea, eb, q60, 1),
+    }
+    kernel_of = {"graft": "K1", "key_switch": "K11", "eltwise_mult_mod": "K4"}
+
+    def untraced():
+        means = {}
+        for name, fn in workloads.items():
+            fn()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(TRACE_CALLS):
+                fn()
+                sync()
+            means[name] = (time.perf_counter() - t0) / TRACE_CALLS * 1e6
+        return means
+
+    before = untraced()
+    _build.reset_launches()
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as path:
+            for fn in workloads.values():       # outside the ranges
+                fn()
+            sync()
+            for name, fn in workloads.items():
+                for i in range(TRACE_CALLS):
+                    with torch.profiler.record_function(f"{name}#{i}"):
+                        outs[name] = fn()
+                        sync()
+        breakdown = trace_breakdown(path, TRACE_CALLS)
+    launches.update(_build.launches)
+    after = untraced()
+    for name, fn in plain.items():
+        compare(kernel_of[name], outs[name], fn(),
+                f"seventh path: traced {name} == its plain version")
+    for name, s in breakdown.items():
+        bare = (before[name] + after[name]) / 2
+        log(f"trace {name}: wall {s['wall_us']:.1f} us per call (without "
+            f"the profiler {before[name]:.1f} us before, {after[name]:.1f} "
+            f"after), device busy {s['busy_us']:.1f} us, "
+            f"idle share {s['idle']:.3f} (busy over the wall without the "
+            f"profiler: {1 - s['busy_us'] / bare:.3f}), "
+            f"{s['launches_per_call']:.1f} kernel "
+            f"launches per call; most host self time per call: "
+            + "; ".join(f"{k[:60]} {v:.1f} us" for k, v in s["top"]))
+    log(f"seventh path: {time.perf_counter() - t_path:.1f} s")
+    return dict(launches)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2330,6 +2710,17 @@ def main() -> int:
     if chain_err["double_float"] > 1e-12 or chain_err["single"] > 1e-4:
         raise AssertionError(f"K18 chains disagree with f64: {chain_err}")
 
+    # The seventh: the host-side modules through their entry points
+    # (seventh_path): prewarm and the first public pair of each of
+    # SEVENTH_CONFIGS in a fresh process, against the same pair in a
+    # process that was not prewarmed; the plan file saved in one process and
+    # loaded in another (with the host library and without), its first pairs
+    # against freshly built plans'; examples/example_torch.py on the card;
+    # a profiler trace of the graft pipeline, the N=2^15 x ds 14 key switch
+    # and one eltwise call, broken down per call.
+    launches7 = seventh_path(rng, dev, compare)
+    log(f"phase 4: seventh main path's launches {launches7}")
+
     # -- 5. timings ---------------------------------------------------------
     def graph_ms(fn, inner):
         """Median device ms of one call of fn over 20 replays of a CUDA
@@ -2858,7 +3249,7 @@ def main() -> int:
                          if name in counted_as else
                          sum(counts.get(name, 0) for counts in
                              (launches1, launches2, launches3, launches4,
-                              launches5, launches6))),
+                              launches5, launches6, launches7))),
             "max_abs_err": float(max_err[name]), "matched": True,
             "shape": shape, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
@@ -3298,4 +3689,6 @@ if __name__ == "__main__":
         sys.exit(walk_times(pathlib.Path(sys.argv[2]).resolve()))
     if len(sys.argv) == 3 and sys.argv[1] == "--walk-ab":
         sys.exit(walk_ab(pathlib.Path(sys.argv[2]).resolve()))
+    if len(sys.argv) == 5 and sys.argv[1] == "--seventh-child":
+        sys.exit(seventh_child(*sys.argv[2:]))
     sys.exit(main())

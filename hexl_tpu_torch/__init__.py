@@ -15,11 +15,16 @@ PyTorch versions on the CPU. The parallel layer, `hexl_tpu_torch.parallel`
 stage-pipelined `PipelineNTT` and the sharded composites over a mesh of
 torch devices driven by this process), is imported on its own, not by this
 package, as in the JAX package. Entry points run on CUDA unless the caller
-passes device="cpu" (a mesh: devices=["cpu"] * k). The JAX package `hexl_tpu` is the reference the port
-is tested against; this package imports nothing of it.
+passes device="cpu" (a mesh: devices=["cpu"] * k). The host side is the
+JAX package's too: `ref` (the NumPy oracle), `nt` with its g++-built host
+library (`native`), the plan cache with its file form
+(`ntt.save_plan_cache`/`load_plan_cache`), `utils` (debug checks,
+HEXL_TPU_VLOG logging, `utils.profiling.trace` on torch.profiler) and
+`prewarm`. The JAX package `hexl_tpu` is the reference the port is tested
+against; this package imports nothing of it.
 """
 
-from . import nt
+from . import nt, ref
 from .eltwise import (eltwise_add_mod, eltwise_cmp_add, eltwise_cmp_sub_mod,
                       eltwise_fma_mod, eltwise_montgomery_form_in,
                       eltwise_montgomery_form_out,
@@ -29,6 +34,7 @@ from .experimental import (FFTLike, dyadic_multiply, key_switch,
                            lr_mat_vec_mult)
 from .ntt import NTT, RnsNTT, get_plan, get_rns_plan, plan_from_arrays
 from .poly import poly_mult_mod, rns_poly_mult_mod
+from .prewarm import prewarm
 
 __all__ = ["NTT", "RnsNTT", "get_plan", "get_rns_plan", "plan_from_arrays",
            "eltwise_add_mod", "eltwise_sub_mod", "eltwise_mult_mod",
@@ -36,4 +42,4 @@ __all__ = ["NTT", "RnsNTT", "get_plan", "get_rns_plan", "plan_from_arrays",
            "eltwise_cmp_sub_mod", "eltwise_montgomery_form_in",
            "eltwise_montgomery_form_out", "eltwise_montgomery_mult_reduce",
            "dyadic_multiply", "lr_mat_vec_mult", "key_switch", "FFTLike",
-           "poly_mult_mod", "rns_poly_mult_mod", "nt"]
+           "poly_mult_mod", "rns_poly_mult_mod", "nt", "ref", "prewarm"]

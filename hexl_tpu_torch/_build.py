@@ -1,8 +1,10 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 Each `csrc/*.cu` file is compiled by `nvcc` for sm_90a into its own shared
 library with a plain C interface, all files at once in parallel, and loaded
-with ctypes. The build happens at first use, into `build/hexl_tpu_torch/`
+with ctypes. The host library `csrc/host.cpp` (number theory and twiddle
+tables, bound by `native.py`) is compiled by `g++` into `libhost.so`
+(`build_host`). Each build happens at first use, into `build/hexl_tpu_torch/`
 beside the package (listed in `.gitignore`), in a directory keyed by a hash
 of every source and of the flags, under a file lock so that concurrent
 processes build once. A failed build raises; nothing falls back.
@@ -18,6 +20,7 @@ around `launch`).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -36,6 +39,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent / "build" / "hexl_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 MAX_BATCH = (1 << 31) - 1      # the kernels take the batch as a C int
 
 # Launches per kernel name since the last reset; read by chip_smoke.py to
@@ -69,12 +73,24 @@ def _sources() -> list:
 
 def build_dir() -> pathlib.Path:
     """The build directory for the current sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + GXX_FLAGS).encode())
     for path in sorted(CSRC.iterdir()):
-        if path.suffix in (".cu", ".cuh"):
+        if path.suffix in (".cu", ".cuh", ".cpp"):
             h.update(path.name.encode())
             h.update(path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def _locked(out_dir: pathlib.Path):
+    """The build directory's file lock, held across processes."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "lock", "w") as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(lock_file, fcntl.LOCK_UN)
 
 
 def build_all() -> dict:
@@ -86,39 +102,59 @@ def build_all() -> dict:
     out_dir = build_dir()
     log_path = out_dir / "build.log"
     t0 = time.perf_counter()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with open(out_dir / "lock", "w") as lock_file:
-        fcntl.flock(lock_file, fcntl.LOCK_EX)
-        try:
-            todo = [s for s in _sources()
-                    if not (out_dir / f"lib{s.stem}.so").exists()]
-            if todo:
-                nvcc = nvcc_path()
-                procs = []
-                for src in todo:
-                    tmp = out_dir / f"lib{src.stem}.so.tmp"
-                    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-                    procs.append((src, tmp, subprocess.Popen(
-                        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                        text=True)))
-                logs, failed = [], []
-                for src, tmp, proc in procs:
-                    text, _ = proc.communicate()
-                    logs.append(f"== {src.name} (rc {proc.returncode})\n{text}")
-                    if proc.returncode != 0:
-                        failed.append(src.name)
-                    else:
-                        tmp.rename(out_dir / f"lib{src.stem}.so")
-                log_path.write_text("\n".join(logs))
-                if failed:
-                    raise RuntimeError(
-                        f"hexl_tpu_torch: nvcc failed for {failed}:\n"
-                        + "\n".join(logs))
-        finally:
-            fcntl.flock(lock_file, fcntl.LOCK_UN)
+    with _locked(out_dir):
+        todo = [s for s in _sources()
+                if not (out_dir / f"lib{s.stem}.so").exists()]
+        if todo:
+            nvcc = nvcc_path()
+            procs = []
+            for src in todo:
+                tmp = out_dir / f"lib{src.stem}.so.tmp"
+                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+                procs.append((src, tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            logs, failed = [], []
+            for src, tmp, proc in procs:
+                text, _ = proc.communicate()
+                logs.append(f"== {src.name} (rc {proc.returncode})\n{text}")
+                if proc.returncode != 0:
+                    failed.append(src.name)
+                else:
+                    tmp.rename(out_dir / f"lib{src.stem}.so")
+            log_path.write_text("\n".join(logs))
+            if failed:
+                raise RuntimeError(
+                    f"hexl_tpu_torch: nvcc failed for {failed}:\n"
+                    + "\n".join(logs))
     return {"seconds": time.perf_counter() - t0, "built": bool(todo),
             "log": log_path.read_text() if log_path.exists() else "",
             "dir": str(out_dir)}
+
+
+def build_host() -> pathlib.Path:
+    """Compile `csrc/host.cpp` with g++ into `libhost.so` unless built, and
+    return the library's path. A missing g++ or a failed compile raises."""
+    out_dir = build_dir()
+    lib = out_dir / "libhost.so"
+    if lib.exists():
+        return lib
+    with _locked(out_dir):
+        if not lib.exists():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError("hexl_tpu_torch: g++ not found on PATH; "
+                                   "the host library cannot be built")
+            src = CSRC / "host.cpp"
+            tmp = out_dir / "libhost.so.tmp"
+            proc = subprocess.run(
+                [gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"hexl_tpu_torch: g++ failed for "
+                                   f"{src.name}:\n{proc.stdout}")
+            tmp.rename(lib)
+    return lib
 
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")

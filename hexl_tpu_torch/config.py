@@ -1,6 +1,6 @@
 """The port's environment switches: the counterpart of `hexl_tpu/config.py`.
 
-Four readers, each with the JAX package's variable and semantics:
+Five readers, each with the JAX package's variable and semantics:
 
   * `debug_checks()`: HEXL_TPU_DEBUG, the debug-mode input checks
     (`utils/check.py`);
@@ -9,7 +9,10 @@ Four readers, each with the JAX package's variable and semantics:
   * `approx_mulhi_disabled()`: HEXL_TPU_DISABLE_APPROX, the kill switch of
     the approximate-quotient butterflies;
   * `approx_butterflies(device)`: whether the 64-bit NTT on `device` runs
-    the approximate-quotient (lean16/lean8) butterflies.
+    the approximate-quotient (lean16/lean8) butterflies;
+  * `native_disabled()`: HEXL_TPU_DISABLE_NATIVE, which makes the plans
+    and `nt` take their pure-Python forms instead of the g++-built host
+    library (`native.py`).
 
 The JAX package's other switches select TPU bodies the port does not have
 (HEXL_TPU_NTT_BACKEND, NTT_RADIX, NTT_PACK, FFT_RADIX, FFT_PACK,
@@ -42,6 +45,13 @@ def approx_mulhi_disabled() -> bool:
     HEXL_TPU_DISABLE_APPROX set, every transform runs the exact Harvey
     butterflies."""
     return _env_flag("HEXL_TPU_DISABLE_APPROX")
+
+
+def native_disabled() -> bool:
+    """With HEXL_TPU_DISABLE_NATIVE set, `native` offers nothing and every
+    caller computes in Python integers (the plain versions). Read at each
+    call, so a test can set it for one block."""
+    return _env_flag("HEXL_TPU_DISABLE_NATIVE")
 
 
 def dist_overlap_slices() -> int:

@@ -29,6 +29,7 @@ import torch
 from .. import _build, _device, nt
 from ..limb import to_numpy
 from ..utils import check as _chk
+from ..utils.logging import vlog
 from . import torch_kernels as K
 from . import torch_kernels32 as K32
 
@@ -229,6 +230,7 @@ def eltwise_add_mod(a, b, modulus: int, device=None):
         _chk.check_bounds(a, modulus, "eltwise_add_mod operand1")
         if not _is_scalar(b):
             _chk.check_bounds(b, modulus, "eltwise_add_mod operand2")
+    vlog(3, "eltwise_add_mod q=%d", modulus)
     word = 32 if modulus < SMALL_Q else 64
     if _is_scalar(b):
         return _run(lambda x: add_mod(x, _u64(b), modulus, word), (a,),
@@ -247,6 +249,7 @@ def eltwise_sub_mod(a, b, modulus: int, device=None):
                        "eltwise_sub_mod operand2 must be < modulus")
         else:
             _chk.check_bounds(b, modulus, "eltwise_sub_mod operand2")
+    vlog(3, "eltwise_sub_mod q=%d", modulus)
     word = 32 if modulus < SMALL_Q else 64
     if _is_scalar(b):
         return _run(lambda x: sub_mod(x, _u64(b), modulus, word), (a,),
@@ -267,6 +270,7 @@ def eltwise_mult_mod(a, b, modulus: int, input_mod_factor: int = 1,
                           "eltwise_mult_mod operand1")
         _chk.check_bounds(b, input_mod_factor * modulus,
                           "eltwise_mult_mod operand2")
+    vlog(3, "eltwise_mult_mod q=%d imf=%d", modulus, input_mod_factor)
     small = modulus < SMALL_Q and input_mod_factor * modulus < (1 << 32)
     return _run(lambda x, y: mult_mod(x, y, modulus, input_mod_factor,
                                       32 if small else 64), (a, b), device)
@@ -287,6 +291,7 @@ def eltwise_fma_mod(arg1, arg2: int, arg3, modulus: int,
         if arg3 is not None:
             _chk.check_bounds(arg3, input_mod_factor * modulus,
                               "eltwise_fma_mod arg3")
+    vlog(3, "eltwise_fma_mod q=%d imf=%d", modulus, input_mod_factor)
     w = nt.reduce_mod(int(arg2), modulus, input_mod_factor)
     small = modulus < SMALL_Q and input_mod_factor * modulus < (1 << 32)
     word = 32 if small else 64
@@ -314,6 +319,8 @@ def eltwise_reduce_mod(a, modulus: int, input_mod_factor: int,
         if input_mod_factor != modulus:
             _chk.check_bounds(a, input_mod_factor * modulus,
                               "eltwise_reduce_mod operand")
+    vlog(3, "eltwise_reduce_mod q=%d imf=%d omf=%d", modulus,
+         input_mod_factor, output_mod_factor)
     small = modulus < SMALL_Q and input_mod_factor in (2, 4)
     return _run(lambda x: reduce_mod(x, modulus, input_mod_factor,
                                      output_mod_factor, 32 if small else 64),
@@ -324,6 +331,7 @@ def eltwise_cmp_add(a, cmp: str, bound: int, diff: int, device=None):
     """result[i] = cmp(a[i], bound) ? a[i] + diff : a[i]."""
     if _chk.debug_enabled():
         _chk.check(int(diff) != 0, "diff must be != 0")
+    vlog(3, "eltwise_cmp_add cmp=%s", cmp)
     return _run(lambda x: cmp_add(x, cmp, _u64(bound), _u64(diff)), (a,),
                 device)
 
@@ -334,6 +342,7 @@ def eltwise_cmp_sub_mod(a, modulus: int, cmp: str, bound: int, diff: int,
     if _chk.debug_enabled():
         _chk.check(modulus > 1, "modulus must be > 1")
         _chk.check(int(diff) != 0, "diff must be != 0")
+    vlog(3, "eltwise_cmp_sub_mod q=%d cmp=%s", modulus, cmp)
     return _run(lambda x: cmp_sub_mod(x, modulus, cmp, _u64(bound),
                                       _u64(diff)), (a,), device)
 

@@ -20,6 +20,7 @@ import torch
 
 from .. import _build, _device, nt
 from ..limb import cond_sub64_half, mult_mod_barrett_rows, to_numpy, to_tensor
+from ..ntt.plan import register_clear_hook
 
 _P = ctypes.c_void_p
 _ARGS = (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int64, _P)
@@ -32,6 +33,9 @@ def row_constants(moduli: tuple, device: torch.device) -> torch.Tensor:
     mus, shifts = zip(*(nt.barrett_mult_constants(q) for q in moduli))
     return to_tensor(np.array([moduli, mus, shifts], dtype=np.uint64),
                      device)
+
+
+register_clear_hook(row_constants.cache_clear)
 
 
 def dyadic_plain(x: torch.Tensor, y: torch.Tensor,

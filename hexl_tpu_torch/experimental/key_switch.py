@@ -39,7 +39,7 @@ from ..eltwise import ops, torch_kernels
 from ..limb import (add128, cond_sub64_half, mul64_wide, mulhi64,
                     mult_mod_barrett_rows, reduce_mod_lazy64, shoup_mul_lazy,
                     to_numpy, to_tensor)
-from ..ntt import cuda_ntt, get_plan, torch_ntt
+from ..ntt import cuda_ntt, get_plan, register_clear_hook, torch_ntt
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,6 +83,9 @@ def constants(moduli: tuple, msf: tuple, ds: int, device: torch.device
                      shifts], device),
         spread=_column([rows[:ds], barr[:ds], fix], device),
         fold=_column([rows[:ds], w, wp], device))
+
+
+register_clear_hook(constants.cache_clear)
 
 
 # -- plain versions ------------------------------------------------------------

@@ -2,15 +2,19 @@
 
 The port's own copy of `hexl_tpu/nt.py`: primes, primitive roots, inverses
 and Barrett/Shoup factors in exact Python integers. Everything here runs
-on the host, once per (N, q) plan. Unlike the JAX package's module it has
-no optional C++ accelerator: every function is the pure-Python form, which
-gives the same answers.
+on the host, once per (N, q) plan. As in the JAX package, `is_prime`,
+`generate_primes` and `minimal_primitive_root` ask the host library
+(`native.py`, built with g++) first; their Python bodies are the plain
+versions, taken with HEXL_TPU_DISABLE_NATIVE set, and give the same
+answers.
 """
 
 from __future__ import annotations
 
 import random
 from typing import List
+
+from . import native
 
 U64_MAX = (1 << 64) - 1
 
@@ -26,6 +30,13 @@ def log2_exact(n: int) -> int:
     if not is_power_of_two(n):
         raise ValueError(f"{n} is not a power of two")
     return n.bit_length() - 1
+
+
+def maximum_value(bits: int) -> int:
+    """Largest value representable in `bits` bits."""
+    if bits > 64:
+        raise ValueError("bits must be <= 64")
+    return (1 << bits) - 1
 
 
 def reverse_bits(x: int, bit_width: int) -> int:
@@ -52,8 +63,20 @@ def multiply_mod(x: int, y: int, modulus: int) -> int:
     return (x * y) % modulus
 
 
+def add_uint_mod(x: int, y: int, modulus: int) -> int:
+    return (x + y) % modulus
+
+
+def sub_uint_mod(x: int, y: int, modulus: int) -> int:
+    return (x - y) % modulus
+
+
 def is_prime(n: int) -> bool:
     """Deterministic Miller-Rabin for n < 2^64."""
+    if 2 <= n < (1 << 64):
+        got = native.is_prime(n)
+        if got is not None:
+            return got
     if n < 2:
         return False
     for a in _MR_WITNESSES:
@@ -93,6 +116,10 @@ def generate_primes(num_primes: int, bit_size: int,
         raise ValueError("ntt_size must be a power of two")
     if log2_exact(ntt_size) >= bit_size:
         raise ValueError("log2(ntt_size) must be < bit_size")
+    fast = native.generate_primes(num_primes, bit_size, prefer_small_primes,
+                                  ntt_size)
+    if fast is not None:
+        return fast
     lower = (1 << bit_size) + 1
     upper = (1 << (bit_size + 1)) - 1
     step = 2 * ntt_size
@@ -139,6 +166,9 @@ def minimal_primitive_root(degree: int, modulus: int) -> int:
     All primitive roots are odd powers of any one of them; scanning them
     and taking the minimum makes the choice deterministic.
     """
+    fast = native.minimal_primitive_root(degree, modulus)
+    if fast is not None:
+        return fast
     root = generate_primitive_root(degree, modulus)
     root_sq = (root * root) % modulus
     current = best = root
@@ -158,6 +188,16 @@ def barrett_factor(operand: int, bit_shift: int, modulus: int) -> int:
     if bit_shift not in (32, 52, 64):
         raise ValueError("bit_shift must be 32, 52 or 64")
     return ((operand << bit_shift) // modulus) & U64_MAX
+
+
+def multiply_mod_lazy(x: int, y: int, y_barrett: int, modulus: int,
+                      bit_shift: int = 64) -> int:
+    """Shoup multiplication: (x*y) mod q with output in [0, 2q).
+
+    q_hat = floor(x * y_barrett / 2^bit_shift); result = x*y - q_hat*q in
+    64-bit wraparound arithmetic."""
+    q_hat = (x * y_barrett) >> bit_shift
+    return (x * y - q_hat * modulus) & U64_MAX
 
 
 def barrett_reduce_64(x: int, modulus: int, q_barr: int,

@@ -33,20 +33,18 @@ from .. import _device
 from ..limb import to_numpy
 from ..utils import check as _check
 from . import cuda_ntt, mxu_ntt, torch_ntt
-from . import plan as _plan
 from .mxu_ntt import fwd_ntt_mxu, get_mxu_plan, inv_ntt_mxu
-from .plan import NttPlan, check_arguments, get_plan, plan_from_arrays
+from .plan import (NttPlan, check_arguments, clear_plan_cache, get_plan,
+                   load_plan_cache, plan_from_arrays, register_clear_hook,
+                   save_plan_cache)
 from .rns import RnsNTT, get_rns_plan
 
 __all__ = ["NTT", "NttPlan", "get_plan", "clear_plan_cache",
+           "register_clear_hook", "save_plan_cache", "load_plan_cache",
            "check_arguments", "plan_from_arrays", "RnsNTT", "get_rns_plan",
            "get_mxu_plan", "fwd_ntt_mxu", "inv_ntt_mxu"]
 
-
-def clear_plan_cache() -> None:
-    """Drop every cached plan, the MXU plans included."""
-    _plan.clear_plan_cache()
-    mxu_ntt.clear_mxu_cache()
+register_clear_hook(mxu_ntt.clear_mxu_cache)
 
 
 class NTT:

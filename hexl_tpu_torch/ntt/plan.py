@@ -11,19 +11,27 @@ the per-shard stacked copies of `hier.HierTables`, have no counterpart:
 every walk reads the flat tables, a shard at its offset in them.)
 
 The twiddle tables are HEXL's only state, the role weights play in a model;
-`plan_from_arrays` carries them over from another plan's host arrays, and
-everything else is derived from them.
+`NttPlan.build` takes them from the host library (`native.root_tables`,
+built with g++; the Python tables below are the plain versions, taken with
+HEXL_TPU_DISABLE_NATIVE set), `plan_from_arrays` carries them over from
+another plan's host arrays, and `save_plan_cache`/`load_plan_cache` keep
+them on disk in the JAX package's `.npz` format, so a file written by
+either package loads in the other. Everything else is derived from them.
+
+The cache (`get_plan`) holds one plan per (N, q); `clear_plan_cache` drops
+it and runs the hooks (`register_clear_hook`) that flush every derived
+cache holding a plan or its device tables.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from .. import nt
+from .. import native, nt
 from ..limb import to_tensor
 
 MAX_DEGREE = 1 << 20
@@ -139,9 +147,13 @@ class NttPlan:
         elif not nt.is_primitive_root(root, 2 * degree, modulus):
             raise ValueError(f"{root} is not a primitive {2 * degree}-th "
                              f"root of unity mod {modulus}")
-        rop, irop = root_of_unity_powers(degree, modulus, root)
-        return cls(degree, modulus, root, rop, precon(rop, modulus, 64), irop,
-                   precon(irop, modulus, 64))
+        tables = native.root_tables(degree, modulus, root)
+        if tables is not None:
+            rop, irop, prop, pirop = tables
+        else:
+            rop, irop = root_of_unity_powers(degree, modulus, root)
+            prop, pirop = precon(rop, modulus, 64), precon(irop, modulus, 64)
+        return cls(degree, modulus, root, rop, prop, irop, pirop)
 
     def tables(self, device) -> Dict[str, torch.Tensor]:
         """rop, prop, irop, pirop (and prop32, pirop32 for q < 2^30) as
@@ -182,41 +194,60 @@ class NttPlan:
 def plan_from_arrays(degree: int, modulus: int, root: int, rop, prop, irop,
                      pirop) -> NttPlan:
     """A plan from host tables computed elsewhere (e.g. the JAX package's
-    `NttPlan.rop/prop/irop/pirop`), without recomputing them.
+    `NttPlan.rop/prop/irop/pirop`, or a plan file), without recomputing
+    them.
 
     The arguments and root are checked, and the tables spot-checked against
-    the root, so a table of another (N, q, root) is refused. The
-    single-word preconditions of q < 2^30 are derived from rop/irop."""
+    the root at entries 1, N/2 and N-1, as the JAX package's
+    `load_plan_cache` does and with its messages, so a table of another
+    (N, q, root) is refused. The single-word preconditions of q < 2^30 are
+    derived from rop/irop."""
     check_arguments(degree, modulus)
     root = int(root)
     if not nt.is_primitive_root(root, 2 * degree, modulus):
-        raise ValueError(f"{root} is not a primitive {2 * degree}-th root "
-                         f"of unity mod {modulus}")
+        raise ValueError(f"stored root {root} is not a primitive "
+                         f"{2 * degree}-th root of unity mod {modulus}")
+    where = f"(N={degree}, q={modulus})"
     arrays = [np.ascontiguousarray(np.asarray(t, dtype=np.uint64))
               for t in (rop, prop, irop, pirop)]
     if any(a.shape != (degree,) for a in arrays):
-        raise ValueError(f"tables must have shape ({degree},)")
+        raise ValueError(f"corrupt plan tables for {where}")
     rop, prop, irop, pirop = arrays
     bits = nt.log2_exact(degree)
     root_inv = nt.inverse_mod(root, modulus)
     for i in {1 % degree, degree // 2, degree - 1}:
         w = pow(root, nt.reverse_bits(i, bits), modulus)
-        if int(rop[i]) != w or int(prop[i]) != (w << 64) // modulus:
-            raise ValueError(f"rop/prop do not match root {root}")
+        if int(rop[i]) != w:
+            raise ValueError(f"corrupt rop table for {where}")
+        if int(prop[i]) != (w << 64) // modulus:
+            raise ValueError(f"corrupt prop table for {where}")
         iv = int(irop[i])
         if iv >= modulus or int(pirop[i]) != (iv << 64) // modulus:
-            raise ValueError("irop/pirop are inconsistent")
+            raise ValueError(f"corrupt irop table for {where}")
     if int(irop[degree - 1]) != pow(root_inv, degree // 2, modulus):
-        raise ValueError(f"irop does not match root {root}")
+        raise ValueError(f"corrupt irop table for {where}")
     return NttPlan(degree, modulus, root, rop, prop, irop, pirop)
 
+
+# -- the cache, its hooks and its disk form ------------------------------------
 
 _PLAN_CACHE: Dict[Tuple[int, int], NttPlan] = {}
 _CACHE_LOCK = threading.Lock()
 
+# Run by clear_plan_cache() after the plans are dropped, so that every
+# derived cache holding a plan or its device tables (the MXU plans, the
+# shards' twiddles, the composites' constants) is flushed with them.
+_CLEAR_HOOKS: List[Callable[[], None]] = []
 
-def get_plan(degree: int, modulus: int) -> NttPlan:
-    """The cached plan of (N, q), built on first use."""
+
+def register_clear_hook(fn: Callable[[], None]) -> None:
+    _CLEAR_HOOKS.append(fn)
+
+
+def get_plan(degree: int, modulus: int, device=None) -> NttPlan:
+    """The cached plan of (N, q), built on first use. With a device, its
+    tables are also copied there (`NttPlan.tables`); the plan is the same
+    one either way, and the device is not part of what is saved."""
     key = (degree, modulus)
     plan = _PLAN_CACHE.get(key)
     if plan is None:
@@ -225,9 +256,60 @@ def get_plan(degree: int, modulus: int) -> NttPlan:
             if plan is None:
                 plan = NttPlan.build(degree, modulus)
                 _PLAN_CACHE[key] = plan
+    if device is not None:
+        plan.tables(device)
     return plan
 
 
 def clear_plan_cache() -> None:
+    """Drop every cached plan, then run the registered hooks."""
     with _CACHE_LOCK:
         _PLAN_CACHE.clear()
+    for fn in _CLEAR_HOOKS:
+        fn()
+
+
+def save_plan_cache(path: str) -> int:
+    """Write every cached plan's host tables to `path` (.npz) and return
+    the number of (N, q) pairs saved.
+
+    The JAX package's format: per (N, q), `rop_{N}_{q}`, `irop_`, `prop_`
+    and `pirop_` (uint64 arrays) and `root_{N}_{q}` (a uint64 scalar).
+    Device copies are not saved."""
+    with _CACHE_LOCK:
+        plans = list(_PLAN_CACHE.values())
+    arrays = {}
+    for plan in plans:
+        key = f"{plan.n}_{plan.q}"
+        arrays[f"rop_{key}"] = plan.rop
+        arrays[f"irop_{key}"] = plan.irop
+        arrays[f"prop_{key}"] = plan.prop
+        arrays[f"pirop_{key}"] = plan.pirop
+        arrays[f"root_{key}"] = np.uint64(plan.root)
+    np.savez_compressed(path, **arrays)
+    return len(plans)
+
+
+def load_plan_cache(path: str) -> int:
+    """Restore the plans of a file written by `save_plan_cache` (of this
+    package or of the JAX package) into the cache; returns the number
+    loaded.
+
+    Each plan is checked as `plan_from_arrays` checks it (the arguments,
+    the root, the table shapes and spot entries) and refused with the JAX
+    package's ValueError otherwise; beyond that the file is trusted, like
+    any other precomputed key material."""
+    with np.load(path) as data:
+        keys = sorted({tuple(int(v) for v in name[len("rop_"):].split("_"))
+                       for name in data.files if name.startswith("rop_")})
+        plans = []
+        for n, q in keys:
+            key = f"{n}_{q}"
+            plans.append(plan_from_arrays(
+                n, q, int(data[f"root_{key}"]), data[f"rop_{key}"],
+                data[f"prop_{key}"], data[f"irop_{key}"],
+                data[f"pirop_{key}"]))
+    with _CACHE_LOCK:
+        for plan in plans:
+            _PLAN_CACHE[(plan.n, plan.q)] = plan
+    return len(plans)

@@ -39,6 +39,7 @@ import torch
 from .. import _build, nt
 from ..limb import reduce_mod_lazy64, to_tensor
 from . import hier, torch_ntt
+from .plan import register_clear_hook
 
 
 # -- plain versions ----------------------------------------------------------
@@ -88,6 +89,9 @@ def intra_twiddles(plan, shard: int, shards: int, forward: bool,
                                            plan.pirop[src:src + m])
         m *= 2
     return to_tensor(w, device), to_tensor(wp, device)
+
+
+register_clear_hook(intra_twiddles.cache_clear)
 
 
 def local(x: torch.Tensor, plan, shard: int, shards: int, forward: bool,

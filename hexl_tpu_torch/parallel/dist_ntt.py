@@ -36,7 +36,7 @@ from .. import _device, config
 from ..eltwise import ops
 from ..limb import to_numpy
 from ..ntt import cuda_ntt, hier, shard
-from ..ntt.plan import get_plan
+from ..ntt.plan import get_plan, register_clear_hook
 from .mesh import (Mesh, Sharded, all_to_all, gather, local,
                    mesh_devices, scatter)
 
@@ -195,6 +195,9 @@ def get_dist_ntt(degree: int, modulus: int, mesh: Mesh) -> DistNTT:
     if key not in _DIST_CACHE:
         _DIST_CACHE[key] = DistNTT(degree, modulus, mesh)
     return _DIST_CACHE[key]
+
+
+register_clear_hook(_DIST_CACHE.clear)
 
 
 def dist_rns_poly_mult(a, b, degree: int, moduli, mesh: Mesh):

@@ -1012,3 +1012,67 @@ def test_packed_kernel_every_p(cuda, log_n, monkeypatch):
                     [(imf, _rand(rng, (batch, n), imf * q, cuda))
                      for imf in (1, 2)], plan, scheme)
         assert set(_build.launches) == {hier.kernel_name("K2", 64, scheme)}
+
+
+def test_prewarmed_pair_builds_and_looks_up_nothing_new(cuda, monkeypatch):
+    """After prewarm, the first public pair of that shape compiles,
+    loads and binds nothing: every C entry it calls is already bound."""
+    from hexl_tpu_torch import prewarm
+    n, batch = 1 << 14, 4
+    (record,) = prewarm([(n, 60)], batch=batch, verbose=False, device=cuda)
+    q = record[1]
+    bound = dict(_build._funcs)
+
+    def refuse():
+        raise AssertionError("build_all after prewarm")
+
+    monkeypatch.setattr(_build, "build_all", refuse)
+    x = _rand(np.random.default_rng(3), (batch, n), q, cuda)
+    e = NTT(n, q, device=cuda)
+    back = e.inverse(e.forward(x))
+    torch.cuda.synchronize()
+    assert torch.equal(back, x)
+    assert dict(_build._funcs) == bound
+
+
+@pytest.mark.parametrize("n,q_bits,kernels", [(1 << 12, 50, ("K1",)),
+                                              (1 << 16, 60, ("K5", "K6"))])
+def test_plan_file_drives_the_kernels(cuda, tmp_path, monkeypatch, n, q_bits,
+                                      kernels):
+    from hexl_tpu_torch.ntt import plan as plan_mod
+    monkeypatch.setattr(plan_mod, "_PLAN_CACHE", {})
+    q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+    plan_mod.get_plan(n, q)
+    path = str(tmp_path / "plans.npz")
+    assert plan_mod.save_plan_cache(path) == 1
+    plan_mod.clear_plan_cache()
+    assert plan_mod.load_plan_cache(path) == 1
+    loaded, fresh = plan_mod.get_plan(n, q), plan_mod.NttPlan.build(n, q)
+    x = _rand(np.random.default_rng(n), (3, n), q, cuda)
+    before = dict(_build.launches)
+    y = cuda_ntt.fwd_ntt(x, loaded)
+    back = cuda_ntt.inv_ntt(y, loaded)
+    torch.cuda.synchronize()
+    assert all(_build.launches[k] > before.get(k, 0) for k in kernels)
+    assert torch.equal(y, torch_ntt.fwd_ntt(x, fresh))
+    assert torch.equal(back, x)
+
+
+def test_trace_on_the_card_holds_kernel_events(cuda, tmp_path):
+    import json
+    from hexl_tpu_torch.utils.profiling import trace
+    n = 1 << 12
+    q = nt.generate_primes(1, 50, True, ntt_size=n)[0]
+    e = NTT(n, q, device=cuda)
+    x = _rand(np.random.default_rng(5), (2, n), q, cuda)
+    e.forward(x)
+    torch.cuda.synchronize()
+    with trace(str(tmp_path)) as path:
+        with torch.profiler.record_function("pair"):
+            e.inverse(e.forward(x))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [ev["name"] for ev in events if ev.get("cat") == "kernel"]
+    assert any("radix_fwd_kernel" in k for k in names)
+    assert any("radix_inv_kernel" in k for k in names)
+    assert any(ev.get("name") == "pair" for ev in events)

@@ -16,7 +16,7 @@ from hexl_tpu_torch import FFTLike
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "hexl_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "example_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "hexl_tpu")
 
 
@@ -205,3 +205,25 @@ def test_kernel_resources_parses_the_ptxas_report():
         "ptxas info    : Used 40 registers\n")
     assert _build.kernel_resources(log) == {
         "_Z3abcv": (254, 16, 8, 4), "_Z3defv": (40, None, None, None)}
+
+
+def test_host_library_is_the_ports_own(tmp_path, monkeypatch):
+    """The host library is built from the port's `csrc/host.cpp`; nothing
+    of the port opens the JAX package's `csrc/hexl_tpu_host.cpp`."""
+    from hexl_tpu_torch import _build
+    src = ROOT / "hexl_tpu_torch" / "csrc" / "host.cpp"
+    assert src.is_file() and _build.CSRC / "host.cpp" == src
+    for path in PORT_FILES:
+        assert "hexl_tpu_host" not in path.read_text(), path
+    commands = []
+    run = subprocess.run
+
+    def spy(cmd, **kwargs):
+        commands.append(cmd)
+        return run(cmd, **kwargs)
+
+    monkeypatch.setattr(_build.subprocess, "run", spy)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    lib = _build.build_host()
+    assert [cmd[-1] for cmd in commands] == [str(src)]
+    assert lib.is_file() and lib.parent.parent == tmp_path / "build"
