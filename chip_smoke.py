@@ -12,12 +12,18 @@ card in turns parent, this tree, this tree, parent:
 
     python3 chip_smoke.py --walk-ab PARENT
 
+(K5's rows at D = 8 .. 64 among them). K5 alone, at every D in both words
+and forms, and the variants of its tiled form against each other:
+
+    python3 chip_smoke.py --k5-times
+    python3 chip_smoke.py --k5-variants
+
 Phases, each of which fails the run (non-zero exit) if anything is wrong:
   1. the card: CUDA present; its name and power limit from nvidia-smi;
   2. build: every kernel compiled from csrc/ with nvcc for sm_90a, with
      the compiler's -Xptxas -v report (the run fails if a lean, chain,
-     radix-walk, K2 or K3 instantiation of the NTT or the FFT-like
-     spills), K3's most active clusters per degree, five
+     radix-walk, K2, K3 or K5 tiled-form instantiation of the NTT or the
+     FFT-like spills), K3's most active clusters per degree, five
      probe kernels whose SASS gives the IMADs of a 64x64 and of a 32x32
      high and low product and of the lean butterflies' approximate 64x64
      high product, and a kernel with an empty body (K4's launch floor);
@@ -50,6 +56,10 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      2^10 to 2^16 and with a shard base and a period for shards of 2^11
      to 2^14 (both words, the lean schemes), and K16 at every stage of N in {2^10, 2^14, 2^17}, for
      q of 29 (q < 2^30, through the 64-bit walk), 30, 50, 60 and 61 bits;
+     K5 in each of its forms (column, tiled; tile_kernel_checks) at every
+     D from 2 to 64, batches 1, 2 and 3, D = 128 and 256 through the
+     two-launch form (row groups, no final stage) and a position's
+     intra-shard stages, in both words and every scheme;
   4. seven main paths through the public entry points, each with the
      launch counts set to 0 just before it and read just after it.
      The first: NTT(2^14, 60-bit) forward and inverse at batch 256
@@ -115,10 +125,11 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
   5. timings with CUDA events (median of 20): each kernel and its plain
      version at the main paths' shapes, beside the kernel's bound (the
      radix walk's rows, K1, K2, K3, K3.cta, K6, K6 with a shard base, the
-     lean K1/K6, K7 and K12, on inputs that rotate beyond the 50 MB L2; K5
-     at N=2^20,
-     where a thread holds 64 coefficients; K4 beside the empty kernel at
-     its grid, its launch floor, and at 2^22 elements); the
+     lean K1/K6, K7 and K12, on inputs that rotate beyond the 50 MB L2;
+     K5 at every D from 2 to 64 (N x batch = 2^21) in both words and both
+     forms, with its registers, CTAs per SM and the rule's form; K4 beside
+     the empty kernel at its grid, its launch floor, and at 2^22
+     elements); the
      fwd+inv pairs/s at N=2^14, 60-bit, batch 256, and at N=2^17 for
      60-bit and 29-bit q at batch 16, each against the Xeon reference of
      benchmarks/reference_baseline/baseline_results.json; the latency and
@@ -972,6 +983,77 @@ def parallel_kernel_checks(rng, dev, nt, get_plan, hier, shard, pipeline,
     return checks
 
 
+TILE_ARITH = ((60, 64, "exact"), (62, 64, "exact"), (29, 32, "exact"),
+              (59, 64, "lean16"), (60, 64, "lean8"))
+
+
+def tile_kernel_checks(rng, dev, nt, get_plan, hier, shard, torch_ntt,
+                       to_tensor, compare) -> int:
+    """K5 in each of its forms (the rule's pick forced) against the plain
+    versions, bit for bit: every D from 2 to 64 at the split's lc = 2^14,
+    batches 1, 2 and 3 (the tiled form's last wave of tiles ragged); D =
+    128 and 256 through the two-launch form (the within launch with row
+    groups and no final stage, as a DistNTT position's exchanged block
+    runs it); a position's intra-shard stages above 2^14 (no final stage;
+    L = 2^15 and 2^16, then K6); 60-bit and the largest 62-bit q, 29-bit
+    q in u32, lean16 and lean8; the forward at its scheme's input range,
+    the inverse at OMF 1 and 2. Returns the number of checks."""
+    import numpy as np
+    checks = 0
+
+    def rand(shape, bound):
+        return to_tensor(rng.integers(0, bound, size=shape, dtype=np.uint64),
+                         dev)
+
+    def prime(bits, n):
+        if bits == 62:
+            return nt.generate_primes(1, 61, False, ntt_size=n)[0]
+        return nt.generate_primes(1, bits, True, ntt_size=n)[0]
+
+    wide = {"exact": (4, 2), "lean16": (16, 8), "lean8": (8, 4)}
+    blocks = [((batch, 1 << log_d, hier.LOCAL_N), log_d)
+              for log_d in range(1, 7) for batch in (1, 2, 3)]
+    blocks += [((2, 128, 1024), 3), ((1, 256, 1024), 4)]
+    for shape, log_rows in blocks:
+        n = shape[1] * shape[2]
+        for q_bits, word, scheme in TILE_ARITH:
+            q = prime(q_bits, n)
+            plan = get_plan(n, q)
+            f_wide, i_wide = wide[scheme]
+            xf, xi = rand(shape, f_wide * q), rand(shape, i_wide * q)
+            want_f = hier.cross_fwd_plain(xf, plan, word, scheme)
+            want_i = {omf: hier.cross_inv_plain(xi, plan, omf, word, scheme)
+                      for omf in (1, 2)}
+            for form in hier.cross_forms(log_rows, nt.log2_exact(shape[2])):
+                name = hier.kernel_name(hier.CROSS_FORMS[form], word, scheme)
+                what = (f"{form} form, block {shape}, q_bits={q_bits} "
+                        f"word={word} {scheme}")
+                with forced_cross_form(hier, form):
+                    compare(name, hier.cross(xf, plan, True, 1, word,
+                                             scheme), want_f,
+                            f"cross fwd {what}")
+                    for omf in (1, 2):
+                        compare(name, hier.cross(xi, plan, False, omf, word,
+                                                 scheme), want_i[omf],
+                                f"cross inv {what} omf={omf}")
+                checks += 3
+    for log_l, d in ((15, 2), (16, 4)):
+        n = d << log_l
+        q = prime(60, n)
+        plan = get_plan(n, q)
+        for r in (0, d - 1):
+            xf, xi = rand((3, n // d), 4 * q), rand((3, n // d), 2 * q)
+            with forced_cross_form(hier, "tile"):
+                compare("K5.tile", shard.local(xf, plan, r, d, True, 4),
+                        shard.local_fwd_plain(xf, plan, r, d, 4),
+                        f"intra-shard fwd L=2^{log_l} D={d} r={r}")
+                compare("K5.tile", shard.local(xi, plan, r, d, False),
+                        shard.local_inv_plain(xi, plan, r, d),
+                        f"intra-shard inv L=2^{log_l} D={d} r={r}")
+            checks += 2
+    return checks
+
+
 # The instantiations whose registers are checked: the lean ones (mangled
 # names with the scheme argument 1 (lean16) or 2 (lean8) after a u64
 # word), the chain kernels K17/K18, every radix walk of K1/K6/K7 (the
@@ -982,18 +1064,23 @@ def parallel_kernel_checks(rng, dev, nt, get_plan, hier, shard, pipeline,
 # and R = 2), K3's kernels (poly.cu: the cluster form at 2^12-2^14, the
 # one-CTA form at R = 2, R = 8 and 2^10-2^13), and K12's radix walk (fft.cu
 # fft_radix_fwd_kernel and fft_radix_inv_kernel: six shapes in complex
-# double and float, three in double-float, fft_with_shape).
+# double and float, three in double-float, fft_with_shape), and K5's
+# tiled form (cross_tile.cuh).
 NEW_INSTANTIATION = re.compile(
     r"chain_kernel|kernelIyLi[12]E|radix_(packed_)?(fwd|inv)_kernel|"
-    r"poly_(cluster|cta)_kernel")
+    r"poly_(cluster|cta)_kernel|cross_tile_(fwd|inv)_kernel")
 RADIX_INSTANTIATIONS = (3 + 6) * 7 + (1 + 2) * 10
 PACKED_INSTANTIATIONS = 2 * 3 * 2
 POLY_INSTANTIATIONS = 3 + 6
 FFT_RADIX_INSTANTIATIONS = 2 * (6 + 6 + 3)
-# K5's lean passes, the chains, the radix walks, K2, K3.
+# K5's tiled form (cross_tile.cuh): the forward and the inverse with and
+# without the final stage, at every D (2 .. 64), in the three u64 schemes
+# and u32; its lean ones match kernelIyLi[12]E too.
+TILE_INSTANTIATIONS = 3 * 6 * 4
+# K5's lean passes, the chains, the radix walks, K2, K3, K5's tiled form.
 NEW_INSTANTIATIONS = (2 * 6 * 3 + 2 + 3 + RADIX_INSTANTIATIONS
                       + PACKED_INSTANTIATIONS + POLY_INSTANTIATIONS
-                      + FFT_RADIX_INSTANTIATIONS)
+                      + FFT_RADIX_INSTANTIATIONS + TILE_INSTANTIATIONS)
 # Moduli of the lean checks: generate_primes(1, b) gives q in (2^b,
 # 2^(b+1)); "61" is the largest prime below 2^61, where 8q is just under
 # 2^64 (lean8's raw product range).
@@ -1278,7 +1365,10 @@ def graph_times(fn, inner, reps=20):
 # 8192) (16 sets of 4 MB); row 3: "K3" the product at (2^14, 60-bit, 64)
 # (3 sets of a, b and the output, 24 MB), "K3.cta" at (2^13, 60-bit, 132)
 # (3 sets of 26 MB, the one-CTA form), "K3.n10" at (2^10, 60-bit, 64)
-# (the one-CTA form) and "K3.n12" at (2^12, 50-bit, 2). "torch.fft" is
+# (the one-CTA form) and "K3.n12" at (2^12, 50-bit, 2); row 5: "K5.d8" ..
+# "K5.d64", K5's forward + inverse at D = 8 .. 64 (k5_run: N x batch =
+# 2^21, 3 sets of 32 MB) in the rule's form (the tiled one at D = 64,
+# "K5.tile"'s row). "torch.fft" is
 # torch.fft.fft + ifft of a (64, 2^14) complex128, the nearest library
 # call to the f64 pair (another function), timed on both sides as a
 # yardstick. WALK_ROWS maps each kernels-line entry timed here to its
@@ -1287,12 +1377,14 @@ WALK_ROWS = {name: name for name in (
     "K1", "K1.lean8", "K1.lean16", "K6", "K6.u32", "K6.lean16", "K6.shard",
     "K7", "K12.f64", "K12.f32", "K12.df", "K3", "K3.cta")}
 WALK_ROWS["K2"] = "K2.n6"
+WALK_ROWS["K5.tile"] = "K5.d64"
 
 
 def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
               to_tensor) -> dict:
     """{row: fn} for WALK_ROWS' rows and the A/B's other rows (K7.n13,
-    K7.n15, K7.n10, FFT.f64, torch.fft, K2, K3.n10, K3.n12), at the shapes
+    K7.n15, K7.n10, FFT.f64, torch.fft, K2, K3.n10, K3.n12, K5.d8 ..
+    K5.d64), at the shapes
     of phase 5: the pair (2^14, batch 256; 60-bit q, lean16 at 59 bits, K7
     at 29 bits; K7 also at (2^13, 512), (2^15, 128) and (2^10, 4096); the
     public route at (2^10, 49-bit, 4096), K2 at (2^6, 49-bit, 8192)), the
@@ -1390,7 +1482,279 @@ def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
             "K3": product(n14, 60, 64),
             "K3.cta": product(CTA_N, 60, CTA_BATCH),
             "K3.n10": product(1 << 10, 60, 64),
-            "K3.n12": product(1 << 12, 50, 2)}
+            "K3.n12": product(1 << 12, 50, 2),
+            **{f"K5.d{1 << log_d}": k5_run(rng, dev, nt, get_plan, hier,
+                                           to_tensor, log_d, 64)[0]
+               for log_d in range(3, 7)}}
+
+
+# K5 at every count of rows of the split, D = 2^log_d = 2 .. 64, at equal
+# bytes: N = D 2^14 and batch 2^21 / N, i.e. (2^15, 64), (2^16, 32),
+# (2^17, 16), (2^18, 8), (2^19, 4), (2^20, 2); forward on [0, q) and
+# inverse (final stage, OMF 1) on [0, 2q) a call, on K5_SETS rotating input
+# pairs (3 x 32 MB, beyond the 50 MB L2); a 60-bit q for word 64, 29-bit
+# for word 32.
+K5_COEFFS = 1 << 21
+K5_SETS = 3
+K5_KERNEL = re.compile(r"cross_(tile_)?(fwd|inv)_kernelI([yj])Li(\d)ELi(\d)E"
+                       r"(?:Lb([01])E)?")
+
+
+def k5_run(rng, dev, nt, get_plan, hier, to_tensor, log_d, word):
+    """(fn, bytes, butterflies a direction, check) of K5's forward +
+    inverse at D = 2^log_d (K5_COEFFS); check() gives the outputs of the
+    first input set and the plain versions'. Bytes: every coefficient
+    read and written once a direction, and the 2D - 3 table entries (and
+    their preconditions) the two passes read."""
+    import numpy as np
+    n = hier.LOCAL_N << log_d
+    q = nt.generate_primes(1, 29 if word == 32 else 60, True,
+                           ntt_size=n)[0]
+    plan = get_plan(n, q)
+    shape = (K5_COEFFS // n, 1 << log_d, hier.LOCAL_N)
+
+    def rand(bound):
+        return to_tensor(rng.integers(0, bound, size=shape, dtype=np.uint64),
+                         dev)
+
+    sets = [(rand(q), rand(2 * q)) for _ in range(K5_SETS)]
+    nxt = rotating(sets)
+
+    def run(inputs=None):
+        xf, xi = inputs or nxt()
+        return (hier.cross(xf, plan, True, 1, word),
+                hier.cross(xi, plan, False, 1, word))
+
+    def check():
+        """The first set's outputs, and those of the plain versions."""
+        xf, xi = sets[0]
+        return run(sets[0]), (hier.cross_fwd_plain(xf, plan, word),
+                              hier.cross_inv_plain(xi, plan, 1, word))
+    nbytes = 2 * 2 * 8 * K5_COEFFS + 2 * 8 * (2 * (1 << log_d) - 3)
+    return run, nbytes, K5_COEFFS // 2, check
+
+
+def k5_resources(resources: dict) -> dict:
+    """{(form, direction, word, log_d): (registers, spill store bytes)} of
+    the exact K5 instantiations in a build's -Xptxas -v report (the
+    inverse: its final-stage form)."""
+    out = {}
+    for name, (regs, _, spill, _) in resources.items():
+        m = K5_KERNEL.search(name)
+        if not m or m.group(4) != "0" or m.group(6) == "0":
+            continue
+        form = "tile" if m.group(1) else "column"
+        word = 64 if m.group(3) == "y" else 32
+        out[(form, m.group(2), word, int(m.group(5)))] = (regs, spill)
+    return out
+
+
+def k5_table(rng, dev, nt, get_plan, hier, to_tensor, resources, shoup,
+             bound, log_ds=range(1, 7), words=(64, 32), only=None) -> list:
+    """K5 at every D of K5_COEFFS in each word, in each form the wrapper
+    takes there (`hier.cross_forms`; a tree without it has the column
+    form alone): device ms in 20 graph replays of 20 calls, the bound
+    (`bound(bytes, operations)`; operations: 2 log2(D) + 1 Shoups a
+    butterfly, `shoup[word]` IMADs each), registers and CTAs per SM of the
+    forward and the final inverse, and the form `hier.cross_form` takes."""
+    import torch
+    regs = k5_resources(resources)
+    rows = []
+    for word in words:
+        for log_d in log_ds:
+            run, nbytes, bflys, check = k5_run(rng, dev, nt, get_plan, hier,
+                                               to_tensor, log_d, word)
+            bound_ms, bound_by = bound(nbytes,
+                                       (2 * log_d + 1) * bflys * shoup[word])
+            n = hier.LOCAL_N << log_d
+            batch = K5_COEFFS // n
+            forms = (hier.cross_forms(log_d, hier.LOG_LOCAL)
+                     if hasattr(hier, "cross_forms") else ["column"])
+            rule = (hier.cross_form(log_d, hier.LOG_LOCAL, batch, word)
+                    if hasattr(hier, "cross_form") else "column")
+            for form in forms if only is None else [only]:
+                with forced_cross_form(hier, form):
+                    got, want = check()
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                        raise AssertionError(f"K5's {form} form disagrees "
+                                             f"with its plain version at D="
+                                             f"{1 << log_d} word {word}")
+                    times = graph_times(run, 20)
+                ms = statistics.median(times)
+                occ = [hier.cross_occupancy(log_d, fwd, word, dev, form)
+                       if hasattr(hier, "cross_forms") else None
+                       for fwd in (True, False)]
+                row = {"D": 1 << log_d, "N": n, "batch": batch, "word": word,
+                       "form": form, "rule": rule, "ms": ms,
+                       "min": min(times), "max": max(times),
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "share": bound_ms / ms,
+                       "registers": [regs.get((form, d, word, log_d))
+                                     for d in ("fwd", "inv")],
+                       "ctas_per_sm": occ}
+                rows.append(row)
+                log(f"K5 D={row['D']} (N=2^{n.bit_length() - 1}, batch "
+                    f"{batch}) word {word} form {form} (rule: {rule}): "
+                    f"{ms:.4f} ms [{min(times):.4f}, {max(times):.4f}], "
+                    f"bound {bound_ms:.4f} ms ({bound_by}), "
+                    f"{bound_ms / ms:.1%}; registers (fwd, inv) "
+                    f"{row['registers']}, CTAs/SM {occ}")
+    return rows
+
+
+def k5_name(hier, n, batch, word=64, scheme="exact"):
+    """The launch name of K5 in the split of `batch` transforms of degree
+    n: its form by the rule, its word, its scheme."""
+    log_d = (n // hier.LOCAL_N).bit_length() - 1
+    form = hier.cross_form(log_d, hier.LOG_LOCAL, batch, word, scheme)
+    return hier.kernel_name(hier.CROSS_FORMS[form], word, scheme)
+
+
+@contextlib.contextmanager
+def forced_cross_form(hier, form):
+    """hier.cross runs K5 in `form` instead of `hier.cross_form`'s pick (a
+    tree without the rule has the column form alone)."""
+    choose = getattr(hier, "cross_form", None)
+    if choose is None:
+        if form != "column":
+            raise ValueError(f"this tree's K5 has no form {form}")
+        yield
+        return
+    hier.cross_form = lambda *args: form
+    try:
+        yield
+    finally:
+        hier.cross_form = choose
+
+
+def k5_times(root: pathlib.Path = ROOT, log_ds=range(1, 7), words=(64, 32),
+             only=None) -> int:
+    """`--k5-times [ROOT LOG_DS WORDS FORM]`: build the port at ROOT and
+    print `k5_table`'s rows (at the given log2 D and words, in one form or
+    in every form), with the card's name and power limit; the last line
+    is the rows as JSON."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available", file=sys.stderr)
+        return 2
+    card = nvidia_smi("name,power.limit")
+    log(card)
+    sm_mhz = float(nvidia_smi("clocks.max.sm").splitlines()[0].split()[0])
+    sys.path.insert(0, str(root))
+    from hexl_tpu_torch import _build, nt
+    if not pathlib.Path(_build.__file__).is_relative_to(root):
+        raise AssertionError(f"imported {_build.__file__}, not the port at "
+                             f"{root}")
+    from hexl_tpu_torch.limb import to_tensor
+    from hexl_tpu_torch.ntt import get_plan, hier
+    probes = start_sass_probes(_build.nvcc_path(),
+                               _build.BUILD_ROOT / "sass_probes")
+    info = _build.build_all()
+    log(f"build: {info['seconds']:.1f} s")
+    imads = sass_imads(*probes)
+    shoup = {64: imads["mulhi64"] + 2 * imads["mullo64"],
+             32: imads["mulhi32"] + 2 * imads["mullo32"]}
+    imad_rate = SMS * INT32_LANES_PER_SM * sm_mhz * 1e6
+
+    def bound(nbytes, nops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / imad_rate * 1e3
+        return (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    resources = _build.kernel_resources(info["log"])
+    k5 = {k: v for k, v in resources.items() if K5_KERNEL.search(k)}
+    spilled = {k: v for k, v in k5.items() if v[2] or v[3] or v[2] is None}
+    log(f"build: {len(k5)} K5 instantiations, spills: {spilled}")
+    rows = k5_table(np.random.default_rng(SEED), torch.device("cuda", 0),
+                    nt, get_plan, hier, to_tensor, resources, shoup, bound,
+                    log_ds, words, only)
+    log(card)
+    print(json.dumps({"card": card, "imads": imads, "rows": rows}))
+    return 0
+
+
+# Variants of K5's tiled form timed against each other: (threads, log2 of
+# a tile's coefficients, ring buffers, CTAs per SM at most: 0 for as many
+# as fit, -1 for one CTA a tile). "t128.c1k.r3.s2" is the source's.
+K5_VARIANTS = {
+    "t256.c2k.r3": (256, 11, 3, 0), "t256.c2k.r2": (256, 11, 2, 0),
+    "t256.c2k.r4": (256, 11, 4, 0), "t512.c2k.r2": (512, 11, 2, 0),
+    "t128.c1k.r3": (128, 10, 3, 0), "t256.c1k.r4": (256, 10, 4, 0),
+    "t256.c4k.r2": (256, 12, 2, 0), "t512.c4k.r2": (512, 12, 2, 0),
+    "t128.c1k.r2.s4": (128, 10, 2, 4), "t128.c1k.r2.s2": (128, 10, 2, 2),
+    "t256.c1k.r2.s2": (256, 10, 2, 2), "t128.c1k.r1.one": (128, 10, 1, -1),
+    "t256.c2k.r1.one": (256, 11, 1, -1), "t128.c1k.r3.s2": (128, 10, 3, 2),
+    "t128.c1k.r4.s2": (128, 10, 4, 2), "t128.c1k.r3.s3": (128, 10, 3, 3),
+    "t128.c1k.r2.s1": (128, 10, 2, 1), "t128.c1k.r4.s1": (128, 10, 4, 1),
+    "t256.c2k.r2.s1": (256, 11, 2, 1)}
+
+
+def k5_variants() -> int:
+    """`--k5-variants`: copies of the port under build/exp/ with K5's tiled
+    form at each of K5_VARIANTS' constants (and ntt_hier.cu alone to
+    build), built at once, then `--k5-times` on each in its own process at
+    D = 32 and 64 (u64) and D = 64 (u32), in turns (the list, then
+    backwards); each row's times over both turns."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available", file=sys.stderr)
+        return 2
+    log(nvidia_smi("name,power.limit"))
+    roots = {}
+    for name, (threads, log_tile, ring, per_sm) in K5_VARIANTS.items():
+        root = ROOT / "build" / "exp" / name
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(ROOT / "hexl_tpu_torch", root / "hexl_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        for src in (root / "hexl_tpu_torch" / "csrc").glob("*.cu"):
+            if src.name != "ntt_hier.cu":
+                src.unlink()
+        for rel, subs in (
+                ("csrc/cross_tile.cuh",
+                 ((r"TILE_THREADS = \d+", f"TILE_THREADS = {threads}"),
+                  (r"LOG_TILE = \d+", f"LOG_TILE = {log_tile}"),
+                  (r"TILE_RING = \d+", f"TILE_RING = {ring}"),
+                  (r"TILE_CTAS_PER_SM = -?\d+",
+                   f"TILE_CTAS_PER_SM = {per_sm}"))),
+                ("ntt/hier.py", ((r"TILE_COEFFS = \d+",
+                                  f"TILE_COEFFS = {1 << log_tile}"),))):
+            path = root / "hexl_tpu_torch" / rel
+            text = path.read_text()
+            for pattern, repl in subs:
+                text, count = re.subn(pattern, repl, text)
+                if count != 1:
+                    raise AssertionError(f"{name}: {pattern} in {rel}")
+            path.write_text(text)
+        roots[name] = root
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from hexl_tpu_torch import _build; _build.build_all()", str(root)])
+        for root in roots.values()]
+    if any(b.wait() for b in builds):
+        return 1
+    times = {}
+    for name in list(roots) + list(roots)[::-1]:
+        for words, log_ds in (("64", "5,6"), ("32", "6")):
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--k5-times",
+                 str(roots[name]), log_ds, words, "tile"],
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode:
+                log(proc.stdout[-3000:], proc.stderr[-3000:])
+                return 1
+            for row in json.loads(proc.stdout.strip().splitlines()[-1])[
+                    "rows"]:
+                key = (name, row["word"], row["D"])
+                times.setdefault(key, []).append(row)
+    for (name, word, d), rows in times.items():
+        ms = [r["ms"] for r in rows]
+        log(f"K5 variant {name} word {word} D={d}: {ms} ms, share "
+            f"{rows[0]['bound_ms'] / statistics.median(ms):.1%}, registers "
+            f"{rows[0]['registers']}, CTAs/SM {rows[0]['ctas_per_sm']}")
+    return 0
 
 
 def walk_times(root: pathlib.Path) -> int:
@@ -1471,7 +1835,7 @@ def walk_ab(parent: pathlib.Path) -> int:
 SEVENTH_CONFIGS = ((1 << 14, 60, 256), (1 << 17, 60, 16), (1 << 20, 60, 2),
                    (1 << 14, 29, 256))
 SEVENTH_RESULT = "seventh-result: "
-PREWARM_KERNELS = ("K1", "K5", "K6", "K7", "K14", "K15")
+PREWARM_KERNELS = ("K1", "K5", "K5.tile", "K6", "K7", "K14", "K15")
 EXAMPLE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9", "K10",
                    "K11", "K12.f64", "K13.f64")
 TRACE_CALLS = 20
@@ -1892,7 +2256,7 @@ def main() -> int:
     log(f"IMADs per product (SASS): {imads}")
     resources = _build.kernel_resources(info["log"])
     new = {k: v for k, v in resources.items() if NEW_INSTANTIATION.search(k)}
-    log(f"build: {len(new)} lean, chain, radix-walk, K2 and K3 "
+    log(f"build: {len(new)} lean, chain, radix-walk, K2, K3 and K5 tiled "
         f"instantiations (registers, stack, spill stores, spill loads): "
         f"{new}")
     spilled = {k: v for k, v in new.items() if v[2] or v[3] or v[2] is None}
@@ -2000,7 +2364,7 @@ def main() -> int:
             for batch in ((1, 2) if n == 1 << 20 else (1, 3)):
                 blocks = (batch, n // hier.LOCAL_N, hier.LOCAL_N)
                 for word in ((64, 32) if q_bits < 30 else (64,)):
-                    k5 = hier.kernel_name("K5", word)
+                    k5 = k5_name(hier, n, batch, word)
                     k6 = hier.kernel_name("K6", word)
                     what = f"n={n} q_bits={q_bits} batch={batch} word={word}"
                     for imf in (1, 2, 4):
@@ -2106,6 +2470,10 @@ def main() -> int:
     # the parallel layer.
     checks += parallel_kernel_checks(rng, dev, nt, get_plan, hier, shard,
                                      pipeline, to_tensor, compare)
+    # K5 in each form at every D, word and scheme, the two-launch form and
+    # a position's intra-shard stages.
+    checks += tile_kernel_checks(rng, dev, nt, get_plan, hier, shard,
+                                 torch_ntt, to_tensor, compare)
     # The lean instantiations of K1/K2/K5/K6, and the chains K17 and K18.
     checks += lean_kernel_checks(rng, dev, nt, get_plan, cuda_ntt, hier,
                                  torch_ntt, to_tensor, compare, route)
@@ -2276,9 +2644,11 @@ def main() -> int:
     launches2 = dict(_build.launches)
     log(f"phase 4: second main path's launches {launches2}")
     # Every call launched its kernels, and nothing else ran: two passes per
-    # transform, 7 launches per prime of the RNS product.
-    expected = {"K5": 4 + 3 * RNS_PRIMES, "K6": 4 + 3 * RNS_PRIMES,
-                "K5.u32": 2, "K6.u32": 2, "K7": 2, "K4": RNS_PRIMES}
+    # transform (K5 in its tiled form at 2^20), 7 launches per prime of the
+    # RNS product.
+    expected = {"K5": 2 + 3 * RNS_PRIMES, "K5.tile": 2,
+                "K6": 4 + 3 * RNS_PRIMES, "K5.u32": 2, "K6.u32": 2, "K7": 2,
+                "K4": RNS_PRIMES}
     if launches2 != expected:
         raise AssertionError(f"second main path launched {launches2}, "
                              f"expected {expected}")
@@ -2292,7 +2662,7 @@ def main() -> int:
         compare(hier.kernel_name("K6", word), y,
                 torch_ntt.fwd_ntt(x, e.plan, word=word),
                 f"main path: {name}.forward")
-        compare(hier.kernel_name("K5", word), back,
+        compare(k5_name(hier, e.plan.n, x.shape[0], word), back,
                 torch_ntt.inv_ntt(y, e.plan, word=word),
                 f"main path: {name}.inverse")
         if not torch.equal(back, x):
@@ -2840,6 +3210,7 @@ def main() -> int:
     k5 = pass_case(n17, q60_17, SPLIT_BATCH, 64, True)
     k6 = pass_case(n17, q60_17, SPLIT_BATCH, 64, False)
     k5s = pass_case(n17, q29_17, SPLIT_BATCH, 32, True)
+    k5t = pass_case(n20, q60_20, 2, 64, True)   # the rule's tiled form
     k6s = pass_case(n17, q29_17, SPLIT_BATCH, 32, False)
     plan14s = get_plan(n14, q29_14)
     x7 = rand((256, n14), q29_14)
@@ -2873,6 +3244,12 @@ def main() -> int:
                "hexl_tpu_torch/csrc/ntt_hier.cu", "hexl_tpu/ntt/hier.py:164",
                f"cross pass fwd + inv, N=2^17 (D=8), 60-bit q, batch "
                f"{SPLIT_BATCH}", k5),
+        "K5.tile": ("cross_tile_fwd_kernel+cross_tile_inv_kernel<u64, 6>, "
+                    "tiles of 64 x 16 through a ring",
+                    "hexl_tpu_torch/csrc/cross_tile.cuh",
+                    "hexl_tpu/ntt/hier.py:164",
+                    "cross pass fwd + inv, N=2^20 (D=64), 60-bit q, batch 2",
+                    k5t),
         "K5.u32": ("cross_fwd_kernel+cross_inv_kernel<u32, 3>",
                    "hexl_tpu_torch/csrc/ntt_hier.cu",
                    "hexl_tpu/ntt/hier.py:164",
@@ -3279,15 +3656,13 @@ def main() -> int:
         f"ms, bound {k4_big_bound:.4f} ms ({k4_big_by}), "
         f"{k4_big_bound / k4_big_ms:.1%} of bound")
 
-    # K5 at the largest degree, where a thread holds D = 64 coefficients
-    # (128 registers of them at 64 bits; phase 2's -Xptxas -v report gives
-    # its registers and stack frame).
-    kernel, _, nbytes, nimads = pass_case(n20, q60_20, 2, 64, True)
-    ms = graph_ms(kernel, 20)
-    bound_ms, bound_by = bound(nbytes, nimads)
-    log(f"K5 cross pass fwd + inv, N=2^20 (D=64), 60-bit q, batch 2: "
-        f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-        f"{bound_ms / ms:.1%} of bound")
+    # K5 at every D of the split (N x batch = 2^21) in both words and in
+    # each form, with its bound, registers, CTAs per SM and the rule's
+    # form (PERF.md row 5).
+    k5_rows = k5_table(rng, dev, nt, get_plan, hier, to_tensor, resources,
+                       {64: per_shoup, 32: per_shoup32}, bound)
+    next(e for e in entries if e["name"].startswith("K5 "))["per_D"] = \
+        k5_rows
 
     rows = json.loads((ROOT / "benchmarks" / "reference_baseline"
                        / "baseline_results.json").read_text())
@@ -3685,6 +4060,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 2 and sys.argv[1] == "--k5-times":
+        sys.exit(k5_times())
+    if len(sys.argv) == 6 and sys.argv[1] == "--k5-times":
+        sys.exit(k5_times(pathlib.Path(sys.argv[2]).resolve(),
+                          [int(v) for v in sys.argv[3].split(",")],
+                          [int(v) for v in sys.argv[4].split(",")],
+                          sys.argv[5]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--k5-variants":
+        sys.exit(k5_variants())
     if len(sys.argv) == 3 and sys.argv[1] == "--walk-times":
         sys.exit(walk_times(pathlib.Path(sys.argv[2]).resolve()))
     if len(sys.argv) == 3 and sys.argv[1] == "--walk-ab":

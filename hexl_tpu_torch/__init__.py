@@ -36,6 +36,8 @@ from .ntt import NTT, RnsNTT, get_plan, get_rns_plan, plan_from_arrays
 from .poly import poly_mult_mod, rns_poly_mult_mod
 from .prewarm import prewarm
 
+__version__ = "0.1.0"   # the JAX package's version, which this port follows
+
 __all__ = ["NTT", "RnsNTT", "get_plan", "get_rns_plan", "plan_from_arrays",
            "eltwise_add_mod", "eltwise_sub_mod", "eltwise_mult_mod",
            "eltwise_fma_mod", "eltwise_reduce_mod", "eltwise_cmp_add",

@@ -41,3 +41,14 @@ def operands(values, device=None):
                else to_tensor(np.asarray(v, dtype=np.uint64), dev)
                for v in values]
     return tensors, not all(isinstance(v, torch.Tensor) for v in values)
+
+
+def broadcast(tensors):
+    """The operands broadcast to one shape, each contiguous; operands that
+    do not broadcast are an error, as in the JAX package."""
+    try:
+        shape = torch.broadcast_shapes(*(t.shape for t in tensors))
+    except RuntimeError:
+        raise ValueError("operands do not broadcast: " + " vs ".join(
+            str(tuple(t.shape)) for t in tensors)) from None
+    return [t.expand(shape).contiguous() for t in tensors]

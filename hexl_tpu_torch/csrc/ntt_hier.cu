@@ -52,8 +52,11 @@
 // regimes), against log2(D) butterflies per coefficient pair in K5 and
 // log_n in K6. K5 is bound by bytes; K6 by the issue of its butterflies'
 // instructions at 64 bits, as K1 (ntt_block.cuh). The design keeps each
-// pass to one load and one store of each coefficient. At D = 64 the u64 K5 holds 64 coefficients (128 registers)
-// per thread: the -Xptxas -v report shows whether that spills.
+// pass to one load and one store of each coefficient. At D = 64 the u64
+// column form holds 64 coefficients (128 registers, 254 in all) a thread,
+// two CTAs an SM, and stays at 36% of its bound: there the wrapper takes
+// K5's tiled form (cross_tile.cuh, its C entries below), which holds 8.
+#include "cross_tile.cuh"
 #include "ntt_block.cuh"
 
 constexpr int CROSS_THREADS = 128;
@@ -328,6 +331,171 @@ extern "C" int hexl_cross_inv(const u64* x, u64* y, const u64* irop_cross,
   return cross_inv_at<u64, EXACT, 1>(log_d, x, y, irop_cross, pirop_cross, q,
                                      fin, omf, final_stage, log_lc,
                                      log_groups, columns, stream);
+}
+
+// K5's tiled form (cross_tile.cuh): the launches for D = 2^log_d, found
+// by walking LOG_D = 1 .. 6, on `batch` blocks of (2^log_d, 2^log_lc) with
+// lc at least a tile's columns.
+
+template <typename W, int S, int LOG_D>
+static int cross_tile_fwd_at(int log_d, const u64* x, u64* y, const u64* rop,
+                             const u64* prop, u64 q, int log_lc,
+                             int log_groups, int batch, cudaStream_t stream) {
+  if (log_d != LOG_D) {
+    if constexpr (LOG_D < 6) {
+      return cross_tile_fwd_at<W, S, LOG_D + 1>(log_d, x, y, rop, prop, q,
+                                                 log_lc, log_groups, batch,
+                                                 stream);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  constexpr int LOG_C = TileShape<LOG_D>::LOG_C;
+  if (log_lc < LOG_C || log_groups < 0 || LOG_D + log_groups > MAX_LOG_TABLE)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (long long)batch << (log_lc - LOG_C);
+  auto kernel = cross_tile_fwd_kernel<W, S, LOG_D>;
+  const size_t smem = tile_smem_bytes<W>(LOG_D + log_groups);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = tile_grid(kernel, smem, tiles);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, TILE_THREADS, smem, stream>>>(x, y, rop, prop, q, log_lc,
+                                               log_groups, tiles);
+  return (int)cudaGetLastError();
+}
+
+template <typename W, int S, int LOG_D>
+static int cross_tile_inv_at(int log_d, const u64* x, u64* y,
+                             const u64* irop_cross, const u64* pirop_cross,
+                             u64 q, const InvFinal<W>& fin, int omf,
+                             int final_stage, int log_lc, int log_groups,
+                             int batch, cudaStream_t stream) {
+  if (log_d != LOG_D) {
+    if constexpr (LOG_D < 6) {
+      return cross_tile_inv_at<W, S, LOG_D + 1>(
+          log_d, x, y, irop_cross, pirop_cross, q, fin, omf, final_stage,
+          log_lc, log_groups, batch, stream);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  constexpr int LOG_C = TileShape<LOG_D>::LOG_C;
+  if (log_lc < LOG_C || log_groups < 0 ||
+      LOG_D + log_groups > MAX_LOG_TABLE || (final_stage && log_groups != 0))
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (long long)batch << (log_lc - LOG_C);
+  const size_t smem = tile_smem_bytes<W>(LOG_D + log_groups);
+  auto launch = [&](auto kernel) {
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int grid = tile_grid(kernel, smem, tiles);
+    if (grid == 0) return (int)cudaErrorInvalidValue;
+    kernel<<<grid, TILE_THREADS, smem, stream>>>(
+        x, y, irop_cross, pirop_cross, q, fin, omf, log_lc, log_groups, tiles);
+    return (int)cudaGetLastError();
+  };
+  if (final_stage) return launch(cross_tile_inv_kernel<W, S, LOG_D, true>);
+  return launch(cross_tile_inv_kernel<W, S, LOG_D, false>);
+}
+
+// The tiled form's C entries: hexl_cross_fwd's and hexl_cross_inv's
+// arguments, for lc at least TILE_COEFFS / D.
+extern "C" int hexl_cross_tile_fwd(const u64* x, u64* y, const u64* rop,
+                                   const u64* prop, u64 q, int log_d,
+                                   int log_lc, int log_groups, int batch,
+                                   int word, int scheme,
+                                   cudaStream_t stream) {
+  if (word == 32)
+    return scheme != EXACT
+               ? (int)cudaErrorInvalidValue
+               : cross_tile_fwd_at<u32, EXACT, 1>(
+                     log_d, x, y, rop, prop, q, log_lc, log_groups, batch,
+                     stream);
+  if (scheme == LEAN16)
+    return cross_tile_fwd_at<u64, LEAN16, 1>(
+        log_d, x, y, rop, prop, q, log_lc, log_groups, batch, stream);
+  if (scheme == LEAN8)
+    return cross_tile_fwd_at<u64, LEAN8, 1>(
+        log_d, x, y, rop, prop, q, log_lc, log_groups, batch, stream);
+  if (scheme != EXACT) return (int)cudaErrorInvalidValue;
+  return cross_tile_fwd_at<u64, EXACT, 1>(
+      log_d, x, y, rop, prop, q, log_lc, log_groups, batch, stream);
+}
+
+extern "C" int hexl_cross_tile_inv(const u64* x, u64* y,
+                                   const u64* irop_cross,
+                                   const u64* pirop_cross, u64 q, u64 inv_n,
+                                   u64 inv_n_precon, u64 inv_n_w,
+                                   u64 inv_n_w_precon, int log_d, int log_lc,
+                                   int log_groups, int batch, int omf,
+                                   int final_stage, int word, int scheme,
+                                   cudaStream_t stream) {
+  if (word == 32) {
+    const InvFinal<u32> fin = {(u32)inv_n, (u32)inv_n_precon, (u32)inv_n_w,
+                               (u32)inv_n_w_precon};
+    return scheme != EXACT
+               ? (int)cudaErrorInvalidValue
+               : cross_tile_inv_at<u32, EXACT, 1>(
+                     log_d, x, y, irop_cross, pirop_cross, q, fin, omf,
+                     final_stage, log_lc, log_groups, batch, stream);
+  }
+  const InvFinal<u64> fin = {inv_n, inv_n_precon, inv_n_w, inv_n_w_precon};
+  if (scheme == LEAN16)
+    return cross_tile_inv_at<u64, LEAN16, 1>(
+        log_d, x, y, irop_cross, pirop_cross, q, fin, omf, final_stage,
+        log_lc, log_groups, batch, stream);
+  if (scheme == LEAN8)
+    return cross_tile_inv_at<u64, LEAN8, 1>(
+        log_d, x, y, irop_cross, pirop_cross, q, fin, omf, final_stage,
+        log_lc, log_groups, batch, stream);
+  if (scheme != EXACT) return (int)cudaErrorInvalidValue;
+  return cross_tile_inv_at<u64, EXACT, 1>(
+      log_d, x, y, irop_cross, pirop_cross, q, fin, omf, final_stage, log_lc,
+      log_groups, batch, stream);
+}
+
+// How many CTAs of K5's forward (forward != 0) or final inverse kernel at
+// D = 2^log_d, exact scheme, in the column (form 0) or tiled form (1), an
+// SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the
+// shared memory of a launch of one group; for the tiled form at most
+// TILE_CTAS_PER_SM, as its grid takes).
+template <typename W, int LOG_D>
+static int cross_occupancy_at(int log_d, int form, int forward, int* blocks) {
+  if (log_d != LOG_D) {
+    if constexpr (LOG_D < 6) {
+      return cross_occupancy_at<W, LOG_D + 1>(log_d, form, forward, blocks);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (form == 0) {
+    const size_t smem = cross_smem<W>(LOG_D);
+    if (forward)
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, cross_fwd_kernel<W, EXACT, LOG_D>, CROSS_THREADS, smem);
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, cross_inv_kernel<W, EXACT, LOG_D, true>, CROSS_THREADS, smem);
+  }
+  const size_t smem = tile_smem_bytes<W>(LOG_D);
+  auto query = [&](auto kernel) {
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, kernel, TILE_THREADS, smem);
+    if (TILE_CTAS_PER_SM > 0 && *blocks > TILE_CTAS_PER_SM)
+      *blocks = TILE_CTAS_PER_SM;   // the persistent grid's (tile_grid)
+    return (int)err;
+  };
+  if (forward) return query(cross_tile_fwd_kernel<W, EXACT, LOG_D>);
+  return query(cross_tile_inv_kernel<W, EXACT, LOG_D, true>);
+}
+
+extern "C" int hexl_cross_occupancy(int form, int log_d, int forward,
+                                    int word, int* blocks) {
+  if (word == 32) return cross_occupancy_at<u32, 1>(log_d, form, forward,
+                                                    blocks);
+  return cross_occupancy_at<u64, 1>(log_d, form, forward, blocks);
 }
 
 // K6: `chunks` shards of 2^log_n coefficients of transforms of degree

@@ -212,9 +212,11 @@ def _is_scalar(b) -> bool:
 
 
 def _run(fn, vectors, device):
-    """fn(*tensors) on the operands' device; numpy in, numpy out."""
+    """fn(*tensors) on the operands' device, the vector operands broadcast
+    against each other first, as the JAX ops do (the kernels take one
+    shape); numpy in, numpy out."""
     tensors, host = _device.operands(vectors, device)
-    out = fn(*tensors)
+    out = fn(*_device.broadcast(tensors))
     return to_numpy(out) if host else out
 
 

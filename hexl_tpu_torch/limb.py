@@ -73,8 +73,9 @@ def select64(mask: torch.Tensor, x, y) -> torch.Tensor:
 
 
 def to_tensor(a, device) -> torch.Tensor:
-    """numpy uint64 (or array-like) -> int64 tensor of the same bits."""
-    arr = np.ascontiguousarray(np.asarray(a, dtype=np.uint64))
+    """numpy uint64 (or array-like) -> int64 tensor of the same bits and
+    shape (a 0-d array stays 0-d)."""
+    arr = np.asarray(a, dtype=np.uint64, order="C")
     return torch.from_numpy(arr.view(np.int64)).to(device)
 
 

@@ -16,9 +16,13 @@ hier.py::_cross_call) and the local pass K6 (the kernels of
 `csrc/ntt_block.cuh` with one shard per CTA, replacing ::_local_call). Both
 read the plan's flat tables, a shard at its offset in them. `word` is 64,
 or 32 for the single-word regime of q < 2^30 (`ntt32`), which runs the
-u32 instantiation of both kernels. Launches are counted in
-`_build.launches` under "K5"/"K6", or "K5.u32"/"K6.u32" (and the lean
-instantiations under "K5.lean16" ...). `cross` takes
+u32 instantiation of both kernels. K5 has two forms, both hand-written
+kernels chosen by `cross_form` from the shape, word and scheme: a thread a
+column ("column"), or tiles walked by persistent CTAs through shared
+memory ("tile", `csrc/cross_tile.cuh`), taken where the column form stays
+under half of its bound on the card. Launches are counted in
+`_build.launches` under "K5"/"K5.tile"/"K6", or "K5.u32"/"K6.u32" (and
+the lean instantiations under "K5.lean16" ...). `cross` takes
 any (..., D, w) block, the split's view of the whole transform or the
 exchanged block of a DistNTT position; `local_launch` takes the shard base
 that a position's local pass (`shard`) passes. `scheme` (word 64) picks
@@ -48,7 +52,16 @@ _CROSS_INV_ARGS = (_P, _P, _P, _P, _U, _U, _U, _U, _U, _I, _I, _I, _I, _I,
                    _I, _I, _I, _P)
 _LOCAL_FWD_ARGS = (_P, _P, _P, _P, _U, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 _LOCAL_INV_ARGS = (_P, _P, _P, _P, _U, _I, _I, _I, _I, _I, _I, _I, _P)
-MAX_CROSS_ROWS = 64    # K5 holds at most 64 coefficients a thread
+MAX_CROSS_ROWS = 64    # K5 takes at most 64 rows a launch
+
+# K5's two forms (csrc/ntt_hier.cu) and their launch names: "column", a
+# thread a column with its D coefficients in registers, and "tile"
+# (csrc/cross_tile.cuh), persistent CTAs walking tiles of D rows x
+# TILE_COEFFS / D columns through a ring of shared-memory buffers filled
+# by cp.async, the stages run as radix passes of up to three. TILE_COEFFS
+# is the source's.
+CROSS_FORMS = {"column": "K5", "tile": "K5.tile"}
+TILE_COEFFS = 1024
 
 
 def shards(plan) -> int:
@@ -56,6 +69,36 @@ def shards(plan) -> int:
     if plan.n <= LOCAL_N:
         raise ValueError(f"the two-pass split needs N > 2^14, got {plan.n}")
     return plan.n // LOCAL_N
+
+
+def tile_columns(log_d: int) -> int:
+    """C, the columns of a tile of the tiled form at D = 2^log_d."""
+    return TILE_COEFFS >> log_d
+
+
+def cross_forms(log_d: int, log_lc: int, aligned: bool = True) -> list:
+    """The forms K5 takes on (2^log_d, 2^log_lc) blocks: the column form
+    always; the tiled form where a row holds a tile's columns and the
+    block starts on 16 bytes (its copies are 16 bytes wide)."""
+    forms = ["column"]
+    if aligned and 1 << log_lc >= tile_columns(log_d):
+        forms.append("tile")
+    return forms
+
+
+def cross_form(log_d: int, log_lc: int, batch: int, word: int = 64,
+               scheme: str = "exact", aligned: bool = True) -> str:
+    """K5's form for `batch` blocks of (2^log_d, 2^log_lc) in `word` and
+    `scheme`, among `cross_forms`: the tiled form at D = 64 in u64, the
+    one count of rows at which the column form stays under half of its
+    bytes bound (36-37%, against 58-76% at D = 2 .. 32 in u64 and 65-79%
+    at every D in u32), and where the tiled form reaches 54-55%; the
+    column form elsewhere (`chip_smoke.py --k5-times` on one H100 80GB
+    HBM3 at 700 W; PERF.md row 5)."""
+    if log_d == 6 and word == 64 and \
+            "tile" in cross_forms(log_d, log_lc, aligned):
+        return "tile"
+    return "column"
 
 
 def kernel_name(kernel: str, word: int, scheme: str = "exact") -> str:
@@ -147,7 +190,8 @@ def cross_launch(x: torch.Tensor, w: torch.Tensor, wp: torch.Tensor, plan,
     blocks, the rows of one block of G D rows, and reads the twiddles of
     that block's stages: forward w[m (G + g) + k], inverse
     w[G (D - 2m) + g m + k] (no final stage). `scheme` picks the
-    butterflies (word 64 only)."""
+    butterflies (word 64 only). The form is `cross_form`'s; one the blocks
+    do not take (`cross_forms`) raises."""
     if not 2 <= 1 << log_d <= MAX_CROSS_ROWS:
         raise ValueError(f"K5 takes 2 to {MAX_CROSS_ROWS} rows, got "
                          f"{1 << log_d}")
@@ -155,21 +199,43 @@ def cross_launch(x: torch.Tensor, w: torch.Tensor, wp: torch.Tensor, plan,
     batch = _build.batch_of(x, 1 << (log_d + log_lc))
     if batch == 0:
         return out
-    name = kernel_name("K5", word, scheme)
+    aligned = x.data_ptr() % 16 == 0
+    form = cross_form(log_d, log_lc, batch, word, scheme, aligned)
+    if form not in cross_forms(log_d, log_lc, aligned):
+        raise ValueError(f"K5's {form} form does not take blocks of "
+                         f"({1 << log_d}, {1 << log_lc})")
+    name = kernel_name(CROSS_FORMS[form], word, scheme)
+    entry = "hexl_cross_tile" if form == "tile" else "hexl_cross"
     if forward:
-        fn = _build.function("ntt_hier", "hexl_cross_fwd", _CROSS_FWD_ARGS)
+        fn = _build.function("ntt_hier", entry + "_fwd", _CROSS_FWD_ARGS)
         _build.launch_on(x.device, name, fn, x.data_ptr(), out.data_ptr(),
                          w.data_ptr(), wp.data_ptr(), plan.q, log_d, log_lc,
                          log_groups, batch, word,
                          torch_ntt.SCHEME_CODE[scheme])
     else:
-        fn = _build.function("ntt_hier", "hexl_cross_inv", _CROSS_INV_ARGS)
+        fn = _build.function("ntt_hier", entry + "_inv", _CROSS_INV_ARGS)
         _build.launch_on(x.device, name, fn, x.data_ptr(), out.data_ptr(),
                          w.data_ptr(), wp.data_ptr(), plan.q, *plan.fin(word),
                          log_d, log_lc, log_groups, batch, omf,
                          int(final_stage), word,
                          torch_ntt.SCHEME_CODE[scheme])
     return out
+
+
+def cross_occupancy(log_d: int, forward: bool, word: int, device,
+                    form: str = "column") -> int:
+    """How many CTAs of K5's forward or final inverse kernel in `form` at
+    D = 2^log_d (exact scheme) an SM of the card holds."""
+    count = ctypes.c_int(0)
+    fn = _build.function("ntt_hier", "hexl_cross_occupancy",
+                         (_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)))
+    with torch.cuda.device(device):
+        err = fn(list(CROSS_FORMS).index(form), log_d, int(forward), word,
+                 ctypes.byref(count))
+    if err:
+        raise RuntimeError(f"hexl_tpu_torch: the K5 occupancy query failed "
+                           f"with cudaError {err}")
+    return count.value
 
 
 def local_launch(x: torch.Tensor, plan, forward: bool, omf: int, log_n: int,
@@ -213,42 +279,46 @@ def _cross_table(plan, device, forward: bool, word: int, rows: int):
     return w[start:], wp[start:]
 
 
+def cross_launches(log_d: int, log_w: int) -> list:
+    """K5's launches on a (..., 2^log_d, 2^log_w) block, in the forward's
+    order (the inverse runs them backwards), as (log_rows, log_lc,
+    log_groups, log_table_rows): the stages of rows at stride lc, in
+    groups of 2^log_groups consecutive blocks, with the twiddles of the
+    cross stages of 2^log_table_rows rows. K5 takes at most
+    MAX_CROSS_ROWS rows a launch; more, D = A B, run as two: the stages
+    that pair rows of different groups of B consecutive rows (on the
+    (..., A, B w) view) and those within a group (on the (..., A, B, w)
+    view, each group with its own twiddles)."""
+    log_a = log_d if 1 << log_d <= MAX_CROSS_ROWS else log_d // 2
+    log_b = log_d - log_a
+    launches = [(log_a, log_b + log_w, 0, log_a)]
+    if log_b:
+        launches.append((log_b, log_w, log_a, log_d))
+    return launches
+
+
 def cross(x: torch.Tensor, plan, forward: bool, omf: int = 1,
           word: int = 64, scheme: str = "exact") -> torch.Tensor:
     """The cross pass of a (..., D, w) block: K5 with column stride w on
-    the GPU, the plain version on the CPU. The split passes the whole
-    transform as (..., N/LOCAL_N, LOCAL_N); a DistNTT position its
-    exchanged (..., D, L/D) block, or a slice of its columns. The forward
-    ignores omf.
-
-    K5 holds at most MAX_CROSS_ROWS rows a thread. More rows, D = A B,
-    run as two launches: the stages that pair rows of different groups of
-    B consecutive rows (on the (..., A, B w) view), and the stages within
-    a group (on the (... A, B, w) view, each group with its own
-    twiddles)."""
+    the GPU (`cross_launches`; the inverse ends with the global final
+    stage in the launch of one group), the plain version on the CPU. The
+    split passes the whole transform as (..., N/LOCAL_N, LOCAL_N); a
+    DistNTT position its exchanged (..., D, L/D) block, or a slice of its
+    columns. The forward ignores omf."""
     torch_ntt.check_scheme(scheme, plan.q, word)
     if not _build.on_card(x):
         if forward:
             return cross_fwd_plain(x, plan, word, scheme)
         return cross_inv_plain(x, plan, omf, word, scheme)
-    log_d = nt.log2_exact(x.shape[-2])
-    log_w = nt.log2_exact(x.shape[-1])
-    log_a = log_d if 1 << log_d <= MAX_CROSS_ROWS else log_d // 2
-    log_b = log_d - log_a
-
-    def across(v):
-        return cross_launch(
-            v, *_cross_table(plan, v.device, forward, word, 1 << log_a), plan,
-            log_a, log_b + log_w, forward, omf, True, word, 0, scheme)
-
-    def within(v):
-        return cross_launch(
-            v, *_cross_table(plan, v.device, forward, word, 1 << log_d), plan,
-            log_b, log_w, forward, omf, False, word, log_a, scheme)
-
-    if log_b == 0:
-        return across(x)
-    return within(across(x)) if forward else across(within(x))
+    launches = cross_launches(nt.log2_exact(x.shape[-2]),
+                              nt.log2_exact(x.shape[-1]))
+    for log_rows, log_lc, log_groups, log_table in (
+            launches if forward else launches[::-1]):
+        x = cross_launch(
+            x, *_cross_table(plan, x.device, forward, word, 1 << log_table),
+            plan, log_rows, log_lc, forward, omf, log_groups == 0, word,
+            log_groups, scheme)
+    return x
 
 
 def local(x: torch.Tensor, plan, forward: bool, omf: int = 1,

@@ -43,10 +43,15 @@ class RnsPlan:
         self.plans = [get_plan(degree, q) for q in self.moduli]
 
 
-def get_rns_plan(degree: int, moduli) -> RnsPlan:
+def get_rns_plan(degree: int, moduli, device=None) -> RnsPlan:
     """The RnsPlan of (N, moduli); its per-prime plans come from the
-    `get_plan` cache."""
-    return RnsPlan(degree, moduli)
+    `get_plan` cache. With a device, each prime's tables are also copied
+    there, as `get_plan` does."""
+    rplan = RnsPlan(degree, moduli)
+    if device is not None:
+        for plan in rplan.plans:
+            plan.tables(device)
+    return rplan
 
 
 def fwd_ntt_rns(x: torch.Tensor, rplan: RnsPlan, input_mod_factor: int = 1,

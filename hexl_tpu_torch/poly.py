@@ -146,7 +146,8 @@ def max_active_clusters(degree: int, device) -> int:
 
 
 def poly_mult_mod(a, b, degree: int, modulus: int, device=None):
-    """c = a * b over Z_q[X]/(X^N + 1); inputs (..., N) in [0, q).
+    """c = a * b over Z_q[X]/(X^N + 1); inputs (..., N) in [0, q), their
+    leading axes broadcast against each other.
 
     int64 tensors of u64 bits run on their device; numpy uint64 operands
     run there too, else on `device` (default CUDA). The result is numpy iff
@@ -154,23 +155,37 @@ def poly_mult_mod(a, b, degree: int, modulus: int, device=None):
     if degree < 2:
         raise ValueError("degree must be at least 2")
     (ta, tb), host = _device.operands((a, b), device)
-    out = poly_mult(ta, tb, get_plan(degree, modulus),
+    out = poly_mult(*_broadcast_polys(ta, tb, degree),
+                    get_plan(degree, modulus),
                     torch_ntt.scheme_for(modulus, degree, ta.device))
     return to_numpy(out) if host else out
+
+
+def _broadcast_polys(ta: torch.Tensor, tb: torch.Tensor, degree: int):
+    """Operands (..., N) broadcast against each other over their leading
+    axes, as in the JAX package (many polynomials times one plaintext)."""
+    for t in (ta, tb):
+        if t.dim() < 1 or t.shape[-1] != degree:
+            raise ValueError(f"operands must have shape (..., {degree}), "
+                             f"got {tuple(t.shape)}")
+    return _device.broadcast((ta, tb))
 
 
 def rns_poly_mult_mod(a, b, degree: int, moduli, device=None):
     """Per-prime negacyclic products: a, b shaped (num_primes, ..., N) with
     residues mod moduli[i] along the leading axis, in [0, moduli[i]);
-    returns the same shape. Operands and devices as in `poly_mult_mod`."""
+    returns the same shape. Operands and devices as in `poly_mult_mod`;
+    each prime's rows broadcast as there, as the JAX pipeline's do."""
     moduli = [int(q) for q in moduli]
     if degree < 2:
         raise ValueError("degree must be at least 2")
     (ta, tb), host = _device.operands((a, b), device)
-    if ta.shape != tb.shape or ta.dim() < 2 or ta.shape[0] != len(moduli):
+    if any(t.dim() < 2 or t.shape[0] != len(moduli) for t in (ta, tb)):
         raise ValueError(
             f"operands must both have shape ({len(moduli)}, ..., {degree})")
     scheme = torch_ntt.scheme_for(max(moduli), degree, ta.device)
-    out = torch.stack([poly_mult(ta[i], tb[i], get_plan(degree, q), scheme)
-                       for i, q in enumerate(moduli)])
+    out = torch.stack([
+        poly_mult(*_broadcast_polys(ta[i], tb[i], degree),
+                  get_plan(degree, q), scheme)
+        for i, q in enumerate(moduli)])
     return to_numpy(out) if host else out

@@ -1076,3 +1076,64 @@ def test_trace_on_the_card_holds_kernel_events(cuda, tmp_path):
     assert any("radix_fwd_kernel" in k for k in names)
     assert any("radix_inv_kernel" in k for k in names)
     assert any(ev.get("name") == "pair" for ev in events)
+
+
+TILE_ARITH = [(60, 64, "exact"), (62, 64, "exact"), (29, 32, "exact"),
+              (59, 64, "lean16"), (60, 64, "lean8")]
+
+
+@pytest.mark.parametrize("q_bits,word,scheme", TILE_ARITH)
+@pytest.mark.parametrize("log_d", range(1, 7))
+def test_cross_tile_form_matches_plain(cuda, monkeypatch, log_d, q_bits,
+                                       word, scheme):
+    """K5's tiled form (forced in place of the rule's pick) at every D of
+    the split, batches 1 and 3, forward and inverse at OMF 1 and 2,
+    against the plain versions; each call launches the tiled form once."""
+    n = hier.LOCAL_N << log_d
+    q = (nt.generate_primes(1, 61, False, ntt_size=n)[0] if q_bits == 62
+         else nt.generate_primes(1, q_bits, True, ntt_size=n)[0])
+    plan = get_plan(n, q)
+    rng = np.random.default_rng(400 + log_d + q_bits)
+    monkeypatch.setattr(hier, "cross_form", lambda *args: "tile")
+    f_wide, i_wide = {"exact": (4, 2), "lean16": (16, 8),
+                      "lean8": (8, 4)}[scheme]
+    name = hier.kernel_name("K5.tile", word, scheme)
+    for batch in (1, 3):
+        blocks = (batch, 1 << log_d, hier.LOCAL_N)
+        x = _rand(rng, blocks, f_wide * q, cuda)
+        _build.reset_launches()
+        got = hier.cross(x, plan, True, 1, word, scheme)
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {name: 1}
+        assert torch.equal(got, hier.cross_fwd_plain(x, plan, word, scheme))
+        x = _rand(rng, blocks, i_wide * q, cuda)
+        for omf in (1, 2):
+            got = hier.cross(x, plan, False, omf, word, scheme)
+            torch.cuda.synchronize()
+            assert torch.equal(got, hier.cross_inv_plain(x, plan, omf, word,
+                                                         scheme))
+
+
+def test_public_ntt_at_2_20_takes_the_tiled_form(cuda):
+    """The rule's pick: NTT(2^20, 60-bit) runs K5 in its tiled form, the
+    round trip exact; NTT(2^19) keeps the column form."""
+    for n, k5 in ((1 << 20, "K5.tile"), (1 << 19, "K5")):
+        q = nt.generate_primes(1, 60, True, ntt_size=n)[0]
+        engine = NTT(n, q, device=cuda)
+        x = _rand(np.random.default_rng(7), (2, n), q, cuda)
+        _build.reset_launches()
+        back = engine.inverse(engine.forward(x))
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {k5: 2, "K6": 2}
+        assert torch.equal(back, x)
+
+
+def test_cross_tile_instantiations_do_not_spill(cuda):
+    """K5's tiled form: the forward and both inverses at every D, in the
+    three u64 schemes and u32, from the -Xptxas -v report."""
+    import re
+    res = _build.kernel_resources(_build.build_all()["log"])
+    tile = {k: v for k, v in res.items()
+            if re.search(r"cross_tile_(fwd|inv)_kernel", k)}
+    assert len(tile) == 3 * 6 * 4, sorted(tile)
+    assert not {k: v for k, v in tile.items() if v[2] or v[3]}

@@ -227,3 +227,23 @@ def test_host_library_is_the_ports_own(tmp_path, monkeypatch):
     lib = _build.build_host()
     assert [cmd[-1] for cmd in commands] == [str(src)]
     assert lib.is_file() and lib.parent.parent == tmp_path / "build"
+
+
+def test_version_is_the_jax_packages():
+    """The port carries a copy of the JAX package's version (it imports
+    nothing of that package)."""
+    import hexl_tpu
+    import hexl_tpu_torch
+    assert hexl_tpu_torch.__version__ == hexl_tpu.__version__
+
+
+def test_get_rns_plan_takes_a_device():
+    """get_rns_plan(degree, moduli, device), as in the JAX package: each
+    prime's tables are copied to the device."""
+    from hexl_tpu_torch import get_rns_plan, nt
+    moduli = nt.generate_primes(2, 50, True, ntt_size=64)
+    rplan = get_rns_plan(64, moduli, "cpu")
+    assert rplan.moduli == tuple(moduli) and rplan.n == 64
+    for plan in rplan.plans:
+        assert "cpu" in plan._dev
+        assert plan.tables("cpu")["rop"].device.type == "cpu"
