@@ -5,8 +5,9 @@ Run from the root of the repository on a machine with an H100:
 
     python3 chip_smoke.py
 
-and, to time the radix walk's rows (K1, K2, K3, K6, K7 and K12) against an
-earlier tree of the port unpacked
+and, to time the radix walk's rows (K1, K2, K3, K6, K7 and K12) and the
+stacked RNS transform's (RNS.prod, RNS.n14, RNS.n17, KS, KS.ntts) against
+an earlier tree of the port unpacked
 at PARENT (a `git archive` in a directory .gitignore lists), on the same
 card in turns parent, this tree, this tree, parent:
 
@@ -23,7 +24,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
   2. build: every kernel compiled from csrc/ with nvcc for sm_90a, with
      the compiler's -Xptxas -v report (the run fails if a lean, chain,
      radix-walk, K2, K3 or K5 tiled-form instantiation of the NTT or the
-     FFT-like spills), K3's most active clusters per degree, five
+     FFT-like, or any of the 131 stacked (RNS) instantiations, spills),
+     K3's most active clusters per degree, five
      probe kernels whose SASS gives the IMADs of a 64x64 and of a 32x32
      high and low product and of the lean butterflies' approximate 64x64
      high product, and a kernel with an empty body (K4's launch floor);
@@ -59,7 +61,13 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      K5 in each of its forms (column, tiled; tile_kernel_checks) at every
      D from 2 to 64, batches 1, 2 and 3, D = 128 and 256 through the
      two-launch form (row groups, no final stage) and a position's
-     intra-shard stages, in both words and every scheme;
+     intra-shard stages, in both words and every scheme; the stacked
+     transform's kernels (rns_kernel_checks): K1.rns, K2.rns, K5.rns in
+     each form and K6.rns against the plain stacked walk (and pass by pass
+     against each row's plain pass) for k = 1, 3 and 16 primes of mixed
+     bit lengths at N = 2^6, 2^10, 2^14, 2^15, 2^17 and 2^20, batches
+     whose rows end in ragged CTAs, every IMF/OMF pair and scheme, and
+     K4.rows and K8.reduce.rows;
   4. seven main paths through the public entry points, each with the
      launch counts set to 0 just before it and read just after it.
      The first: NTT(2^14, 60-bit) forward and inverse at batch 256
@@ -69,13 +77,17 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      K7, as in the JAX engine); NTT(2^10, 49-bit) at batch 4096 (K1);
      NTT(2^6, 49-bit) at batch 8192 (K2); poly_mult_mod at (2^12, 50-bit,
      2) and (2^14, 60-bit, 64) (K3, the cluster form) and at (2^13,
-     60-bit, 132) (K3.cta, the one-CTA form).
+     60-bit, 132) (K3.cta, the one-CTA form); RnsNTT at (2^14, 16
+     primes, batch 16) (K1.rns) and (2^6, 3 primes, batch 4096) (K2.rns),
+     one launch a direction for the basis.
      The second (N above 2^14 and the single-word regime): NTT(2^17,
      60-bit) and NTT(2^17, 29-bit) forward and inverse at batch 16 (K5/K6,
      then their u32 instantiation); NTT(2^14, 29-bit) at batch 256 (K7);
      NTT(2^20, 60-bit) at batch 2 (K5/K6 with 64 shards);
      rns_poly_mult_mod at N=2^17 x 16 primes of 50 bits (BASELINE.json's
-     fifth configuration; K5, K6, K4). Every output is then held bit for
+     fifth configuration; stacked: K5.rns, K6.rns, K4.rows, 7 launches for
+     the basis); RnsNTT(2^20, 3 primes) at batch 1 (K5.rns's tiled form,
+     K6.rns). Every output is then held bit for
      bit against the plain version on the same inputs, poly_mult_mod at
      N = 64 against a schoolbook product in Python integers, and one
      prime of the RNS product against a NumPy product (exact float FFTs
@@ -85,7 +97,9 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      elements (64-bit and single-word), dyadic_multiply at 2^14 x 4 and
      2^17 x 16 primes, lr_mat_vec_mult with 16 weights, key_switch at the
      three Xeon shapes and at N=2^15 x ds 14; every output against the
-     plain version, and a key switch at N=64 against Python integers.
+     plain version, each key switch's launches (its transforms stacked
+     over the decomposition primes), and a key switch at N=64 against
+     Python integers.
      The fourth (see its comment in main): CKKS encode and decode through
      FFTLike at 2^14 slots, scale 2^40, batch 64, in auto (f64), single
      and double-float, the round trip within 1e-12 (1e-4 in single); the
@@ -155,7 +169,14 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      beside their bounds, the lean against the exact pair at each
      sixth-path shape (40 event timings each, in turns, with their spread,
      and graph replays), the RNS product both ways, and the chains in
-     Gbfly/s.
+     Gbfly/s; the stacked kernels (K1.rns, K2.rns, K5.rns in both forms,
+     K6.rns, K4.rows, K8.reduce.rows) beside their bounds; RnsNTT's pairs
+     at (2^14, 16 primes, 16) and (2^17, 16 primes, 1), the RNS product
+     and the 2^15 x ds 14 key switch's transforms stacked against one call
+     a prime, in turns, with launches and bounds; K5.rns's tiled form
+     beside the single-modulus one on the same bytes; and the RNS
+     product's routes at N <= 2^14 (stacked against K3 once a prime) at k
+     = 2, 4, 16 and batches 1 to 256.
 It then prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}.
 """
@@ -173,6 +194,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -537,7 +559,8 @@ BIG = (2, 16, 1 << 17)               # 2^22 elements: 2 polys x 16 primes
 LR_WEIGHTS = 16
 # (N, ds) of the key switches: the Xeon rows', then N=2^15 x 14 primes.
 KS_SHAPES = ((1 << 14, 3), (1 << 14, 5), (1 << 15, 3), (1 << 15, 14))
-THIRD_PATH_KERNELS = ("K1", "K4", "K5", "K6", "K8.add_sub", "K8.add_sub.u32",
+THIRD_PATH_KERNELS = ("K1", "K1.rns", "K4", "K5", "K5.rns", "K6", "K6.rns",
+                      "K8.reduce.rows", "K8.add_sub", "K8.add_sub.u32",
                       "K8.mult.u32", "K8.fma", "K8.fma.u32", "K8.reduce",
                       "K8.reduce.u32", "K8.cmp", "K8.mont", "K9", "K10",
                       "K11")
@@ -698,26 +721,33 @@ def third_path(rng, dev, port, nt, plain64, plain32, dyadic, ks, to_tensor,
     return cases
 
 
-def key_switch_ntts(n, ds, moduli, rand, get_plan, cuda_ntt):
+def key_switch_ntts(n, ds, moduli, rand, get_plan, cuda_ntt, rns):
     """A function that runs the transforms of one key switch (the same
-    calls, shapes and lazy ranges, on random inputs): ds inverses of the
-    target, ds + 1 forwards of the base-converted rows, the key prime's
-    inverse and the mod-down's ds forwards."""
-    plans = [get_plan(n, q) for q in moduli]
-    inv_in = [rand((n,), 2 * q) for q in moduli[:ds]]
-    fwd_in = [rand((ds - 1 if i < ds else ds, n), q)
-              for i, q in enumerate(moduli)]
+    calls, shapes and lazy ranges as `experimental.key_switch.pipeline`, on
+    random inputs): the target's ds inverses and the (ds, ds - 1, n) block
+    of base-converted targets at (4, 4), each one stacked call over the ds
+    decomposition primes (`rns`), the key prime's forward of the ds
+    converted targets and its inverse, and the mod-down's ds forwards, one
+    stacked call. Through an earlier tree's `rns`, whose stacked calls
+    loop over the primes, it times that tree's transforms."""
+    import torch
+    rplan = rns.get_rns_plan(n, moduli[:ds])
+    key_plan = get_plan(n, moduli[-1])
+
+    def rows(shape, factor):
+        return torch.stack([rand(shape, factor * q) for q in moduli[:ds]])
+
+    inv_in, fwd_in, md_in = rows((n,), 2), rows((ds - 1, n), 1), rows((2, n),
+                                                                     2)
+    key_in = rand((ds, n), moduli[-1])
     last_in = rand((2, n), 2 * moduli[-1])
-    md_in = [rand((2, n), 2 * q) for q in moduli[:ds]]
 
     def run():
-        for j in range(ds):
-            cuda_ntt.inv_ntt(inv_in[j], plans[j], 2, 1)
-        for i in range(ds + 1):
-            cuda_ntt.fwd_ntt(fwd_in[i], plans[i], 4, 4)
-        cuda_ntt.inv_ntt(last_in, plans[ds], 2, 2)
-        for i in range(ds):
-            cuda_ntt.fwd_ntt(md_in[i], plans[i], 4, 4)
+        rns.inv_ntt_rns(inv_in, rplan, 2, 1)
+        rns.fwd_ntt_rns(fwd_in, rplan, 4, 4)
+        cuda_ntt.fwd_ntt(key_in, key_plan, 4, 4)
+        cuda_ntt.inv_ntt(last_in, key_plan, 2, 2)
+        rns.fwd_ntt_rns(md_in, rplan, 4, 4)
     return run
 
 
@@ -1054,6 +1084,179 @@ def tile_kernel_checks(rng, dev, nt, get_plan, hier, shard, torch_ntt,
     return checks
 
 
+
+# The stacked transform's phase-3 cases: k primes of a basis (k = 1, 3 and
+# 16), N from 2^6 to 2^20 (K2.rns packs at 2^6, K1.rns from 2^10, the split
+# K5.rns/K6.rns above 2^14, the tiled K5 at D = 64), batches whose rows end
+# in ragged CTAs (5 polynomials at 2^6 pack as 4 + 1), every IMF/OMF pair,
+# exact on a basis of 29- to 62-bit primes (the largest below 2^62 among
+# them) and lean16/lean8 on one of 29- to 59-bit primes.
+RNS_CHECK_NS = (1 << 6, 1 << 10, 1 << 14, 1 << 15, 1 << 17, 1 << 20)
+RNS_CHECK_KS = (1, 3, 16)
+RNS_EXACT_BITS = (62, 29, 50, 60, 61, 40, 55, 45)
+RNS_LEAN_BITS = (59, 29, 50, 58, 45, 40, 55, 35)
+
+
+def rns_basis(nt, bits, k, n):
+    """k distinct primes = 1 mod 2n, cycling through `bits` ("62" the
+    largest prime below 2^62; more primes of a bit length where k asks)."""
+    out = []
+    for i in range(k):
+        b = bits[i % len(bits)]
+        count = i // len(bits) + 1
+        if b == 62:
+            ps = nt.generate_primes(count, 61, False, ntt_size=n)
+        else:
+            ps = nt.generate_primes(count, b, True, ntt_size=n)
+        out.append(ps[count - 1])
+    return out
+
+
+def rns_kernel_checks(rng, dev, nt, rns, hier, ops, torch_kernels, torch_ntt,
+                      to_tensor, compare, ns=RNS_CHECK_NS, ks=RNS_CHECK_KS):
+    """Every stacked instantiation against the plain stacked walk, bit for
+    bit: K1.rns/K2.rns on whole transforms; above 2^14 K5.rns in each form
+    (the rule's pick forced) and K6.rns pass by pass against the plain
+    passes of each row, and the whole two-launch transform; every IMF/OMF
+    pair and scheme (RNS_CHECK_*); K4.rows at IMF 1, 2 and 4 and
+    K8.reduce.rows over any u64, on the (k, 3, 2^12 + 1) blocks of mixed
+    bases. Returns the number of checks."""
+    import numpy as np
+    import torch
+    checks = 0
+    wide = {"exact": (4, 2), "lean16": (16, 8), "lean8": (8, 4)}
+
+    def rand_rows(moduli, shape, factor):
+        return torch.stack([to_tensor(rng.integers(
+            0, factor * q, size=shape, dtype=np.uint64), dev)
+            for q in moduli])
+
+    def stacked_plain(fn, x, plans, *args):
+        return torch.stack([fn(x[i], p, *args) for i, p in enumerate(plans)])
+
+    for n in ns:
+        log_d = max(0, n.bit_length() - 1 - hier.LOG_LOCAL)
+        for k in ks:
+            batches = (1, 2, 5) if n <= hier.LOCAL_N else (1, 3)
+            if n == 1 << 20 and k == 16:
+                batches = (1,)
+            for scheme, bits in (("exact", RNS_EXACT_BITS),
+                                 ("lean16", RNS_LEAN_BITS),
+                                 ("lean8", RNS_LEAN_BITS)):
+                if n == 1 << 20 and k == 16 and scheme != "exact":
+                    continue
+                moduli = rns_basis(nt, bits, k, n)
+                rplan = rns.get_rns_plan(n, moduli)
+                f_wide, i_wide = wide[scheme]
+                for batch in batches:
+                    what = (f"n={n} k={k} batch={batch} {scheme}")
+                    shape = (batch, n)
+                    if n <= hier.LOCAL_N:
+                        name = hier.kernel_name(
+                            "K2.rns" if n < 256 and batch > 1 else "K1.rns",
+                            64, scheme)
+                        for imf in (1, 2, 4):
+                            x = rand_rows(moduli, shape, imf)
+                            for omf in (1, 4):
+                                compare(name, rns.fwd_ntt_rns(
+                                    x, rplan, imf, omf, scheme),
+                                    rns.fwd_ntt_rns_plain(
+                                        x, rplan, imf, omf, scheme),
+                                    f"fwd_ntt_rns {what} imf={imf} "
+                                    f"omf={omf}")
+                                checks += 1
+                        for imf in (1, 2):
+                            x = rand_rows(moduli, shape, imf)
+                            for omf in (1, 2):
+                                compare(name, rns.inv_ntt_rns(
+                                    x, rplan, imf, omf, scheme),
+                                    rns.inv_ntt_rns_plain(
+                                        x, rplan, imf, omf, scheme),
+                                    f"inv_ntt_rns {what} imf={imf} "
+                                    f"omf={omf}")
+                                checks += 1
+                        continue
+                    # The split, pass by pass: K5.rns in each form, K6.rns.
+                    rows = rplan.descriptors(dev)
+                    blocks = (k, batch, 1 << log_d, hier.LOCAL_N)
+                    k6 = hier.kernel_name("K6.rns", 64, scheme)
+                    xf = rand_rows(moduli, shape, f_wide)
+                    xi = rand_rows(moduli, shape, i_wide)
+                    want_cf = stacked_plain(
+                        hier.cross_fwd_plain, xf.view(blocks), rplan.plans,
+                        64, scheme)
+                    want_ci = {omf: stacked_plain(
+                        hier.cross_inv_plain, xi.view(blocks), rplan.plans,
+                        omf, 64, scheme) for omf in (1, 2)}
+                    for form in hier.cross_forms(log_d, hier.LOG_LOCAL):
+                        k5 = hier.kernel_name(
+                            hier.CROSS_FORMS[form] + ".rns", 64, scheme)
+                        with forced_cross_form(hier, form):
+                            compare(k5, rns._cross(xf, rows, rplan, batch,
+                                                   True, 1, scheme),
+                                    want_cf.view(xf.shape),
+                                    f"K5.rns fwd {form} {what}")
+                            for omf in (1, 2):
+                                compare(k5, rns._cross(
+                                    xi, rows, rplan, batch, False, omf,
+                                    scheme), want_ci[omf].view(xi.shape),
+                                    f"K5.rns inv {form} {what} omf={omf}")
+                        checks += 3
+                    for omf in (1, 4):
+                        compare(k6, rns._local(xf, rows, rplan, batch, True,
+                                               omf, scheme),
+                                stacked_plain(hier.local_fwd_plain, xf,
+                                              rplan.plans, omf, 64, scheme),
+                                f"K6.rns fwd {what} omf={omf}")
+                    compare(k6, rns._local(xi, rows, rplan, batch, False, 1,
+                                           scheme),
+                            stacked_plain(hier.local_inv_plain, xi,
+                                          rplan.plans, 64, scheme),
+                            f"K6.rns inv {what}")
+                    checks += 3
+                    # The whole transform through the public functions, in
+                    # the rule's form: every IMF/OMF pair.
+                    k5 = hier.kernel_name(hier.CROSS_FORMS[hier.cross_form(
+                        log_d, hier.LOG_LOCAL, k * batch, 64, scheme)]
+                        + ".rns", 64, scheme)
+                    for imf in (1, 2, 4):
+                        x = rand_rows(moduli, shape, imf)
+                        for omf in (1, 4):
+                            compare(k6, rns.fwd_ntt_rns(x, rplan, imf, omf,
+                                                        scheme),
+                                    rns.fwd_ntt_rns_plain(x, rplan, imf, omf,
+                                                          scheme),
+                                    f"fwd_ntt_rns {what} imf={imf} omf={omf}")
+                            checks += 1
+                    for imf in (1, 2):
+                        x = rand_rows(moduli, shape, imf)
+                        for omf in (1, 2):
+                            compare(k5, rns.inv_ntt_rns(x, rplan, imf, omf,
+                                                        scheme),
+                                    rns.inv_ntt_rns_plain(x, rplan, imf, omf,
+                                                          scheme),
+                                    f"inv_ntt_rns {what} imf={imf} omf={omf}")
+                            checks += 1
+    # K4.rows and K8.reduce.rows over mixed bases, ragged rows.
+    for k in ks:
+        moduli = rns_basis(nt, RNS_EXACT_BITS, k, 1 << 12)
+        consts = ops.row_constants(tuple(moduli), dev)
+        shape = (3, (1 << 12) + 1)
+        for imf in (1, 2, 4):
+            a, b = rand_rows(moduli, shape, imf), rand_rows(moduli, shape, imf)
+            compare("K4.rows", ops.mult_mod_rows(a, b, moduli, imf),
+                    torch_kernels.mult_mod_rows(a, b, consts, imf),
+                    f"mult_mod_rows k={k} imf={imf}")
+            checks += 1
+        x = to_tensor(rng.integers(0, 1 << 64, size=(k,) + shape,
+                                   dtype=np.uint64), dev)
+        for omf in (1, 2):
+            compare("K8.reduce.rows", ops.reduce_mod_rows(x, moduli, omf),
+                    torch_kernels.reduce_mod_rows(x, consts, omf),
+                    f"reduce_mod_rows k={k} omf={omf}")
+            checks += 1
+    return checks
+
 # The instantiations whose registers are checked: the lean ones (mangled
 # names with the scheme argument 1 (lean16) or 2 (lean8) after a u64
 # word), the chain kernels K17/K18, every radix walk of K1/K6/K7 (the
@@ -1081,6 +1284,13 @@ TILE_INSTANTIATIONS = 3 * 6 * 4
 NEW_INSTANTIATIONS = (2 * 6 * 3 + 2 + 3 + RADIX_INSTANTIATIONS
                       + PACKED_INSTANTIATIONS + POLY_INSTANTIATIONS
                       + FFT_RADIX_INSTANTIATIONS + TILE_INSTANTIATIONS)
+# The stacked instantiations (ntt_rns.cu, cross_rns.cu, eltwise.cu): K1.rns's
+# forward and inverse in the three schemes and seven shapes, K6.rns's
+# inverse (no final stage) at 2^14 in three, K2.rns forward and inverse in
+# three schemes and two radices, K5.rns in both forms forward and inverse
+# at every D in three schemes, and the two row ops of K4/K8.
+RNS_INSTANTIATION = re.compile(r"_rns_kernel|eltwise_rows_kernel")
+RNS_INSTANTIATIONS = (2 * 3 * 7 + 3 + 2 * 3 * 2 + 2 * 2 * 3 * 6 + 2)
 # Moduli of the lean checks: generate_primes(1, b) gives q in (2^b,
 # 2^(b+1)); "61" is the largest prime below 2^61, where 8q is just under
 # 2^64 (lean8's raw product range).
@@ -1384,7 +1594,8 @@ def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
               to_tensor) -> dict:
     """{row: fn} for WALK_ROWS' rows and the A/B's other rows (K7.n13,
     K7.n15, K7.n10, FFT.f64, torch.fft, K2, K3.n10, K3.n12, K5.d8 ..
-    K5.d64), at the shapes
+    K5.d64, and `rns_runs`' RNS.prod, RNS.n14, RNS.n17, KS.ntts, KS), at
+    the shapes
     of phase 5: the pair (2^14, batch 256; 60-bit q, lean16 at 59 bits, K7
     at 29 bits; K7 also at (2^13, 512), (2^15, 128) and (2^10, 4096); the
     public route at (2^10, 49-bit, 4096), K2 at (2^6, 49-bit, 8192)), the
@@ -1460,6 +1671,9 @@ def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
                         for _ in range(3)])
         return lambda: poly.poly_mult(*nxt(), plan)
 
+    from hexl_tpu_torch import key_switch, rns_poly_mult_mod
+    from hexl_tpu_torch.ntt import rns
+
     return {"K1": pair(q60, "exact"), "K1.lean8": pair(q60, "lean8"),
             "K1.lean16": pair(prime(59, n14), "lean16"),
             "K6": local(prime(60, n17), "exact"),
@@ -1485,7 +1699,76 @@ def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
             "K3.n12": product(1 << 12, 50, 2),
             **{f"K5.d{1 << log_d}": k5_run(rng, dev, nt, get_plan, hier,
                                            to_tensor, log_d, 64)[0]
-               for log_d in range(3, 7)}}
+               for log_d in range(3, 7)},
+            **rns_runs(rng, dev, nt, get_plan, cuda_ntt, rns, to_tensor,
+                       rns_poly_mult_mod, key_switch)}
+
+
+def per_prime_rns(get_plan, cuda_ntt, poly):
+    """The route of one call a prime (an earlier tree's `rns` module and
+    RNS product), through this tree's single-modulus wrappers: the
+    stacked functions' signatures, each a loop over the rows and a
+    torch.stack."""
+    import torch
+
+    def loop(fn):
+        return lambda x, plans, *args: torch.stack(
+            [fn(x[i], p, *args) for i, p in enumerate(plans)])
+
+    return SimpleNamespace(
+        get_rns_plan=lambda n, moduli: [get_plan(n, q) for q in moduli],
+        fwd_ntt_rns=loop(cuda_ntt.fwd_ntt), inv_ntt_rns=loop(cuda_ntt.inv_ntt),
+        rns_poly_mult_mod=lambda a, b, n, moduli: torch.stack(
+            [poly.poly_mult(a[i], b[i], get_plan(n, q))
+             for i, q in enumerate(moduli)]))
+
+
+def rns_runs(rng, dev, nt, get_plan, cuda_ntt, rns, to_tensor,
+             rns_poly_mult_mod, key_switch=None) -> dict:
+    """{row: fn} of the stacked transform's rows, through `rns`'s
+    get_rns_plan/fwd_ntt_rns/inv_ntt_rns and `rns_poly_mult_mod` (this
+    tree's, an earlier tree's, or `per_prime_rns`'): RNS.prod, the RNS
+    product at 2^17 x 16 primes of 50 bits (3 sets of 32 MB); RNS.n14 and
+    RNS.n17, the fwd+inv pair at (2^14, 16 primes, batch 16) (3 sets of
+    32 MB) and (2^17, 16 primes, batch 1) (4 of 16 MB); KS.ntts, the
+    transforms of the key switch at 2^15 x ds 14 (`key_switch_ntts`); and,
+    given `key_switch`, KS, that key switch (kc 2, 49-bit)."""
+    import numpy as np
+    import torch
+
+    def rand(shape, bound):
+        return to_tensor(rng.integers(0, bound, size=shape, dtype=np.uint64),
+                         dev)
+
+    def rows(moduli, shape, factor=1):
+        return torch.stack([rand(shape, factor * q) for q in moduli])
+
+    n14, n17 = 1 << 14, 1 << 17
+
+    def rns_product():
+        moduli = nt.generate_primes(RNS_PRIMES, 50, True, ntt_size=n17)
+        nxt = rotating([(rows(moduli, (n17,)), rows(moduli, (n17,)))
+                        for _ in range(3)])
+        return lambda: rns_poly_mult_mod(*nxt(), n17, moduli)
+
+    def rns_pair(n, k, batch, sets):
+        moduli = nt.generate_primes(k, 50, True, ntt_size=n)
+        rplan = rns.get_rns_plan(n, moduli)
+        nxt = rotating([rows(moduli, (batch, n)) for _ in range(sets)])
+        return lambda: rns.inv_ntt_rns(rns.fwd_ntt_rns(nxt(), rplan), rplan)
+
+    n15, ds14 = KS_SHAPES[-1]
+    result, t, keys, ks_moduli, msf = key_switch_inputs(
+        rng, n15, (49,) * (ds14 + 1), 2, dev, nt, to_tensor)
+    runs = {"RNS.prod": rns_product(),
+            "RNS.n14": rns_pair(n14, RNS_PRIMES, 16, 3),
+            "RNS.n17": rns_pair(n17, RNS_PRIMES, 1, 4),
+            "KS.ntts": key_switch_ntts(n15, ds14, ks_moduli, rand, get_plan,
+                                       cuda_ntt, rns)}
+    if key_switch is not None:
+        runs["KS"] = lambda: key_switch(result, t, n15, ds14, ds14 + 1,
+                                        ds14 + 1, 2, ks_moduli, keys, msf)
+    return runs
 
 
 # K5 at every count of rows of the split, D = 2^log_d = 2 .. 64, at equal
@@ -1836,8 +2119,8 @@ SEVENTH_CONFIGS = ((1 << 14, 60, 256), (1 << 17, 60, 16), (1 << 20, 60, 2),
                    (1 << 14, 29, 256))
 SEVENTH_RESULT = "seventh-result: "
 PREWARM_KERNELS = ("K1", "K5", "K5.tile", "K6", "K7", "K14", "K15")
-EXAMPLE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9", "K10",
-                   "K11", "K12.f64", "K13.f64")
+EXAMPLE_KERNELS = ("K1", "K1.rns", "K2", "K3", "K4", "K4.rows", "K5", "K6",
+                   "K7", "K9", "K10", "K11", "K12.f64", "K13.f64")
 TRACE_CALLS = 20
 TRACE_KEY_SWITCH = (1 << 15, 14)   # (N, ds): the third path's largest
 
@@ -2212,7 +2495,8 @@ def main() -> int:
                                 poly_mult_mod, rns_poly_mult_mod)
     from hexl_tpu_torch.eltwise import ops, torch_kernels, torch_kernels32
     from hexl_tpu_torch.limb import to_numpy, to_tensor
-    from hexl_tpu_torch.ntt import cuda_ntt, get_plan, hier, ntt32, torch_ntt
+    from hexl_tpu_torch.ntt import (cuda_ntt, get_plan, hier, ntt32, rns,
+                                    torch_ntt)
     from hexl_tpu_torch import poly
     dyadic = importlib.import_module("hexl_tpu_torch.experimental.dyadic")
     ks = importlib.import_module("hexl_tpu_torch.experimental.key_switch")
@@ -2263,6 +2547,16 @@ def main() -> int:
     if spilled or len(new) < NEW_INSTANTIATIONS:
         raise AssertionError(f"of {NEW_INSTANTIATIONS} new instantiations "
                              f"{len(new)} reported, spills: {spilled}")
+    stacked = {k: v for k, v in resources.items()
+               if RNS_INSTANTIATION.search(k)}
+    log(f"build: {len(stacked)} stacked (RNS) instantiations (registers, "
+        f"stack, spill stores, spill loads): {stacked}")
+    spilled = {k: v for k, v in stacked.items()
+               if v[2] or v[3] or v[2] is None}
+    if spilled or len(stacked) < RNS_INSTANTIATIONS:
+        raise AssertionError(f"of {RNS_INSTANTIATIONS} stacked "
+                             f"instantiations {len(stacked)} reported, "
+                             f"spills: {spilled}")
     # K3's cluster form: how many clusters of two CTAs the card holds at
     # once (cudaOccupancyMaxActiveClusters), per degree.
     log("K3 cluster form, most active clusters: " + ", ".join(
@@ -2479,6 +2773,10 @@ def main() -> int:
                                  torch_ntt, to_tensor, compare, route)
     checks += chain_kernel_checks(rng, dev, chain, df_chain, compare,
                                   compare_fft)
+    # The stacked transform's kernels (K1.rns, K2.rns, K5.rns in both forms,
+    # K6.rns) and the row ops (K4.rows, K8.reduce.rows).
+    checks += rns_kernel_checks(rng, dev, nt, rns, hier, ops, torch_kernels,
+                                torch_ntt, to_tensor, compare)
     log(f"phase 3: {checks} kernel-vs-plain checks bit-exact in "
         f"{time.perf_counter() - t0:.1f} s; max_abs_err {max_err}")
 
@@ -2491,7 +2789,9 @@ def main() -> int:
     # batch 8192 (the packed route K2, a CTA of one warp holding four
     # polynomials); poly_mult_mod at (2^12, 50-bit, 2) and (2^14, 60-bit,
     # 64) (K3's cluster form) and at (2^13, 60-bit, 132) (its one-CTA form:
-    # 2 x 132 CTAs would outnumber the SMs).
+    # 2 x 132 CTAs would outnumber the SMs); RnsNTT at (2^14, 16 primes of
+    # 50 bits, batch 16), one launch a direction for the basis (K1.rns), and
+    # at (2^6, 3 primes of 49 bits, batch 4096) (K2.rns).
     n14, n12, n10 = 1 << 14, 1 << 12, 1 << 10
     q60 = nt.generate_primes(1, 60, True, ntt_size=n14)[0]
     q50 = nt.generate_primes(1, 50, True, ntt_size=n12)[0]
@@ -2513,6 +2813,13 @@ def main() -> int:
     ntt14, ntt12, ntt10 = NTT(n14, q60), NTT(n12, q50), NTT(n10, q49)
     ntt10s = NTT(n10, q29)
     ntt6 = NTT(PACKED_N, q49_6)
+    rns14 = port.RnsNTT(n14, nt.generate_primes(RNS_PRIMES, 50, True,
+                                                ntt_size=n14))
+    rns6 = port.RnsNTT(PACKED_N, nt.generate_primes(3, 49, True,
+                                                    ntt_size=PACKED_N))
+    xr14 = torch.stack([rand((SPLIT_BATCH, n14), q) for q in rns14.moduli])
+    xr6 = torch.stack([rand((PACKED_BATCH // 2, PACKED_N), q)
+                       for q in rns6.moduli])
     torch.cuda.synchronize()
 
     _build.reset_launches()
@@ -2531,6 +2838,10 @@ def main() -> int:
     c12 = poly_mult_mod(a12, b12, n12, q50)
     c14 = poly_mult_mod(a14, b14, n14, q60)
     c13 = poly_mult_mod(a13, b13, CTA_N, q60)
+    yr14 = rns14.forward(xr14)
+    backr14 = rns14.inverse(yr14)
+    yr6 = rns6.forward(xr6)
+    backr6 = rns6.inverse(yr6)
     torch.cuda.synchronize()
     launches1 = dict(_build.launches)
     log(f"phase 4: first main path's launches {launches1}; routes: "
@@ -2545,6 +2856,9 @@ def main() -> int:
                if launches1.get(k, 0) < 1]
     if missing:
         raise AssertionError(f"first main path launched no {missing}")
+    if (launches1.get("K1.rns"), launches1.get("K2.rns")) != (2, 2):
+        raise AssertionError(f"first main path's RnsNTT pairs launched "
+                             f"{launches1}, not one launch a direction")
 
     # Every main-path output against the plain version on the same inputs.
     plan14, plan12, plan10 = (get_plan(n14, q60), get_plan(n12, q50),
@@ -2589,6 +2903,15 @@ def main() -> int:
             and np.array_equal(back10s, x10s)
             and np.array_equal(back6, x6)):
         raise AssertionError("NTT round trip failed")
+    for name, e, x, y, back in (("K1.rns", rns14, xr14, yr14, backr14),
+                                ("K2.rns", rns6, xr6, yr6, backr6)):
+        what = f"main path: RnsNTT(2^{e.degree.bit_length() - 1}, " \
+               f"{len(e.moduli)} primes)"
+        compare(name, y, rns.fwd_ntt_rns_plain(x, e.plan), f"{what}.forward")
+        compare(name, back, rns.inv_ntt_rns_plain(y, e.plan),
+                f"{what}.inverse")
+        if not torch.equal(back, x):
+            raise AssertionError(f"{what} round trip failed")
     if not np.array_equal(to_numpy(step), c12):
         raise AssertionError("__graft_entry__ pipeline != poly_mult_mod")
     # A schoolbook negacyclic product in Python integers, after the counts
@@ -2612,7 +2935,9 @@ def main() -> int:
     # The second: N above 2^14 and the single-word regime. NTT(2^17) at
     # 60 and 29 bits (the Xeon rows' degree) at batch 16; NTT(2^14, 29-bit)
     # at batch 256 (K7); NTT(2^20, 60-bit), the largest degree, at batch 2;
-    # and BASELINE.json's RNS poly-mult, N=2^17 x 16 primes of 50 bits.
+    # and BASELINE.json's RNS poly-mult, N=2^17 x 16 primes of 50 bits
+    # (stacked: K5.rns, K6.rns, K4.rows); RnsNTT(2^20, 3 primes of 60 bits)
+    # at batch 1 (K5.rns's tiled form at D = 64, K6.rns).
     n17, n20 = 1 << 17, 1 << 20
     q60_17 = nt.generate_primes(1, 60, True, ntt_size=n17)[0]
     q29_17 = nt.generate_primes(1, 29, True, ntt_size=n17)[0]
@@ -2628,6 +2953,8 @@ def main() -> int:
     e17, e17s = NTT(n17, q60_17), NTT(n17, q29_17)
     e14s, e20 = NTT(n14, q29_14), NTT(n20, q60_20)
     rns_plans = [get_plan(n17, q) for q in moduli]
+    rns20 = port.RnsNTT(n20, nt.generate_primes(3, 60, True, ntt_size=n20))
+    xr20 = torch.stack([rand((n20,), q) for q in rns20.moduli])
     torch.cuda.synchronize()
 
     _build.reset_launches()
@@ -2640,15 +2967,18 @@ def main() -> int:
     y20 = e20.forward(x20)
     back20 = e20.inverse(y20)
     rc = rns_poly_mult_mod(ra, rb, n17, moduli)
+    yr20 = rns20.forward(xr20)
+    backr20 = rns20.inverse(yr20)
     torch.cuda.synchronize()
     launches2 = dict(_build.launches)
     log(f"phase 4: second main path's launches {launches2}")
     # Every call launched its kernels, and nothing else ran: two passes per
-    # transform (K5 in its tiled form at 2^20), 7 launches per prime of the
-    # RNS product.
-    expected = {"K5": 2 + 3 * RNS_PRIMES, "K5.tile": 2,
-                "K6": 4 + 3 * RNS_PRIMES, "K5.u32": 2, "K6.u32": 2, "K7": 2,
-                "K4": RNS_PRIMES}
+    # transform (K5 in its tiled form at 2^20), 7 launches for the whole
+    # basis of the RNS product (three stacked transforms of two passes and
+    # K4.rows), two passes for each stacked transform of RnsNTT(2^20).
+    expected = {"K5": 2, "K5.tile": 2, "K6": 4, "K5.u32": 2, "K6.u32": 2,
+                "K7": 2, "K5.rns": 3, "K6.rns": 3 + 2, "K4.rows": 1,
+                "K5.tile.rns": 2}
     if launches2 != expected:
         raise AssertionError(f"second main path launched {launches2}, "
                              f"expected {expected}")
@@ -2674,8 +3004,14 @@ def main() -> int:
     if not torch.equal(back14s, x14s):
         raise AssertionError("NTT(2^14, 29-bit) round trip failed")
     for i, plan in enumerate(rns_plans):
-        compare("K5", rc[i], poly.poly_mult_plain(ra[i], rb[i], plan),
+        compare("K5.rns", rc[i], poly.poly_mult_plain(ra[i], rb[i], plan),
                 f"main path: rns_poly_mult_mod prime {i}")
+    compare("K6.rns", yr20, rns.fwd_ntt_rns_plain(xr20, rns20.plan),
+            "main path: RnsNTT(2^20, 3 primes).forward")
+    compare("K5.tile.rns", backr20, rns.inv_ntt_rns_plain(yr20, rns20.plan),
+            "main path: RnsNTT(2^20, 3 primes).inverse")
+    if not torch.equal(backr20, xr20):
+        raise AssertionError("RnsNTT(2^20) round trip failed")
     oracle = negacyclic_product(to_numpy(ra[0]), to_numpy(rb[0]), moduli[0])
     if not np.array_equal(to_numpy(rc[0]), oracle):
         raise AssertionError("rns_poly_mult_mod prime 0 != the NumPy product")
@@ -2706,6 +3042,22 @@ def main() -> int:
         raise AssertionError(f"third main path launched no {missing}")
     for (what, kernel, _, plain), out in zip(third, outs):
         compare(kernel, out, plain(), f"main path: {what}")
+    # Each key switch on its own: its transforms stacked over the ds
+    # decomposition primes (three stacked transforms, K8.reduce.rows), the
+    # key prime's forward and inverse, K10, K11 twice.
+    for what, _, call, _ in third:
+        if not what.startswith("key_switch"):
+            continue
+        n_ks = int(what.split("N=2^")[1].split()[0])
+        split = ({"K5.rns": 3, "K6.rns": 3, "K5": 2, "K6": 2}
+                 if 1 << n_ks > n14 else {"K1.rns": 3, "K1": 2})
+        want = {**split, "K8.reduce": 1, "K8.reduce.rows": 1, "K10": 1,
+                "K11": 2}
+        _build.reset_launches()
+        call()
+        if dict(_build.launches) != want:
+            raise AssertionError(f"main path: {what} launched "
+                                 f"{dict(_build.launches)}, expected {want}")
     # One small key switch against Python integers, after the counts.
     res, tt, kk, ks_moduli, msf = key_switch_inputs(rng, 64, (40, 41, 45), 2,
                                                     dev, nt, to_tensor)
@@ -3013,10 +3365,12 @@ def main() -> int:
         port_config.approx_butterflies = exact_regime
     log(f"phase 4: sixth main path's launches {launches6}")
     sixth_kernels = ("K1.lean8", "K1.lean16", "K2.lean8", "K5.lean16",
-                     "K6.lean16", "K4", "K17", "K17.exact", "K18.df",
-                     "K18.f64", "K18.f32")
+                     "K6.lean16", "K5.rns.lean16", "K6.rns.lean16",
+                     "K4.rows", "K17", "K17.exact", "K18.df", "K18.f64",
+                     "K18.f32")
     missing = [k for k in sixth_kernels if launches6.get(k, 0) < 1]
-    exact_names = [k for k in ("K1", "K2", "K5", "K6") if k in launches6]
+    exact_names = [k for k in ("K1", "K2", "K5", "K6", "K5.rns", "K6.rns")
+                   if k in launches6]
     if missing or exact_names:
         raise AssertionError(f"sixth main path launched no {missing}; exact "
                              f"instantiations {exact_names}")
@@ -3047,10 +3401,10 @@ def main() -> int:
                   for v in (ra, rb))
         plain = torch_ntt.inv_ntt(torch_kernels.mult_mod(fa, fb, plan.q, 4),
                                   plan, 1, 1, 64, "lean16")
-        compare("K5.lean16", rc6[i], plain,
+        compare("K5.rns.lean16", rc6[i], plain,
                 f"sixth path: rns_poly_mult_mod prime {i} == the plain lean "
                 "path")
-    compare("K5.lean16", rc6, rc, "sixth path: rns_poly_mult_mod == the "
+    compare("K5.rns.lean16", rc6, rc, "sixth path: rns_poly_mult_mod == the "
             "exact product of the second path")
     for s_, (gx, gy) in chains6.items():
         want = chain.chain_plain(cx, cy, chain.PROBE_W, chain.PROBE_Q,
@@ -3373,6 +3727,136 @@ def main() -> int:
                   ks.fold_plain(result, tpp, tntt, kcon)),
          8 * (2 * ks_n + md_words + 4 * md_words),
          md_words * (2 * (hi64 + lo64) + hi64 + 2 * lo64)))
+    # The stacked transform at the main paths' shapes: K1.rns's pair at
+    # (2^14, 16 primes of 50 bits, batch 16) (the first path's RnsNTT),
+    # K2.rns's at (2^6, 3 primes, batch 4096); the split's passes at the RNS
+    # product's (2^17, 16 primes, batch 1), K5.rns and K6.rns forward +
+    # inverse; K5.rns's tiled form at (2^20, 16 primes, batch 1); K4.rows at
+    # the RNS product's (16, 2^17), IMF 4; K8.reduce.rows at the 2^15 x ds
+    # 14 key switch's (14, 13, 2^15) block. Bytes: each coefficient read and
+    # written once per direction and each row's tables once; operations
+    # as the single-modulus rows.
+    def rns_pair_case(n, k, batch, bits):
+        basis = nt.generate_primes(k, bits, True, ntt_size=n)
+        rplan = rns.get_rns_plan(n, basis)
+        x = torch.stack([rand((batch, n), q) for q in basis])
+        return (lambda: rns.inv_ntt_rns(rns.fwd_ntt_rns(x, rplan), rplan),
+                lambda: rns.inv_ntt_rns_plain(rns.fwd_ntt_rns_plain(
+                    x, rplan), rplan),
+                2 * (2 * 8 * k * batch * n + 2 * 8 * k * n),
+                ntt_imads(n, k * batch, True) + ntt_imads(n, k * batch,
+                                                          False))
+
+    def rns_pass_case(n, k, batch, cross, scheme="exact", bits=60):
+        basis = nt.generate_primes(k, bits, True, ntt_size=n)
+        rplan = rns.get_rns_plan(n, basis)
+        rows = rplan.descriptors(dev)
+        xf = torch.stack([rand((batch, n), q) for q in basis])
+        xi = torch.stack([rand((batch, n), 2 * q) for q in basis])
+        log_d = (n // hier.LOCAL_N).bit_length() - 1
+        d = 1 << log_d
+        butterflies = k * batch * (n // 2)
+        blocks = (batch, d, hier.LOCAL_N)
+
+        def each(fn, x, *args):
+            return torch.stack([fn(x[i], p, *args)
+                                for i, p in enumerate(rplan.plans)])
+        if cross:
+            run = rns._cross
+            plain = lambda: (
+                each(lambda v, p: hier.cross_fwd_plain(v.view(blocks), p, 64,
+                                                       scheme), xf),
+                each(lambda v, p: hier.cross_inv_plain(v.view(blocks), p, 1,
+                                                       64, scheme), xi))
+            tables = k * 2 * 8 * (2 * d - 3)
+            nimads = (2 * log_d + 1) * butterflies * per_shoup
+            if scheme != "exact":
+                nimads = lean_imads(butterflies, 2 * log_d - 1, True)
+        else:
+            run = rns._local
+            plain = lambda: (each(hier.local_fwd_plain, xf, 1, 64, scheme),
+                             each(hier.local_inv_plain, xi, 64, scheme))
+            tables = k * 2 * 2 * 8 * (n - d)
+            nimads = 2 * 14 * butterflies * per_shoup
+            if scheme != "exact":
+                nimads = lean_imads(butterflies, 2 * 14, False)
+        kernel = lambda: (run(xf, rows, rplan, batch, True, 1, scheme),
+                          run(xi, rows, rplan, batch, False, 1, scheme))
+        return kernel, plain, 2 * 2 * 8 * k * batch * n + tables, nimads
+
+    r_mult = [torch.stack([rand((n17,), 4 * q) for q in moduli])
+              for _ in range(2)]
+    r_red = rand((ks_ds, ks_ds - 1, ks_n), 1 << 64)
+    r_red_moduli = ks_moduli[:ks_ds]
+    rcon = ops.row_constants(tuple(moduli), dev)
+    rcon_red = ops.row_constants(tuple(r_red_moduli), dev)
+    stacked_cases = {
+        "K1.rns": ("radix_fwd_rns_kernel+radix_inv_rns_kernel, a row's "
+                   "polynomial per CTA", "hexl_tpu_torch/csrc/ntt_rns.cu",
+                   "hexl_tpu/ntt/pallas_ntt.py:547",
+                   f"RnsNTT fwd + inv, N=2^14, {RNS_PRIMES} primes of 50 "
+                   f"bits, batch {SPLIT_BATCH}",
+                   rns_pair_case(n14, RNS_PRIMES, SPLIT_BATCH, 50)),
+        "K2.rns": ("radix_packed_fwd_rns_kernel+radix_packed_inv_rns_kernel"
+                   ", P polys of a row per CTA",
+                   "hexl_tpu_torch/csrc/ntt_rns.cu",
+                   "hexl_tpu/ntt/pallas_ntt.py:230",
+                   f"RnsNTT fwd + inv, N=2^6, 3 primes of 49 bits, batch "
+                   f"{PACKED_BATCH // 2}",
+                   rns_pair_case(PACKED_N, 3, PACKED_BATCH // 2, 49)),
+        "K5.rns": ("cross_fwd_rns_kernel+cross_inv_rns_kernel<3>, column "
+                   "form", "hexl_tpu_torch/csrc/cross_rns.cu",
+                   "hexl_tpu/ntt/hier.py:164",
+                   f"cross pass fwd + inv, N=2^17 (D=8), {RNS_PRIMES} primes "
+                   "of 60 bits, batch 1",
+                   rns_pass_case(n17, RNS_PRIMES, 1, True)),
+        "K5.tile.rns": ("cross_tile_fwd_rns_kernel+cross_tile_inv_rns_kernel"
+                        "<6>, per-row groups of persistent CTAs",
+                        "hexl_tpu_torch/csrc/cross_rns.cu",
+                        "hexl_tpu/ntt/hier.py:164",
+                        f"cross pass fwd + inv, N=2^20 (D=64), {RNS_PRIMES} "
+                        "primes of 60 bits, batch 1",
+                        rns_pass_case(n20, RNS_PRIMES, 1, True)),
+        "K6.rns": ("radix_fwd_rns_kernel+radix_inv_rns_kernel, a row's "
+                   "shard per CTA", "hexl_tpu_torch/csrc/ntt_rns.cu",
+                   "hexl_tpu/ntt/hier.py:255",
+                   f"local pass fwd + inv, N=2^17 (8 shards), {RNS_PRIMES} "
+                   "primes of 60 bits, batch 1",
+                   rns_pass_case(n17, RNS_PRIMES, 1, False)),
+        "K5.rns.lean16": ("cross_fwd_rns_kernel+cross_inv_rns_kernel<1, 3>,"
+                          " lean16", "hexl_tpu_torch/csrc/cross_rns.cu",
+                          "hexl_tpu/ntt/hier.py:164",
+                          f"cross pass fwd + inv, N=2^17 (D=8), "
+                          f"{RNS_PRIMES} primes of 50 bits, batch 1",
+                          rns_pass_case(n17, RNS_PRIMES, 1, True, "lean16",
+                                        50)),
+        "K6.rns.lean16": ("radix_fwd_rns_kernel+radix_inv_rns_kernel<1>, "
+                          "lean16", "hexl_tpu_torch/csrc/ntt_rns.cu",
+                          "hexl_tpu/ntt/hier.py:255",
+                          f"local pass fwd + inv, N=2^17 (8 shards), "
+                          f"{RNS_PRIMES} primes of 50 bits, batch 1",
+                          rns_pass_case(n17, RNS_PRIMES, 1, False, "lean16",
+                                        50)),
+        "K4.rows": ("eltwise_rows_kernel (mult_mod, per-row moduli)",
+                    "hexl_tpu_torch/csrc/eltwise.cu",
+                    "hexl_tpu/eltwise/pallas_kernels.py:65",
+                    f"mult_mod_rows IMF 4, {RNS_PRIMES} x 2^17, 50-bit q",
+                    (lambda: ops.mult_mod_rows(*r_mult, moduli, 4),
+                     lambda: torch_kernels.mult_mod_rows(*r_mult, rcon, 4),
+                     3 * 8 * RNS_PRIMES * n17,
+                     RNS_PRIMES * n17 * per_barrett)),
+        "K8.reduce.rows": ("eltwise_rows_kernel (reduce_mod IMF q, per-row "
+                           "moduli)", "hexl_tpu_torch/csrc/eltwise.cu",
+                           "hexl_tpu/eltwise/pallas_kernels.py:65",
+                           f"reduce_mod_rows IMF q -> OMF 1, ({ks_ds}, "
+                           f"{ks_ds - 1}, 2^15), 49-bit q",
+                           (lambda: ops.reduce_mod_rows(r_red, r_red_moduli),
+                            lambda: torch_kernels.reduce_mod_rows(r_red,
+                                                                  rcon_red),
+                            2 * 8 * r_red.numel(),
+                            r_red.numel() * (hi64 + lo64))),
+    }
+    cases.update(stacked_cases)
     # K12 and K13 per precision at the fourth path's shape (n = 2^14, batch
     # 64, scale 2^40), each pass forward + inverse, on six inputs in turn
     # (`rotating`), so that a graph's launches read more than the 50 MB L2
@@ -3839,6 +4323,103 @@ def main() -> int:
         f"from a CUDA graph; {sum(rns_launches.values())} launches per call "
         f"{rns_launches}")
 
+    # The stacked transform against one call a prime (`per_prime_rns`: the
+    # parent tree's route, through this tree's single-modulus wrappers) on
+    # the same rotating inputs (`rns_runs`, one seed for both), in turns
+    # (the loop, stacked, stacked, the loop; 20 graph replays of 10 calls
+    # each), with the stacked call's launches, bound and share; KS is the
+    # whole key switch (no per-prime form in this tree: `--walk-ab` times
+    # the parent's).
+    per_prime = per_prime_rns(get_plan, cuda_ntt, poly)
+    stacked_runs = rns_runs(np.random.default_rng(SEED), dev, nt, get_plan,
+                            cuda_ntt, rns, to_tensor, rns_poly_mult_mod,
+                            port.key_switch)
+    loop_runs = rns_runs(np.random.default_rng(SEED), dev, nt, get_plan,
+                         cuda_ntt, per_prime, to_tensor,
+                         per_prime.rns_poly_mult_mod)
+    ks_n15, ks_ds14 = KS_SHAPES[-1]
+    ks_tf = [(False, ks_ds14), (True, ks_ds14 * (ks_ds14 - 1)),
+             (True, ks_ds14), (False, 2), (True, 2 * ks_ds14)]
+    stacked_work = {
+        "RNS.n14": (2 * (16 * RNS_PRIMES * 16 * n14 + 16 * RNS_PRIMES * n14),
+                    ntt_imads(n14, RNS_PRIMES * 16, True)
+                    + ntt_imads(n14, RNS_PRIMES * 16, False)),
+        "RNS.n17": (2 * (16 * RNS_PRIMES * n17 + 16 * RNS_PRIMES * n17),
+                    ntt_imads(n17, RNS_PRIMES, True)
+                    + ntt_imads(n17, RNS_PRIMES, False)),
+        "RNS.prod": (8 * 3 * RNS_PRIMES * n17 + 8 * 4 * RNS_PRIMES * n17,
+                     2 * ntt_imads(n17, RNS_PRIMES, True)
+                     + ntt_imads(n17, RNS_PRIMES, False)
+                     + RNS_PRIMES * n17 * per_barrett),
+        "KS.ntts": (sum(16 * rows * ks_n15 for _, rows in ks_tf)
+                    + 8 * 4 * (ks_ds14 + 1) * ks_n15,
+                    sum(ntt_imads(ks_n15, rows, fwd) for fwd, rows in ks_tf)),
+    }
+    stacked_times = {}
+    for row, fn in stacked_runs.items():
+        turns = {"stacked": [], "loop": []}
+        for side in (("loop", "stacked", "stacked", "loop") if row in
+                     loop_runs else ("stacked", "stacked")):
+            run = fn if side == "stacked" else loop_runs[row]
+            turns[side] += graph_times(run, 10, 10)
+        _build.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        per_call = dict(_build.launches)
+        ms = statistics.median(turns["stacked"])
+        line = (f"stacked {row}: {ms:.4f} ms [{min(turns['stacked']):.4f}, "
+                f"{max(turns['stacked']):.4f}]; {sum(per_call.values())} "
+                f"launches {per_call}")
+        stacked_times[row] = {"ms": ms, "launches": per_call}
+        if turns["loop"]:
+            loop_ms = statistics.median(turns["loop"])
+            line += (f"; one call a prime {loop_ms:.4f} ms "
+                     f"[{min(turns['loop']):.4f}, {max(turns['loop']):.4f}],"
+                     f" stacked/loop {ms / loop_ms:.3f}")
+            stacked_times[row]["loop_ms"] = loop_ms
+        if row in stacked_work:
+            b_ms, b_by = bound(*stacked_work[row])
+            line += f"; bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%}"
+        log(line)
+    # K5.rns's tiled form (per-row groups of persistent CTAs) beside the
+    # single-modulus tiled form on the same bytes: (2^20, batch 16).
+    k5t16 = pass_case(n20, q60_20, 16, 64, True)
+    t_single = graph_ms(k5t16[0], 20)
+    t_rns = next(e["ms"] for e in entries
+                 if e["name"].startswith("K5.tile.rns "))
+    log(f"K5.tile.rns fwd+inv at (2^20, {RNS_PRIMES} primes, batch 1) "
+        f"{t_rns:.4f} ms; the single-modulus K5.tile at (2^20, batch 16) "
+        f"{t_single:.4f} ms; ratio {t_rns / t_single:.3f}")
+    # The RNS product's routes at N <= 2^14 (`poly.rns_route`): the stacked
+    # transforms with K4.rows against K3 once a prime, each forced, on
+    # inputs rotating beyond the L2 (median [min, max] of 20 graph replays
+    # of 10 calls), at k = 2, 4, 16 primes of 50 bits and batches 1 to 256.
+    choose_route = poly.rns_route
+    for log_n in (12, 13, 14):
+        n = 1 << log_n
+        for k in (2, 4, 16):
+            basis = nt.generate_primes(k, 50, True, ntt_size=n)
+            qs = torch.tensor(basis, dtype=torch.int64,
+                              device=dev).view(k, 1, 1)
+            for batch in (1, 8, 64, 256):
+                sets = max(3, min(16, -(-150_000_000 // (24 * k * batch
+                                                         * n))))
+                nxt = rotating([tuple(
+                    torch.randint(0, 1 << 62, (k, batch, n), device=dev)
+                    % qs for _ in range(2)) for _ in range(sets)])
+                got = {}
+                for route_ in poly.RNS_ROUTES:
+                    poly.rns_route = lambda *args, r=route_: r
+                    try:
+                        got[route_] = graph_times(
+                            lambda: rns_poly_mult_mod(*nxt(), n, basis), 10)
+                    finally:
+                        poly.rns_route = choose_route
+                log(f"RNS route N=2^{log_n} k={k} batch={batch}: rule "
+                    f"{poly.rns_route(n, k, batch)}; ms " + " ".join(
+                        f"{r}={statistics.median(v):.4f} [{min(v):.4f}, "
+                        f"{max(v):.4f}]" for r, v in got.items()))
+
     # The fifth path per call: latency (events, median of 5), the same call
     # replayed from a CUDA graph (its kernels and copies without host gaps),
     # its launches by kernel, its exchange copies and their bytes, and the
@@ -3941,7 +4522,7 @@ def main() -> int:
         ks_ms = event_ms(call, 10)
         ks_graph = graph_ms(call, 1)
         ntt_graph = graph_ms(key_switch_ntts(n, ds, ks_moduli, rand,
-                                             get_plan, cuda_ntt), 1)
+                                             get_plan, cuda_ntt, rns), 1)
         name = "key_switch_ds5" if ds == 5 else "key_switch"
         xeon = (f"; Xeon {xeon_row(name, n, 49)} us, ratio "
                 f"{xeon_row(name, n, 49) / (ks_ms * 1e3):.3f}"

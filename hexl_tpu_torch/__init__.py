@@ -2,7 +2,8 @@
 
 The negacyclic NTT for every power-of-two N from 2 to 2^20 and every prime
 q < 2^62 = 1 mod 2N (the 64-bit walk, and the single-word walk the JAX
-engine takes for q < 2^30), the multi-modulus `RnsNTT`, the whole
+engine takes for q < 2^30), the stacked multi-modulus `RnsNTT` (one
+launch a pass over a prime basis), the whole
 element-wise family (add/sub, mult, fma, reduce, cmp_add, cmp_sub_mod and
 the Montgomery ops, with the single-word regime of q < 2^30), the
 polynomial products `poly_mult_mod` and `rns_poly_mult_mod`, the

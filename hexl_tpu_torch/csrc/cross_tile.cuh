@@ -204,13 +204,14 @@ __device__ __forceinline__ void tile_pass(u64* buf, u64* y, long long base,
   }
 }
 
-// The forward cross pass on tiles (cross_fwd_kernel's function).
+// The forward cross pass on tiles (cross_fwd_kernel's function), walked
+// by the CTAs along blockIdx.x: the single-modulus kernel's whole launch,
+// or one row's CTAs of a stacked one (cross_rns.cu).
 template <typename W, int S, int LOG_D>
-__global__ void __launch_bounds__(TILE_THREADS)
-    cross_tile_fwd_kernel(const u64* __restrict__ x, u64* __restrict__ y,
-                          const u64* __restrict__ rop,
-                          const u64* __restrict__ prop, u64 q64, int log_lc,
-                          int log_groups, long long tiles) {
+__device__ __forceinline__ void cross_tile_fwd_tiles(
+    const u64* __restrict__ x, u64* __restrict__ y,
+    const u64* __restrict__ rop, const u64* __restrict__ prop, u64 q64,
+    int log_lc, int log_groups, long long tiles) {
   using Shape = TileShape<LOG_D>;
   constexpr int D = Shape::D;
   W *tw, *twp;
@@ -254,12 +255,11 @@ __global__ void __launch_bounds__(TILE_THREADS)
 // at stride 2^h pairs rows r and r + 2^h, block r >> (h + 1) of its
 // m = D / 2^(h+1) at table entry (D - 2m) G + g m + block.
 template <typename W, int S, int LOG_D, bool FINAL>
-__global__ void __launch_bounds__(TILE_THREADS)
-    cross_tile_inv_kernel(const u64* __restrict__ x, u64* __restrict__ y,
-                          const u64* __restrict__ irop_cross,
-                          const u64* __restrict__ pirop_cross, u64 q64,
-                          InvFinal<W> fin, int omf, int log_lc,
-                          int log_groups, long long tiles) {
+__device__ __forceinline__ void cross_tile_inv_tiles(
+    const u64* __restrict__ x, u64* __restrict__ y,
+    const u64* __restrict__ irop_cross, const u64* __restrict__ pirop_cross,
+    u64 q64, const InvFinal<W>& fin, int omf, int log_lc, int log_groups,
+    long long tiles) {
   using Shape = TileShape<LOG_D>;
   constexpr int D = Shape::D;
   const int groups = FINAL ? 1 : 1 << log_groups;
@@ -312,6 +312,28 @@ __global__ void __launch_bounds__(TILE_THREADS)
           });
     });
   });
+}
+
+template <typename W, int S, int LOG_D>
+__global__ void __launch_bounds__(TILE_THREADS)
+    cross_tile_fwd_kernel(const u64* __restrict__ x, u64* __restrict__ y,
+                          const u64* __restrict__ rop,
+                          const u64* __restrict__ prop, u64 q64, int log_lc,
+                          int log_groups, long long tiles) {
+  cross_tile_fwd_tiles<W, S, LOG_D>(x, y, rop, prop, q64, log_lc, log_groups,
+                                    tiles);
+}
+
+template <typename W, int S, int LOG_D, bool FINAL>
+__global__ void __launch_bounds__(TILE_THREADS)
+    cross_tile_inv_kernel(const u64* __restrict__ x, u64* __restrict__ y,
+                          const u64* __restrict__ irop_cross,
+                          const u64* __restrict__ pirop_cross, u64 q64,
+                          InvFinal<W> fin, int omf, int log_lc,
+                          int log_groups, long long tiles) {
+  cross_tile_inv_tiles<W, S, LOG_D, FINAL>(x, y, irop_cross, pirop_cross,
+                                           q64, fin, omf, log_lc, log_groups,
+                                           tiles);
 }
 
 // The tiled form's shared memory: the twiddle tables of 2^log_table

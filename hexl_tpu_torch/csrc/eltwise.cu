@@ -270,3 +270,61 @@ extern "C" int hexl_eltwise(const u64* a, const u64* b, const u64* c,
     default: return launch_word<u64>(op, a, b, c, out, count, s, stream);
   }
 }
+
+// -- K4.rows and K8.reduce.rows: one op over the k rows of a (k, m) block ---
+//
+// The RNS basis's moduli in one launch, each row under its own modulus, as
+// K9 takes per-row constants (dyadic.cu): row r of `consts` (k, 4) holds
+// q_r, mu_r and shift_r of the single-mulhi Barrett product and
+// q_barr_r = floor(2^64 / q_r). Two ops take rows: mult_mod at an IMF (the
+// RNS product's pointwise step, hexl_tpu/poly.py:159-161) and reduce_mod
+// from IMF = q to OMF `factor` (the key switch's base conversion,
+// hexl_tpu/experimental/key_switch.py:140-144); the bodies are the
+// functors above, so each row is bit-identical to the single-modulus op.
+// The grid is (CTAs a row, k): a CTA reads its row's constants once.
+template <typename F>
+__global__ void eltwise_rows_kernel(F f, const u64* __restrict__ a,
+                                    const u64* __restrict__ b,
+                                    u64* __restrict__ out,
+                                    const u64* __restrict__ consts,
+                                    long long m, int op, int factor) {
+  const u64* c = consts + 4 * blockIdx.y;
+  const Scalars s = op == OP_MULT
+                        ? Scalars{c[0], c[1], 0, 0, (int)c[2], factor}
+                        : Scalars{c[0], c[3], 0, 0, 1, factor};
+  const long long off = (long long)blockIdx.y * m;
+  const u64* ra = a + off;
+  const u64* rb = b ? b + off : nullptr;
+  u64* ro = out + off;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < m; i += stride) {
+    ro[i] = f(ra, rb, nullptr, i, s);
+  }
+}
+
+// out[r][i] = op(a[r][i], b[r][i]) under row r's modulus, for r < k and
+// i < m: op 2 (mult_mod, factor = the IMF) or 4 (reduce_mod from IMF = q
+// to OMF factor), 64-bit.
+extern "C" int hexl_eltwise_rows(const u64* a, const u64* b, u64* out,
+                                 const u64* consts, int k, long long m,
+                                 int op, int factor, cudaStream_t stream) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return (int)err;
+  if (k < 1 || k > 65535 || m < 1 || (op != OP_MULT && op != OP_REDUCE))
+    return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const long long needed = (m + threads - 1) / threads;
+  long long cap = (long long)sms * 8 / k;
+  if (cap < 1) cap = 1;
+  const dim3 grid((unsigned)(needed < cap ? needed : cap), (unsigned)k);
+  if (op == OP_MULT)
+    eltwise_rows_kernel<<<grid, threads, 0, stream>>>(MultMod<u64>{}, a, b, out, consts, m, op, factor);
+  else
+    eltwise_rows_kernel<<<grid, threads, 0, stream>>>(ReduceMod<u64>{}, a, b, out, consts, m, op, factor);
+  return (int)cudaGetLastError();
+}

@@ -315,6 +315,45 @@ __device__ __forceinline__ void radix_inv_passes(
 
 // -- K1, K6, K7: one transform or shard per CTA --------------------------------
 
+// One CTA's transform, or shard (first_block = 2^log_d + shard), with x and
+// y at its chunk: the forward passes, then the coalesced store. The
+// single-modulus kernels below and the stacked ones (ntt_rns.cu) call it.
+template <typename W, int S, int LOGR, int G, int LOGN>
+__device__ __forceinline__ void radix_fwd_chunk(
+    const u64* __restrict__ x, u64* __restrict__ y,
+    const u64* __restrict__ rop, const u64* __restrict__ prop, W q,
+    int log_n, int omf, int first_block) {
+  extern __shared__ __align__(16) unsigned char ntt_smem[];
+  W* sm = reinterpret_cast<W*>(ntt_smem);
+  radix_fwd_passes<W, S, LOGR, G, LOGN, false>(
+      sm, [&](int) { return x; }, log_n, 1, 0, first_block, rop, prop, q,
+      omf);
+  radix_fwd_store<W, LOGR, G, false>(sm, [&](int) { return y; }, log_n, 1);
+}
+
+// The inverse of one CTA's chunk: the first pass loads a row of R
+// consecutive words from global memory, the last stores coalesced (u writes
+// y[u + i n/R]); shard `shard` of a transform of 2^log_big_n.
+template <typename W, int S, int LOGR, int G, int LOGN, bool FINAL>
+__device__ __forceinline__ void radix_inv_chunk(
+    const u64* __restrict__ x, u64* __restrict__ y,
+    const u64* __restrict__ irop1, const u64* __restrict__ pirop1, W q,
+    const InvFinal<W>& fin, int log_n, int omf, int log_big_n, int shard) {
+  extern __shared__ __align__(16) unsigned char ntt_smem[];
+  W* sm = reinterpret_cast<W*>(ntt_smem);
+  radix_inv_passes<W, S, LOGR, G, LOGN, FINAL, false>(
+      sm,
+      [&](auto& v, int, int u) {
+        radix_load_row<W, LOGR>(v, x + ((long long)u << LOGR));
+      },
+      [&](auto& v, int, int u, int s) {
+        static_for<0, (1 << LOGR)>([&](auto i) {
+          y[u + (decltype(i)::value << s)] = v[i];
+        });
+      },
+      log_n, log_big_n, shard, 1, 0, irop1, pirop1, q, fin, omf);
+}
+
 template <typename W, int S, int LOGR, int G, int LOGN>
 __global__ void __launch_bounds__(1024)
     radix_fwd_kernel(const u64* __restrict__ x, u64* __restrict__ y,
@@ -322,19 +361,12 @@ __global__ void __launch_bounds__(1024)
                      const u64* __restrict__ prop, u64 q64, int log_n_arg,
                      int omf, int log_d, int shard_base, int log_sub) {
   const int log_n = LOGN ? LOGN : log_n_arg;
-  extern __shared__ __align__(16) unsigned char ntt_smem[];
-  W* sm = reinterpret_cast<W*>(ntt_smem);
   const int shard = shard_base + (blockIdx.x & ((1 << log_sub) - 1));
   const long long off = (long long)blockIdx.x << log_n;
-  radix_fwd_passes<W, S, LOGR, G, LOGN, false>(
-      sm, [&](int) { return x + off; }, log_n, 1, 0, (1 << log_d) + shard,
-      rop, prop, (W)q64, omf);
-  radix_fwd_store<W, LOGR, G, false>(sm, [&](int) { return y + off; }, log_n,
-                                     1);
+  radix_fwd_chunk<W, S, LOGR, G, LOGN>(x + off, y + off, rop, prop, (W)q64,
+                                       log_n, omf, (1 << log_d) + shard);
 }
 
-// The first pass loads a row of R consecutive words from global memory, the
-// last stores coalesced (u writes y[u + i n/R]).
 template <typename W, int S, int LOGR, int G, int LOGN, bool FINAL>
 __global__ void __launch_bounds__(1024)
     radix_inv_kernel(const u64* __restrict__ x, u64* __restrict__ y,
@@ -343,38 +375,26 @@ __global__ void __launch_bounds__(1024)
                      InvFinal<W> fin, int log_n_arg, int omf, int log_d,
                      int shard_base, int log_sub) {
   const int log_n = LOGN ? LOGN : log_n_arg;
-  extern __shared__ __align__(16) unsigned char ntt_smem[];
-  W* sm = reinterpret_cast<W*>(ntt_smem);
   const int shard = shard_base + (blockIdx.x & ((1 << log_sub) - 1));
   const long long off = (long long)blockIdx.x << log_n;
-  radix_inv_passes<W, S, LOGR, G, LOGN, FINAL, false>(
-      sm,
-      [&](auto& v, int, int u) {
-        radix_load_row<W, LOGR>(v, x + off + ((long long)u << LOGR));
-      },
-      [&](auto& v, int, int u, int s) {
-        static_for<0, (1 << LOGR)>([&](auto i) {
-          y[off + u + (decltype(i)::value << s)] = v[i];
-        });
-      },
-      log_n, log_n + log_d, shard, 1, 0, irop1, pirop1, (W)q64, fin, omf);
+  radix_inv_chunk<W, S, LOGR, G, LOGN, FINAL>(x + off, y + off, irop1, pirop1,
+                                              (W)q64, fin, log_n, omf,
+                                              log_n + log_d, shard);
 }
 
 // -- K2: P transforms per CTA ---------------------------------------------------
 
-// `chunks` transforms of 2^log_n, polys_per_cta of them per CTA on
-// polys_per_cta n/R threads; the last CTA may hold fewer.
+// The `polys` transforms of 2^log_n of one CTA, x and y at its first: the
+// packed passes and store (polys_per_cta n/R threads; a ragged CTA holds
+// fewer than polys_per_cta).
 template <int S, int LOGR>
-__global__ void __launch_bounds__(1024)
-    radix_packed_fwd_kernel(const u64* __restrict__ x, u64* __restrict__ y,
-                            const u64* __restrict__ rop,
-                            const u64* __restrict__ prop, u64 q, int log_n,
-                            int chunks, int polys_per_cta, int omf) {
+__device__ __forceinline__ void radix_packed_fwd_polys(
+    const u64* __restrict__ x, u64* __restrict__ y,
+    const u64* __restrict__ rop, const u64* __restrict__ prop, u64 q,
+    int log_n, int polys, int omf) {
   extern __shared__ __align__(16) unsigned char ntt_smem[];
   u64* sm = reinterpret_cast<u64*>(ntt_smem);
-  const long long first = (long long)blockIdx.x * polys_per_cta;
-  const int polys = (int)min((long long)polys_per_cta, chunks - first);
-  const auto at = [&](int p) { return (first + p) << log_n; };
+  const auto at = [&](int p) { return (long long)p << log_n; };
   radix_fwd_passes<u64, S, LOGR, 1, 0, true>(
       sm, [&](int p) { return x + at(p); }, log_n, polys,
       packed_warp_mask(log_n - LOGR), 1, rop, prop, q, omf);
@@ -383,17 +403,13 @@ __global__ void __launch_bounds__(1024)
 }
 
 template <int S, int LOGR>
-__global__ void __launch_bounds__(1024)
-    radix_packed_inv_kernel(const u64* __restrict__ x, u64* __restrict__ y,
-                            const u64* __restrict__ irop1,
-                            const u64* __restrict__ pirop1, u64 q,
-                            InvFinal<u64> fin, int log_n, int chunks,
-                            int polys_per_cta, int omf) {
+__device__ __forceinline__ void radix_packed_inv_polys(
+    const u64* __restrict__ x, u64* __restrict__ y,
+    const u64* __restrict__ irop1, const u64* __restrict__ pirop1, u64 q,
+    const InvFinal<u64>& fin, int log_n, int polys, int omf) {
   extern __shared__ __align__(16) unsigned char ntt_smem[];
   u64* sm = reinterpret_cast<u64*>(ntt_smem);
-  const long long first = (long long)blockIdx.x * polys_per_cta;
-  const int polys = (int)min((long long)polys_per_cta, chunks - first);
-  const auto at = [&](int p) { return (first + p) << log_n; };
+  const auto at = [&](int p) { return (long long)p << log_n; };
   radix_inv_passes<u64, S, LOGR, 1, 0, true, true>(
       sm,
       [&](auto& v, int p, int u) {
@@ -406,6 +422,33 @@ __global__ void __launch_bounds__(1024)
       },
       log_n, log_n, 0, polys, packed_warp_mask(log_n - LOGR), irop1, pirop1,
       q, fin, omf);
+}
+
+// `chunks` transforms of 2^log_n, polys_per_cta of them per CTA on
+// polys_per_cta n/R threads; the last CTA may hold fewer.
+template <int S, int LOGR>
+__global__ void __launch_bounds__(1024)
+    radix_packed_fwd_kernel(const u64* __restrict__ x, u64* __restrict__ y,
+                            const u64* __restrict__ rop,
+                            const u64* __restrict__ prop, u64 q, int log_n,
+                            int chunks, int polys_per_cta, int omf) {
+  const long long first = (long long)blockIdx.x * polys_per_cta;
+  const int polys = (int)min((long long)polys_per_cta, chunks - first);
+  radix_packed_fwd_polys<S, LOGR>(x + (first << log_n), y + (first << log_n),
+                                  rop, prop, q, log_n, polys, omf);
+}
+
+template <int S, int LOGR>
+__global__ void __launch_bounds__(1024)
+    radix_packed_inv_kernel(const u64* __restrict__ x, u64* __restrict__ y,
+                            const u64* __restrict__ irop1,
+                            const u64* __restrict__ pirop1, u64 q,
+                            InvFinal<u64> fin, int log_n, int chunks,
+                            int polys_per_cta, int omf) {
+  const long long first = (long long)blockIdx.x * polys_per_cta;
+  const int polys = (int)min((long long)polys_per_cta, chunks - first);
+  radix_packed_inv_polys<S, LOGR>(x + (first << log_n), y + (first << log_n),
+                                  irop1, pirop1, q, fin, log_n, polys, omf);
 }
 
 // -- launches ----------------------------------------------------------------

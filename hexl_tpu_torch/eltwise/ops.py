@@ -16,18 +16,23 @@ what bounds it on an H100); a tensor on the CPU goes to the plain version
 in `torch_kernels` (64-bit) or `torch_kernels32` (single word). Launches
 are counted in `_build.launches` under "K4" (mult_mod, 64-bit) and
 "K8.<family>" (add_sub, mult, fma, reduce, cmp, mont), with ".u32" for the
-single word.
+single word. `mult_mod_rows` and `reduce_mod_rows` run one op over the k
+rows of a (k, ...) block, row r under moduli[r], in one launch ("K4.rows",
+"K8.reduce.rows"), for the RNS product and the key switch's base
+conversion.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from .. import _build, _device, nt
-from ..limb import to_numpy
+from ..limb import to_numpy, to_tensor
+from ..ntt.plan import register_clear_hook
 from ..utils import check as _chk
 from ..utils.logging import vlog
 from . import torch_kernels as K
@@ -39,6 +44,7 @@ _P = ctypes.c_void_p
 _U = ctypes.c_uint64
 _I = ctypes.c_int
 _ARGS = (_P, _P, _P, _P, ctypes.c_int64, _I, _I, _U, _U, _U, _U, _I, _I, _P)
+_ROWS_ARGS = (_P, _P, _P, _P, _I, ctypes.c_int64, _I, _I, _P)
 _OP = {"add": 0, "sub": 1, "mult": 2, "fma": 3, "reduce": 4, "cmp_add": 5,
        "cmp_sub": 6, "mont_in": 7, "mont_out": 8, "mont_mult": 9}
 _FAMILY = {"add": "add_sub", "sub": "add_sub", "mult": "mult", "fma": "fma",
@@ -158,6 +164,71 @@ def reduce_mod(a: torch.Tensor, modulus: int, input_mod_factor: int,
         s = (nt.barrett_factor(1, 64, modulus), 0, 0)
     return _launch("reduce", word, a, q=modulus, s=s,
                    i=(mode, output_mod_factor))
+
+
+# -- one op over the k rows of a (k, ...) block, row r under moduli[r] --------
+
+@functools.lru_cache(maxsize=None)
+def row_constants(moduli: tuple, device: torch.device) -> torch.Tensor:
+    """(k, 4) int64 on `device`: q, mu and shift of each modulus's
+    single-mulhi Barrett product (`nt.barrett_mult_constants`) and
+    q_barr = floor(2^64 / q), the rows' operands of K4.rows and
+    K8.reduce.rows."""
+    return to_tensor(np.array(
+        [(q, *nt.barrett_mult_constants(q), nt.barrett_factor(1, 64, q))
+         for q in moduli], dtype=np.uint64), device)
+
+
+register_clear_hook(row_constants.cache_clear)
+
+
+def _launch_rows(op: str, name: str, a: torch.Tensor, b, consts,
+                 factor: int) -> torch.Tensor:
+    out = torch.empty_like(a)
+    m = a.numel() // a.shape[0]
+    if m == 0:
+        return out
+    fn = _build.function("eltwise", "hexl_eltwise_rows", _ROWS_ARGS)
+    _build.launch_on(a.device, name, fn, a.data_ptr(),
+                     None if b is None else b.data_ptr(), out.data_ptr(),
+                     consts.data_ptr(), a.shape[0], m, _OP[op], factor)
+    return out
+
+
+def _rows_operands(moduli, a: torch.Tensor, *others) -> tuple:
+    moduli = tuple(int(q) for q in moduli)
+    if a.dim() < 1 or a.shape[0] != len(moduli):
+        raise ValueError(f"the leading axis must hold the {len(moduli)} "
+                         f"moduli, got shape {tuple(a.shape)}")
+    return moduli, _on_card(a, *others)
+
+
+def mult_mod_rows(a: torch.Tensor, b: torch.Tensor, moduli,
+                  input_mod_factor: int = 1) -> torch.Tensor:
+    """(a * b) mod moduli[r] along the leading axis, inputs < IMF*q_r:
+    K4.rows on the GPU (one launch for the whole basis), the plain version
+    on the CPU."""
+    if input_mod_factor not in (1, 2, 4):
+        raise ValueError("input_mod_factor must be 1, 2 or 4")
+    moduli, card = _rows_operands(moduli, a, b)
+    consts = row_constants(moduli, a.device)
+    if not card:
+        return K.mult_mod_rows(a, b, consts, input_mod_factor)
+    return _launch_rows("mult", "K4.rows", a, b, consts, input_mod_factor)
+
+
+def reduce_mod_rows(a: torch.Tensor, moduli,
+                    output_mod_factor: int = 1) -> torch.Tensor:
+    """a mod moduli[r] along the leading axis from IMF = q_r (any u64) to
+    the OMF: K8.reduce.rows on the GPU, the plain version on the CPU."""
+    if output_mod_factor not in (1, 2):
+        raise ValueError("output_mod_factor must be 1 or 2")
+    moduli, card = _rows_operands(moduli, a)
+    consts = row_constants(moduli, a.device)
+    if not card:
+        return K.reduce_mod_rows(a, consts, output_mod_factor)
+    return _launch_rows("reduce", "K8.reduce.rows", a, None, consts,
+                        output_mod_factor)
 
 
 def cmp_add(a: torch.Tensor, cmp: str, bound: int, diff: int):

@@ -14,8 +14,9 @@ import torch
 from .. import nt
 from ..limb import (cond_sub64_half, eq64, ge64, gt64, le64, lt64,
                     montgomery_reduce_u128, mul64_wide, mulhi64,
-                    mult_mod_barrett, reduce_mod_lazy64, s64, select64,
-                    shoup_mul_lazy, u64_bits)
+                    mult_mod_barrett, mult_mod_barrett_rows,
+                    reduce_mod_lazy64, s64, select64, shoup_mul_lazy,
+                    u64_bits)
 
 # The CMPINT predicates of the reference (hexl/util/util.hpp), in its order:
 # the code of each is its index, as the kernel takes it.
@@ -135,3 +136,40 @@ def montgomery_mult_reduce(a: torch.Tensor, b: torch.Tensor,
     inv = nt.hensel_lemma_2adic_root(64, modulus)
     hi, lo = mul64_wide(a, b)
     return montgomery_reduce_u128(hi, lo, modulus, inv)
+
+
+# -- one op over the rows of a (k, ...) block, row r under its own modulus --
+
+def _row_columns(consts: torch.Tensor, x: torch.Tensor):
+    """q, mu, shift and q_barr of each row (consts (k, 4), as
+    `ops.row_constants` builds it), shaped to broadcast along x's rows."""
+    shape = (-1,) + (1,) * (x.dim() - 1)
+    return [consts[:, c].reshape(shape) for c in range(4)]
+
+
+def mult_mod_rows(a: torch.Tensor, b: torch.Tensor, consts: torch.Tensor,
+                  input_mod_factor: int = 1) -> torch.Tensor:
+    """`mult_mod` of row r under row r's modulus; inputs < IMF*q_r."""
+    if input_mod_factor not in (1, 2, 4):
+        raise ValueError("input_mod_factor must be 1, 2 or 4")
+    q, mu, shift, _ = _row_columns(consts, a)
+
+    def lazy(x):
+        if input_mod_factor == 4:
+            x = cond_sub64_half(x, 2 * q)
+        return cond_sub64_half(x, q) if input_mod_factor >= 2 else x
+
+    return mult_mod_barrett_rows(lazy(a), lazy(b), q, mu, shift)
+
+
+def reduce_mod_rows(a: torch.Tensor, consts: torch.Tensor,
+                    output_mod_factor: int = 1) -> torch.Tensor:
+    """`reduce_mod` of row r from IMF = q_r (any u64) to the OMF: Barrett
+    with q_barr_r where a >= q_r."""
+    if output_mod_factor not in (1, 2):
+        raise ValueError("output_mod_factor must be 1 or 2")
+    q, _, _, q_barr = _row_columns(consts, a)
+    red = a - mulhi64(a, q_barr) * q
+    if output_mod_factor == 1:
+        red = cond_sub64_half(red, q)
+    return select64(ge64(a, q), red, a)

@@ -10,10 +10,16 @@ spread (K11), and after the mod-down's (4,4) forward NTTs the fold
 (K11) computes add_mod(result, fma_mod(..., IMF 8)). The transforms always
 take the 64-bit walk, as the JAX function's do (it calls the 64-bit bodies
 and the RNS transforms directly, never the public engine's single-word
-route): `cuda_ntt` with word 64, K1/K2 up to 2^14 and K5/K6 above. The
-base conversion of row i reduces the whole stack of the other targets
-mod q_i in one K8 launch: a value below q_i, which the JAX function leaves
-alone, is left alone by the reduction too.
+route): `cuda_ntt` with word 64, K1/K2 up to 2^14 and K5/K6 above. Where
+the ds > 1 decomposition primes are distinct, the transforms that differ
+only in the prime run stacked over them, as the JAX function runs them
+(key_switch.py:105-160, `ntt.rns`: K1.rns/K2.rns, or K5.rns and K6.rns):
+the target's inverses, the base-converted targets as one (ds, ds - 1, n)
+block, and the mod-down's forwards; the base conversion of that block is
+one K8.reduce.rows launch, row i mod q_i. Otherwise each transform is a
+call a prime, and the base conversion of row i reduces the stack of the
+other targets mod q_i in one K8 launch. A value below q_i, which the JAX
+function leaves alone, is left alone by the reduction too.
 
 A tensor on the GPU goes to the kernels; a tensor on the CPU to the plain
 versions (`mac_flush_plain`, `spread_plain`, `fold_plain`, and the plain
@@ -39,7 +45,8 @@ from ..eltwise import ops, torch_kernels
 from ..limb import (add128, cond_sub64_half, mul64_wide, mulhi64,
                     mult_mod_barrett_rows, reduce_mod_lazy64, shoup_mul_lazy,
                     to_numpy, to_tensor)
-from ..ntt import cuda_ntt, get_plan, register_clear_hook, torch_ntt
+from ..ntt import (cuda_ntt, get_plan, get_rns_plan, register_clear_hook,
+                   rns, torch_ntt)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -177,24 +184,59 @@ def fold(result: torch.Tensor, tpp: torch.Tensor, tntt: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _others_index(d: int, device: torch.device) -> torch.Tensor:
+    """(d, d - 1) int64 on `device`: row i lists 0 .. d-1 without i."""
+    return torch.tensor([[j for j in range(d) if j != i] for i in range(d)],
+                        dtype=torch.int64, device=device)
+
+
+def others(x: torch.Tensor) -> torch.Tensor:
+    """x (d, ...) -> (d, d - 1, ...): row i holds x's rows j != i, in
+    order (one gather)."""
+    return x[_others_index(x.shape[0], x.device)]
+
+
+def assemble(off: torch.Tensor, diag: torch.Tensor,
+             last: torch.Tensor) -> torch.Tensor:
+    """off (d, d - 1, ...), diag (d, ...), last (d, ...) -> (d + 1, d, ...):
+    row i < d holds off[i] with diag[i] inserted at position i, row d is
+    last."""
+    d = diag.shape[0]
+    out = torch.empty((d + 1, d) + tuple(diag.shape[1:]), dtype=diag.dtype,
+                      device=diag.device)
+    square = out[:d].reshape((d * d,) + tuple(diag.shape[1:]))
+    square[1:].view((d - 1, d + 1) + tuple(diag.shape[1:]))[:, :d] = \
+        off.reshape((d - 1, d) + tuple(diag.shape[1:]))
+    square[::d + 1] = diag
+    out[d] = last
+    return out
+
+
 # The steps of the pipeline: through the wrappers (kernels on the GPU),
 # or through the plain versions on any device. `plan` gives what the
-# transforms take for a prime; `constants` the basis's constants, as the
-# other steps take them; take, stack and unbind act on the pipeline's
+# transforms take for a prime, `rns_plan` what the stacked transforms take
+# for a basis; `constants` the basis's constants, as the other steps take
+# them; take, stack, unbind, others and assemble act on the pipeline's
 # values (tensors here, sharded values in `parallel.composites`).
 _TENSORS = dict(
-    plan=get_plan,
+    plan=get_plan, rns_plan=get_rns_plan,
     constants=lambda moduli, msf, ds, like: constants(moduli, msf, ds,
                                                       like.device),
     take=lambda x, i: x[i], stack=torch.stack,
-    unbind=lambda x: list(x.unbind(0)))
+    unbind=lambda x: list(x.unbind(0)), others=others, assemble=assemble)
 WRAPPERS = SimpleNamespace(
     **_TENSORS, fwd=cuda_ntt.fwd_ntt, inv=cuda_ntt.inv_ntt,
+    fwd_rns=rns.fwd_ntt_rns, inv_rns=rns.inv_ntt_rns,
     reduce=lambda x, q: ops.reduce_mod(x, q, q, 1),
+    reduce_rows=lambda x, moduli: ops.reduce_mod_rows(x, moduli, 1),
     mac_flush=mac_flush, spread=spread, fold=fold)
 PLAIN = SimpleNamespace(
     **_TENSORS, fwd=torch_ntt.fwd_ntt, inv=torch_ntt.inv_ntt,
+    fwd_rns=rns.fwd_ntt_rns_plain, inv_rns=rns.inv_ntt_rns_plain,
     reduce=lambda x, q: torch_kernels.reduce_mod(x, q, q, 1),
+    reduce_rows=lambda x, moduli: torch_kernels.reduce_mod_rows(
+        x, ops.row_constants(tuple(moduli), x.device), 1),
     mac_flush=lambda t, keys, c, ds, kc, kms: mac_flush_plain(
         t, keys, c.mac, ds, kc, kms),
     spread=spread_plain, fold=fold_plain)
@@ -202,33 +244,59 @@ PLAIN = SimpleNamespace(
 
 def pipeline(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
     """The key switch's order of steps, with its lazy ranges, over the
-    values and steps of `steps` (WRAPPERS, PLAIN, or a mesh's)."""
+    values and steps of `steps` (WRAPPERS, PLAIN, or a mesh's). Where the
+    ds > 1 decomposition primes are distinct, the transforms that differ
+    only in the prime run stacked, as the JAX function runs them
+    (key_switch.py:105-160): the target's inverses, the base-converted
+    targets as one (ds, ds - 1, n) block and the mod-down's forwards; else
+    one call a prime."""
     c = steps.constants(moduli, msf, ds, t_target)
     plans = [steps.plan(n, q) for q in moduli[:ds]] + [steps.plan(n,
                                                                  moduli[-1])]
-    # The target's inverse NTTs, (2, 1), one per decomposition prime.
-    t_intt = [steps.inv(steps.take(t_target, j), plans[j], 2, 1)
-              for j in range(ds)]
-    # Row i (the ds decomposition primes, then the key prime): the other
-    # targets, base-converted to q_i and forward-transformed at (4, 4); at
-    # j = i (i < ds) the target itself, already in NTT form.
-    rows = []
-    for i, plan in enumerate(plans):
-        js = [j for j in range(ds) if j != i]
-        ops_i = []
-        if js:
-            conv = steps.reduce(steps.stack([t_intt[j] for j in js]), plan.q)
-            ops_i = steps.unbind(steps.fwd(conv, plan, 4, 4))
-        if i < ds:
-            ops_i.insert(i, steps.take(t_target, i))
-        rows.append(steps.stack(ops_i))
-    tpp = steps.mac_flush(steps.stack(rows), keys, c, ds, kc, kms)
+    if ds > 1 and len(set(moduli[:ds])) == ds:
+        rplan = steps.rns_plan(n, moduli[:ds])
+        # The target's inverse NTTs, (2, 1), one stacked transform.
+        t_intt = steps.inv_rns(t_target, rplan, 2, 1)
+        # Row i < ds: the other targets base-converted to q_i and forward-
+        # transformed at (4, 4), one stacked (ds, ds - 1, n) block, with the
+        # target itself (already in NTT form) at j = i; the key prime's row:
+        # every target base-converted to qk, one batched transform.
+        conv = steps.reduce_rows(steps.others(t_intt), moduli[:ds])
+        key_row = steps.fwd(steps.reduce(t_intt, moduli[-1]), plans[ds], 4,
+                            4)
+        t_rows = steps.assemble(steps.fwd_rns(conv, rplan, 4, 4), t_target,
+                                key_row)
+    else:
+        rplan = None
+        # The target's inverse NTTs, (2, 1), one per decomposition prime.
+        t_intt = [steps.inv(steps.take(t_target, j), plans[j], 2, 1)
+                  for j in range(ds)]
+        # Row i (the ds decomposition primes, then the key prime): the
+        # other targets, base-converted to q_i and forward-transformed at
+        # (4, 4); at j = i (i < ds) the target itself, in NTT form.
+        rows = []
+        for i, plan in enumerate(plans):
+            js = [j for j in range(ds) if j != i]
+            ops_i = []
+            if js:
+                conv = steps.reduce(steps.stack([t_intt[j] for j in js]),
+                                    plan.q)
+                ops_i = steps.unbind(steps.fwd(conv, plan, 4, 4))
+            if i < ds:
+                ops_i.insert(i, steps.take(t_target, i))
+            rows.append(steps.stack(ops_i))
+        t_rows = steps.stack(rows)
+    tpp = steps.mac_flush(t_rows, keys, c, ds, kc, kms)
     # Mod-down: the key prime's row, (2, 2) inverse; the spread to every
-    # q_i; the (4, 4) forward NTTs; the fold into result.
+    # q_i; the (4, 4) forward NTTs (stacked where the transforms above
+    # were); the fold into result.
     t_last = steps.inv(steps.take(tpp, ds), plans[ds], 2, 2)
     spread_out = steps.spread(t_last, c)
-    t_ntt = steps.stack([steps.fwd(steps.take(spread_out, i), plans[i], 4, 4)
-                         for i in range(ds)])
+    if rplan is not None:
+        t_ntt = steps.fwd_rns(spread_out, rplan, 4, 4)
+    else:
+        t_ntt = steps.stack([steps.fwd(steps.take(spread_out, i), plans[i],
+                                       4, 4) for i in range(ds)])
     return steps.fold(result, tpp, t_ntt, c)
 
 

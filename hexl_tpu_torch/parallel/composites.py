@@ -62,21 +62,43 @@ def dist_dyadic_multiply(operand1, operand2, moduli, mesh: Mesh):
 
 def _mesh_steps(mesh: Mesh) -> SimpleNamespace:
     """The key switch's steps over Sharded values: the transforms through
-    DistNTT, every other step at each position on its parts."""
+    DistNTT, every other step at each position on its parts. The stacked
+    steps run one call a prime, as the JAX package's mesh key switch runs
+    them (hexl_tpu/parallel/composites.py:106-126): the transforms through
+    each prime's DistNTT, the base conversion through K8 row by row."""
     steps = _ks.WRAPPERS
 
     def take(x, i):
         return local(lambda p: p[i], x)
 
+    def stack(xs):
+        return local(torch.stack, xs)
+
+    def unbind(x):
+        return [take(x, i) for i in range(x.parts[0][0].shape[0])]
+
+    def per_prime(method):
+        return lambda x, dists, imf, omf: stack([
+            getattr(d, method)(xi, imf, omf)
+            for d, xi in zip(dists, unbind(x))])
+
     return SimpleNamespace(
         plan=lambda n, q: get_dist_ntt(n, q, mesh),
+        rns_plan=lambda n, moduli: [get_dist_ntt(n, q, mesh)
+                                    for q in moduli],
         constants=lambda moduli, msf, ds, like: functools.partial(
             _ks.constants, moduli, msf, ds),
-        take=take, stack=lambda xs: local(torch.stack, xs),
-        unbind=lambda x: [take(x, i) for i in range(x.parts[0][0].shape[0])],
+        take=take, stack=stack, unbind=unbind,
+        others=lambda x: local(_ks.others, x),
+        assemble=lambda off, diag, last: local(_ks.assemble, off, diag,
+                                               last),
         fwd=lambda x, d, imf, omf: d.forward(x, imf, omf),
         inv=lambda x, d, imf, omf: d.inverse(x, imf, omf),
+        fwd_rns=per_prime("forward"), inv_rns=per_prime("inverse"),
         reduce=lambda x, q: local(lambda p: steps.reduce(p, q), x),
+        reduce_rows=lambda x, moduli: stack([
+            local(lambda p, q=q: steps.reduce(p, q), xi)
+            for q, xi in zip(moduli, unbind(x))]),
         mac_flush=lambda t, keys, c, ds, kc, kms: local(
             lambda tp, k: steps.mac_flush(tp, k, c(k.device), ds, kc, kms),
             t, keys),

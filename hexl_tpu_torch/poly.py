@@ -33,9 +33,14 @@ largest, as the JAX stacked pipeline does) allows; K3 and the plain chain
 stay exact. Every output is fully reduced, so the scheme changes no bit
 of it.
 
-rns_poly_mult_mod runs the same product per prime of an RNS basis, the
-counterpart of `hexl_tpu/poly.py::rns_poly_mult_mod`; every output is fully
-reduced, so it equals the JAX package's stacked pipeline bit for bit.
+rns_poly_mult_mod runs the same product over an RNS basis, the counterpart
+of `hexl_tpu/poly.py::rns_poly_mult_mod`: for k > 1 distinct primes the
+JAX package's stacked pipeline (`_jitted_rns_poly_mult`), two stacked
+forwards over the whole basis (`ntt.rns`: K1.rns/K2.rns, or K5.rns and
+K6.rns above 2^14), the pointwise product of every row in one K4.rows
+launch and one stacked inverse, where `rns_route` picks it; otherwise, and
+for a repeated prime or k = 1, `poly_mult` per prime. Every output is fully
+reduced, so both routes equal the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ import torch
 from . import _build, _device, nt
 from .eltwise import ops, torch_kernels
 from .limb import to_numpy
-from .ntt import cuda_ntt, get_plan, torch_ntt
+from .ntt import cuda_ntt, get_plan, rns, torch_ntt
 
 _P = ctypes.c_void_p
 _U = ctypes.c_uint64
@@ -171,11 +176,78 @@ def _broadcast_polys(ta: torch.Tensor, tb: torch.Tensor, degree: int):
     return _device.broadcast((ta, tb))
 
 
+# The RNS product's routes (`rns_route`): the stacked transforms and
+# K4.rows, or K3 once a prime.
+RNS_ROUTES = ("stacked", "per_prime")
+RNS_PER_PRIME_BATCH = 256   # the least batch at which K3 once a prime won
+
+
+def rns_route(degree: int, k: int, batch: int) -> str:
+    """The RNS product's route for k > 1 distinct primes of `degree` and
+    `batch` products a prime: "stacked" (two stacked forwards, K4.rows,
+    one stacked inverse: 4 launches for the basis at N <= 2^14, 7 above)
+    or "per_prime" (`poly_mult` a prime: K3, k launches). The card's table
+    (`chip_smoke.py` phase 5, RNS route rows; one H100 80GB HBM3 at 700
+    W; stacked / K3 once a prime, device ms):
+
+    | N | k | batch 1 | 8 | 64 | 256 |
+    |---|---|---|---|---|---|
+    | 2^12 | 2 | 0.75 | 0.78 | 0.86 | 1.11 |
+    | 2^12 | 4 | 0.39 | 0.42 | 0.64 | 1.04 |
+    | 2^12 | 16 | 0.10 | 0.12 | 0.52 | 0.96 |
+    | 2^13 | 2 | 0.85 | 0.86 | 0.97 | 1.18 |
+    | 2^13 | 4 | 0.44 | 0.46 | 0.89 | 1.11 |
+    | 2^13 | 16 | 0.11 | 0.14 | 0.83 | 1.04 |
+    | 2^14 | 2-16 | 0.12-0.89 | 0.14-0.89 | 0.92-0.97 | 0.93-0.97 |
+
+    K3 once a prime wins only where its fusion (a third of the stacked
+    route's bytes) outweighs k launches of its own: at 2^12 and 2^13 from
+    batch 256 (not at 2^12 with 16 primes); the stacked route everywhere
+    else, and above 2^14, where there is no K3. Between batch 64 and 256,
+    and below 2^12, the card was not asked: the stacked route."""
+    if batch >= RNS_PER_PRIME_BATCH and (
+            degree == 1 << 13 or (degree == 1 << 12 and k <= 4)):
+        return "per_prime"
+    return "stacked"
+
+
+def rns_poly_mult(a: torch.Tensor, b: torch.Tensor, rplan,
+                  scheme: str = "exact") -> torch.Tensor:
+    """The stacked product of (k, ..., N) blocks of one shape and device,
+    row i under rplan.moduli[i] (`hexl_tpu/poly.py::_jitted_rns_poly_mult`):
+    both forwards to [0, 4q) over the whole basis, K4.rows at IMF 4, the
+    inverse to [0, q); on the GPU 2 x (1 or 2) + 1 + (1 or 2) launches for
+    the basis, on the CPU the plain versions."""
+    fa = rns.fwd_ntt_rns(a, rplan, 1, 4, scheme)
+    fb = rns.fwd_ntt_rns(b, rplan, 1, 4, scheme)
+    prod = ops.mult_mod_rows(fa, fb, rplan.moduli, 4)
+    return rns.inv_ntt_rns(prod, rplan, 1, 1, scheme)
+
+
+def _broadcast_rows(ta: torch.Tensor, tb: torch.Tensor, degree: int):
+    """(k, ..., N) operands broadcast as each prime's rows broadcast in
+    `_broadcast_polys` (their ranks equalised behind the prime axis)."""
+    for t in (ta, tb):
+        if t.shape[-1] != degree:
+            raise ValueError(f"operands must have shape (..., {degree}), "
+                             f"got {tuple(t.shape)}")
+    rank = max(ta.dim(), tb.dim())
+    ta, tb = (t.reshape(t.shape[0], *([1] * (rank - t.dim())), *t.shape[1:])
+              for t in (ta, tb))
+    return _device.broadcast((ta, tb))
+
+
 def rns_poly_mult_mod(a, b, degree: int, moduli, device=None):
     """Per-prime negacyclic products: a, b shaped (num_primes, ..., N) with
     residues mod moduli[i] along the leading axis, in [0, moduli[i]);
     returns the same shape. Operands and devices as in `poly_mult_mod`;
-    each prime's rows broadcast as there, as the JAX pipeline's do."""
+    each prime's rows broadcast as there, as the JAX pipeline's do.
+
+    As in the JAX package (poly.py:152-171), a basis of k > 1 distinct
+    primes takes the stacked route (`rns_poly_mult`) where `rns_route`
+    picks it, and otherwise, and for a repeated prime or k = 1,
+    `poly_mult` per prime. Every output is fully reduced, so the routes
+    give the same bits."""
     moduli = [int(q) for q in moduli]
     if degree < 2:
         raise ValueError("degree must be at least 2")
@@ -183,7 +255,14 @@ def rns_poly_mult_mod(a, b, degree: int, moduli, device=None):
     if any(t.dim() < 2 or t.shape[0] != len(moduli) for t in (ta, tb)):
         raise ValueError(
             f"operands must both have shape ({len(moduli)}, ..., {degree})")
+    k = len(moduli)
     scheme = torch_ntt.scheme_for(max(moduli), degree, ta.device)
+    if k > 1 and len(set(moduli)) == k:
+        ta, tb = _broadcast_rows(ta, tb, degree)
+        if rns_route(degree, k, ta[0].numel() // degree) == "stacked":
+            out = rns_poly_mult(ta, tb, rns.get_rns_plan(degree, moduli),
+                                scheme)
+            return to_numpy(out) if host else out
     out = torch.stack([
         poly_mult(*_broadcast_polys(ta[i], tb[i], degree),
                   get_plan(degree, q), scheme)

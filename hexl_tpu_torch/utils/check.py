@@ -36,3 +36,14 @@ def check_bounds(values, bound: int, message: str) -> None:
     if arr.size and int(arr.max()) >= bound:
         raise ValueError(f"{message}: max value {int(arr.max())} "
                          f">= bound {bound}")
+
+
+def check_row_bounds(values, bounds, message: str) -> None:
+    """`check_bounds` of row i of values against bounds[i], the message
+    naming the row as "(prime i)", in debug mode only."""
+    if not debug_enabled():
+        return
+    if isinstance(values, torch.Tensor):
+        values = to_numpy(values)
+    for i, bound in enumerate(bounds):
+        check_bounds(values[i], bound, f"{message} (prime {i})")

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from hexl_tpu_torch import (NTT, FFTLike, _build, dyadic_multiply,
+from hexl_tpu_torch import (NTT, FFTLike, RnsNTT, _build,
+                            dyadic_multiply,
                             eltwise_add_mod,
                             eltwise_cmp_add, eltwise_cmp_sub_mod,
                             eltwise_fma_mod, eltwise_montgomery_form_in,
@@ -24,7 +25,8 @@ from hexl_tpu_torch.eltwise import ops, torch_kernels, torch_kernels32
 from hexl_tpu_torch.experimental import cuda_fft, df32, fft_like
 from hexl_tpu_torch.limb import to_tensor
 from hexl_tpu_torch.ntt import (cuda_ntt, fwd_ntt_mxu, get_mxu_plan, get_plan,
-                                hier, inv_ntt_mxu, mxu_ntt, ntt32, torch_ntt)
+                                hier, inv_ntt_mxu, mxu_ntt, ntt32, rns,
+                                torch_ntt)
 
 dyadic_mod = importlib.import_module("hexl_tpu_torch.experimental.dyadic")
 ks_mod = importlib.import_module("hexl_tpu_torch.experimental.key_switch")
@@ -195,7 +197,10 @@ def test_split_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
                                   x29)
     poly_mult_mod(x, x, n, q)
     rns_poly_mult_mod(np.stack([x, x29]), np.stack([x, x29]), n, [q, q29])
-    assert dict(_build.launches) == {"K5": 11, "K6": 11, "K7": 2, "K4": 3}
+    # The RNS product of two distinct primes: three stacked transforms of
+    # two passes each and one K4.rows for the basis.
+    assert dict(_build.launches) == {"K5": 5, "K6": 5, "K7": 2, "K4": 1,
+                                     "K5.rns": 3, "K6.rns": 3, "K4.rows": 1}
 
 
 def _u64(rng, lo, hi):
@@ -410,10 +415,14 @@ def test_slice3_entry_points_never_take_the_plain_path(cuda, monkeypatch):
     dyadic_multiply(x, x, moduli[:2])
     lr_mat_vec_mult(torch.stack([x, x]), torch.stack([x, x]), moduli[:2])
     key_switch(result, t, n, 2, 3, 3, 2, moduli, keys, msf)
-    # ds = 2 at 2^15: 2 + 3 + 1 + 2 inverse/forward transforms of two
-    # passes (K5, K6) each, one K8 reduce per row, K10, K11 twice.
-    assert dict(_build.launches) == {"K9": 2, "K5": 8, "K6": 8,
-                                     "K8.reduce": 3, "K10": 1, "K11": 2}
+    # ds = 2 at 2^15, distinct primes: three stacked transforms over the
+    # decomposition primes (the target's inverses, the converted block,
+    # the mod-down's forwards) and the key prime's forward and inverse, of
+    # two passes each; the rows' and the key prime's base conversion; K10,
+    # K11 twice.
+    assert dict(_build.launches) == {"K9": 2, "K5.rns": 3, "K6.rns": 3,
+                                     "K5": 2, "K6": 2, "K8.reduce.rows": 1,
+                                     "K8.reduce": 1, "K10": 1, "K11": 2}
 
 
 def _fft_value(rng, shape, precision, dev):
@@ -1137,3 +1146,144 @@ def test_cross_tile_instantiations_do_not_spill(cuda):
             if re.search(r"cross_tile_(fwd|inv)_kernel", k)}
     assert len(tile) == 3 * 6 * 4, sorted(tile)
     assert not {k: v for k, v in tile.items() if v[2] or v[3]}
+
+
+# -- the stacked transform (K1.rns, K2.rns, K5.rns, K6.rns) and the row ops --
+
+def _stacked_basis(n, k, lean=False):
+    """k distinct primes = 1 mod 2n of mixed bit lengths (up to the largest
+    below 2^62, or below 2^60 for the lean schemes)."""
+    bits = (59, 29, 50, 45) if lean else (29, 62, 50, 60)
+    out = []
+    for i in range(k):
+        b = bits[i % len(bits)]
+        ps = (nt.generate_primes(4, 61, False, ntt_size=n) if b == 62
+              else nt.generate_primes(4, b, True, ntt_size=n))
+        out.append(next(q for q in ps if q not in out))
+    return out
+
+
+def _stacked_rows(rng, moduli, shape, factor, dev):
+    return torch.stack([_rand(rng, shape, factor * q, dev) for q in moduli])
+
+
+@pytest.mark.parametrize("n,k,batch", [(64, 3, 5), (64, 1, 2), (1024, 3, 2),
+                                       (1 << 14, 16, 1), (1 << 15, 3, 3),
+                                       (1 << 17, 16, 1), (1 << 20, 3, 1)])
+@pytest.mark.parametrize("scheme", ["exact", "lean16", "lean8"])
+def test_stacked_kernels_match_plain(cuda, n, k, batch, scheme):
+    """fwd_ntt_rns/inv_ntt_rns over the whole basis, every IMF/OMF pair,
+    against the plain stacked walk; one launch a direction up to 2^14, two
+    above, under the stacked names."""
+    moduli = _stacked_basis(n, k, scheme != "exact")
+    rplan = rns.get_rns_plan(n, moduli)
+    rng = np.random.default_rng(n + k + batch)
+    for forward, pairs in ((True, [(i, o) for i in (1, 2, 4) for o in (1, 4)]),
+                           (False, [(i, o) for i in (1, 2) for o in (1, 2)])):
+        fn = rns.fwd_ntt_rns if forward else rns.inv_ntt_rns
+        plain = rns.fwd_ntt_rns_plain if forward else rns.inv_ntt_rns_plain
+        for imf, omf in pairs:
+            x = _stacked_rows(rng, moduli, (batch, n), imf, cuda)
+            _build.reset_launches()
+            got = fn(x, rplan, imf, omf, scheme)
+            torch.cuda.synchronize()
+            assert sum(_build.launches.values()) == (1 if n <= 1 << 14
+                                                     else 2)
+            assert all(".rns" in name for name in _build.launches)
+            assert torch.equal(got, plain(x, rplan, imf, omf, scheme))
+
+
+@pytest.mark.parametrize("log_d", range(1, 7))
+@pytest.mark.parametrize("form", ["column", "tile"])
+def test_stacked_cross_forms_match_plain(cuda, monkeypatch, log_d, form):
+    """K5.rns in each form (the rule's pick forced) and K6.rns pass by pass
+    against each row's plain pass, batches 1 and 3."""
+    n = 1 << (14 + log_d)
+    moduli = _stacked_basis(n, 3)
+    rplan = rns.get_rns_plan(n, moduli)
+    rows = rplan.descriptors(cuda)
+    monkeypatch.setattr(hier, "cross_form", lambda *args: form)
+    rng = np.random.default_rng(log_d)
+    for batch in (1, 3):
+        blocks = (batch, 1 << log_d, hier.LOCAL_N)
+        xf = _stacked_rows(rng, moduli, (batch, n), 4, cuda)
+        xi = _stacked_rows(rng, moduli, (batch, n), 2, cuda)
+        got = rns._cross(xf, rows, rplan, batch, True, 1, "exact")
+        want = torch.stack([hier.cross_fwd_plain(xf[i].view(blocks), p)
+                            for i, p in enumerate(rplan.plans)])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want.view(got.shape))
+        for omf in (1, 2):
+            got = rns._cross(xi, rows, rplan, batch, False, omf, "exact")
+            want = torch.stack([hier.cross_inv_plain(xi[i].view(blocks), p,
+                                                     omf)
+                                for i, p in enumerate(rplan.plans)])
+            torch.cuda.synchronize()
+            assert torch.equal(got, want.view(got.shape))
+        got = rns._local(xf, rows, rplan, batch, True, 4, "exact")
+        want = torch.stack([hier.local_fwd_plain(xf[i], p, 4)
+                            for i, p in enumerate(rplan.plans)])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_row_ops_match_plain(cuda, k):
+    moduli = _stacked_basis(4096, k)
+    consts = ops.row_constants(tuple(moduli), cuda)
+    rng = np.random.default_rng(k)
+    for imf in (1, 2, 4):
+        a, b = (_stacked_rows(rng, moduli, (3, 4097), imf, cuda)
+                for _ in range(2))
+        got = ops.mult_mod_rows(a, b, moduli, imf)
+        torch.cuda.synchronize()
+        assert torch.equal(got, torch_kernels.mult_mod_rows(a, b, consts,
+                                                            imf))
+    x = _rand(rng, (k, 3, 4097), 1 << 64, cuda)
+    for omf in (1, 2):
+        got = ops.reduce_mod_rows(x, moduli, omf)
+        torch.cuda.synchronize()
+        assert torch.equal(got, torch_kernels.reduce_mod_rows(x, consts,
+                                                              omf))
+
+
+def test_stacked_instantiations_do_not_spill(cuda):
+    """Every stacked instantiation (K1.rns, K2.rns, K5.rns in both forms,
+    K6.rns and the row ops), from the -Xptxas -v report of the build."""
+    import re
+    res = _build.kernel_resources(_build.build_all()["log"])
+    stacked = {k: v for k, v in res.items()
+               if re.search(r"_rns_kernel|eltwise_rows_kernel", k)}
+    assert len(stacked) == 2 * 3 * 7 + 3 + 2 * 3 * 2 + 2 * 2 * 3 * 6 + 2
+    spills = {k: v for k, v in stacked.items() if v[2] or v[3]}
+    assert not spills, spills
+
+
+def test_stacked_entry_points_never_take_the_plain_path(cuda, monkeypatch):
+    """RnsNTT and rns_poly_mult_mod on the card: one launch a direction (two
+    above 2^14) for the basis, never a plain version or a loop a prime."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for name in ("fwd_stages", "inv_stages", "inv_final"):
+        monkeypatch.setattr(torch_ntt, name, refuse)
+    for name in ("mult_mod", "mult_mod_rows"):
+        monkeypatch.setattr(torch_kernels, name, refuse)
+    monkeypatch.setattr(cuda_ntt, "fwd_ntt", refuse)
+    monkeypatch.setattr(cuda_ntt, "inv_ntt", refuse)
+    monkeypatch.setattr(poly, "poly_mult", refuse)
+    rng = np.random.default_rng(3)
+    for n, kernels in ((1 << 12, {"K1.rns": 2}),
+                       (1 << 17, {"K5.rns": 2, "K6.rns": 2})):
+        moduli = _stacked_basis(n, 4)
+        engine = RnsNTT(n, moduli)
+        x = _stacked_rows(rng, moduli, (2, n), 1, cuda)
+        _build.reset_launches()
+        back = engine.inverse(engine.forward(x))
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == kernels
+        assert torch.equal(back, x)
+        _build.reset_launches()
+        rns_poly_mult_mod(x, x, n, moduli)
+        torch.cuda.synchronize()
+        assert sum(_build.launches.values()) == (4 if n <= 1 << 14 else 7)
