@@ -13,18 +13,32 @@ card in turns parent, this tree, this tree, parent:
 
     python3 chip_smoke.py --walk-ab PARENT
 
-(K5's rows at D = 8 .. 64 among them). K5 alone, at every D in both words
-and forms, and the variants of its tiled form against each other:
+(K5's rows at D = 8 .. 64 among them; and the key switch at every
+KS_SHAPES entry, its transforms, and the graft pipeline). K5 alone, at
+every D in both words and forms, and the variants of its tiled form
+against each other:
 
     python3 chip_smoke.py --k5-times
     python3 chip_smoke.py --k5-variants
+
+The cluster form of the stacked transform (K1.rns.cl, K6.rns.cl): its
+checks, its launch floor and the grid of its rule, `rns.cluster_for`
+(every C against one CTA and the split variant, one prime at N = 2^12 ..
+2^15 and batches to a wave; ROOT and BATCHES time a variant tree on a cut
+grid); and the key switch launch by launch with each launch's one-CTA
+grid and its split variant (K5 then K6 at L = 2^10 .. 2^13) on the port
+at ROOT:
+
+    python3 chip_smoke.py --cluster-times [ROOT BATCHES]
+    python3 chip_smoke.py --ks-times ROOT
 
 Phases, each of which fails the run (non-zero exit) if anything is wrong:
   1. the card: CUDA present; its name and power limit from nvidia-smi;
   2. build: every kernel compiled from csrc/ with nvcc for sm_90a, with
      the compiler's -Xptxas -v report (the run fails if a lean, chain,
      radix-walk, K2, K3 or K5 tiled-form instantiation of the NTT or the
-     FFT-like, or any of the 131 stacked (RNS) instantiations, spills),
+     FFT-like, or any of the 131 stacked (RNS) or 26 cluster-form
+     instantiations, spills; the cluster form's most active clusters),
      K3's most active clusters per degree, five
      probe kernels whose SASS gives the IMADs of a 64x64 and of a 32x32
      high and low product and of the lean butterflies' approximate 64x64
@@ -67,7 +81,10 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      against each row's plain pass) for k = 1, 3 and 16 primes of mixed
      bit lengths at N = 2^6, 2^10, 2^14, 2^15, 2^17 and 2^20, batches
      whose rows end in ragged CTAs, every IMF/OMF pair and scheme, and
-     K4.rows and K8.reduce.rows;
+     K4.rows and K8.reduce.rows; the cluster form (cluster_kernel_checks):
+     K1.rns.cl and K6.rns.cl at every C (2, 4, 8, 16) and N from 2^12 to
+     2^20 against the plain cluster walk, every IMF/OMF pair, and the
+     one-prime calls routed to it at N = 2^12 .. 2^16;
   4. seven main paths through the public entry points, each with the
      launch counts set to 0 just before it and read just after it.
      The first: NTT(2^14, 60-bit) forward and inverse at batch 256
@@ -176,7 +193,11 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      a prime, in turns, with launches and bounds; K5.rns's tiled form
      beside the single-modulus one on the same bytes; and the RNS
      product's routes at N <= 2^14 (stacked against K3 once a prime) at k
-     = 2, 4, 16 and batches 1 to 256.
+     = 2, 4, 16 and batches 1 to 256; K1.rns.cl and K6.rns.cl at the
+     key switch's shapes beside their bound (bytes, IMADs or the launch
+     floor: the cluster probe at the same grid and cluster shape), and
+     every launch of the four key switches in the one-CTA form and in the
+     rule's cluster.
 It then prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}.
 """
@@ -315,12 +336,42 @@ def sass_imads(proc, cubin: pathlib.Path) -> dict:
 # bytes bound that a tiny shape cannot reach (K4 at 2 x 2^12 elements).
 # Built here only, not into the port's libraries.
 EMPTY_PROBE = r"""
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 __global__ void empty_probe() {}
 extern "C" int launch_empty_probe(int blocks, int threads,
                                   cudaStream_t stream) {
   empty_probe<<<blocks, threads, 0, stream>>>();
   return (int)cudaGetLastError();
+}
+// The cluster form's launch floor: an empty kernel (syncs = 0), or one of
+// `syncs` cluster barriers, on `blocks` CTAs in clusters of `cluster`
+// with `smem` bytes of dynamic shared memory.
+__global__ void cluster_probe(int syncs) {
+  for (int i = 0; i < syncs; ++i) cooperative_groups::this_cluster().sync();
+}
+extern "C" int launch_cluster_probe(int blocks, int threads, int cluster,
+                                    int smem, int syncs,
+                                    cudaStream_t stream) {
+  cudaFuncSetAttribute(cluster_probe,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (cluster > 8)
+    cudaFuncSetAttribute(cluster_probe,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const int err = (int)cudaLaunchKernelEx(&cfg, cluster_probe, syncs);
+  return err ? err : (int)cudaGetLastError();
 }
 """
 
@@ -339,18 +390,25 @@ def start_empty_probe(nvcc: str, out_dir: pathlib.Path):
 
 
 def empty_probe(proc, lib: pathlib.Path):
-    """launch(blocks, threads): the empty kernel on the current stream."""
+    """launch(blocks, threads[, cluster, smem, syncs]): the empty kernel
+    on the current stream; with a cluster, the cluster probe (clusters of
+    `cluster` CTAs, `smem` bytes of dynamic shared memory, `syncs` cluster
+    barriers)."""
     import ctypes
     import torch
     text, _ = proc.communicate(timeout=300)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on the empty probe:\n{text}")
-    fn = ctypes.CDLL(str(lib)).launch_empty_probe
+    so = ctypes.CDLL(str(lib))
+    fn, cl = so.launch_empty_probe, so.launch_cluster_probe
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    cl.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = cl.restype = ctypes.c_int
 
-    def launch(blocks, threads):
-        err = fn(blocks, threads, torch.cuda.current_stream().cuda_stream)
+    def launch(blocks, threads, cluster=None, smem=0, syncs=0):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = (fn(blocks, threads, stream) if cluster is None else
+               cl(blocks, threads, cluster, smem, syncs, stream))
         if err:
             raise RuntimeError(f"empty probe launch failed: cudaError {err}")
     return launch
@@ -559,8 +617,8 @@ BIG = (2, 16, 1 << 17)               # 2^22 elements: 2 polys x 16 primes
 LR_WEIGHTS = 16
 # (N, ds) of the key switches: the Xeon rows', then N=2^15 x 14 primes.
 KS_SHAPES = ((1 << 14, 3), (1 << 14, 5), (1 << 15, 3), (1 << 15, 14))
-THIRD_PATH_KERNELS = ("K1", "K1.rns", "K4", "K5", "K5.rns", "K6", "K6.rns",
-                      "K8.reduce.rows", "K8.add_sub", "K8.add_sub.u32",
+# The third path's kernels beside its key switches' (`key_switch_launches`).
+THIRD_PATH_KERNELS = ("K4", "K8.reduce.rows", "K8.add_sub", "K8.add_sub.u32",
                       "K8.mult.u32", "K8.fma", "K8.fma.u32", "K8.reduce",
                       "K8.reduce.u32", "K8.cmp", "K8.mont", "K9", "K10",
                       "K11")
@@ -721,34 +779,238 @@ def third_path(rng, dev, port, nt, plain64, plain32, dyadic, ks, to_tensor,
     return cases
 
 
-def key_switch_ntts(n, ds, moduli, rand, get_plan, cuda_ntt, rns):
-    """A function that runs the transforms of one key switch (the same
-    calls, shapes and lazy ranges as `experimental.key_switch.pipeline`, on
-    random inputs): the target's ds inverses and the (ds, ds - 1, n) block
-    of base-converted targets at (4, 4), each one stacked call over the ds
-    decomposition primes (`rns`), the key prime's forward of the ds
-    converted targets and its inverse, and the mod-down's ds forwards, one
-    stacked call. Through an earlier tree's `rns`, whose stacked calls
-    loop over the primes, it times that tree's transforms."""
+# The transforms of one key switch (`experimental.key_switch.pipeline`)
+# as (label, rows, batch, forward, imf, omf): rows = ds is a call stacked
+# over the ds decomposition primes, rows = 1 the key prime's call.
+def key_switch_transforms(ds):
+    return (("inv", ds, 1, False, 2, 1), ("fwd", ds, ds - 1, True, 4, 4),
+            ("key.fwd", 1, ds, True, 4, 4), ("key.inv", 1, 2, False, 2, 2),
+            ("md.fwd", ds, 2, True, 4, 4))
+
+
+def transform_launches(rns, sms, dev, n, rows, batch, stacked=True):
+    """{kernel: launches} of one 64-bit exact transform of (rows, batch, n)
+    (stacked over `rows` primes, or one prime's), under the cluster form's
+    rule (`rns.cluster_for`): K1 (.rns) or K1.rns.cl up to 2^14; above, K5
+    (.rns, the column form) and K6 (.rns) or K6.rns.cl."""
+    shards = max(1, n >> 14)
+    log_n = min(n.bit_length() - 1, 14)
+    clustered = n >= 1 << 12 and rns.cluster_for(
+        log_n, rows * batch * shards, sms, dev) > 1
+    sfx = ".rns" if stacked else ""
+    if n <= 1 << 14:
+        return {"K1.rns.cl" if clustered else "K1" + sfx: 1}
+    return {"K5" + sfx: 1, "K6.rns.cl" if clustered else "K6" + sfx: 1}
+
+
+def key_switch_launches(rns, sms, dev, n, ds):
+    """{kernel: launches} of one key switch (kc 2) at (n, ds > 1, distinct
+    primes): its transforms (`key_switch_transforms`) under the cluster
+    rule, the base conversions, K10, K11 twice."""
+    out = collections.Counter({"K8.reduce": 1, "K8.reduce.rows": 1,
+                               "K10": 1, "K11": 2})
+    for _, rows, batch, _, _, _ in key_switch_transforms(ds):
+        out.update(transform_launches(rns, sms, dev, n, rows, batch,
+                                      rows > 1))
+    return dict(out)
+
+
+def key_switch_calls(n, ds, moduli, rand, get_plan, cuda_ntt, rns):
+    """[(label, x, plan, fn)] of one key switch's transforms
+    (`key_switch_transforms`: the same calls, shapes and lazy ranges as
+    `experimental.key_switch.pipeline`, on random inputs): the target's ds
+    inverses and the (ds, ds - 1, n) block of base-converted targets at
+    (4, 4), each one stacked call over the ds decomposition primes
+    (`rns`), the key prime's forward of the ds converted targets and its
+    inverse, and the mod-down's ds forwards, one stacked call; fn() runs
+    the call on x (a (rows, batch, n) block or the key prime's (batch, n)),
+    plan its RnsPlan or the key prime's plan. Through an earlier tree's
+    `rns`, whose stacked calls loop over the primes, it runs that tree's
+    transforms."""
     import torch
     rplan = rns.get_rns_plan(n, moduli[:ds])
     key_plan = get_plan(n, moduli[-1])
+    calls = []
+    for label, rows, batch, forward, imf, omf in key_switch_transforms(ds):
+        if rows == 1:
+            x = rand((batch, n), imf * moduli[-1])
+            fn = cuda_ntt.fwd_ntt if forward else cuda_ntt.inv_ntt
+            plan = key_plan
+        else:
+            x = torch.stack([rand((batch, n), imf * q) for q in moduli[:ds]])
+            fn = rns.fwd_ntt_rns if forward else rns.inv_ntt_rns
+            plan = rplan
+        calls.append((label, x, plan, lambda fn=fn, x=x, plan=plan, imf=imf,
+                      omf=omf: fn(x, plan, imf, omf)))
+    return calls
 
-    def rows(shape, factor):
-        return torch.stack([rand(shape, factor * q) for q in moduli[:ds]])
 
-    inv_in, fwd_in, md_in = rows((n,), 2), rows((ds - 1, n), 1), rows((2, n),
-                                                                     2)
-    key_in = rand((ds, n), moduli[-1])
-    last_in = rand((2, n), 2 * moduli[-1])
+def key_switch_ntts(n, ds, moduli, rand, get_plan, cuda_ntt, rns):
+    """A function that runs the transforms of one key switch
+    (`key_switch_calls`), one after the other."""
+    calls = [fn for _, _, _, fn in key_switch_calls(n, ds, moduli, rand,
+                                                    get_plan, cuda_ntt, rns)]
 
     def run():
-        rns.inv_ntt_rns(inv_in, rplan, 2, 1)
-        rns.fwd_ntt_rns(fwd_in, rplan, 4, 4)
-        cuda_ntt.fwd_ntt(key_in, key_plan, 4, 4)
-        cuda_ntt.inv_ntt(last_in, key_plan, 2, 2)
-        rns.fwd_ntt_rns(md_in, rplan, 4, 4)
+        for fn in calls:
+            fn()
     return run
+
+
+def one_cta_grid(n, rows, batch):
+    """The CTAs of the one-CTA launches of a transform of (rows, batch, n):
+    {kernel: CTAs}, K1 (or K1.rns) up to 2^14; above, K5's column form (a
+    thread a column, 128 a CTA) and K6's one 2^14 shard a CTA."""
+    if n <= 1 << 14:
+        return {"K1": rows * batch}
+    return {"K5": rows * -(-batch * (1 << 14) // 128),
+            "K6": rows * batch * (n >> 14)}
+
+
+def split_variant(x, plan, forward, omf, log_l, hier, rns, torch_ntt):
+    """The transform of x cut at L = 2^log_l with the kernels a tree
+    already has: K5 (K5.rns for a stacked block, `rns`'s C entry) on the
+    (D, L) view for the stages of stride >= L, D = N / L, and K6's local
+    pass with a shard base (`hier.local_launch`, a prime at a time for a
+    stacked block) for those below. x: a (batch, n) block under a plan, or
+    a (k, batch, n) one under an RnsPlan."""
+    import torch
+    n = x.shape[-1]
+    log_d = n.bit_length() - 1 - log_l
+    stacked = hasattr(plan, "plans")
+
+    def local(v):
+        if not stacked:
+            return hier.local_launch(v, plan, forward, omf, log_l, log_d, 0,
+                                     log_d)
+        return torch.stack([hier.local_launch(v[i], p, forward, omf, log_l,
+                                              log_d, 0, log_d)
+                            for i, p in enumerate(plan.plans)])
+
+    def cross(v):
+        if not stacked:
+            return hier.cross(v.reshape(*v.shape[:-1], 1 << log_d, 1 << log_l),
+                              plan, forward, omf).reshape(v.shape)
+        rows = plan.descriptors(v.device)
+        batch = v[0].numel() // n
+        if forward:
+            return rns._launch("cross_rns", "hexl_cross_fwd_rns",
+                               rns._CROSS_FWD_ARGS, "K5.rns", v, rows, log_d,
+                               log_l, batch, 0)
+        return rns._launch("cross_rns", "hexl_cross_inv_rns",
+                           rns._CROSS_INV_ARGS, "K5.rns", v, rows, log_d,
+                           log_l, batch, torch_ntt.root_index(n, n >> log_d),
+                           omf, 0)
+
+    return local(cross(x)) if forward else cross(local(x))
+
+
+# The graft pipeline of the first path and the seventh path's trace:
+# (N, q bits, batch), forward at OMF 4 twice, mult_mod at IMF 4, inverse.
+GRAFT = (1 << 12, 50, 2)
+# The cuts of the split variant: L from 2^10 to 2^13 below N.
+SPLIT_LOG_LS = (10, 11, 12, 13)
+
+
+def ks_runs(rng, dev, nt, get_plan, cuda_ntt, hier, rns, torch_ntt,
+            to_tensor, key_switch, mult_mod) -> dict:
+    """{row: (fn, CTAs)} of the key switch at every KS_SHAPES entry and
+    the graft pipeline, launch by launch: "KS.n14.ds3" the key switch (kc
+    2, 49-bit), "KS.n14.ds3.ntts" its transforms, "KS.n14.ds3.inv" ..
+    each transform (`key_switch_transforms`) with its one-CTA grid
+    (`one_cta_grid`), and ".L11" .. each transform's split variant at L =
+    2^11 .. (`split_variant`); "graft", "graft.fwd", "graft.inv" and their
+    split variants. Written against the wrappers' signatures, which the
+    parent tree of an A/B shares."""
+    import numpy as np
+    import torch
+
+    def rand(shape, bound):
+        return to_tensor(rng.integers(0, bound, size=shape, dtype=np.uint64),
+                         dev)
+
+    runs = {}
+
+    def add_splits(row, x, plan, forward, omf):
+        n = x.shape[-1]
+        for log_l in SPLIT_LOG_LS:
+            if 1 << log_l < n and n >> log_l <= 64:
+                runs[f"{row}.L{log_l}"] = (
+                    lambda x=x, plan=plan, log_l=log_l: split_variant(
+                        x, plan, forward, omf, log_l, hier, rns, torch_ntt),
+                    {"K6": x.numel() >> log_l})
+
+    for n, ds in KS_SHAPES:
+        tag = f"KS.n{n.bit_length() - 1}.ds{ds}"
+        result, t, keys, moduli, msf = key_switch_inputs(
+            rng, n, (49,) * (ds + 1), 2, dev, nt, to_tensor)
+        runs[tag] = (lambda result=result, t=t, n=n, ds=ds, moduli=moduli,
+                     keys=keys, msf=msf: key_switch(
+                         result, t, n, ds, ds + 1, ds + 1, 2, moduli, keys,
+                         msf), None)
+        runs[tag + ".ntts"] = (key_switch_ntts(n, ds, moduli, rand, get_plan,
+                                               cuda_ntt, rns), None)
+        specs = key_switch_transforms(ds)
+        for (label, x, plan, fn), spec in zip(
+                key_switch_calls(n, ds, moduli, rand, get_plan, cuda_ntt,
+                                 rns), specs):
+            _, rows, batch, forward, _, omf = spec
+            runs[f"{tag}.{label}"] = (fn, one_cta_grid(n, rows, batch))
+            add_splits(f"{tag}.{label}", x, plan, forward, omf)
+    n, bits, batch = GRAFT
+    plan = get_plan(n, nt.generate_primes(1, bits, True, ntt_size=n)[0])
+    ga, gb = rand((batch, n), plan.q), rand((batch, n), plan.q)
+    gi = rand((batch, n), plan.q)
+    runs["graft"] = (lambda: cuda_ntt.inv_ntt(mult_mod(
+        cuda_ntt.fwd_ntt(ga, plan, 1, 4), cuda_ntt.fwd_ntt(gb, plan, 1, 4),
+        plan.q, 4), plan), None)
+    runs["graft.fwd"] = (lambda: cuda_ntt.fwd_ntt(ga, plan, 1, 4),
+                         one_cta_grid(n, 1, batch))
+    runs["graft.inv"] = (lambda: cuda_ntt.inv_ntt(gi, plan),
+                         one_cta_grid(n, 1, batch))
+    add_splits("graft.fwd", ga, plan, True, 4)
+    add_splits("graft.inv", gi, plan, False, 1)
+    return runs
+
+
+def ks_times(root: pathlib.Path) -> int:
+    """`--ks-times ROOT`: build the port at ROOT and print the device ms
+    of each row of `ks_runs` (median [min, max] of 20 graph replays of 20
+    calls), with the one-CTA grid of each transform, and the rows as one
+    JSON line."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available", file=sys.stderr)
+        return 2
+    log(nvidia_smi("name,power.limit"))
+    sys.path.insert(0, str(root))
+    import hexl_tpu_torch
+    if not pathlib.Path(hexl_tpu_torch.__file__).is_relative_to(root):
+        raise AssertionError(f"imported {hexl_tpu_torch.__file__}, not the "
+                             f"port at {root}")
+    from hexl_tpu_torch import _build, key_switch, nt
+    from hexl_tpu_torch.eltwise import ops
+    from hexl_tpu_torch.limb import to_tensor
+    from hexl_tpu_torch.ntt import cuda_ntt, get_plan, hier, rns, torch_ntt
+    _build.build_all()
+    runs = ks_runs(np.random.default_rng(SEED), torch.device("cuda", 0), nt,
+                   get_plan, cuda_ntt, hier, rns, torch_ntt, to_tensor,
+                   key_switch, ops.mult_mod)
+    out = {}
+    for row, (fn, ctas) in runs.items():
+        _build.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        v = graph_times(fn, 20)
+        out[row] = {"ms": statistics.median(v), "min": min(v), "max": max(v),
+                    "ctas": ctas, "launches": launches}
+        log(f"ks {row}: {out[row]['ms']:.4f} ms [{min(v):.4f}, "
+            f"{max(v):.4f}]; one-CTA grid {ctas}; launches {launches}")
+    log(nvidia_smi("name,power.limit"))
+    print(json.dumps(out))
+    return 0
 
 
 FFT_PRECISIONS = ("f64", "single", "double_float")
@@ -1257,6 +1519,100 @@ def rns_kernel_checks(rng, dev, nt, rns, hier, ops, torch_kernels, torch_ntt,
             checks += 1
     return checks
 
+# The cluster form (K1.rns.cl, K6.rns.cl; csrc/ntt_cluster.cuh): its
+# instantiations, the forward and the whole transform's inverse at each
+# (C, chunk) it takes (11 each: C = 2, 4, 8 at three chunks, 16 at two
+# constant shapes), the shard's inverse at one chunk a C (4).
+CLUSTER_INSTANTIATION = re.compile(r"rns_cluster_(fwd|inv)_kernel")
+CLUSTER_INSTANTIATIONS = 11 + 11 + 4
+CLUSTER_SIZES = (2, 4, 8, 16)
+# Its phase-3 cases: every IMF/OMF pair of each direction.
+CLUSTER_CHECK_PAIRS = ((True, 1, 1), (True, 2, 4), (True, 4, 4),
+                       (True, 4, 1), (False, 1, 1), (False, 2, 2),
+                       (False, 2, 1), (False, 1, 2))
+
+
+@contextlib.contextmanager
+def forced_clusters(rns, clusters):
+    """Every launch takes clusters of `clusters` CTAs (1: the one-CTA
+    form) instead of `rns.cluster_for`'s pick."""
+    choose = rns.cluster_for
+    rns.cluster_for = lambda *args: clusters
+    try:
+        yield
+    finally:
+        rns.cluster_for = choose
+
+
+def cluster_kernel_checks(rng, dev, nt, rns, cuda_ntt, get_plan, torch_ntt,
+                          to_tensor, compare, launches):
+    """K1.rns.cl and K6.rns.cl at every C and degree `rns.cluster_for` can
+    pick, against the plain cluster walk, bit for bit: the stacked
+    transform of k = 1 and 3 primes of mixed bit lengths (batch 3) at N =
+    2^12 .. 2^14, and of 1 and 2 primes at N = 2^15 .. 2^20 (the shards of
+    the split), every IMF/OMF pair; and the routed one-prime calls of
+    `cuda_ntt` (and through it `hier`'s local pass) at N = 2^12 .. 2^16,
+    batches 1 and 3, against the plain flat walk. Each call must launch
+    its cluster kernel once (`launches`, the launch counter). Returns the
+    number of checks."""
+    import numpy as np
+    import torch
+
+    def rand(shape, bound):
+        return to_tensor(rng.integers(0, bound, size=shape, dtype=np.uint64),
+                         dev)
+
+    def launched(kernel, what):
+        if launches.get(kernel, 0) != 1:
+            raise AssertionError(f"{what} launched {dict(launches)}, not "
+                                 f"one {kernel}")
+
+    checks = 0
+    for c in CLUSTER_SIZES:
+        with forced_clusters(rns, c):
+            for log_n in range(12, 21):
+                n = 1 << log_n
+                kernel = "K1.rns.cl" if log_n <= 14 else "K6.rns.cl"
+                for k, batch in ((1, 3), (3, 3)) if log_n <= 14 else \
+                        ((1, 1), (2, 1)):
+                    moduli = rns_basis(nt, RNS_EXACT_BITS, k, n)
+                    rplan = rns.get_rns_plan(n, moduli)
+                    for forward, imf, omf in CLUSTER_CHECK_PAIRS:
+                        x = torch.stack([rand((batch, n), imf * q)
+                                         for q in moduli])
+                        launches.clear()
+                        fn = rns.fwd_ntt_rns if forward else rns.inv_ntt_rns
+                        got = fn(x, rplan, imf, omf)
+                        what = (f"{kernel} C={c} N=2^{log_n} k={k} "
+                                f"batch={batch} {'fwd' if forward else 'inv'}"
+                                f" imf={imf} omf={omf}")
+                        launched(kernel, what)
+                        plain = (rns.fwd_ntt_rns_cluster_plain if forward
+                                 else rns.inv_ntt_rns_cluster_plain)
+                        compare(kernel, got, plain(x, rplan, c, imf, omf),
+                                what)
+                        checks += 1
+            for log_n in range(12, 17):
+                n = 1 << log_n
+                kernel = "K1.rns.cl" if log_n <= 14 else "K6.rns.cl"
+                plan = get_plan(n, rns_basis(nt, (60,), 1, n)[0])
+                for batch in (1, 3):
+                    for forward, imf, omf in CLUSTER_CHECK_PAIRS:
+                        x = rand((batch, n), imf * plan.q)
+                        launches.clear()
+                        fn = cuda_ntt.fwd_ntt if forward else cuda_ntt.inv_ntt
+                        got = fn(x, plan, imf, omf)
+                        what = (f"one prime {kernel} C={c} N=2^{log_n} "
+                                f"batch={batch} {'fwd' if forward else 'inv'}"
+                                f" imf={imf} omf={omf}")
+                        launched(kernel, what)
+                        plain = (torch_ntt.fwd_ntt if forward
+                                 else torch_ntt.inv_ntt)
+                        compare(kernel, got, plain(x, plan, imf, omf), what)
+                        checks += 1
+    return checks
+
+
 # The instantiations whose registers are checked: the lean ones (mangled
 # names with the scheme argument 1 (lean16) or 2 (lean8) after a u64
 # word), the chain kernels K17/K18, every radix walk of K1/K6/K7 (the
@@ -1672,7 +2028,8 @@ def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
         return lambda: poly.poly_mult(*nxt(), plan)
 
     from hexl_tpu_torch import key_switch, rns_poly_mult_mod
-    from hexl_tpu_torch.ntt import rns
+    from hexl_tpu_torch.eltwise import ops
+    from hexl_tpu_torch.ntt import rns, torch_ntt
 
     return {"K1": pair(q60, "exact"), "K1.lean8": pair(q60, "lean8"),
             "K1.lean16": pair(prime(59, n14), "lean16"),
@@ -1701,7 +2058,17 @@ def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
                                            to_tensor, log_d, 64)[0]
                for log_d in range(3, 7)},
             **rns_runs(rng, dev, nt, get_plan, cuda_ntt, rns, to_tensor,
-                       rns_poly_mult_mod, key_switch)}
+                       rns_poly_mult_mod, key_switch),
+            **{row: fn for row, (fn, _) in ks_runs(
+                rng, dev, nt, get_plan, cuda_ntt, hier, rns, torch_ntt,
+                to_tensor, key_switch, ops.mult_mod).items()
+               if row in WALK_KS_ROWS}}
+
+
+# The key switch rows of the A/B beside rns_runs' KS and KS.ntts (N=2^15 x
+# ds 14): the other three KS_SHAPES and the graft pipeline (`ks_runs`).
+WALK_KS_ROWS = ("KS.n14.ds3", "KS.n14.ds3.ntts", "KS.n14.ds5",
+                "KS.n14.ds5.ntts", "KS.n15.ds3", "KS.n15.ds3.ntts", "graft")
 
 
 def per_prime_rns(get_plan, cuda_ntt, poly):
@@ -2064,6 +2431,115 @@ def walk_times(root: pathlib.Path) -> int:
     return 0
 
 
+# The cluster form's rule (`rns.cluster_for`): the forward + inverse pair of
+# one 50-bit prime through the public wrappers at N = 2^12 .. 2^15 and the
+# batches below, each C forced (1: the one-CTA form; a C whose clusters the
+# card cannot hold all at once is skipped), and the split variant at L =
+# 2^10 and 2^11 (`split_variant`) beside them; one-CTA grids from 1 CTA to
+# a wave (N = 2^15: two shards a transform).
+CLUSTER_TIME_BATCHES = (1, 2, 3, 4, 6, 8, 12, 16, 20, 24, 28, 32, 48, 56, 64,
+                        96, 128)
+
+
+def cluster_times(root: pathlib.Path = ROOT,
+                  batches=CLUSTER_TIME_BATCHES) -> int:
+    """`--cluster-times [ROOT BATCHES]`: build the port (at ROOT, a variant
+    tree), report the cluster form's instantiations (registers and
+    spills), hold K1.rns.cl and K6.rns.cl bit-exact against the plain
+    cluster walk (`cluster_kernel_checks`; this tree only), time the
+    launch floor (the empty kernel, and one of two cluster barriers, at a
+    cluster's grid), then print the device ms of the pair at every (N,
+    batch, C) and the split variant's (median of 20 graph replays of 10
+    calls), each grid's fastest, and the rows as one JSON line."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available", file=sys.stderr)
+        return 2
+    card = nvidia_smi("name,power.limit")
+    log(card)
+    sys.path.insert(0, str(root))
+    import hexl_tpu_torch
+    if not pathlib.Path(hexl_tpu_torch.__file__).is_relative_to(root):
+        raise AssertionError(f"imported {hexl_tpu_torch.__file__}, not the "
+                             f"port at {root}")
+    from hexl_tpu_torch import _build, nt
+    from hexl_tpu_torch.limb import to_tensor
+    from hexl_tpu_torch.ntt import cuda_ntt, get_plan, hier, rns, torch_ntt
+    info = _build.build_all()
+    resources = _build.kernel_resources(info["log"])
+    cl = {k: v for k, v in resources.items()
+          if CLUSTER_INSTANTIATION.search(k)}
+    log(f"build: {info['seconds']:.1f} s; {len(cl)} cluster-form "
+        f"instantiations (registers, stack, spill stores, spill loads): {cl}")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    bad = []
+
+    def compare(kernel, got, want, what):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad.append(what)
+    if root == ROOT:
+        checks = cluster_kernel_checks(rng, dev, nt, rns, cuda_ntt, get_plan,
+                                       torch_ntt, to_tensor, compare,
+                                       _build.launches)
+        log(f"cluster checks: {checks - len(bad)} of {checks} bit-exact; "
+            f"mismatches {bad[:20]}")
+    launch_empty = empty_probe(*start_empty_probe(
+        _build.nvcc_path(), _build.BUILD_ROOT / "sass_probes"))
+    for log_n in (12, 14):
+        for c in (1,) + CLUSTER_SIZES:
+            threads = min(1024, (1 << log_n) // (8 * c))
+            floors = [statistics.median(graph_times(
+                lambda: launch_empty(c, threads, c, (8 << log_n) // c,
+                                     syncs), 20)) for syncs in (0, 2)]
+            log(f"cluster floor N=2^{log_n} C={c} ({threads} threads): "
+                f"empty {floors[0]:.4f} ms, two cluster barriers "
+                f"{floors[1]:.4f} ms")
+    sms = cuda_ntt.sm_count(dev)
+    log("most active clusters: " + ", ".join(
+        f"N=2^{ln} C={c} {rns.max_active_clusters(ln, c, dev)}"
+        for ln in (12, 13, 14) for c in CLUSTER_SIZES))
+    out = {}
+    for log_n in (12, 13, 14, 15):
+        n = 1 << log_n
+        shards = max(1, n >> hier.LOG_LOCAL)
+        plan = get_plan(n, nt.generate_primes(1, 50, True, ntt_size=n)[0])
+        for batch in batches:
+            ctas = batch * shards
+            if ctas >= sms:
+                continue
+            x = to_tensor(rng.integers(0, plan.q, size=(batch, n),
+                                       dtype=np.uint64), dev)
+            row = {}
+            for c in (1,) + CLUSTER_SIZES:
+                if c > 1 and rns.max_active_clusters(
+                        min(log_n, hier.LOG_LOCAL), c, dev) < ctas:
+                    continue
+                with forced_clusters(rns, c):
+                    row[f"C{c}"] = statistics.median(graph_times(
+                        lambda: cuda_ntt.inv_ntt(cuda_ntt.fwd_ntt(x, plan),
+                                                 plan), 10))
+            for log_l in (10, 11):
+                if 1 << log_l < n and n >> log_l <= 64:
+                    with forced_clusters(rns, 1):
+                        row[f"L{log_l}"] = statistics.median(graph_times(
+                            lambda: split_variant(split_variant(
+                                x, plan, True, 1, log_l, hier, rns,
+                                torch_ntt), plan, False, 1, log_l, hier, rns,
+                                torch_ntt), 10))
+            best = min(row, key=row.get)
+            out[f"n{log_n}.b{batch}"] = {"ctas": ctas, "ms": row,
+                                         "best": best}
+            log(f"cluster N=2^{log_n} batch={batch} ({ctas} one-CTA CTAs): "
+                + " ".join(f"{k}={v:.4f}" for k, v in row.items())
+                + f"; best {best}, C1/best {row['C1'] / row[best]:.2f}")
+    log(card)
+    print(json.dumps(out))
+    return 0 if not bad else 1
+
+
 def walk_ab(parent: pathlib.Path) -> int:
     """`--walk-ab PARENT`: the walk rows of the port at PARENT (a `git
     archive` of an earlier commit) against this tree's, on one card, in
@@ -2357,7 +2833,18 @@ def seventh_path(rng, dev, compare) -> dict:
             f"{warm['warm_s'][i] * 1e3:.3f} ms (prewarmed process), "
             f"{cold['warm_s'][i] * 1e3:.3f} ms (the other); prewarmed first "
             f"/ warm {warm['first_s'][i] / warm['warm_s'][i]:.2f}")
-    missing = [k for k in PREWARM_KERNELS if warm["launches"].get(k, 0) < 1]
+    # Where the cluster rule routes a config's one-CTA kernel (K1, K6) to
+    # the cluster form, that form is what prewarm must have launched.
+    from hexl_tpu_torch.ntt import cuda_ntt, rns
+    routed = set()
+    for n, bits, batch in SEVENTH_CONFIGS:
+        if bits >= 30:
+            routed.update(transform_launches(rns, cuda_ntt.sm_count(dev),
+                                             dev, n, 1, batch, False))
+    prewarm_kernels = ({k for k in PREWARM_KERNELS if k not in ("K1", "K6")}
+                       | {k for k in routed if k != "K5"})
+    missing = [k for k in sorted(prewarm_kernels)
+               if warm["launches"].get(k, 0) < 1]
     if missing:
         raise AssertionError(f"seventh path: prewarm launched no {missing}")
 
@@ -2557,6 +3044,20 @@ def main() -> int:
         raise AssertionError(f"of {RNS_INSTANTIATIONS} stacked "
                              f"instantiations {len(stacked)} reported, "
                              f"spills: {spilled}")
+    clustered = {k: v for k, v in resources.items()
+                 if CLUSTER_INSTANTIATION.search(k)}
+    log(f"build: {len(clustered)} cluster-form instantiations (K1.rns.cl, "
+        f"K6.rns.cl; registers, stack, spill stores, spill loads): "
+        f"{clustered}")
+    spilled = {k: v for k, v in clustered.items()
+               if v[2] or v[3] or v[2] is None}
+    if spilled or len(clustered) != CLUSTER_INSTANTIATIONS:
+        raise AssertionError(f"of {CLUSTER_INSTANTIATIONS} cluster-form "
+                             f"instantiations {len(clustered)} reported, "
+                             f"spills: {spilled}")
+    log("cluster form, most active clusters: " + ", ".join(
+        f"N=2^{ln} C={c} {rns.max_active_clusters(ln, c, dev)}"
+        for ln in (12, 13, 14) for c in CLUSTER_SIZES))
     # K3's cluster form: how many clusters of two CTAs the card holds at
     # once (cudaOccupancyMaxActiveClusters), per degree.
     log("K3 cluster form, most active clusters: " + ", ".join(
@@ -2777,6 +3278,11 @@ def main() -> int:
     # K6.rns) and the row ops (K4.rows, K8.reduce.rows).
     checks += rns_kernel_checks(rng, dev, nt, rns, hier, ops, torch_kernels,
                                 torch_ntt, to_tensor, compare)
+    # The cluster form (K1.rns.cl, K6.rns.cl) at every C and degree the
+    # rule can pick, and the routed one-prime calls.
+    checks += cluster_kernel_checks(rng, dev, nt, rns, cuda_ntt, get_plan,
+                                    torch_ntt, to_tensor, compare,
+                                    _build.launches)
     log(f"phase 3: {checks} kernel-vs-plain checks bit-exact in "
         f"{time.perf_counter() - t0:.1f} s; max_abs_err {max_err}")
 
@@ -2976,9 +3482,20 @@ def main() -> int:
     # transform (K5 in its tiled form at 2^20), 7 launches for the whole
     # basis of the RNS product (three stacked transforms of two passes and
     # K4.rows), two passes for each stacked transform of RnsNTT(2^20).
-    expected = {"K5": 2, "K5.tile": 2, "K6": 4, "K5.u32": 2, "K6.u32": 2,
-                "K7": 2, "K5.rns": 3, "K6.rns": 3 + 2, "K4.rows": 1,
-                "K5.tile.rns": 2}
+    # The local passes' kernels are the cluster rule's (K6, K6.rns or
+    # K6.rns.cl, `transform_launches`).
+    def local_name(n, rows, batch, stacked):
+        return next(k for k in transform_launches(rns, sms, dev, n, rows,
+                                                  batch, stacked)
+                    if k.startswith("K6"))
+    expected = collections.Counter({
+        "K5": 2, "K5.tile": 2, "K5.u32": 2, "K6.u32": 2, "K7": 2,
+        "K5.rns": 3, "K4.rows": 1, "K5.tile.rns": 2})
+    for n, rows, batch, stacked, count in (
+            (n17, 1, SPLIT_BATCH, False, 2), (n20, 1, 2, False, 2),
+            (n17, RNS_PRIMES, 1, True, 3), (n20, 3, 1, True, 2)):
+        expected[local_name(n, rows, batch, stacked)] += count
+    expected = dict(expected)
     if launches2 != expected:
         raise AssertionError(f"second main path launched {launches2}, "
                              f"expected {expected}")
@@ -3037,7 +3554,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches3 = dict(_build.launches)
     log(f"phase 4: third main path's launches {launches3}")
-    missing = [k for k in THIRD_PATH_KERNELS if launches3.get(k, 0) < 1]
+    ks_kernels = {k for n_ks, ds_ks in KS_SHAPES
+                  for k in key_switch_launches(rns, sms, dev, n_ks, ds_ks)}
+    missing = [k for k in sorted(set(THIRD_PATH_KERNELS) | ks_kernels)
+               if launches3.get(k, 0) < 1]
     if missing:
         raise AssertionError(f"third main path launched no {missing}")
     for (what, kernel, _, plain), out in zip(third, outs):
@@ -3049,10 +3569,8 @@ def main() -> int:
         if not what.startswith("key_switch"):
             continue
         n_ks = int(what.split("N=2^")[1].split()[0])
-        split = ({"K5.rns": 3, "K6.rns": 3, "K5": 2, "K6": 2}
-                 if 1 << n_ks > n14 else {"K1.rns": 3, "K1": 2})
-        want = {**split, "K8.reduce": 1, "K8.reduce.rows": 1, "K10": 1,
-                "K11": 2}
+        ds_ks = int(what.split("ds=")[1])
+        want = key_switch_launches(rns, sms, dev, 1 << n_ks, ds_ks)
         _build.reset_launches()
         call()
         if dict(_build.launches) != want:
@@ -3369,7 +3887,8 @@ def main() -> int:
                      "K4.rows", "K17", "K17.exact", "K18.df", "K18.f64",
                      "K18.f32")
     missing = [k for k in sixth_kernels if launches6.get(k, 0) < 1]
-    exact_names = [k for k in ("K1", "K2", "K5", "K6", "K5.rns", "K6.rns")
+    exact_names = [k for k in ("K1", "K2", "K5", "K6", "K5.rns", "K6.rns",
+                               "K1.rns.cl", "K6.rns.cl")
                    if k in launches6]
     if missing or exact_names:
         raise AssertionError(f"sixth main path launched no {missing}; exact "
@@ -3857,6 +4376,65 @@ def main() -> int:
                             r_red.numel() * (hi64 + lo64))),
     }
     cases.update(stacked_cases)
+    # The cluster form at the key switch's shapes (ds 3): K1.rns.cl's pair
+    # at (2^14, 3 primes of 49 bits, batch 1), K6.rns.cl's local pass
+    # forward + inverse at (2^15, 3 primes, batch 1), each in clusters of
+    # the rule's C (`cluster_pick`); bytes and operations as K1.rns's and
+    # K6.rns's, the bound also no less than the launch floor (below).
+    def cluster_pick(log_n, ctas):
+        """The rule's C, or the largest the card holds for `ctas` clusters
+        where the rule keeps C = 1 (the kernel is timed all the same)."""
+        c = rns.cluster_for(log_n, ctas, sms, dev)
+        return c if c > 1 else max(
+            v for v in CLUSTER_SIZES
+            if rns.max_active_clusters(log_n, v, dev) >= ctas)
+
+    def forced_call(c, fn):
+        def run():
+            with forced_clusters(rns, c):
+                return fn()
+        return run
+
+    ks_basis = nt.generate_primes(3, 49, True, ntt_size=ks_n)
+    cl14 = rns.get_rns_plan(n14, ks_basis)
+    cl15 = rns.get_rns_plan(ks_n, ks_basis)
+    c14, c15 = cluster_pick(14, 3), cluster_pick(14, 6)
+    xc14 = torch.stack([rand((1, n14), q) for q in ks_basis])
+    xc15f = torch.stack([rand((1, ks_n), 4 * q) for q in ks_basis])
+    xc15i = torch.stack([rand((1, ks_n), 2 * q) for q in ks_basis])
+    d15 = cl15.descriptors(dev)
+    cluster_cases = {
+        "K1.rns.cl": (f"rns_cluster_fwd_kernel+rns_cluster_inv_kernel, a "
+                      f"cluster of {c14} CTAs a polynomial",
+                      "hexl_tpu_torch/csrc/ntt_rns.cu + ntt_cluster.cuh",
+                      "hexl_tpu/ntt/pallas_ntt.py:547",
+                      "RnsNTT fwd + inv, N=2^14, 3 primes of 49 bits, batch "
+                      "1 (the key switch's stacked inverse at ds 3)",
+                      (forced_call(c14, lambda: rns.inv_ntt_rns(
+                          rns.fwd_ntt_rns(xc14, cl14), cl14)),
+                       lambda: rns.inv_ntt_rns_cluster_plain(
+                           rns.fwd_ntt_rns_cluster_plain(xc14, cl14, c14),
+                           cl14, c14),
+                       2 * (2 * 8 * 3 * n14 + 2 * 8 * 3 * n14),
+                       ntt_imads(n14, 3, True) + ntt_imads(n14, 3, False))),
+        "K6.rns.cl": (f"rns_cluster_fwd_kernel+rns_cluster_inv_kernel<.., "
+                      f"0>, a cluster of {c15} CTAs a 2^14 shard",
+                      "hexl_tpu_torch/csrc/ntt_rns.cu + ntt_cluster.cuh",
+                      "hexl_tpu/ntt/hier.py:255",
+                      "local pass fwd + inv, N=2^15 (2 shards), 3 primes of "
+                      "49 bits, batch 1 (the key switch's at ds 3)",
+                      (lambda: (rns._cluster(xc15f, d15, cl15, 1, True, 1,
+                                             c15),
+                                rns._cluster(xc15i, d15, cl15, 1, False, 1,
+                                             c15)),
+                       lambda: (rns._cluster_plain(xc15f, cl15, c15, True, 1,
+                                                   False),
+                                rns._cluster_plain(xc15i, cl15, c15, False, 1,
+                                                   False)),
+                       2 * 2 * 8 * 3 * ks_n + 3 * 2 * 2 * 8 * (ks_n - 2),
+                       2 * 14 * 3 * (ks_n // 2) * per_shoup)),
+    }
+    cases.update(cluster_cases)
     # K12 and K13 per precision at the fourth path's shape (n = 2^14, batch
     # 64, scale 2^40), each pass forward + inverse, on six inputs in turn
     # (`rotating`), so that a graph's launches read more than the 50 MB L2
@@ -4117,6 +4695,23 @@ def main() -> int:
         if near:
             entry["nearest_library"] = near
         entries.append(entry)
+
+    # The cluster form's launch floor: the cluster probe (an empty kernel)
+    # at each entry's grid, cluster shape and shared memory, once a
+    # direction; its bound is no less.
+    for name, c, log_n, ctas in (("K1.rns.cl", c14, 14, 3),
+                                 ("K6.rns.cl", c15, 14, 6)):
+        chunk = (1 << log_n) // c
+        floor_ms = 2 * graph_ms(lambda: launch_empty(
+            ctas * c, chunk // 8, c, 8 * chunk), 20)
+        entry = next(e for e in entries if e["name"].startswith(name + " "))
+        entry["launch_floor_ms"] = floor_ms
+        if floor_ms > entry["bound_ms"]:
+            entry["bound_ms"], entry["bound_by"] = floor_ms, "launch floor"
+        log(f"{name} launch floor (C={c}, {ctas * c} CTAs of {chunk // 8} "
+            f"threads, twice) {floor_ms:.4f} ms; bound {entry['bound_ms']:.4f}"
+            f" ms ({entry['bound_by']}), {entry['bound_ms'] / entry['ms']:.1%}"
+            " of bound")
 
     # K4's floor: the empty probe with K4's grid at the main path's 2 x 2^12
     # elements (32 CTAs of 256 threads), in the same graph harness; and K4
@@ -4520,6 +5115,8 @@ def main() -> int:
         call()
         ks_launches = dict(_build.launches)
         ks_ms = event_ms(call, 10)
+        with forced_clusters(rns, 1):
+            one_cta_ms = event_ms(call, 10)
         ks_graph = graph_ms(call, 1)
         ntt_graph = graph_ms(key_switch_ntts(n, ds, ks_moduli, rand,
                                              get_plan, cuda_ntt, rns), 1)
@@ -4532,7 +5129,68 @@ def main() -> int:
             f"(kernels), of which NTTs {ntt_graph:.4f} ms, other kernels "
             f"{ks_graph - ntt_graph:.4f} ms, host gaps "
             f"{ks_ms - ks_graph:.4f} ms; {sum(ks_launches.values())} "
-            f"launches per call {ks_launches}{xeon}")
+            f"launches per call {ks_launches}{xeon}; with the cluster "
+            f"form's rule kept at C = 1: {one_cta_ms:.4f} ms per call "
+            f"(events)")
+
+    # The cluster form at every launch of the key switches: each
+    # transform of `key_switch_transforms` at every KS_SHAPES entry (above
+    # 2^14 its local pass), through a plan of its rows (the ds stacked
+    # decomposition primes, or the key prime alone), in the one-CTA form
+    # (K1.rns, K6.rns) and in the rule's C (`rns.cluster_for`), each
+    # beside its bound: the larger of its bytes (each coefficient read and
+    # written once, its tables once), its IMADs and its launch floor (the
+    # cluster probe at the same grid, cluster shape and shared memory).
+    ks_cluster = []
+    for n, ds in KS_SHAPES:
+        log_n = n.bit_length() - 1
+        log_l, shards = min(log_n, 14), max(1, n >> 14)
+        basis = nt.generate_primes(ds + 1, 49, True, ntt_size=n)
+        for label, rows_, batch, forward, imf, omf in \
+                key_switch_transforms(ds):
+            primes = basis[:ds] if rows_ > 1 else basis[-1:]
+            rplan = rns.get_rns_plan(n, primes)
+            descs = rplan.descriptors(dev)
+            x = torch.stack([rand((batch, n), imf * q) for q in primes])
+            ctas = rows_ * batch * shards
+            rule = rns.cluster_for(log_l, ctas, sms, dev)
+            stages = log_l + (not forward and shards == 1)
+            nbytes = 2 * 8 * ctas * (1 << log_l) + 2 * 8 * rows_ * n
+            nops = ctas * stages * (1 << (log_l - 1)) * per_shoup
+            b_ms, b_by = bound(nbytes, nops)
+            row = {"shape": f"N=2^{log_n} ds {ds} {label}", "ctas": ctas,
+                   "rule": rule}
+            for c in sorted({1, rule}):
+                if c > 1:
+                    run = lambda c=c: rns._cluster(x, descs, rplan, batch,
+                                                   forward, omf, c)
+                elif shards == 1:
+                    run = lambda: rns._whole(x, descs, rplan, batch, forward,
+                                             omf, "exact")
+                else:
+                    run = lambda: rns._local(x, descs, rplan, batch, forward,
+                                             omf, "exact")
+                chunk = (1 << log_l) // c
+                threads = min(1024, chunk // 8)
+                floor_ms = graph_ms(lambda: launch_empty(
+                    ctas * c, threads, c, 8 * chunk), 20)
+                ms = graph_ms(run, 20)
+                c_bound = max(b_ms, floor_ms)
+                row[f"C{c}"] = {"ms": ms, "floor_ms": floor_ms,
+                                "bound_ms": c_bound,
+                                "bound_by": b_by if b_ms >= floor_ms
+                                else "launch floor"}
+            ks_cluster.append(row)
+            log(f"cluster at key switch N=2^{log_n} ds={ds} {label} "
+                f"({ctas} one-CTA CTAs, rule C={rule}): " + "; ".join(
+                    f"{k} {v['ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+                    f"({v['bound_by']}), {v['bound_ms'] / v['ms']:.1%}"
+                    for k, v in row.items() if k.startswith("C")))
+    for name in ("K1.rns.cl", "K6.rns.cl"):
+        next(e for e in entries if e["name"].startswith(name + " "))[
+            "key_switch_launches"] = [
+                r for r in ks_cluster
+                if (r["shape"].startswith("N=2^14")) == (name == "K1.rns.cl")]
 
     # Host time per forward call at batch 1, by layer: the public entry
     # point, the wrapper under it, and the bare C entry (ctypes and the
@@ -4652,6 +5310,13 @@ if __name__ == "__main__":
         sys.exit(k5_variants())
     if len(sys.argv) == 3 and sys.argv[1] == "--walk-times":
         sys.exit(walk_times(pathlib.Path(sys.argv[2]).resolve()))
+    if len(sys.argv) == 2 and sys.argv[1] == "--cluster-times":
+        sys.exit(cluster_times())
+    if len(sys.argv) == 4 and sys.argv[1] == "--cluster-times":
+        sys.exit(cluster_times(pathlib.Path(sys.argv[2]).resolve(),
+                               [int(v) for v in sys.argv[3].split(",")]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ks-times":
+        sys.exit(ks_times(pathlib.Path(sys.argv[2]).resolve()))
     if len(sys.argv) == 3 and sys.argv[1] == "--walk-ab":
         sys.exit(walk_ab(pathlib.Path(sys.argv[2]).resolve()))
     if len(sys.argv) == 5 and sys.argv[1] == "--seventh-child":

@@ -51,6 +51,69 @@ __device__ __forceinline__ void stage_twiddles(W*& tw, W*& twp,
   __syncthreads();
 }
 
+// The stages of one column of D = 2^LOG_D values in registers, v[d] the
+// value of row d (rows at the transform's stride), with the twiddles of
+// tw[i], twp[i] (a table in shared memory here, in global memory for the
+// cluster form's columns, ntt_cluster.cuh). Forward: the stage with m
+// blocks pairs rows 2 half k + i and 2 half k + i + half (half = D / 2m)
+// at twiddle m base_m + k.
+template <typename W, int S, int LOG_D, typename Table>
+__device__ __forceinline__ void column_fwd_stages(W (&v)[1 << LOG_D],
+                                                  const Table& tw,
+                                                  const Table& twp,
+                                                  int base_m, W q, W two_q) {
+  constexpr int D = 1 << LOG_D;
+  static_for<0, LOG_D>([&](auto s) {
+    constexpr int m = 1 << decltype(s)::value;
+    constexpr int half = D / (2 * m);
+    const int first = m * base_m;
+    static_for<0, m>([&](auto k) {
+      constexpr int at = 2 * half * decltype(k)::value;
+      static_for<0, half>([&](auto i) {
+        fwd_butterfly<W, S>(v[at + i], v[at + i + half], tw[first + k],
+                            twp[first + k], q, two_q);
+      });
+    });
+  });
+}
+
+// Inverse: the stage with m blocks of group `group` of `groups` at
+// twiddles (D - 2m) groups + group m + k; with FINAL the last stage (m =
+// 1) is the global final stage fused with N^-1, then the OMF; without it,
+// an ordinary stage at (D - 2) groups + group.
+template <typename W, int S, int LOG_D, bool FINAL, typename Table>
+__device__ __forceinline__ void column_inv_stages(
+    W (&v)[1 << LOG_D], const Table& tw, const Table& twp, int groups,
+    int group, const InvFinal<W>& fin, int omf, W q, W two_q) {
+  constexpr int D = 1 << LOG_D;
+  static_for<0, LOG_D - 1>([&](auto s) {
+    constexpr int half = 1 << decltype(s)::value;
+    constexpr int m = D / (2 * half);
+    const int first = (D - 2 * m) * groups + group * m;
+    static_for<0, m>([&](auto k) {
+      constexpr int at = 2 * half * decltype(k)::value;
+      static_for<0, half>([&](auto i) {
+        inv_butterfly<W, S>(v[at + i], v[at + i + half], tw[first + k],
+                            twp[first + k], q, two_q);
+      });
+    });
+  });
+  if constexpr (FINAL) {
+    // The global final stage (stride N/2) fused with N^-1, then the OMF.
+    static_for<0, D / 2>([&](auto i) {
+      inv_final_butterfly<W, S>(v[i], v[i + D / 2], fin, q, two_q);
+    });
+    if (omf == 1) {
+      static_for<0, D>([&](auto d) { v[d] = halve(v[d], q); });
+    }
+  } else {
+    const int last = (D - 2) * groups + group;
+    static_for<0, D / 2>([&](auto i) {
+      inv_butterfly<W, S>(v[i], v[i + D / 2], tw[last], twp[last], q, two_q);
+    });
+  }
+}
+
 // x, y: (batch, D, lc) with D = 2^LOG_D; thread g of `columns` =
 // batch * lc (g = blockIdx.x * blockDim.x + threadIdx.x) owns column g.
 // Block b of the batch is group b mod G (G = 2^log_groups; G = 1 but where
@@ -74,20 +137,7 @@ __device__ __forceinline__ void cross_fwd_columns(
   const W two_q = 2 * q;
   W v[D];
   load_column(v, x, base, log_lc);
-  // The stage with m blocks (row stride D/(2m)): block k pairs rows
-  // 2*half*k + i and 2*half*k + i + half, twiddle tw[m * base_m + k].
-  static_for<0, LOG_D>([&](auto s) {
-    constexpr int m = 1 << decltype(s)::value;
-    constexpr int half = D / (2 * m);
-    const int first = m * base_m;
-    static_for<0, m>([&](auto k) {
-      constexpr int at = 2 * half * decltype(k)::value;
-      static_for<0, half>([&](auto i) {
-        fwd_butterfly<W, S>(v[at + i], v[at + i + half], tw[first + k],
-                            twp[first + k], q, two_q);
-      });
-    });
-  });
+  column_fwd_stages<W, S, LOG_D>(v, tw, twp, base_m, q, two_q);
   store_column(v, y, base, log_lc);
 }
 
@@ -121,32 +171,8 @@ __device__ __forceinline__ void cross_inv_columns(
   const W two_q = 2 * q;
   W v[D];
   load_column(v, x, base, log_lc);
-  static_for<0, LOG_D - 1>([&](auto s) {
-    constexpr int half = 1 << decltype(s)::value;
-    constexpr int m = D / (2 * half);
-    const int first = (D - 2 * m) * groups + group * m;
-    static_for<0, m>([&](auto k) {
-      constexpr int at = 2 * half * decltype(k)::value;
-      static_for<0, half>([&](auto i) {
-        inv_butterfly<W, S>(v[at + i], v[at + i + half], tw[first + k],
-                            twp[first + k], q, two_q);
-      });
-    });
-  });
-  if constexpr (FINAL) {
-    // The global final stage (stride N/2) fused with N^-1, then the OMF.
-    static_for<0, D / 2>([&](auto i) {
-      inv_final_butterfly<W, S>(v[i], v[i + D / 2], fin, q, two_q);
-    });
-    if (omf == 1) {
-      static_for<0, D>([&](auto d) { v[d] = halve(v[d], q); });
-    }
-  } else {
-    const int last = (D - 2) * groups + group;
-    static_for<0, D / 2>([&](auto i) {
-      inv_butterfly<W, S>(v[i], v[i + D / 2], tw[last], twp[last], q, two_q);
-    });
-  }
+  column_inv_stages<W, S, LOG_D, FINAL>(v, tw, twp, groups, group, fin, omf,
+                                        q, two_q);
   store_column(v, y, base, log_lc);
 }
 

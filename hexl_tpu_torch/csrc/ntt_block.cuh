@@ -195,9 +195,11 @@ __device__ __forceinline__ unsigned packed_warp_mask(int log_groups) {
 // with a barrier. `polys` transforms are present (PACKED; else one), the
 // first blocks of their stages at first_block (2^log_d + shard). LOGN,
 // when not 0, is log_n as a constant of the instantiation (the pass
-// schedule then unrolls at compile time).
+// schedule then unrolls at compile time). FROM_SM: the transform already
+// rests in shared memory at the slots of its positions (the cluster
+// form's hand-off, ntt_cluster.cuh), and the first pass reads it there.
 template <typename W, int S, int LOGR, int G, int LOGN, bool PACKED,
-          typename Src>
+          bool FROM_SM = false, typename Src>
 __device__ __forceinline__ void radix_fwd_passes(
     W* sm, Src&& src, int log_n_arg, int polys, unsigned warp_mask,
     int first_block, const u64* __restrict__ rop,
@@ -215,7 +217,7 @@ __device__ __forceinline__ void radix_fwd_passes(
       const int U = radix_group<PACKED>(h, log_n - LOGR, u, poly);
       if (PACKED && poly >= polys) continue;
       W v[R];
-      if (p == 0) {
+      if (p == 0 && !FROM_SM) {
         const u64* x = src(poly);
         static_for<0, R>([&](auto i) {
           v[i] = (W)__ldg(x + u + (decltype(i)::value << s));

@@ -24,8 +24,16 @@
 // butterflies' instructions (ntt_block.cuh), with the first load and last
 // store of a wave exposed. The point of the stacked launch is the grid:
 // k primes of a batch-1 transform at 2^17 are 8 CTAs each as k launches
-// (132 SMs), and 8 k CTAs as one, without k launch gaps.
+// (132 SMs), and 8 k CTAs as one, without k launch gaps. Under one wave
+// a transform or shard runs on a cluster of CTAs instead (K1.rns.cl,
+// K6.rns.cl: ntt_cluster.cuh, launched below; the rule is
+// hexl_tpu_torch/ntt/rns.py cluster_for).
+#include <mutex>
+#include <set>
+#include <tuple>
+
 #include "ntt_block.cuh"
+#include "ntt_cluster.cuh"
 #include "rns.cuh"
 
 // Row blockIdx.y, chunk blockIdx.x of gridDim.x a row: shard blockIdx.x mod
@@ -164,6 +172,135 @@ static int launch_rns_inv(int scheme, const u64* x, u64* y,
   });
 }
 
+// -- the cluster form (ntt_cluster.cuh) ------------------------------------
+
+// f(Index<LOG_C>{}) for a cluster of 2^log_c = 2 .. 16 CTAs.
+template <typename F>
+static int with_log_c(int log_c, F&& f) {
+  switch (log_c) {
+    case 1: return f(Index<1>{});
+    case 2: return f(Index<2>{});
+    case 3: return f(Index<3>{});
+    case 4: return f(Index<4>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The cluster form's chunks of 2^log_chunk: a transform of 2^12 .. 2^14 on
+// 2^LOG_C CTAs, f(Index<LOGN>{}) with LOGN = log_chunk from 2^10 up (a
+// constant of the instantiation), else 0.
+template <int LOG_C, typename F>
+static int with_cluster_chunk(int log_chunk, F&& f) {
+  constexpr int LO = 12 - LOG_C, HI = 14 - LOG_C;
+  if (log_chunk < LO || log_chunk > HI) return (int)cudaErrorInvalidValue;
+  if constexpr (HI >= 13)
+    if (log_chunk == 13) return f(Index<13>{});
+  if constexpr (HI >= 12 && LO <= 12)
+    if (log_chunk == 12) return f(Index<12>{});
+  if constexpr (HI >= 11 && LO <= 11)
+    if (log_chunk == 11) return f(Index<11>{});
+  if constexpr (HI >= 10 && LO <= 10)
+    if (log_chunk == 10) return f(Index<10>{});
+  if constexpr (LO < 10) return f(Index<0>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// A launch configuration of clusters of `cluster` CTAs along x.
+struct RnsClusterLaunch {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  RnsClusterLaunch(dim3 grid, int cluster, int threads, size_t smem,
+                   cudaStream_t stream) {
+    attr = {};
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// The kernel's opt-ins: its shared memory, and clusters of 16 (beyond the
+// portable 8); made once a kernel, device and size: set on every launch,
+// they cost the host more than the launch itself (chip_smoke.py's host
+// time per forward call).
+template <typename Kernel>
+static int allow_cluster(Kernel kernel, int cluster, size_t smem) {
+  static std::mutex lock;
+  static std::set<std::tuple<const void*, int, size_t>> done;
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return (int)cudaGetLastError();
+  const auto key = std::make_tuple((const void*)kernel, device, smem);
+  std::lock_guard<std::mutex> guard(lock);
+  if (done.count(key)) return 0;
+  int err = (int)allow_smem(kernel, smem);
+  if (err == 0 && cluster > 8)
+    err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == 0) done.insert(key);
+  return err;
+}
+
+// f(kernel, cluster, threads, smem) for the cluster form's kernel of a
+// transform or shard of 2^log_n on 2^log_c CTAs: the forward, the inverse
+// of a whole transform (log_d = 0) or of a 2^14 shard (log_d > 0).
+template <typename F>
+static int with_cluster_kernel(bool forward, int log_n, int log_d, int log_c,
+                               F&& f) {
+  if (log_n < 12 || log_n > 14 || log_d < 0 || (log_d > 0 && log_n != 14))
+    return (int)cudaErrorInvalidValue;
+  return with_log_c(log_c, [&](auto lc) {
+    constexpr int LOG_C = decltype(lc)::value;
+    return with_cluster_chunk<LOG_C>(log_n - LOG_C, [&](auto logn) {
+      constexpr int LOGN = decltype(logn)::value;
+      const int log_chunk = log_n - LOG_C;
+      const int threads = 1 << (log_chunk - 3);
+      const size_t smem = ((size_t)1 << log_chunk) * sizeof(u64);
+      if (forward)
+        return f(rns_cluster_fwd_kernel<LOG_C, LOGN>, 1 << LOG_C, threads,
+                 smem);
+      if (log_d == 0)
+        return f(rns_cluster_inv_kernel<LOG_C, LOGN, true>, 1 << LOG_C,
+                 threads, smem);
+      if constexpr (LOGN == 14 - LOG_C)
+        return f(rns_cluster_inv_kernel<LOG_C, LOGN, false>, 1 << LOG_C,
+                 threads, smem);
+      return (int)cudaErrorInvalidValue;
+    });
+  });
+}
+
+// K1.rns.cl (log_d = 0: batch transforms of 2^log_n a row) or K6.rns.cl
+// (batch transforms of 2^(14 + log_d) a row, their 2^14 shards), a
+// cluster of 2^log_c CTAs each.
+static int launch_rns_cluster(bool forward, const u64* x, u64* y,
+                              const RnsRow* rows, int k, int log_n, int log_d,
+                              int batch, int log_c, int omf,
+                              cudaStream_t stream) {
+  dim3 grid;
+  if (log_c < 1 || log_d < 0 || log_d > 6 ||
+      !rns_grid(k, ((long long)batch << log_d) << log_c, grid))
+    return (int)cudaErrorInvalidValue;
+  return with_cluster_kernel(forward, log_n, log_d, log_c, [&](auto kernel,
+                                                               int cluster,
+                                                               int threads,
+                                                               size_t smem) {
+    const int err = allow_cluster(kernel, cluster, smem);
+    if (err != 0) return err;
+    RnsClusterLaunch launch(grid, cluster, threads, smem, stream);
+    const int log_chunk = log_n - log_c;
+    const int launched = (int)cudaLaunchKernelEx(&launch.cfg, kernel, x, y,
+                                                 rows, log_chunk, omf, log_d);
+    return launched != 0 ? launched : (int)cudaGetLastError();
+  });
+}
+
 // K2.rns: polys_per_cta transforms of a row a CTA, as K2's launch.
 template <bool FORWARD>
 static int launch_rns_packed(int scheme, const u64* x, u64* y,
@@ -245,4 +382,38 @@ extern "C" int hexl_local_inv_rns(const u64* x, u64* y, const void* rows,
       scheme, x, y, static_cast<const RnsRow*>(rows), k, log_n,
       (long long)batch << log_d, 2, log_d,
       [](int ln, auto&& f) { return with_local_shape(ln, f); }, stream);
+}
+
+// The cluster form (K1.rns.cl for log_d = 0, K6.rns.cl above): a (k,
+// batch, 2^(log_n + log_d)) block, row i under rows[i], each transform
+// (log_n = 12 .. 14) or 2^14 shard (log_n = 14) on a cluster of 2^log_c
+// CTAs; the inverse of a shard stops before the global final stage.
+extern "C" int hexl_rns_cluster_fwd(const u64* x, u64* y, const void* rows,
+                                    int k, int log_n, int log_d, int batch,
+                                    int log_c, int omf, cudaStream_t stream) {
+  return launch_rns_cluster(true, x, y, static_cast<const RnsRow*>(rows), k,
+                            log_n, log_d, batch, log_c, omf, stream);
+}
+
+extern "C" int hexl_rns_cluster_inv(const u64* x, u64* y, const void* rows,
+                                    int k, int log_n, int log_d, int batch,
+                                    int log_c, int omf, cudaStream_t stream) {
+  return launch_rns_cluster(false, x, y, static_cast<const RnsRow*>(rows), k,
+                            log_n, log_d, batch, log_c, omf, stream);
+}
+
+// The most clusters of 2^log_c CTAs of the cluster form at 2^log_n the
+// device can hold at once (cudaOccupancyMaxActiveClusters), written to
+// *clusters.
+extern "C" int hexl_rns_cluster_max_active(int log_n, int log_c,
+                                           int* clusters) {
+  return with_cluster_kernel(true, log_n, 0, log_c, [&](auto kernel,
+                                                        int cluster,
+                                                        int threads,
+                                                        size_t smem) {
+    const int err = allow_cluster(kernel, cluster, smem);
+    if (err != 0) return err;
+    RnsClusterLaunch launch(dim3(cluster), cluster, threads, smem, 0);
+    return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &launch.cfg);
+  });
 }

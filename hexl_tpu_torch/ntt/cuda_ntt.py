@@ -22,10 +22,15 @@ K2's packing rule (`polys_per_cta`) is the card's: one polynomial per CTA
 was fastest from N = 2^8 on at every batch timed, and below it a CTA of
 one warp (the `pack` rows of `chip_smoke.py`, PERF.md's findings).
 
+Where K1's grid (one polynomial a CTA, exact scheme) is under a wave and
+`rns.cluster_for` picks clusters of C > 1 CTAs for it, the call runs the
+cluster form of the stacked transform over a one-row basis of its prime
+instead ("K1.rns.cl", `rns.cluster_transform`), bit for bit the same.
+
 A tensor on the GPU goes to the kernel, a tensor on the CPU to the plain
 version in `torch_ntt`; there is no other path. Launches are counted in
-`_build.launches` under "K1", "K2" and "K7", the lean instantiations under
-"K1.lean16", "K1.lean8", "K2.lean16" and "K2.lean8".
+`_build.launches` under "K1", "K2" and "K7" (and "K1.rns.cl"), the lean
+instantiations under "K1.lean16", "K1.lean8", "K2.lean16" and "K2.lean8".
 """
 
 from __future__ import annotations
@@ -87,18 +92,24 @@ def _launch(x: torch.Tensor, plan, imf: int, omf: int, forward: bool,
     if plan.n > (MAX_KERNEL_DEGREE32 if word == 32 else MAX_KERNEL_DEGREE):
         fn = hier.fwd_ntt if forward else hier.inv_ntt
         return fn(x, plan, omf, word, scheme)
-    if not _build.on_card(x):
-        fn = torch_ntt.fwd_ntt if forward else torch_ntt.inv_ntt
-        return fn(x, plan, imf, omf, word, scheme)
-    out = torch.empty_like(x)
+    card = _build.on_card(x)
     batch = _build.batch_of(x, plan.n)
-    if batch == 0:
-        return out
     if word == 32:
         pp, kernel = 1, "K7"
     else:
         pp = polys_per_cta(plan.n, batch)
         kernel = hier.kernel_name("K2" if pp > 1 else "K1", word, scheme)
+    if kernel == "K1":
+        from . import rns   # rns imports this module
+        routed = rns.cluster_transform(x, plan, forward, omf, batch)
+        if routed is not None:
+            return routed
+    if not card:
+        fn = torch_ntt.fwd_ntt if forward else torch_ntt.inv_ntt
+        return fn(x, plan, imf, omf, word, scheme)
+    out = torch.empty_like(x)
+    if batch == 0:
+        return out
     w, wp = plan.twiddles(x.device, forward, word)
     if forward:
         fn = _build.function("ntt", "hexl_ntt_fwd", _FWD_ARGS)

@@ -22,7 +22,10 @@ column ("column"), or tiles walked by persistent CTAs through shared
 memory ("tile", `csrc/cross_tile.cuh`), taken where the column form stays
 under half of its bound on the card. Launches are counted in
 `_build.launches` under "K5"/"K5.tile"/"K6", or "K5.u32"/"K6.u32" (and
-the lean instantiations under "K5.lean16" ...). `cross` takes
+the lean instantiations under "K5.lean16" ...). Where K6's grid is under
+a wave, the local pass of a 64-bit exact transform runs the stacked
+cluster form over a one-row basis of its prime ("K6.rns.cl",
+`rns.cluster_transform`). `cross` takes
 any (..., D, w) block, the split's view of the whole transform or the
 exchanged block of a DistNTT position; `local_launch` takes the shard base
 that a position's local pass (`shard`) passes. `scheme` (word 64) picks
@@ -327,7 +330,14 @@ def local(x: torch.Tensor, plan, forward: bool, omf: int = 1,
     the CPU. The inverse ignores omf."""
     log_d = nt.log2_exact(shards(plan))
     torch_ntt.check_scheme(scheme, plan.q, word)
-    if not _build.on_card(x):
+    card = _build.on_card(x)
+    if word == 64 and scheme == "exact":
+        from . import rns   # rns imports this module
+        routed = rns.cluster_transform(x, plan, forward, omf,
+                                       _build.batch_of(x, plan.n))
+        if routed is not None:
+            return routed
+    if not card:
         if forward:
             return local_fwd_plain(x, plan, omf, word, scheme)
         return local_inv_plain(x, plan, word, scheme)

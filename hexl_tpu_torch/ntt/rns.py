@@ -26,16 +26,26 @@ N)`), as the JAX stacked bodies do (rns.py:118-177). Under
 HEXL_TPU_DEBUG=1 row i is checked below IMF x moduli[i], as in the JAX
 engine.
 
+Where a launch's one-CTA grid is under a wave, a transform (K1.rns, N =
+2^12 .. 2^14) or 2^14 shard (K6.rns) runs on a cluster of C CTAs joined
+through distributed shared memory instead ("K1.rns.cl", "K6.rns.cl";
+`csrc/ntt_rns.cu`): C x the SMs for the same work. `cluster_for` picks C
+from the card's table (exact scheme only); C = 1 is the one-CTA form. The
+one-prime transforms of `cuda_ntt` and `hier` take the same route through
+a one-row plan (`cluster_transform`).
+
 A tensor on the GPU goes to the kernels, a tensor on the CPU to the plain
 stacked walk (`fwd_ntt_rns_plain`, `inv_ntt_rns_plain`: each row's flat
 walk, from the row's descriptor values); there is no other path. Launches
 are counted in `_build.launches` under "K1.rns", "K2.rns", "K5.rns",
-"K5.tile.rns" and "K6.rns" (the lean ones under "K1.rns.lean16" ...).
+"K5.tile.rns", "K6.rns", "K1.rns.cl" and "K6.rns.cl" (the lean ones under
+"K1.rns.lean16" ...).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Dict, Tuple
 
@@ -43,7 +53,7 @@ import numpy as np
 import torch
 
 from .. import _build, _device, nt
-from ..limb import to_numpy, to_tensor
+from ..limb import reduce_mod_lazy64, to_numpy, to_tensor
 from ..utils import check as _check
 from . import cuda_ntt, hier, torch_ntt
 from .plan import get_plan, register_clear_hook
@@ -62,6 +72,7 @@ _LOCAL_FWD_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _LOCAL_INV_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
 _CROSS_FWD_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
 _CROSS_INV_ARGS = (_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P)
+_CLUSTER_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 
 
 class RnsPlan:
@@ -190,6 +201,177 @@ def inv_ntt_rns_plain(x: torch.Tensor, rplan: RnsPlan,
         for i, row in enumerate(_row_plans(rplan, x.device))])
 
 
+def fwd_ntt_rns_cluster_plain(x: torch.Tensor, rplan: RnsPlan,
+                              clusters: int, input_mod_factor: int = 1,
+                              output_mod_factor: int = 1) -> torch.Tensor:
+    """The plain version of the cluster form's forward: each row's flat
+    exact walk (`torch_ntt.fwd_stages`) cut where the kernels cut it. Above
+    2^14 the stages of stride >= 2^14 first (K5.rns); then the cluster's
+    cross stages, those of stride >= 2^l / C of a transform or shard of
+    2^l (l = min(log N, 14)), which its CTAs run on their columns; then
+    the stages within each CTA's chunk of 2^l / C, and the OMF
+    reduction."""
+    _check_block(x, rplan, True, input_mod_factor, output_mod_factor,
+                 "exact")
+    return _cluster_plain(x, rplan, clusters, True, output_mod_factor, True)
+
+
+def inv_ntt_rns_cluster_plain(x: torch.Tensor, rplan: RnsPlan,
+                              clusters: int, input_mod_factor: int = 1,
+                              output_mod_factor: int = 1) -> torch.Tensor:
+    """The plain version of the cluster form's inverse: the stages within
+    each CTA's chunk (stride < 2^l / C), then the cluster's cross stages
+    (to stride 2^13 of a shard, or to the whole transform's last stage,
+    fused with N^-1 and the OMF), then above 2^14 the stages of stride >=
+    2^14 (K5.rns, ending with the final stage)."""
+    _check_block(x, rplan, False, input_mod_factor, output_mod_factor,
+                 "exact")
+    return _cluster_plain(x, rplan, clusters, False, output_mod_factor, True)
+
+
+def _cluster_plain(x, rplan, clusters, forward, omf, whole):
+    """Each row's walk cut as the cluster form cuts it: the whole
+    transform, or (not whole, N > 2^14) the split's local pass only, the
+    inverse then stopping before the cross pass."""
+    shards, chunk = _cluster_cut(rplan, clusters)
+    n = rplan.n
+    out = []
+    for i, row in enumerate(_row_plans(rplan, x.device)):
+        v = x[i]
+        if forward:
+            if whole:
+                v = torch_ntt.fwd_stages(v, row, 1, shards)
+            v = torch_ntt.fwd_stages(v, row, shards, shards * clusters)
+            v = torch_ntt.fwd_stages(v, row, shards * clusters, n)
+            if omf == 1:
+                v = reduce_mod_lazy64(v, row.q, 4)
+        else:
+            v = torch_ntt.inv_stages(v, row, 1, chunk)
+            v = torch_ntt.inv_stages(v, row, chunk, min(n // shards, n // 2))
+            if whole:
+                v = torch_ntt.inv_stages(v, row, n // shards, n // 2)
+                v = torch_ntt.inv_final(v, row, omf)
+        out.append(v)
+    return torch.stack(out)
+
+
+def _cluster_cut(rplan: RnsPlan, clusters: int) -> tuple:
+    """(D, chunk): the split's shards of 2^14 (1 up to 2^14) and the
+    chunk of a transform or shard that each CTA of a cluster of
+    `clusters` holds."""
+    if clusters not in (1,) + CLUSTER_SIZES:
+        raise ValueError(f"a cluster holds 1 or {CLUSTER_SIZES} CTAs, got "
+                         f"{clusters}")
+    if rplan.n < CLUSTER_DEGREES[0]:
+        raise ValueError(f"the cluster form takes N >= "
+                         f"{CLUSTER_DEGREES[0]}, got {rplan.n}")
+    shards = max(1, rplan.n >> hier.LOG_LOCAL)
+    return shards, rplan.n // shards // clusters
+
+
+# -- the cluster form's rule -------------------------------------------------
+
+# C, the CTAs of a cluster: 2 to 8 portable, 16 with the kernel's
+# non-portable attribute (csrc/ntt_rns.cu).
+CLUSTER_SIZES = (2, 4, 8, 16)
+# The transforms the cluster form takes whole (K1.rns.cl); above, a 2^14
+# shard (K6.rns.cl).
+CLUSTER_DEGREES = (1 << 12, 1 << 14)
+# The card's table (`cluster_for`): {log2 of the transform or shard:
+# ((most one-CTA CTAs, C), ...)}, by ascending CTAs; a grid beyond the
+# last entry keeps C = 1.
+CLUSTER_TABLE: Dict[int, Tuple[Tuple[int, int], ...]] = {
+    12: ((28, 4), (32, 8), (64, 2)),
+    13: ((48, 8), (64, 2), (96, 8)),
+    14: ((6, 16), (12, 8), (56, 16), (64, 2)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(log_n: int, clusters: int, device) -> int:
+    """How many clusters of `clusters` CTAs of the cluster form at 2^log_n
+    (a transform, or a 2^14 shard) the card holds at once
+    (cudaOccupancyMaxActiveClusters; asked once per device)."""
+    if clusters not in CLUSTER_SIZES or not (
+            CLUSTER_DEGREES[0] <= 1 << log_n <= CLUSTER_DEGREES[1]):
+        raise ValueError(f"the cluster form takes C in {CLUSTER_SIZES} and "
+                         f"N from 2^12 to 2^14, got C={clusters}, "
+                         f"N=2^{log_n}")
+    count = ctypes.c_int(0)
+    fn = _build.function("ntt_rns", "hexl_rns_cluster_max_active",
+                         (_I, _I, ctypes.POINTER(ctypes.c_int)))
+    with torch.cuda.device(device):
+        err = fn(log_n, clusters.bit_length() - 1, ctypes.byref(count))
+    if err:
+        raise RuntimeError(f"hexl_tpu_torch: the cluster occupancy query "
+                           f"failed with cudaError {err}")
+    return count.value
+
+
+def cluster_for(log_n: int, ctas: int, sms: int, device) -> int:
+    """C, the CTAs of a cluster for a launch whose one-CTA form has `ctas`
+    CTAs of 2^log_n (a transform of N = 2^log_n, or a 2^14 shard) on a
+    card of `sms` SMs; 1 is the one-CTA form. The card's table, C by
+    one-CTA grid (CLUSTER_TABLE; see below), then the occupancy argument:
+    C only where the card holds all `ctas` clusters of C at once
+    (`max_active_clusters`), else the next smaller C that it does. C = 1
+    at a wave or more (ctas >= sms), off the table, and on a device that
+    is not CUDA. A query that finds no cluster of the table's C resident
+    raises.
+
+    The table is `chip_smoke.py --cluster-times` (one NVIDIA H100 80GB
+    HBM3 at 700.00 W): the forward + inverse pair of one
+    50-bit prime at `ctas` one-CTA CTAs, device ms, median of 20 graph
+    replays, as "CTAs: C, its ms / C = 1's ms / the split variant's ms"
+    (the split: K5 for the stages of stride >= 2^11, then K6 at L = 2^11,
+    two launches of kernels the port has; at 2^15 the pair is two shards
+    a transform, K5 and the local pass):
+
+    - 2^12: 1: 4, 0.0123/0.0170/0.0134; 4: 4, 0.0126/0.0175/0.0135; 12:
+      4, 0.0128/0.0176/0.0135; 28: 4, 0.0133/0.0175/0.0144; 32: 8,
+      0.0146/0.0177/0.0144; 48: 2, 0.0152/0.0175/0.0151; 64: 2,
+      0.0153/0.0180/0.0159; 96: 1, 0.0186; 128: 1, 0.0196.
+    - 2^13: 1: 8, 0.0130/0.0334/0.0135; 4: 8, 0.0133/0.0329/0.0138; 12:
+      8, 0.0140/0.0332/0.0146; 28: 8, 0.0163/0.0333/0.0160; 48: 8,
+      0.0219/0.0334/0.0220; 56: 2, 0.0224/0.0335/0.0226; 64: 2,
+      0.0230/0.0340/0.0232; 96: 8, 0.0316/0.0356/0.0304; 128: 1, 0.0365.
+    - 2^14: 1: 16, 0.0149/0.0622/0.0142; 3: 16, 0.0152/0.0621/0.0147; 6:
+      16, 0.0154/0.0624/0.0148; 8: 8, 0.0160/0.0618/0.0152; 12: 8,
+      0.0168/0.0620/0.0164; 16: 16, 0.0200/0.0624/0.0173; 28: 16,
+      0.0231/0.0623/0.0240; 56: 16, 0.0373/0.0630/0.0378; 64: 2,
+      0.0423/0.0629/0.0389; 96: 1, 0.0660; 128: 1, 0.0702.
+    - 2^15 (the shards, the same C as 2^14 at the same CTAs): 2: 16,
+      0.0180/0.0642/0.0161; 6: 16, 0.0185/0.0646/0.0170; 12: 8,
+      0.0213/0.0648/0.0177; 24: 16, 0.0281/0.0663/0.0247; 32: 16,
+      0.0323/0.0673/0.0261; 56: 16, 0.0466/0.0714/0.0411; 64: 2,
+      0.0521/0.0732/0.0422.
+
+    The cluster is 1.2-1.4x faster than one CTA at 2^12, 1.5-2.6x at
+    2^13, 2.7-4.2x at 2^14 and 1.4-3.6x at 2^15, up to the grid where
+    its clusters no longer fit at once; C = 1 from 96 CTAs (2^12, 2^14)
+    or 128 (2^13). Against the one-prime split it is 0.92-0.99x at 2^12
+    up to 28 CTAs and 0.95-0.99x at 2^13 up to 16, but 1.02-1.16x at
+    2^14 below 20 CTAs and 1.1-1.3x at 2^15: the split's second launch
+    costs what the cluster's barrier, its distributed shared memory and
+    its column phase cost. A stacked call over k primes has no such split
+    (no stacked K6 below 2^14: K5.rns then a K6 launch a prime), and
+    there the cluster is 2.2-4.5x faster than that split at every key
+    switch launch (PERF.md, section 6)."""
+    if ctas >= sms or torch.device(device).type != "cuda":
+        return 1
+    pick = next((c for most, c in CLUSTER_TABLE.get(log_n, ())
+                 if ctas <= most), 1)
+    while pick > 1:
+        active = max_active_clusters(log_n, pick, device)
+        if active == 0:
+            raise RuntimeError(f"hexl_tpu_torch: no cluster of {pick} CTAs "
+                               f"at N=2^{log_n} is resident on {device}")
+        if ctas <= active:
+            return pick
+        pick //= 2
+    return 1
+
+
 # -- the launches ----------------------------------------------------------
 
 def _check_block(x: torch.Tensor, rplan: RnsPlan, forward: bool, imf: int,
@@ -210,6 +392,50 @@ def _launch(lib: str, entry: str, argtypes, name: str, x: torch.Tensor,
     _build.launch_on(x.device, name, fn, x.data_ptr(), out.data_ptr(),
                      rows.data_ptr(), rows.shape[0], *args)
     return out
+
+
+def _cluster(x, rows, rplan, batch, forward, omf, clusters):
+    """K1.rns.cl (N <= 2^14: the whole transform) or K6.rns.cl (above:
+    the local pass of the split), a cluster of `clusters` CTAs a
+    transform or shard."""
+    log_n = min(rplan.log_n, hier.LOG_LOCAL)
+    log_d = rplan.log_n - log_n
+    entry = "hexl_rns_cluster_fwd" if forward else "hexl_rns_cluster_inv"
+    return _launch("ntt_rns", entry, _CLUSTER_ARGS,
+                   "K6.rns.cl" if log_d else "K1.rns.cl", x, rows, log_n,
+                   log_d, batch, clusters.bit_length() - 1, omf)
+
+
+def _clusters(x, n, ctas, scheme):
+    """`cluster_for`'s C for a launch of `ctas` one-CTA CTAs of degree n in
+    the exact scheme, else 1."""
+    if scheme != "exact" or n < CLUSTER_DEGREES[0]:
+        return 1
+    cuda = x.device.type == "cuda"
+    return cluster_for(min(nt.log2_exact(n), hier.LOG_LOCAL), ctas,
+                       cuda_ntt.sm_count(x.device) if cuda else 0, x.device)
+
+
+def cluster_transform(x: torch.Tensor, plan, forward: bool, omf: int,
+                      batch: int):
+    """The route of a 64-bit exact one-prime call (`cuda_ntt` up to 2^14,
+    `hier`'s local pass above) to the cluster form, through the one-row
+    plan of plan's prime, where `cluster_for` picks C > 1 for its one-CTA
+    grid: the output, or None (the caller's own kernel or plain version).
+    x (..., N) holds `batch` transforms; above 2^14 the call is the
+    split's local pass (the inverse stops before the cross pass). On the
+    CPU the cluster form's plain version."""
+    ctas = batch << max(0, plan.log_n - hier.LOG_LOCAL)
+    clusters = _clusters(x, plan.n, ctas, "exact") if batch else 1
+    if clusters == 1:
+        return None
+    rplan = get_rns_plan(plan.n, (plan.q,))
+    if not _build.on_card(x):
+        return _cluster_plain(x.reshape(1, *x.shape), rplan, clusters,
+                              forward, omf, plan.n <= hier.LOCAL_N)[0]
+    # The kernels read x as the one row's batch transforms: no row axis.
+    return _cluster(x, rplan.descriptors(x.device), rplan, batch, forward,
+                    omf, clusters)
 
 
 def _whole(x, rows, rplan, batch, forward, omf, scheme):
@@ -258,20 +484,33 @@ def _cross(x, rows, rplan, batch, forward, omf, scheme):
 def _stacked(x: torch.Tensor, rplan: RnsPlan, imf: int, omf: int,
              forward: bool, scheme: str) -> torch.Tensor:
     _check_block(x, rplan, forward, imf, omf, scheme)
-    if not _build.on_card(x):
+    card = _build.on_card(x)
+    batch = _build.batch_of(x, rplan.n) // rplan.k
+    clusters = 1
+    if batch and cuda_ntt.polys_per_cta(rplan.n, batch) == 1:
+        clusters = _clusters(x, rplan.n, rplan.k * batch << max(
+            0, rplan.log_n - hier.LOG_LOCAL), scheme)
+    if not card:
+        if clusters > 1:
+            return _cluster_plain(x, rplan, clusters, forward, omf, True)
         fn = fwd_ntt_rns_plain if forward else inv_ntt_rns_plain
         return fn(x, rplan, imf, omf, scheme)
-    batch = _build.batch_of(x, rplan.n) // rplan.k
     if batch == 0:
         return torch.empty_like(x)
     rows = rplan.descriptors(x.device)
+
+    def local(v):
+        """The whole transform up to 2^14, the local pass above."""
+        if clusters > 1:
+            return _cluster(v, rows, rplan, batch, forward, omf, clusters)
+        if rplan.n <= cuda_ntt.MAX_KERNEL_DEGREE:
+            return _whole(v, rows, rplan, batch, forward, omf, scheme)
+        return _local(v, rows, rplan, batch, forward, omf, scheme)
     if rplan.n <= cuda_ntt.MAX_KERNEL_DEGREE:
-        return _whole(x, rows, rplan, batch, forward, omf, scheme)
+        return local(x)
     if forward:
-        return _local(_cross(x, rows, rplan, batch, True, omf, scheme), rows,
-                      rplan, batch, True, omf, scheme)
-    return _cross(_local(x, rows, rplan, batch, False, omf, scheme), rows,
-                  rplan, batch, False, omf, scheme)
+        return local(_cross(x, rows, rplan, batch, True, omf, scheme))
+    return _cross(local(x), rows, rplan, batch, False, omf, scheme)
 
 
 def fwd_ntt_rns(x: torch.Tensor, rplan: RnsPlan, input_mod_factor: int = 1,

@@ -41,6 +41,37 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+@pytest.fixture
+def one_cta(monkeypatch):
+    """The cluster form's rule kept at C = 1, for the tests of the one-CTA
+    kernels (K1, K6 and their stacked forms) at grids under a wave, where
+    `rns.cluster_for` would pick clusters."""
+    monkeypatch.setattr(rns, "cluster_for", lambda *args: 1)
+
+
+def _routed(dev, n, rows, batch, stacked=False):
+    """{kernel: 1}: the kernels of one 64-bit exact transform of (rows,
+    batch, n) under the cluster form's rule, K1 (.rns) or K1.rns.cl up to
+    2^14, K5 (.rns) and K6 (.rns) or K6.rns.cl above."""
+    shards = max(1, n >> 14)
+    log_n = min(n.bit_length() - 1, 14)
+    clustered = n >= 1 << 12 and rns.cluster_for(
+        log_n, rows * batch * shards, cuda_ntt.sm_count(dev), dev) > 1
+    sfx = ".rns" if stacked else ""
+    if n <= 1 << 14:
+        return {"K1.rns.cl" if clustered else "K1" + sfx: 1}
+    return {"K5" + sfx: 1, "K6.rns.cl" if clustered else "K6" + sfx: 1}
+
+
+def _launches(*parts):
+    """The sum of {kernel: count} parts, each (counts, times)."""
+    out = {}
+    for counts, times in parts:
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + v * times
+    return out
+
+
 def _rand(rng, shape, bound, dev):
     return to_tensor(rng.integers(0, bound, size=shape, dtype=np.uint64), dev)
 
@@ -49,7 +80,7 @@ def _rand(rng, shape, bound, dev):
                                      (1024, 401), (4096, 3), (4096, 401),
                                      (16384, 2)])
 @pytest.mark.parametrize("q_bits", [30, 61])
-def test_ntt_kernels_match_plain(cuda, n, batch, q_bits):
+def test_ntt_kernels_match_plain(cuda, one_cta, n, batch, q_bits):
     q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
     plan = get_plan(n, q)
     rng = np.random.default_rng(n + q_bits)
@@ -85,7 +116,7 @@ def test_poly_and_mult_mod_kernels_match_plain(cuda, n, batch):
 
 @pytest.mark.parametrize("n,batch", [(1 << 15, 3), (1 << 20, 1)])
 @pytest.mark.parametrize("q_bits", [29, 61, 62])
-def test_split_kernels_match_plain(cuda, n, batch, q_bits):
+def test_split_kernels_match_plain(cuda, one_cta, n, batch, q_bits):
     """K5 and K6, each against its plain version (u64 for every modulus,
     and the u32 instantiation for the 29-bit one). q_bits = 62 is the
     largest prime below 2^62, where 4q is just under 2^64."""
@@ -198,9 +229,11 @@ def test_split_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
     poly_mult_mod(x, x, n, q)
     rns_poly_mult_mod(np.stack([x, x29]), np.stack([x, x29]), n, [q, q29])
     # The RNS product of two distinct primes: three stacked transforms of
-    # two passes each and one K4.rows for the basis.
-    assert dict(_build.launches) == {"K5": 5, "K6": 5, "K7": 2, "K4": 1,
-                                     "K5.rns": 3, "K6.rns": 3, "K4.rows": 1}
+    # two passes each and one K4.rows for the basis; each local pass in the
+    # cluster form's rule's kernel.
+    one, stacked = _routed(cuda, n, 1, 2), _routed(cuda, n, 2, 2, True)
+    assert dict(_build.launches) == _launches(
+        (one, 5), (stacked, 3), ({"K7": 2, "K4": 1, "K4.rows": 1}, 1))
 
 
 def _u64(rng, lo, hi):
@@ -420,9 +453,11 @@ def test_slice3_entry_points_never_take_the_plain_path(cuda, monkeypatch):
     # the mod-down's forwards) and the key prime's forward and inverse, of
     # two passes each; the rows' and the key prime's base conversion; K10,
     # K11 twice.
-    assert dict(_build.launches) == {"K9": 2, "K5.rns": 3, "K6.rns": 3,
-                                     "K5": 2, "K6": 2, "K8.reduce.rows": 1,
-                                     "K8.reduce": 1, "K10": 1, "K11": 2}
+    assert dict(_build.launches) == _launches(
+        (_routed(cuda, n, 2, 1, True), 2), (_routed(cuda, n, 2, 2, True), 1),
+        (_routed(cuda, n, 1, 2), 2),
+        ({"K9": 2, "K8.reduce.rows": 1, "K8.reduce": 1, "K10": 1, "K11": 2},
+         1))
 
 
 def _fft_value(rng, shape, precision, dev):
@@ -855,7 +890,7 @@ def _check_pair(x_fwd, x_inv, plan, scheme, word=64):
 
 
 @pytest.mark.parametrize("log_n", range(1, 15))
-def test_radix_walk_at_every_degree(cuda, log_n):
+def test_radix_walk_at_every_degree(cuda, one_cta, log_n):
     """K1 (one polynomial per CTA) at every N from 2 to 2^14, batches 1
     and 3: exact at 30 and 61 bits, and every lean scheme of a 59-bit q."""
     n = 1 << log_n
@@ -872,7 +907,7 @@ def test_radix_walk_at_every_degree(cuda, log_n):
 
 
 @pytest.mark.parametrize("log_d", range(1, 7))
-def test_radix_local_pass_at_every_shard_count(cuda, log_d):
+def test_radix_local_pass_at_every_shard_count(cuda, one_cta, log_d):
     """K6 on the 2^log_d shards of N = 2^(14 + log_d): u64 exact and lean8
     at 60 bits, lean16 at 50, the u32 form at 29."""
     n = 1 << (14 + log_d)
@@ -1044,10 +1079,9 @@ def test_prewarmed_pair_builds_and_looks_up_nothing_new(cuda, monkeypatch):
     assert dict(_build._funcs) == bound
 
 
-@pytest.mark.parametrize("n,q_bits,kernels", [(1 << 12, 50, ("K1",)),
-                                              (1 << 16, 60, ("K5", "K6"))])
-def test_plan_file_drives_the_kernels(cuda, tmp_path, monkeypatch, n, q_bits,
-                                      kernels):
+@pytest.mark.parametrize("n,q_bits", [(1 << 12, 50), (1 << 16, 60)])
+def test_plan_file_drives_the_kernels(cuda, tmp_path, monkeypatch, n,
+                                      q_bits):
     from hexl_tpu_torch.ntt import plan as plan_mod
     monkeypatch.setattr(plan_mod, "_PLAN_CACHE", {})
     q = nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
@@ -1058,6 +1092,7 @@ def test_plan_file_drives_the_kernels(cuda, tmp_path, monkeypatch, n, q_bits,
     assert plan_mod.load_plan_cache(path) == 1
     loaded, fresh = plan_mod.get_plan(n, q), plan_mod.NttPlan.build(n, q)
     x = _rand(np.random.default_rng(n), (3, n), q, cuda)
+    kernels = _routed(cuda, n, 1, 3)
     before = dict(_build.launches)
     y = cuda_ntt.fwd_ntt(x, loaded)
     back = cuda_ntt.inv_ntt(y, loaded)
@@ -1082,8 +1117,12 @@ def test_trace_on_the_card_holds_kernel_events(cuda, tmp_path):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     names = [ev["name"] for ev in events if ev.get("cat") == "kernel"]
-    assert any("radix_fwd_kernel" in k for k in names)
-    assert any("radix_inv_kernel" in k for k in names)
+    # The pair's kernels: K1's, or the cluster form's where the rule routes
+    # a grid of two transforms there.
+    walk = ("rns_cluster" if "K1.rns.cl" in _routed(cuda, n, 1, 2)
+            else "radix")
+    assert any(f"{walk}_fwd_kernel" in k for k in names)
+    assert any(f"{walk}_inv_kernel" in k for k in names)
     assert any(ev.get("name") == "pair" for ev in events)
 
 
@@ -1133,7 +1172,8 @@ def test_public_ntt_at_2_20_takes_the_tiled_form(cuda):
         _build.reset_launches()
         back = engine.inverse(engine.forward(x))
         torch.cuda.synchronize()
-        assert dict(_build.launches) == {k5: 2, "K6": 2}
+        local = {k: v for k, v in _routed(cuda, n, 1, 2).items() if k != "K5"}
+        assert dict(_build.launches) == _launches(({k5: 1}, 2), (local, 2))
         assert torch.equal(back, x)
 
 
@@ -1171,7 +1211,7 @@ def _stacked_rows(rng, moduli, shape, factor, dev):
                                        (1 << 14, 16, 1), (1 << 15, 3, 3),
                                        (1 << 17, 16, 1), (1 << 20, 3, 1)])
 @pytest.mark.parametrize("scheme", ["exact", "lean16", "lean8"])
-def test_stacked_kernels_match_plain(cuda, n, k, batch, scheme):
+def test_stacked_kernels_match_plain(cuda, one_cta, n, k, batch, scheme):
     """fwd_ntt_rns/inv_ntt_rns over the whole basis, every IMF/OMF pair,
     against the plain stacked walk; one launch a direction up to 2^14, two
     above, under the stacked names."""
@@ -1273,8 +1313,8 @@ def test_stacked_entry_points_never_take_the_plain_path(cuda, monkeypatch):
     monkeypatch.setattr(cuda_ntt, "inv_ntt", refuse)
     monkeypatch.setattr(poly, "poly_mult", refuse)
     rng = np.random.default_rng(3)
-    for n, kernels in ((1 << 12, {"K1.rns": 2}),
-                       (1 << 17, {"K5.rns": 2, "K6.rns": 2})):
+    for n in (1 << 12, 1 << 17):
+        kernels = _launches((_routed(cuda, n, 4, 2, True), 2))
         moduli = _stacked_basis(n, 4)
         engine = RnsNTT(n, moduli)
         x = _stacked_rows(rng, moduli, (2, n), 1, cuda)
@@ -1287,3 +1327,73 @@ def test_stacked_entry_points_never_take_the_plain_path(cuda, monkeypatch):
         rns_poly_mult_mod(x, x, n, moduli)
         torch.cuda.synchronize()
         assert sum(_build.launches.values()) == (4 if n <= 1 << 14 else 7)
+
+
+# -- the cluster form (K1.rns.cl, K6.rns.cl) ---------------------------------
+
+@pytest.mark.parametrize("clusters", rns.CLUSTER_SIZES)
+@pytest.mark.parametrize("log_n", range(12, 21))
+def test_cluster_kernels_match_plain(cuda, monkeypatch, clusters, log_n):
+    """K1.rns.cl (N <= 2^14) and K6.rns.cl (the shards above) with the
+    rule's C forced, k = 1 and 3 primes (batch 3; 1 and 2 primes at batch
+    1 above 2^14), every IMF/OMF pair, against the plain cluster walk, one
+    launch of the cluster kernel a call; and the routed one-prime calls
+    (batches 1 and 3, to 2^16) against the flat walk."""
+    monkeypatch.setattr(rns, "cluster_for", lambda *args: clusters)
+    n = 1 << log_n
+    kernel = "K1.rns.cl" if log_n <= 14 else "K6.rns.cl"
+    rng = np.random.default_rng(log_n + clusters)
+    pairs = ([(True, i, o) for i in (1, 2, 4) for o in (1, 4)]
+             + [(False, i, o) for i in (1, 2) for o in (1, 2)])
+    for k, batch in ((1, 3), (3, 3)) if log_n <= 14 else ((1, 1), (2, 1)):
+        moduli = _stacked_basis(n, k)
+        rplan = rns.get_rns_plan(n, moduli)
+        for forward, imf, omf in pairs:
+            x = _stacked_rows(rng, moduli, (batch, n), imf, cuda)
+            _build.reset_launches()
+            got = (rns.fwd_ntt_rns if forward else rns.inv_ntt_rns)(
+                x, rplan, imf, omf)
+            torch.cuda.synchronize()
+            assert _build.launches[kernel] == 1
+            plain = (rns.fwd_ntt_rns_cluster_plain if forward
+                     else rns.inv_ntt_rns_cluster_plain)
+            assert torch.equal(got, plain(x, rplan, clusters, imf, omf))
+    if log_n > 16:
+        return
+    plan = get_plan(n, _modulus(61, n))
+    for batch in (1, 3):
+        for forward, imf, omf in pairs:
+            x = _rand(rng, (batch, n), imf * plan.q, cuda)
+            _build.reset_launches()
+            got = (cuda_ntt.fwd_ntt if forward else cuda_ntt.inv_ntt)(
+                x, plan, imf, omf)
+            torch.cuda.synchronize()
+            assert _build.launches[kernel] == 1
+            plain = torch_ntt.fwd_ntt if forward else torch_ntt.inv_ntt
+            assert torch.equal(got, plain(x, plan, imf, omf))
+
+
+def test_cluster_instantiations_do_not_spill(cuda):
+    """Every instantiation of the cluster form, from the -Xptxas -v report
+    of the build: the forward and the whole inverse at 11 (C, chunk)
+    shapes each, the shard's inverse at 4."""
+    import re
+    res = _build.kernel_resources(_build.build_all()["log"])
+    clustered = {k: v for k, v in res.items()
+                 if re.search(r"rns_cluster_(fwd|inv)_kernel", k)}
+    assert len(clustered) == 11 + 11 + 4
+    spills = {k: v for k, v in clustered.items() if v[2] or v[3]}
+    assert not spills, spills
+
+
+def test_cluster_rule_on_the_card(cuda):
+    """`cluster_for` on this card: C = 1 from a wave on; below it, a C
+    whose clusters the card holds all at once."""
+    sms = cuda_ntt.sm_count(cuda)
+    for log_n in (12, 13, 14):
+        for ctas in range(1, sms + 8):
+            c = rns.cluster_for(log_n, ctas, sms, cuda)
+            if ctas >= sms:
+                assert c == 1
+            elif c > 1:
+                assert ctas <= rns.max_active_clusters(log_n, c, cuda)
