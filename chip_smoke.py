@@ -13,8 +13,10 @@ card in turns parent, this tree, this tree, parent:
 
     python3 chip_smoke.py --walk-ab PARENT
 
-(K5's rows at D = 8 .. 64 among them; and the key switch at every
-KS_SHAPES entry, its transforms, and the graft pipeline). K5 alone, at
+(K5's rows at D = 8 .. 64 among them; the key switch at every
+KS_SHAPES entry, its transforms, and the graft pipeline; a DistNTT
+position's local pass at every shape of the fifth path, and each
+fifth-path call, one a graph replay). K5 alone, at
 every D in both words and forms, and the variants of its tiled form
 against each other:
 
@@ -32,12 +34,21 @@ at ROOT:
     python3 chip_smoke.py --cluster-times [ROOT BATCHES]
     python3 chip_smoke.py --ks-times ROOT
 
+A DistNTT position's local pass (K6.shard, and K6.shard.cl where the
+cluster rule routes it) at every shape the fifth path launches it, with
+each C the card holds forced, and each fifth-path call replayed from a
+CUDA graph with its launches, on the port at ROOT (default this tree);
+and K6's forms for small shards (SHARD_VARIANTS) timed in turns:
+
+    python3 chip_smoke.py --shard-times [ROOT]
+    python3 chip_smoke.py --shard-variants
+
 Phases, each of which fails the run (non-zero exit) if anything is wrong:
   1. the card: CUDA present; its name and power limit from nvidia-smi;
   2. build: every kernel compiled from csrc/ with nvcc for sm_90a, with
      the compiler's -Xptxas -v report (the run fails if a lean, chain,
      radix-walk, K2, K3 or K5 tiled-form instantiation of the NTT or the
-     FFT-like, or any of the 131 stacked (RNS) or 26 cluster-form
+     FFT-like, or any of the 131 stacked (RNS) or 33 cluster-form
      instantiations, spills; the cluster form's most active clusters),
      K3's most active clusters per degree, five
      probe kernels whose SASS gives the IMADs of a 64x64 and of a 32x32
@@ -84,7 +95,9 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      K4.rows and K8.reduce.rows; the cluster form (cluster_kernel_checks):
      K1.rns.cl and K6.rns.cl at every C (2, 4, 8, 16) and N from 2^12 to
      2^20 against the plain cluster walk, every IMF/OMF pair, and the
-     one-prime calls routed to it at N = 2^12 .. 2^16;
+     one-prime calls routed to it at N = 2^12 .. 2^16; K6.shard.cl
+     (shard_cluster_checks) at every C, L from 2^12 to 2^16, D = 2, 4
+     and 8 and their positions, against its plain version;
   4. seven main paths through the public entry points, each with the
      launch counts set to 0 just before it and read just after it.
      The first: NTT(2^14, 60-bit) forward and inverse at batch 256
@@ -127,8 +140,9 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      at N=2^17 x 16 primes of 50 bits on the (2, 4) and (2, 8) meshes,
      DistNTT at bench.py's shape on (1, 8), (2, 4) (also with two overlap
      slices) and (1, 1), PipelineNTT on a ring of 8, dist_key_switch and
-     dist_dyadic_multiply; every output against the port's single-device
-     call and the plain path on the same inputs.
+     dist_dyadic_multiply (K6.shard.cl launched, and K6 for the shards at
+     a wave); every output against the port's single-device call and the
+     plain path on the same inputs.
      The sixth (see its comment in main): the approximate-butterfly regime
      forced on: NTT(2^14) at 60 bits (lean8) and 59 bits (lean16) at batch
      256, NTT(2^17, 50-bit) at batch 16 (lean16, K5/K6), NTT(2^10, 49-bit)
@@ -197,7 +211,8 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      key switch's shapes beside their bound (bytes, IMADs or the launch
      floor: the cluster probe at the same grid and cluster shape), and
      every launch of the four key switches in the one-CTA form and in the
-     rule's cluster.
+     rule's cluster; K6.shard.cl at the RNS product's (2, 8) shard beside
+     its bound (the same floor rule).
 It then prints one JSON line describing every kernel, and as its last line
 {"ok": true, "device": {...}}.
 """
@@ -412,6 +427,17 @@ def empty_probe(proc, lib: pathlib.Path):
         if err:
             raise RuntimeError(f"empty probe launch failed: cudaError {err}")
     return launch
+
+
+def import_port(root: pathlib.Path) -> None:
+    """Put the port at `root` (this tree, an earlier one or a variant copy)
+    first on sys.path and import it; raises if another copy was
+    imported."""
+    sys.path.insert(0, str(root))
+    import hexl_tpu_torch
+    if not pathlib.Path(hexl_tpu_torch.__file__).is_relative_to(root):
+        raise AssertionError(f"imported {hexl_tpu_torch.__file__}, not the "
+                             f"port at {root}")
 
 
 def eltwise_grid(count: int, sms: int) -> tuple:
@@ -984,11 +1010,7 @@ def ks_times(root: pathlib.Path) -> int:
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
     log(nvidia_smi("name,power.limit"))
-    sys.path.insert(0, str(root))
-    import hexl_tpu_torch
-    if not pathlib.Path(hexl_tpu_torch.__file__).is_relative_to(root):
-        raise AssertionError(f"imported {hexl_tpu_torch.__file__}, not the "
-                             f"port at {root}")
+    import_port(root)
     from hexl_tpu_torch import _build, key_switch, nt
     from hexl_tpu_torch.eltwise import ops
     from hexl_tpu_torch.limb import to_tensor
@@ -1519,12 +1541,12 @@ def rns_kernel_checks(rng, dev, nt, rns, hier, ops, torch_kernels, torch_ntt,
             checks += 1
     return checks
 
-# The cluster form (K1.rns.cl, K6.rns.cl; csrc/ntt_cluster.cuh): its
-# instantiations, the forward and the whole transform's inverse at each
-# (C, chunk) it takes (11 each: C = 2, 4, 8 at three chunks, 16 at two
-# constant shapes), the shard's inverse at one chunk a C (4).
+# The cluster form (K1.rns.cl, K6.rns.cl, K6.shard.cl;
+# csrc/ntt_cluster.cuh): its instantiations, the forward, the whole
+# transform's inverse and the shard's inverse at each (C, chunk) it takes
+# (11 each: C = 2, 4, 8 at three chunks, 16 at two constant shapes).
 CLUSTER_INSTANTIATION = re.compile(r"rns_cluster_(fwd|inv)_kernel")
-CLUSTER_INSTANTIATIONS = 11 + 11 + 4
+CLUSTER_INSTANTIATIONS = 11 + 11 + 11
 CLUSTER_SIZES = (2, 4, 8, 16)
 # Its phase-3 cases: every IMF/OMF pair of each direction.
 CLUSTER_CHECK_PAIRS = ((True, 1, 1), (True, 2, 4), (True, 4, 4),
@@ -1610,6 +1632,64 @@ def cluster_kernel_checks(rng, dev, nt, rns, cuda_ntt, get_plan, torch_ntt,
                                  else torch_ntt.inv_ntt)
                         compare(kernel, got, plain(x, plan, imf, omf), what)
                         checks += 1
+    return checks
+
+
+# K6.shard.cl's phase-3 cases: shards of 2^12 .. 2^16 (above 2^14 K5 on
+# the intra-shard stages, then the cluster on the 2^14 sub-shards) of D =
+# 2, 4 and 8 positions, at every position of D <= 4 and the first, a
+# middle and the last of 8; batches 1 and 3.
+SHARD_CLUSTER_LOG_LS = range(12, 17)
+SHARD_CLUSTER_DS = (2, 4, 8)
+
+
+def shard_cluster_checks(rng, dev, nt, get_plan, rns, shard, to_tensor,
+                         compare, launches):
+    """K6.shard.cl (a DistNTT position's local pass on a cluster of C CTAs
+    a shard or sub-shard) at every C, against its plain version
+    (`shard.local_cluster_plain`), bit for bit: `SHARD_CLUSTER_LOG_LS` x
+    `SHARD_CLUSTER_DS`, the positions above, the forward at OMF 1 and 4
+    and the inverse, a prime of each of PARALLEL_Q_BITS in turn. Each call
+    must launch the cluster kernel once (and K5 once above 2^14). Returns
+    the number of checks."""
+    import numpy as np
+
+    def rand(shape, bound):
+        return to_tensor(rng.integers(0, bound, size=shape, dtype=np.uint64),
+                         dev)
+
+    checks = 0
+    for c in CLUSTER_SIZES:
+        with forced_clusters(rns, c):
+            for log_l in SHARD_CLUSTER_LOG_LS:
+                for d in SHARD_CLUSTER_DS:
+                    n = d << log_l
+                    q_bits = PARALLEL_Q_BITS[checks % len(PARALLEL_Q_BITS)]
+                    plan = get_plan(n, nt.generate_primes(
+                        1, q_bits, True, ntt_size=n)[0])
+                    want = {shard.CLUSTER_NAME: 1}
+                    if log_l > 14:
+                        want["K5"] = 1
+                    for r in range(d) if d <= 4 else (0, d // 2, d - 1):
+                        batch = 1 + 2 * (r % 2)
+                        what = (f"K6.shard.cl C={c} L=2^{log_l} D={d} r={r} "
+                                f"batch={batch} q_bits={q_bits}")
+                        for forward, omf in ((True, 1), (True, 4),
+                                             (False, 1)):
+                            x = rand((batch, n // d),
+                                     (4 if forward else 2) * plan.q)
+                            launches.clear()
+                            got = shard.local(x, plan, r, d, forward, omf)
+                            if dict(launches) != want:
+                                raise AssertionError(
+                                    f"{what} launched {dict(launches)}, not "
+                                    f"{want}")
+                            compare(shard.CLUSTER_NAME, got,
+                                    shard.local_cluster_plain(
+                                        x, plan, r, d, forward, omf, c),
+                                    f"{what} {'fwd' if forward else 'inv'}"
+                                    f" omf={omf}")
+                            checks += 1
     return checks
 
 
@@ -1947,7 +2027,7 @@ WALK_ROWS["K5.tile"] = "K5.d64"
 
 
 def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
-              to_tensor) -> dict:
+              to_tensor, fifth=False) -> dict:
     """{row: fn} for WALK_ROWS' rows and the A/B's other rows (K7.n13,
     K7.n15, K7.n10, FFT.f64, torch.fft, K2, K3.n10, K3.n12, K5.d8 ..
     K5.d64, and `rns_runs`' RNS.prod, RNS.n14, RNS.n17, KS.ntts, KS), at
@@ -1959,8 +2039,11 @@ def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
     position 3 of 8 at bench.py's shape (L = 2^11, batch 256), the
     FFT-like of the fourth path (2^14 x 64, scale 2^40), and poly_mult at
     (2^14, 60-bit, 64), (2^13, 60-bit, 132), (2^10, 60-bit, 64) and
-    (2^12, 50-bit, 2). Written against the wrappers' signatures, which the
-    parent tree of an A/B (`--walk-ab`) shares."""
+    (2^12, 50-bit, 2). With `fifth`, also the local pass of a DistNTT
+    position at every shape of the fifth path (`local_pass_runs`, rows
+    "K6.shard N=..."), and each fifth-path call (rows "fifth: ...", one
+    call a graph replay in `walk_times`). Written against the wrappers'
+    signatures, which the parent tree of an A/B (`--walk-ab`) shares."""
     import numpy as np
     import torch
     from hexl_tpu_torch import FFTLike, poly
@@ -2031,7 +2114,17 @@ def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
     from hexl_tpu_torch.eltwise import ops
     from hexl_tpu_torch.ntt import rns, torch_ntt
 
-    return {"K1": pair(q60, "exact"), "K1.lean8": pair(q60, "lean8"),
+    extra = {}
+    if fifth:
+        f5 = fifth_path(rng, dev, nt.generate_primes(RNS_PRIMES, 50, True,
+                                                     ntt_size=n17))
+        extra = {name: fn for name, (fn, _) in local_pass_runs(
+            rng, dev, shard, hier,
+            fifth_local_shapes(f5.calls, shard)).items()}
+        extra.update({f"fifth: {name}": call
+                      for name, (call, _, _) in f5.calls.items()})
+    return {**extra, "K1": pair(q60, "exact"),
+            "K1.lean8": pair(q60, "lean8"),
             "K1.lean16": pair(prime(59, n14), "lean16"),
             "K6": local(prime(60, n17), "exact"),
             "K6.u32": local(prime(29, n17), "exact", 32),
@@ -2136,6 +2229,96 @@ def rns_runs(rng, dev, nt, get_plan, cuda_ntt, rns, to_tensor,
         runs["KS"] = lambda: key_switch(result, t, n15, ds14, ds14 + 1,
                                         ds14 + 1, 2, ks_moduli, keys, msf)
     return runs
+
+
+# The fifth main path: the parallel layer on meshes of cuda:0 positions (one
+# card holds every position, as one CPU holds the JAX package's virtual
+# devices in its tests and dry run; this says nothing of NVLink or of
+# scaling). BASELINE.json's north star, the RNS poly-mult at N=2^17 x 16
+# primes of 50 bits, batch 2 (a polynomial per batch row), on the dry run's
+# (batch 2, coeff 4) mesh (L = 2^15: K5 + K6 per position) and its
+# 16-device (2, 8) mesh (L = 2^14); DistNTT fwd+inv at bench.py's shape
+# (2^14, 60-bit, batch 256) on (1, 8) and (2, 4), on (2, 4) with
+# overlap_slices=2, and on the D = 1 mesh; PipelineNTT at 2^14, 60-bit, 16
+# microbatches of 16 on an 8-position ring; dist_key_switch at the dry
+# run's shape (2^14, ds 3, kc 2, 49-bit) on (2, 4); and
+# dist_dyadic_multiply on the same moduli.
+def fifth_path(rng, dev, moduli) -> SimpleNamespace:
+    """The fifth main path's calls, {name: (call, mesh, the same
+    computation on one device)}, and their inputs, through the port on
+    sys.path (this tree's, or an earlier one's for `--shard-times ROOT`
+    and `--walk-ab`); `moduli` the RNS product's 16 primes."""
+    import numpy as np
+    import torch
+    import hexl_tpu_torch as port
+    from hexl_tpu_torch import nt, rns_poly_mult_mod
+    from hexl_tpu_torch.limb import to_tensor
+    from hexl_tpu_torch.ntt import cuda_ntt, get_plan
+    from hexl_tpu_torch.parallel import (DistNTT, PipelineNTT,
+                                         dist_dyadic_multiply,
+                                         dist_key_switch, dist_rns_poly_mult,
+                                         make_mesh, make_pipeline_mesh)
+
+    def rand(shape, bound):
+        return to_tensor(rng.integers(0, bound, size=shape, dtype=np.uint64),
+                         dev)
+
+    n14, n17 = 1 << 14, 1 << 17
+    q60 = nt.generate_primes(1, 60, True, ntt_size=n14)[0]
+    plan14 = get_plan(n14, q60)
+    meshes = {(nb, nc): make_mesh(nc, nb, [dev] * (nb * nc))
+              for nb, nc in ((2, 4), (2, 8), (1, 8), (1, 1))}
+    ra2 = torch.stack([rand((2, n17), q) for q in moduli])
+    rb2 = torch.stack([rand((2, n17), q) for q in moduli])
+    xd = rand((256, n14), q60)
+    xp = rand((16, 16, n14), q60)
+    ks_res, ks_t, ks_keys, ks5_moduli, ks_msf = key_switch_inputs(
+        rng, n14, (49,) * 4, 2, dev, nt, to_tensor)
+    dy5 = [torch.stack([torch.stack([rand((n14,), q) for q in ks5_moduli])
+                        for _ in range(2)]) for _ in range(2)]
+    dists = {"(1, 8)": DistNTT(n14, q60, meshes[(1, 8)]),
+             "(2, 4)": DistNTT(n14, q60, meshes[(2, 4)]),
+             "(2, 4), 2 slices": DistNTT(n14, q60, meshes[(2, 4)],
+                                         overlap_slices=2),
+             "(1, 1)": DistNTT(n14, q60, meshes[(1, 1)])}
+    ring = make_pipeline_mesh(8, [dev] * 8)
+    pipe = PipelineNTT(n14, q60, ring)
+
+    def dist_pair(e):
+        y = e.forward(xd)
+        return y, e.inverse(y)
+
+    fifth = {
+        f"dist_rns_poly_mult N=2^17 x {RNS_PRIMES} primes, batch 2, "
+        "mesh (2, 4)": (
+            lambda: dist_rns_poly_mult(ra2, rb2, n17, moduli, meshes[(2, 4)]),
+            meshes[(2, 4)], lambda: rns_poly_mult_mod(ra2, rb2, n17, moduli)),
+        f"dist_rns_poly_mult N=2^17 x {RNS_PRIMES} primes, batch 2, "
+        "mesh (2, 8)": (
+            lambda: dist_rns_poly_mult(ra2, rb2, n17, moduli, meshes[(2, 8)]),
+            meshes[(2, 8)], lambda: rns_poly_mult_mod(ra2, rb2, n17, moduli)),
+    }
+    for name, e in dists.items():
+        fifth[f"DistNTT fwd+inv 2^14, 60-bit, batch 256, mesh {name}"] = (
+            lambda e=e: dist_pair(e), e.mesh,
+            lambda: (lambda y: (y, cuda_ntt.inv_ntt(y, plan14)))(
+                cuda_ntt.fwd_ntt(xd, plan14)))
+    fifth["PipelineNTT fwd+inv 2^14, 60-bit, 16 x 16, ring of 8"] = (
+        lambda: (lambda y: (y, pipe.inverse(y)))(pipe.forward(xp)), ring,
+        lambda: (lambda y: (y, cuda_ntt.inv_ntt(y, plan14)))(
+            cuda_ntt.fwd_ntt(xp, plan14)))
+    fifth["dist_key_switch 2^14, ds 3, kc 2, 49-bit, mesh (2, 4)"] = (
+        lambda: dist_key_switch(ks_res, ks_t, n14, 3, 4, 4, 2, ks5_moduli,
+                                ks_keys, ks_msf, meshes[(2, 4)]),
+        meshes[(2, 4)],
+        lambda: port.key_switch(ks_res, ks_t, n14, 3, 4, 4, 2, ks5_moduli,
+                                ks_keys, ks_msf))
+    fifth["dist_dyadic_multiply 2^14 x 4 moduli, mesh (2, 4)"] = (
+        lambda: dist_dyadic_multiply(*dy5, ks5_moduli, meshes[(2, 4)]),
+        meshes[(2, 4)], lambda: port.dyadic_multiply(*dy5, ks5_moduli))
+    return SimpleNamespace(
+        calls=fifth, ra2=ra2, rb2=rb2, xd=xd, xp=xp, dy5=dy5,
+        key_switch=(ks_res, ks_t, ks_keys, ks5_moduli, ks_msf))
 
 
 # K5 at every count of rows of the split, D = 2^log_d = 2 .. 64, at equal
@@ -2292,11 +2475,8 @@ def k5_times(root: pathlib.Path = ROOT, log_ds=range(1, 7), words=(64, 32),
     card = nvidia_smi("name,power.limit")
     log(card)
     sm_mhz = float(nvidia_smi("clocks.max.sm").splitlines()[0].split()[0])
-    sys.path.insert(0, str(root))
+    import_port(root)
     from hexl_tpu_torch import _build, nt
-    if not pathlib.Path(_build.__file__).is_relative_to(root):
-        raise AssertionError(f"imported {_build.__file__}, not the port at "
-                             f"{root}")
     from hexl_tpu_torch.limb import to_tensor
     from hexl_tpu_torch.ntt import get_plan, hier
     probes = start_sass_probes(_build.nvcc_path(),
@@ -2407,27 +2587,179 @@ def k5_variants() -> int:
     return 0
 
 
-def walk_times(root: pathlib.Path) -> int:
-    """`--walk-times ROOT`: build the port at ROOT and print, as one JSON
-    line, the device ms of each row of `walk_runs` in 20 graph replays of
-    20 calls each."""
+# Forms of K6 for a DistNTT position's small shards (L = 2^11 .. 2^13) at
+# or near a full wave, each a copy of the port under build/exp/<name>/
+# (ntt_hier.cu alone to build) with `subs` applied to a file: "base" is
+# this tree's form (a group of R = 8 a thread: 256 threads at 2^11, 512
+# at 2^12); "r4" cuts the same walk into groups of R = 4 at 2^11 and 2^12
+# (512 and 1024 threads, six and six passes in place of four and four).
+# Timed in turns by `shard_variants` at SHARD_VARIANT_ROWS (log L, shards
+# D, batch): DistNTT at bench.py's shape on (1, 8) and (2, 4), and the
+# 2^14 local pass of the split as a row the variants leave alone.
+_LOCAL_SHAPE = """// The local pass of a shard (log_d > 0) of 2^11 or 2^12 in u64: groups
+// of R = 2^%(logr)d, %(g)d a thread.
+template <typename W, typename F>
+static int with_local_shape(int log_n, int log_d, bool two_per_sm, F&& f) {
+  if constexpr (sizeof(W) == 8) {
+    if (log_d > 0 && log_n == 11)
+      return f(Index<%(logr)d>{}, Index<%(g)d>{}, Index<11>{});
+    if (log_d > 0 && log_n == 12)
+      return f(Index<%(logr)d>{}, Index<%(g)d>{}, Index<12>{});
+  }
+  return with_shape<W>(log_n, two_per_sm, f);
+}
+
+"""
+
+
+def _local_shape_subs(logr: int, g: int) -> tuple:
+    """The substitutions of a variant whose small shards take groups of
+    2^logr, g a thread (`_LOCAL_SHAPE`)."""
+    return (("csrc/ntt_block.cuh",
+             r"(    return with_)shape<W>\(log_n, two_per_sm,",
+             r"\1local_shape<W>(log_n, log_d, two_per_sm,", 2),
+            ("csrc/ntt_block.cuh", r"(// The SMs of the current device)",
+             (_LOCAL_SHAPE % {"logr": logr, "g": g}) + r"\1", 1))
+
+
+SHARD_VARIANTS = {"base": (), "r4": _local_shape_subs(2, 1),
+                  "g2": _local_shape_subs(3, 2)}
+SHARD_VARIANT_ROWS = ((11, 8, 256), (12, 4, 128), (14, 8, 16))
+
+
+def shard_variant_times(root: pathlib.Path) -> int:
+    """`--shard-variant-times ROOT`: build the port at ROOT and print, as
+    one JSON line, the device ms of K6's forward (OMF 1) + inverse at each
+    of SHARD_VARIANT_ROWS (position D/2 - 1 of D, a 60-bit prime; 20 graph
+    replays of 20 calls on inputs rotating beyond the L2), after holding
+    each against its plain version."""
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(root))
-    import hexl_tpu_torch
-    if not pathlib.Path(hexl_tpu_torch.__file__).is_relative_to(root):
-        raise AssertionError(f"imported {hexl_tpu_torch.__file__}, not the "
-                             f"port at {root}")
+    import_port(root)
+    from hexl_tpu_torch import _build, nt
+    from hexl_tpu_torch.limb import to_tensor
+    from hexl_tpu_torch.ntt import get_plan, hier
+    info = _build.build_all()
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    out = {"build_s": info["seconds"],
+           "resources": {k: v for k, v in _build.kernel_resources(
+               info["log"]).items() if "radix" in k}}
+    for log_l, d, batch in SHARD_VARIANT_ROWS:
+        n = d << log_l
+        plan = get_plan(n, nt.generate_primes(1, 60, True, ntt_size=n)[0])
+        args = (log_l, d.bit_length() - 1, d // 2 - 1, 0)
+        sets = [tuple(to_tensor(rng.integers(0, f * plan.q, size=(
+            batch, 1 << log_l), dtype=np.uint64), dev) for f in (4, 2))
+            for _ in range(max(2, (96 << 20) // (16 * batch << log_l)))]
+        xf, xi = sets[0]
+        for forward, x in ((True, xf), (False, xi)):
+            got = hier.local_launch(x, plan, forward, 1, *args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, hier.local_launch_plain(
+                    x, plan, forward, 1, *args)):
+                raise AssertionError(f"K6 at {root.name} L=2^{log_l} "
+                                     f"forward={forward} != plain")
+        nxt = rotating(sets)
+
+        def pair(nxt=nxt, plan=plan, args=args):
+            xf, xi = nxt()
+            return (hier.local_launch(xf, plan, True, 1, *args),
+                    hier.local_launch(xi, plan, False, 1, *args))
+        out[f"n{log_l}.d{d}.b{batch}"] = graph_times(pair, 20)
+    print(json.dumps(out))
+    return 0
+
+
+def shard_variants(names=tuple(SHARD_VARIANTS)) -> int:
+    """`--shard-variants`: copies of the port under build/exp/ with each of
+    SHARD_VARIANTS' forms (ntt_hier.cu alone to build), built at once,
+    then `--shard-variant-times` on each in its own process, in turns
+    (the list, then backwards); each row's median, spread and ratio to
+    "base" over both turns."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available", file=sys.stderr)
+        return 2
+    card = nvidia_smi("name,power.limit")
+    log(card)
+    roots = {}
+    for name in names:
+        root = ROOT / "build" / "exp" / name
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(ROOT / "hexl_tpu_torch", root / "hexl_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        for src in (root / "hexl_tpu_torch" / "csrc").glob("*.cu"):
+            if src.name != "ntt_hier.cu":
+                src.unlink()
+        for rel, pattern, repl, want in SHARD_VARIANTS[name]:
+            path = root / "hexl_tpu_torch" / rel
+            text, count = re.subn(pattern, repl, path.read_text())
+            if count != want:
+                raise AssertionError(f"{name}: {pattern} in {rel} {count}x")
+            path.write_text(text)
+        roots[name] = root
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from hexl_tpu_torch import _build; _build.build_all()", str(root)])
+        for root in roots.values()]
+    if any(b.wait() for b in builds):
+        return 1
+    times, resources = {}, {}
+    for name in list(roots) + list(roots)[::-1]:
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--shard-variant-times", str(roots[name])],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            log(proc.stdout[-3000:], proc.stderr[-3000:])
+            return 1
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        resources[name] = got.pop("resources")
+        got.pop("build_s")
+        for row, v in got.items():
+            times.setdefault(row, {}).setdefault(name, []).extend(v)
+    for name, res in resources.items():
+        log(f"shard variant {name}: radix instantiations (registers, stack, "
+            f"spill stores, spill loads) {res}")
+    summary = {}
+    for row, by in times.items():
+        base = statistics.median(by["base"])
+        summary[row] = {name: {"median": statistics.median(v),
+                               "min": min(v), "max": max(v),
+                               "over_base": statistics.median(v) / base}
+                        for name, v in by.items()}
+        log(f"shard variants {row}: " + "; ".join(
+            f"{name} {r['median']:.4f} ms [{r['min']:.4f}, {r['max']:.4f}] "
+            f"{r['over_base']:.3f}x" for name, r in summary[row].items()))
+    log(card)
+    log(json.dumps({"shard_variants": summary, "card": card}))
+    return 0
+
+
+def walk_times(root: pathlib.Path) -> int:
+    """`--walk-times ROOT`: build the port at ROOT and print, as one JSON
+    line, the device ms of each row of `walk_runs` (with the fifth path's
+    rows) in 20 graph replays of 20 calls each (of one call for the
+    fifth path's calls)."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available", file=sys.stderr)
+        return 2
+    import_port(root)
     from hexl_tpu_torch import _build, nt
     from hexl_tpu_torch.limb import to_tensor
     from hexl_tpu_torch.ntt import cuda_ntt, get_plan, hier, shard
     _build.build_all()
     runs = walk_runs(np.random.default_rng(SEED), torch.device("cuda", 0),
-                     nt, get_plan, cuda_ntt, hier, shard, to_tensor)
-    print(json.dumps({name: graph_times(fn, 20) for name, fn in runs.items()}))
+                     nt, get_plan, cuda_ntt, hier, shard, to_tensor, True)
+    print(json.dumps({name: graph_times(fn, 1 if name.startswith("fifth")
+                                        else 20)
+                      for name, fn in runs.items()}))
     return 0
 
 
@@ -2458,11 +2790,7 @@ def cluster_times(root: pathlib.Path = ROOT,
         return 2
     card = nvidia_smi("name,power.limit")
     log(card)
-    sys.path.insert(0, str(root))
-    import hexl_tpu_torch
-    if not pathlib.Path(hexl_tpu_torch.__file__).is_relative_to(root):
-        raise AssertionError(f"imported {hexl_tpu_torch.__file__}, not the "
-                             f"port at {root}")
+    import_port(root)
     from hexl_tpu_torch import _build, nt
     from hexl_tpu_torch.limb import to_tensor
     from hexl_tpu_torch.ntt import cuda_ntt, get_plan, hier, rns, torch_ntt
@@ -2538,6 +2866,174 @@ def cluster_times(root: pathlib.Path = ROOT,
     log(card)
     print(json.dumps(out))
     return 0 if not bad else 1
+
+
+# A DistNTT position's local pass (row 10, K6.shard) at every shape the
+# fifth path launches it (`fifth_local_shapes`): L = 2^14 at one shard and
+# L = 2^15 as two sub-shards (the RNS product on (2, 8) and (2, 4)), L =
+# 2^11 x 256 and 2^12 x 128 (DistNTT at bench.py's shape on (1, 8) and
+# (2, 4)), L = 2^12 at batches 1-3 (the key switch on (2, 4)).
+def fifth_local_shapes(calls, shard) -> dict:
+    """{(N, D, batch, forward, omf): [plan, position, calls]} of every
+    `shard.local` that one run of each fifth-path call makes (the plan
+    and position of its first)."""
+    import torch
+    seen = {}
+    local = shard.local
+
+    def recording(x, plan, r, shards, forward, omf=1):
+        key = (plan.n, shards, x.numel() // x.shape[-1], forward, omf)
+        seen.setdefault(key, [plan, r, 0])[2] += 1
+        return local(x, plan, r, shards, forward, omf)
+
+    shard.local = recording
+    try:
+        for call, _, _ in calls.values():
+            call()
+        torch.cuda.synchronize()
+    finally:
+        shard.local = local
+    return seen
+
+
+def local_grid(log_n: int, chunks: int, clusters: int = 1) -> tuple:
+    """(CTAs, threads a CTA) of the local pass on `chunks` chunks of
+    2^log_n: the one-CTA walk (ntt_block.cuh with_shape: a group of 8 a
+    thread, two at 2^14) or a cluster of C CTAs a chunk (a group a
+    thread on each CTA's 2^log_n / C)."""
+    if clusters == 1:
+        return chunks, (1 << log_n) // (16 if log_n == 14 else 8)
+    return chunks * clusters, (1 << log_n) // (8 * clusters)
+
+
+def local_pass_runs(rng, dev, shard, hier, shapes) -> dict:
+    """{row: (fn, facts)} for each shape of `fifth_local_shapes`: the local
+    pass of position r through `shard.local` on inputs that rotate (beyond
+    the L2 where a shape's input is large), and above 2^14 its sub-shard
+    launch alone (`shard.local_chunks` where the tree has it, else K6's
+    `hier.local_launch`, which take the same arguments)."""
+    import numpy as np
+    from hexl_tpu_torch.limb import to_tensor
+    chunks_of = getattr(shard, "local_chunks", hier.local_launch)
+    runs = {}
+    for (n, d, batch, forward, omf), (plan, r, count) in sorted(
+            shapes.items(), key=lambda kv: kv[0]):
+        length = n // d
+        rows = max(1, length >> hier.LOG_LOCAL)
+        log_l = min(length, hier.LOCAL_N).bit_length() - 1
+        sets = max(2, min(8, (64 << 20) // (8 * batch * length)))
+        bound = (4 if forward else 2) * plan.q
+        nxt = rotating([to_tensor(rng.integers(
+            0, bound, size=(batch, length), dtype=np.uint64), dev)
+            for _ in range(sets)])
+        name = (f"K6.shard N=2^{n.bit_length() - 1}/{d} x{batch} "
+                f"{'fwd' if forward else 'inv'}{omf}")
+        facts = {"N": n, "D": d, "L": length, "batch": batch,
+                 "forward": forward, "omf": omf, "launches": count,
+                 "log_chunk": log_l, "chunks": batch * rows}
+        runs[name] = (lambda nxt=nxt, plan=plan, r=r, d=d, f=forward,
+                      o=omf: shard.local(nxt(), plan, r, d, f, o), facts)
+        if rows > 1:
+            log_d = d.bit_length() - 1 + rows.bit_length() - 1
+            runs[name + " sub-shards"] = (
+                lambda nxt=nxt, plan=plan, r=r, rows=rows, log_d=log_d,
+                f=forward, o=omf: chunks_of(nxt(), plan, f, o, hier.LOG_LOCAL,
+                                            log_d, r * rows,
+                                            rows.bit_length() - 1),
+                dict(facts, sub_shards=True))
+    return runs
+
+
+def shard_times(root: pathlib.Path = ROOT) -> int:
+    """`--shard-times [ROOT]`: build the port (at ROOT, e.g. a parent
+    tree), record every local pass of the fifth path (`fifth_local_shapes`)
+    and print the device ms of each shape and direction (median of 20
+    graph replays of 20 calls) with its launches on the path, its one-CTA
+    grid and threads and, where the tree routes the pass to the cluster
+    form (`shard.local_chunks`), each C the card holds forced; then each
+    fifth-path call replayed from a CUDA graph (median of 20 replays) with
+    its launches by kernel; the rows as one JSON line."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available", file=sys.stderr)
+        return 2
+    card = nvidia_smi("name,power.limit")
+    log(card)
+    import_port(root)
+    from hexl_tpu_torch import _build, nt
+    from hexl_tpu_torch.ntt import cuda_ntt, hier, rns, shard
+    probe_dir = _build.BUILD_ROOT / "sass_probes"
+    probes = start_sass_probes(_build.nvcc_path(), probe_dir)
+    empty = start_empty_probe(_build.nvcc_path(), probe_dir)
+    info = _build.build_all()
+    log(f"build: {info['seconds']:.1f} s")
+    imads, launch_empty = sass_imads(*probes), empty_probe(*empty)
+    per_shoup = imads["mulhi64"] + 2 * imads["mullo64"]
+    sm_mhz = float(nvidia_smi("clocks.max.sm").splitlines()[0].split()[0])
+    imad_rate = SMS * INT32_LANES_PER_SM * sm_mhz * 1e6
+    dev = torch.device("cuda", 0)
+    sms = cuda_ntt.sm_count(dev)
+    rng = np.random.default_rng(SEED)
+    moduli = nt.generate_primes(RNS_PRIMES, 50, True, ntt_size=1 << 17)
+    f5 = fifth_path(rng, dev, moduli)
+    shapes = fifth_local_shapes(f5.calls, shard)
+    routed = hasattr(shard, "local_chunks")
+    out = {"card": card, "local": {}, "calls": {}}
+    if routed:
+        log("most active clusters: " + ", ".join(
+            f"2^{ln} C={c} {rns.max_active_clusters(ln, c, dev)}"
+            for ln in (12, 13, 14) for c in CLUSTER_SIZES))
+    for name, (fn, facts) in local_pass_runs(rng, dev, shard, hier,
+                                             shapes).items():
+        log_l, chunks = facts["log_chunk"], facts["chunks"]
+        row = dict(facts, ms=statistics.median(graph_times(fn, 20)))
+        row["rule_C"] = (rns.cluster_for(log_l, chunks, sms, dev)
+                         if routed and log_l >= 12 else 1)
+        row["ctas"], row["threads"] = local_grid(log_l, chunks, row["rule_C"])
+        # The bound of one launch of K6 (or of its cluster) on the pass's
+        # chunks: each coefficient read and written once, the shard's
+        # twiddles and their preconditions once; one Shoup product a
+        # butterfly; no less than the empty probe at the launch's grid.
+        if facts["L"] == 1 << log_l or facts.get("sub_shards"):
+            length, c = 1 << log_l, row["rule_C"]
+            nbytes = 16 * chunks * length + 16 * (length - 1)
+            nops = log_l * chunks * (length // 2) * per_shoup
+            floor = statistics.median(graph_times(
+                lambda: launch_empty(row["ctas"], row["threads"]) if c == 1
+                else launch_empty(row["ctas"], row["threads"], c,
+                                  8 * length // c), 20))
+            got = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "operations": nops / imad_rate * 1e3,
+                   "launch floor": floor}
+            row["bound_by"] = max(got, key=got.get)
+            row["bound_ms"] = got[row["bound_by"]]
+        if routed and log_l >= 12:
+            for c in (1,) + CLUSTER_SIZES:
+                if c > 1 and rns.max_active_clusters(log_l, c, dev) < chunks:
+                    continue
+                with forced_clusters(rns, c):
+                    row[f"C{c}"] = statistics.median(graph_times(fn, 20))
+        out["local"][name] = row
+        log(f"{name}: {row['ms']:.4f} ms, {row['launches']} launches on the "
+            f"fifth path, {row['ctas']} CTAs of {row['threads']} threads "
+            f"(C={row['rule_C']})" + (
+                f", bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"{row['bound_ms'] / row['ms']:.1%}" if "bound_ms" in row
+                else "") + "".join(
+                f", C{c} {row[f'C{c}']:.4f}" for c in (1,) + CLUSTER_SIZES
+                if f"C{c}" in row))
+    for name, (call, _, _) in f5.calls.items():
+        _build.reset_launches()
+        call()
+        torch.cuda.synchronize()
+        launched = dict(_build.launches)
+        ms = statistics.median(graph_times(call, 1))
+        out["calls"][name] = {"replayed_ms": ms, "launches": launched}
+        log(f"fifth path {name}: {ms:.4f} ms replayed, launches {launched}")
+    log(card)
+    print(json.dumps(out))
+    return 0
 
 
 def walk_ab(parent: pathlib.Path) -> int:
@@ -2992,10 +3488,6 @@ def main() -> int:
     from hexl_tpu_torch.ntt import (fwd_ntt_mxu, get_mxu_plan, inv_ntt_mxu,
                                     mxu_ntt)
     from hexl_tpu_torch.ntt import shard
-    from hexl_tpu_torch.parallel import (DistNTT, PipelineNTT,
-                                         dist_dyadic_multiply,
-                                         dist_key_switch, dist_rns_poly_mult,
-                                         make_mesh, make_pipeline_mesh)
     from hexl_tpu_torch.parallel import mesh as pmesh
     from hexl_tpu_torch.parallel import pipeline
     from hexl_tpu_torch import config as port_config
@@ -3047,8 +3539,8 @@ def main() -> int:
     clustered = {k: v for k, v in resources.items()
                  if CLUSTER_INSTANTIATION.search(k)}
     log(f"build: {len(clustered)} cluster-form instantiations (K1.rns.cl, "
-        f"K6.rns.cl; registers, stack, spill stores, spill loads): "
-        f"{clustered}")
+        f"K6.rns.cl, K6.shard.cl; registers, stack, spill stores, spill "
+        f"loads): {clustered}")
     spilled = {k: v for k, v in clustered.items()
                if v[2] or v[3] or v[2] is None}
     if spilled or len(clustered) != CLUSTER_INSTANTIATIONS:
@@ -3283,6 +3775,9 @@ def main() -> int:
     checks += cluster_kernel_checks(rng, dev, nt, rns, cuda_ntt, get_plan,
                                     torch_ntt, to_tensor, compare,
                                     _build.launches)
+    # K6.shard.cl, a DistNTT position's local pass on a cluster.
+    checks += shard_cluster_checks(rng, dev, nt, get_plan, rns, shard,
+                                   to_tensor, compare, _build.launches)
     log(f"phase 3: {checks} kernel-vs-plain checks bit-exact in "
         f"{time.perf_counter() - t0:.1f} s; max_abs_err {max_err}")
 
@@ -3711,69 +4206,12 @@ def main() -> int:
         "host one; the MXU NTT's outputs == NTT's (K1 at 2^14, K5/K6 at "
         "2^17)")
 
-    # The fifth: the parallel layer on meshes of cuda:0 positions (one card
-    # holds every position, as one CPU holds the JAX package's virtual
-    # devices in its tests and dry run; this says nothing of NVLink or of
-    # scaling). BASELINE.json's north star, the RNS poly-mult at N=2^17 x
-    # 16 primes of 50 bits, batch 2 (a polynomial per batch row), on the
-    # dry run's (batch 2, coeff 4) mesh (L = 2^15: K5 + K6 per position)
-    # and its 16-device (2, 8) mesh (L = 2^14); DistNTT fwd+inv at bench.py's
-    # shape (2^14, 60-bit, batch 256) on (1, 8) and (2, 4), on (2, 4) with
-    # overlap_slices=2, and on the D = 1 mesh; PipelineNTT at 2^14, 60-bit,
-    # 16 microbatches of 16 on an 8-position ring; dist_key_switch at the
-    # dry run's shape (2^14, ds 3, kc 2, 49-bit) on (2, 4); and
-    # dist_dyadic_multiply on the same moduli.
-    meshes = {(nb, nc): make_mesh(nc, nb, [dev] * (nb * nc))
-              for nb, nc in ((2, 4), (2, 8), (1, 8), (1, 1))}
-    ra2 = torch.stack([rand((2, n17), q) for q in moduli])
-    rb2 = torch.stack([rand((2, n17), q) for q in moduli])
-    xd = rand((256, n14), q60)
-    xp = rand((16, 16, n14), q60)
-    ks_res, ks_t, ks_keys, ks5_moduli, ks_msf = key_switch_inputs(
-        rng, n14, (49,) * 4, 2, dev, nt, to_tensor)
-    dy5 = [torch.stack([torch.stack([rand((n14,), q) for q in ks5_moduli])
-                        for _ in range(2)]) for _ in range(2)]
-    dists = {"(1, 8)": DistNTT(n14, q60, meshes[(1, 8)]),
-             "(2, 4)": DistNTT(n14, q60, meshes[(2, 4)]),
-             "(2, 4), 2 slices": DistNTT(n14, q60, meshes[(2, 4)],
-                                         overlap_slices=2),
-             "(1, 1)": DistNTT(n14, q60, meshes[(1, 1)])}
-    ring = make_pipeline_mesh(8, [dev] * 8)
-    pipe = PipelineNTT(n14, q60, ring)
-
-    def dist_pair(e):
-        y = e.forward(xd)
-        return y, e.inverse(y)
-
-    # name -> (call, mesh, the same computation on one device)
-    fifth = {
-        f"dist_rns_poly_mult N=2^17 x {RNS_PRIMES} primes, batch 2, "
-        "mesh (2, 4)": (
-            lambda: dist_rns_poly_mult(ra2, rb2, n17, moduli, meshes[(2, 4)]),
-            meshes[(2, 4)], lambda: rns_poly_mult_mod(ra2, rb2, n17, moduli)),
-        f"dist_rns_poly_mult N=2^17 x {RNS_PRIMES} primes, batch 2, "
-        "mesh (2, 8)": (
-            lambda: dist_rns_poly_mult(ra2, rb2, n17, moduli, meshes[(2, 8)]),
-            meshes[(2, 8)], lambda: rns_poly_mult_mod(ra2, rb2, n17, moduli)),
-    }
-    for name, e in dists.items():
-        fifth[f"DistNTT fwd+inv 2^14, 60-bit, batch 256, mesh {name}"] = (
-            lambda e=e: dist_pair(e), e.mesh,
-            lambda: (lambda y: (y, cuda_ntt.inv_ntt(y, plan14)))(
-                cuda_ntt.fwd_ntt(xd, plan14)))
-    fifth["PipelineNTT fwd+inv 2^14, 60-bit, 16 x 16, ring of 8"] = (
-        lambda: (lambda y: (y, pipe.inverse(y)))(pipe.forward(xp)), ring,
-        lambda: (lambda y: (y, cuda_ntt.inv_ntt(y, plan14)))(
-            cuda_ntt.fwd_ntt(xp, plan14)))
-    fifth["dist_key_switch 2^14, ds 3, kc 2, 49-bit, mesh (2, 4)"] = (
-        lambda: dist_key_switch(ks_res, ks_t, n14, 3, 4, 4, 2, ks5_moduli,
-                                ks_keys, ks_msf, meshes[(2, 4)]),
-        meshes[(2, 4)],
-        lambda: port.key_switch(ks_res, ks_t, n14, 3, 4, 4, 2, ks5_moduli,
-                                ks_keys, ks_msf))
-    fifth["dist_dyadic_multiply 2^14 x 4 moduli, mesh (2, 4)"] = (
-        lambda: dist_dyadic_multiply(*dy5, ks5_moduli, meshes[(2, 4)]),
-        meshes[(2, 4)], lambda: port.dyadic_multiply(*dy5, ks5_moduli))
+    # The fifth: the parallel layer on meshes of cuda:0 positions
+    # (`fifth_path`).
+    f5 = fifth_path(rng, dev, moduli)
+    fifth, ra2, rb2, xd, xp = f5.calls, f5.ra2, f5.rb2, f5.xd, f5.xp
+    ks_res, ks_t, ks_keys, ks5_moduli, ks_msf = f5.key_switch
+    dy5 = f5.dy5
     torch.cuda.synchronize()
 
     _build.reset_launches()
@@ -3785,7 +4223,8 @@ def main() -> int:
     log(f"phase 4: fifth main path's launches {launches5}; exchanges "
         f"{exchanges5}")
     missing = [k for k in ("K1", "K4", "K5", "K6", "K8.reduce", "K9", "K10",
-                           "K11", "K16") if launches5.get(k, 0) < 1]
+                           "K11", "K16", shard.CLUSTER_NAME)
+               if launches5.get(k, 0) < 1]
     if missing:
         raise AssertionError(f"fifth main path launched no {missing}")
 
@@ -4434,6 +4873,33 @@ def main() -> int:
                        2 * 2 * 8 * 3 * ks_n + 3 * 2 * 2 * 8 * (ks_n - 2),
                        2 * 14 * 3 * (ks_n // 2) * per_shoup)),
     }
+    # K6.shard.cl at the fifth path's shape under a wave: the local pass
+    # of position 3 of 8 of the RNS product's N = 2^17 (a 50-bit prime,
+    # batch 1: L = 2^14, one one-CTA CTA), forward at OMF 4 + inverse, in
+    # clusters of the rule's C; bytes and operations as K6.shard's, the
+    # bound no less than the launch floor (below).
+    ls_n = 1 << 17
+    ls_plan = get_plan(ls_n, nt.generate_primes(1, 50, True,
+                                                ntt_size=ls_n)[0])
+    c_shard = cluster_pick(14, 1)
+    xsf = rand((1, n14), 4 * ls_plan.q)
+    xsi = rand((1, n14), 2 * ls_plan.q)
+    cluster_cases[shard.CLUSTER_NAME] = (
+        f"rns_cluster_fwd_kernel+rns_cluster_inv_kernel<.., 0> with a shard "
+        f"base, a cluster of {c_shard} CTAs a DistNTT position's shard",
+        "hexl_tpu_torch/csrc/ntt_rns.cu + ntt_cluster.cuh",
+        "hexl_tpu/parallel/dist_ntt.py:287",
+        "local pass fwd (OMF 4) + inv of position 3 of 8, N=2^17, 50-bit "
+        "q, batch 1 (L = 2^14; the RNS product on the (2, 8) mesh)",
+        (forced_call(c_shard, lambda: (
+            shard.local(xsf, ls_plan, 3, 8, True, 4),
+            shard.local(xsi, ls_plan, 3, 8, False))),
+         lambda: (shard.local_cluster_plain(xsf, ls_plan, 3, 8, True, 4,
+                                            c_shard),
+                  shard.local_cluster_plain(xsi, ls_plan, 3, 8, False, 1,
+                                            c_shard)),
+         2 * 2 * 8 * n14 + 2 * 2 * 8 * (n14 - 1),
+         2 * 14 * (n14 // 2) * per_shoup))
     cases.update(cluster_cases)
     # K12 and K13 per precision at the fourth path's shape (n = 2^14, batch
     # 64, scale 2^40), each pass forward + inverse, on six inputs in turn
@@ -4700,7 +5166,8 @@ def main() -> int:
     # at each entry's grid, cluster shape and shared memory, once a
     # direction; its bound is no less.
     for name, c, log_n, ctas in (("K1.rns.cl", c14, 14, 3),
-                                 ("K6.rns.cl", c15, 14, 6)):
+                                 ("K6.rns.cl", c15, 14, 6),
+                                 (shard.CLUSTER_NAME, c_shard, 14, 1)):
         chunk = (1 << log_n) // c
         floor_ms = 2 * graph_ms(lambda: launch_empty(
             ctas * c, chunk // 8, c, 8 * chunk), 20)
@@ -5315,6 +5782,13 @@ if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--cluster-times":
         sys.exit(cluster_times(pathlib.Path(sys.argv[2]).resolve(),
                                [int(v) for v in sys.argv[3].split(",")]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--shard-variants":
+        sys.exit(shard_variants())
+    if len(sys.argv) == 3 and sys.argv[1] == "--shard-variant-times":
+        sys.exit(shard_variant_times(pathlib.Path(sys.argv[2]).resolve()))
+    if len(sys.argv) in (2, 3) and sys.argv[1] == "--shard-times":
+        sys.exit(shard_times(pathlib.Path(sys.argv[2]).resolve()
+                             if len(sys.argv) == 3 else ROOT))
     if len(sys.argv) == 3 and sys.argv[1] == "--ks-times":
         sys.exit(ks_times(pathlib.Path(sys.argv[2]).resolve()))
     if len(sys.argv) == 3 and sys.argv[1] == "--walk-ab":

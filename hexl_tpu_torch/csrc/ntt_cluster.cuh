@@ -1,12 +1,16 @@
-// K1.rns.cl and K6.rns.cl: the stacked transform of ntt_rns.cu with a
-// cluster of C = 2^LOG_C CTAs (2 to 16) for each transform of 2^log_n
-// (K1.rns.cl, 2^12 .. 2^14) or 2^14 shard of the split (K6.rns.cl, the
-// local pass above 2^14), joined through distributed shared memory.
+// K1.rns.cl, K6.rns.cl and K6.shard.cl: the stacked transform of
+// ntt_rns.cu with a cluster of C = 2^LOG_C CTAs (2 to 16) for each
+// transform of 2^log_n (K1.rns.cl, 2^12 .. 2^14), 2^14 shard of the split
+// (K6.rns.cl, the local pass above 2^14) or shard of 2^12 .. 2^14 of a
+// DistNTT position (K6.shard.cl: its local pass, or above 2^14 that of its
+// 2^14 sub-shards, with K6's shard base and period), joined through
+// distributed shared memory.
 //
 // Replaces, where a launch's one-CTA grid is under a wave, the same TPU
 // kernels as K1.rns and K6.rns (ntt_rns.cu): hexl_tpu/ntt/pallas_ntt.py::
 // _run and hexl_tpu/ntt/hier.py::_local_call, vmapped over the prime axis
-// by hexl_tpu/ntt/rns.py.
+// by hexl_tpu/ntt/rns.py; and those of K6 with a shard base
+// (ntt_hier.cu), hexl_tpu/parallel/dist_ntt.py::DistNTT._pallas_local.
 //
 // What bounds the one-CTA form there: a CTA's walk of 2^14 is about
 // 0.030 ms whether the launch has 2 CTAs or 28 (PERF.md), and
@@ -48,7 +52,11 @@
 // hand-off through global memory (L2) under the same barriers (slower at
 // 2^12-2^13, 0.97-0.98x at 2^14 with C = 16), the inverse's hand-off
 // pushed instead of pulled with C = 16 on one thread a column (slower at
-// 2^12-2^13), a CTA an SM forced by its shared memory (no change).
+// 2^12-2^13), a CTA an SM forced by its shared memory (no change). A
+// DistNTT position's shard is the same walk at another twiddle base: on
+// an H100 at 700 W a 2^14 shard of the sharded RNS product took 0.0069-
+// 0.0072 ms a launch at C = 16 against one CTA's 0.030, and the key
+// switch's 2^12 shards 0.0058-0.0064 at C = 4 against 0.0082-0.0085.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -78,17 +86,21 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
-// Where a cluster's CTA works: row blockIdx.y, transform or shard
-// blockIdx.x >> LOG_C of the row (shard `shard` of 2^log_d), CTA `rank`,
-// `off` the transform's or shard's first coefficient.
+// Where a cluster's CTA works: row blockIdx.y, chunk t = blockIdx.x >>
+// LOG_C of the row, shard `shard` = shard_base + (t mod 2^log_sub) of the
+// 2^log_d of its transform (as K6's CTA b runs shard shard_base + (b mod
+// 2^log_sub): the split passes (0, log_d), a DistNTT position its own
+// shard or first sub-shard), CTA `rank`, `off` the chunk's first
+// coefficient.
 template <int LOG_C>
 struct ClusterPlace {
   int rank, shard;
   long long off;
-  __device__ __forceinline__ ClusterPlace(int log_n, int log_d) {
+  __device__ __forceinline__ ClusterPlace(int log_n, int shard_base,
+                                          int log_sub) {
     const long long t = blockIdx.x >> LOG_C;
     rank = (int)cg::this_cluster().block_rank();
-    shard = (int)(t & ((1 << log_d) - 1));
+    shard = shard_base + (int)(t & ((1 << log_sub) - 1));
     off = ((long long)blockIdx.y * (gridDim.x >> LOG_C) + t) << log_n;
   }
 };
@@ -101,21 +113,22 @@ __host__ __device__ constexpr int cluster_threads() {
   return LOGN ? 1 << (LOGN - 3) : 64;
 }
 
-// The forward of one transform (log_d = 0) or 2^14 shard of a transform of
-// 2^(log_n + log_d), a chunk of 2^log_chunk (log_n = log_chunk + LOG_C) a
-// CTA.
+// The forward of one transform (log_d = 0) or shard of 2^log_n of a
+// transform of 2^(log_n + log_d) (ClusterPlace's), a chunk of 2^log_chunk
+// (log_n = log_chunk + LOG_C) a CTA.
 template <int LOG_C, int LOGN>
 __global__ void __launch_bounds__(cluster_threads<LOGN>())
     rns_cluster_fwd_kernel(const u64* __restrict__ x, u64* __restrict__ y,
                            const RnsRow* __restrict__ rows,
-                           int log_chunk_arg, int omf, int log_d) {
+                           int log_chunk_arg, int omf, int log_d,
+                           int shard_base, int log_sub) {
   constexpr int C = 1 << LOG_C, LOGR = 3, COLS = C <= 8 ? 8 / C : 1;
   const int log_chunk = LOGN ? LOGN : log_chunk_arg;
   const int log_cols = log_chunk - LOG_C, cols = 1 << log_cols;
   extern __shared__ __align__(16) unsigned char ntt_smem[];
   u64* sm = reinterpret_cast<u64*>(ntt_smem);
   cg::cluster_group cluster = cg::this_cluster();
-  const ClusterPlace<LOG_C> at(log_chunk + LOG_C, log_d);
+  const ClusterPlace<LOG_C> at(log_chunk + LOG_C, shard_base, log_sub);
   const RnsRow& row = rows[blockIdx.y];
   const u64 q = row.q, two_q = 2 * q;
   cluster_arrive();
@@ -180,12 +193,13 @@ __global__ void __launch_bounds__(cluster_threads<LOGN>())
 }
 
 // The inverse: FINAL for a whole transform (K1.rns.cl), not for a shard
-// (K6.rns.cl), which stops before the global final stage.
+// (K6.rns.cl, K6.shard.cl), which stops before the global final stage.
 template <int LOG_C, int LOGN, bool FINAL>
 __global__ void __launch_bounds__(cluster_threads<LOGN>())
     rns_cluster_inv_kernel(const u64* __restrict__ x, u64* __restrict__ y,
                            const RnsRow* __restrict__ rows,
-                           int log_chunk_arg, int omf, int log_d) {
+                           int log_chunk_arg, int omf, int log_d,
+                           int shard_base, int log_sub) {
   constexpr int C = 1 << LOG_C, LOGR = 3, COLS = C <= 8 ? 8 / C : 1;
   const int log_chunk = LOGN ? LOGN : log_chunk_arg;
   const int log_cols = log_chunk - LOG_C, cols = 1 << log_cols;
@@ -193,7 +207,7 @@ __global__ void __launch_bounds__(cluster_threads<LOGN>())
   extern __shared__ __align__(16) unsigned char ntt_smem[];
   u64* sm = reinterpret_cast<u64*>(ntt_smem);
   cg::cluster_group cluster = cg::this_cluster();
-  const ClusterPlace<LOG_C> at(log_chunk + LOG_C, log_d);
+  const ClusterPlace<LOG_C> at(log_chunk + LOG_C, shard_base, log_sub);
   const RnsRow& row = rows[blockIdx.y];
   const u64 q = row.q, two_q = 2 * q;
   const InvFinal<u64> fin = row_final(row);

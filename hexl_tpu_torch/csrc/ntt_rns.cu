@@ -26,7 +26,8 @@
 // k primes of a batch-1 transform at 2^17 are 8 CTAs each as k launches
 // (132 SMs), and 8 k CTAs as one, without k launch gaps. Under one wave
 // a transform or shard runs on a cluster of CTAs instead (K1.rns.cl,
-// K6.rns.cl: ntt_cluster.cuh, launched below; the rule is
+// K6.rns.cl, and K6.shard.cl for a DistNTT position's shard on the
+// one-row plan of its prime: ntt_cluster.cuh, launched below; the rule is
 // hexl_tpu_torch/ntt/rns.py cluster_for).
 #include <mutex>
 #include <set>
@@ -248,12 +249,13 @@ static int allow_cluster(Kernel kernel, int cluster, size_t smem) {
 }
 
 // f(kernel, cluster, threads, smem) for the cluster form's kernel of a
-// transform or shard of 2^log_n on 2^log_c CTAs: the forward, the inverse
-// of a whole transform (log_d = 0) or of a 2^14 shard (log_d > 0).
+// transform or shard of 2^log_n (2^12 .. 2^14) on 2^log_c CTAs: the
+// forward, the inverse of a whole transform (log_d = 0) or of a shard
+// (log_d > 0).
 template <typename F>
 static int with_cluster_kernel(bool forward, int log_n, int log_d, int log_c,
                                F&& f) {
-  if (log_n < 12 || log_n > 14 || log_d < 0 || (log_d > 0 && log_n != 14))
+  if (log_n < 12 || log_n > 14 || log_d < 0)
     return (int)cudaErrorInvalidValue;
   return with_log_c(log_c, [&](auto lc) {
     constexpr int LOG_C = decltype(lc)::value;
@@ -268,24 +270,27 @@ static int with_cluster_kernel(bool forward, int log_n, int log_d, int log_c,
       if (log_d == 0)
         return f(rns_cluster_inv_kernel<LOG_C, LOGN, true>, 1 << LOG_C,
                  threads, smem);
-      if constexpr (LOGN == 14 - LOG_C)
-        return f(rns_cluster_inv_kernel<LOG_C, LOGN, false>, 1 << LOG_C,
-                 threads, smem);
-      return (int)cudaErrorInvalidValue;
+      return f(rns_cluster_inv_kernel<LOG_C, LOGN, false>, 1 << LOG_C,
+               threads, smem);
     });
   });
 }
 
-// K1.rns.cl (log_d = 0: batch transforms of 2^log_n a row) or K6.rns.cl
-// (batch transforms of 2^(14 + log_d) a row, their 2^14 shards), a
-// cluster of 2^log_c CTAs each.
+// The cluster form on `chunks` chunks of 2^log_n a row, a cluster of
+// 2^log_c CTAs each: chunk t is shard shard_base + (t mod 2^log_sub) of
+// the 2^log_d of a transform of 2^(log_n + log_d). K1.rns.cl (log_d = 0:
+// whole transforms), K6.rns.cl (shard base 0, period 2^log_d: every 2^14
+// shard of each transform) and K6.shard.cl (a DistNTT position's shard,
+// or its sub-shards).
 static int launch_rns_cluster(bool forward, const u64* x, u64* y,
                               const RnsRow* rows, int k, int log_n, int log_d,
-                              int batch, int log_c, int omf,
-                              cudaStream_t stream) {
+                              int shard_base, int log_sub, long long chunks,
+                              int log_c, int omf, cudaStream_t stream) {
   dim3 grid;
-  if (log_c < 1 || log_d < 0 || log_d > 6 ||
-      !rns_grid(k, ((long long)batch << log_d) << log_c, grid))
+  if (log_c < 1 || log_d < 0 || log_n + log_d > 30 || log_sub < 0 ||
+      log_sub > log_d || shard_base < 0 ||
+      shard_base + (1LL << log_sub) > (1LL << log_d) || chunks > (1LL << 30) ||
+      !rns_grid(k, chunks << log_c, grid))
     return (int)cudaErrorInvalidValue;
   return with_cluster_kernel(forward, log_n, log_d, log_c, [&](auto kernel,
                                                                int cluster,
@@ -295,8 +300,9 @@ static int launch_rns_cluster(bool forward, const u64* x, u64* y,
     if (err != 0) return err;
     RnsClusterLaunch launch(grid, cluster, threads, smem, stream);
     const int log_chunk = log_n - log_c;
-    const int launched = (int)cudaLaunchKernelEx(&launch.cfg, kernel, x, y,
-                                                 rows, log_chunk, omf, log_d);
+    const int launched =
+        (int)cudaLaunchKernelEx(&launch.cfg, kernel, x, y, rows, log_chunk,
+                                omf, log_d, shard_base, log_sub);
     return launched != 0 ? launched : (int)cudaGetLastError();
   });
 }
@@ -384,22 +390,29 @@ extern "C" int hexl_local_inv_rns(const u64* x, u64* y, const void* rows,
       [](int ln, auto&& f) { return with_local_shape(ln, f); }, stream);
 }
 
-// The cluster form (K1.rns.cl for log_d = 0, K6.rns.cl above): a (k,
-// batch, 2^(log_n + log_d)) block, row i under rows[i], each transform
-// (log_n = 12 .. 14) or 2^14 shard (log_n = 14) on a cluster of 2^log_c
-// CTAs; the inverse of a shard stops before the global final stage.
+// The cluster form (K1.rns.cl for log_d = 0, K6.rns.cl and K6.shard.cl
+// above): a (k, chunks, 2^log_n) block, row i under rows[i], each chunk of
+// 2^log_n (2^12 .. 2^14) on a cluster of 2^log_c CTAs; chunk t is shard
+// shard_base + (t mod 2^log_sub) of the 2^log_d of a transform of
+// 2^(log_n + log_d) (the split: base 0, period 2^log_d; a DistNTT
+// position: its shard, or its first 2^14 sub-shard and their count). The
+// inverse of a shard stops before the global final stage and ignores omf.
 extern "C" int hexl_rns_cluster_fwd(const u64* x, u64* y, const void* rows,
-                                    int k, int log_n, int log_d, int batch,
+                                    int k, int log_n, int log_d,
+                                    int shard_base, int log_sub, int chunks,
                                     int log_c, int omf, cudaStream_t stream) {
   return launch_rns_cluster(true, x, y, static_cast<const RnsRow*>(rows), k,
-                            log_n, log_d, batch, log_c, omf, stream);
+                            log_n, log_d, shard_base, log_sub, chunks, log_c,
+                            omf, stream);
 }
 
 extern "C" int hexl_rns_cluster_inv(const u64* x, u64* y, const void* rows,
-                                    int k, int log_n, int log_d, int batch,
+                                    int k, int log_n, int log_d,
+                                    int shard_base, int log_sub, int chunks,
                                     int log_c, int omf, cudaStream_t stream) {
   return launch_rns_cluster(false, x, y, static_cast<const RnsRow*>(rows), k,
-                            log_n, log_d, batch, log_c, omf, stream);
+                            log_n, log_d, shard_base, log_sub, chunks, log_c,
+                            omf, stream);
 }
 
 // The most clusters of 2^log_c CTAs of the cluster form at 2^log_n the

@@ -72,7 +72,7 @@ _LOCAL_FWD_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _LOCAL_INV_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
 _CROSS_FWD_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
 _CROSS_INV_ARGS = (_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P)
-_CLUSTER_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_CLUSTER_ARGS = (_P, _P, _P) + (_I,) * 8 + (_P,)
 
 
 class RnsPlan:
@@ -290,7 +290,7 @@ CLUSTER_TABLE: Dict[int, Tuple[Tuple[int, int], ...]] = {
 @functools.lru_cache(maxsize=None)
 def max_active_clusters(log_n: int, clusters: int, device) -> int:
     """How many clusters of `clusters` CTAs of the cluster form at 2^log_n
-    (a transform, or a 2^14 shard) the card holds at once
+    (a transform, or a shard) the card holds at once
     (cudaOccupancyMaxActiveClusters; asked once per device)."""
     if clusters not in CLUSTER_SIZES or not (
             CLUSTER_DEGREES[0] <= 1 << log_n <= CLUSTER_DEGREES[1]):
@@ -310,8 +310,10 @@ def max_active_clusters(log_n: int, clusters: int, device) -> int:
 
 def cluster_for(log_n: int, ctas: int, sms: int, device) -> int:
     """C, the CTAs of a cluster for a launch whose one-CTA form has `ctas`
-    CTAs of 2^log_n (a transform of N = 2^log_n, or a 2^14 shard) on a
-    card of `sms` SMs; 1 is the one-CTA form. The card's table, C by
+    CTAs of 2^log_n (a transform of N = 2^log_n, a 2^14 shard of the
+    split, or a DistNTT position's shard or sub-shard of 2^12 .. 2^14,
+    `shard.local_chunks`) on a card of `sms` SMs; 1 is the one-CTA
+    form. The card's table, C by
     one-CTA grid (CLUSTER_TABLE; see below), then the occupancy argument:
     C only where the card holds all `ctas` clusters of C at once
     (`max_active_clusters`), else the next smaller C that it does. C = 1
@@ -356,7 +358,16 @@ def cluster_for(log_n: int, ctas: int, sms: int, device) -> int:
     its column phase cost. A stacked call over k primes has no such split
     (no stacked K6 below 2^14: K5.rns then a K6 launch a prime), and
     there the cluster is 2.2-4.5x faster than that split at every key
-    switch launch (PERF.md, section 6)."""
+    switch launch (PERF.md, section 6).
+
+    At a DistNTT position's grids (`chip_smoke.py --shard-times`, the
+    same card and limit; one direction of the local pass, ms, as "C: its
+    ms"), the card agrees with the table: a 2^14 shard at 1 CTA and two
+    2^14 sub-shards at 2: 16: 0.0069-0.0072, 8: 0.0080-0.0082, 4:
+    0.0109-0.0110, 1: 0.0298-0.0303; 2^12 shards at 1-3 CTAs (the key
+    switch): 4: 0.0058-0.0064, 8 and 16: 0.0064-0.0066, 2: 0.0072-0.0077,
+    1: 0.0082-0.0085; 2^12 at 128 CTAs (DistNTT at batch 256 on a (2, 4)
+    mesh): 1: 0.0090-0.0098, 2: 0.0107-0.0111, 4: 0.0114-0.0121."""
     if ctas >= sms or torch.device(device).type != "cuda":
         return 1
     pick = next((c for most, c in CLUSTER_TABLE.get(log_n, ())
@@ -394,16 +405,29 @@ def _launch(lib: str, entry: str, argtypes, name: str, x: torch.Tensor,
     return out
 
 
+def cluster_chunks(x, rows, name, forward, omf, log_n, log_d, shard_base,
+                   log_sub, chunks, clusters):
+    """The cluster form on the `chunks` chunks of 2^log_n of each row of x
+    (rows: the descriptors), a cluster of `clusters` CTAs a chunk, counted
+    under `name`: chunk t is shard shard_base + (t mod 2^log_sub) of the
+    2^log_d of a transform of 2^(log_n + log_d) (log_d = 0: whole
+    transforms; the inverse of a shard stops before the global final
+    stage and ignores omf)."""
+    entry = "hexl_rns_cluster_fwd" if forward else "hexl_rns_cluster_inv"
+    return _launch("ntt_rns", entry, _CLUSTER_ARGS, name, x, rows, log_n,
+                   log_d, shard_base, log_sub, chunks,
+                   clusters.bit_length() - 1, omf)
+
+
 def _cluster(x, rows, rplan, batch, forward, omf, clusters):
     """K1.rns.cl (N <= 2^14: the whole transform) or K6.rns.cl (above:
-    the local pass of the split), a cluster of `clusters` CTAs a
-    transform or shard."""
+    the local pass of the split, every 2^14 shard of each transform), a
+    cluster of `clusters` CTAs a transform or shard."""
     log_n = min(rplan.log_n, hier.LOG_LOCAL)
     log_d = rplan.log_n - log_n
-    entry = "hexl_rns_cluster_fwd" if forward else "hexl_rns_cluster_inv"
-    return _launch("ntt_rns", entry, _CLUSTER_ARGS,
-                   "K6.rns.cl" if log_d else "K1.rns.cl", x, rows, log_n,
-                   log_d, batch, clusters.bit_length() - 1, omf)
+    return cluster_chunks(x, rows, "K6.rns.cl" if log_d else "K1.rns.cl",
+                          forward, omf, log_n, log_d, 0, log_d,
+                          batch << log_d, clusters)
 
 
 def _clusters(x, n, ctas, scheme):

@@ -24,9 +24,17 @@ The local pass's plain versions are the walk restricted to the shard
 (`csrc/ntt_hier.cu`); a position of L > 2^14 coefficients first runs
 (forward) or last runs (inverse) its stages of stride >= 2^14 through K5
 on 2^14-coefficient rows, with the shard's twiddles gathered into a small
-table, and the rest through K6 on 2^14 sub-shards. Launches are counted
-under "K5" and "K6". The layer is 64-bit for every q, as the JAX
-package's is.
+table, and the rest through K6 on 2^14 sub-shards. Where K6's grid of one
+CTA a shard (or sub-shard) of 2^12 .. 2^14 is under a wave and
+`rns.cluster_for` picks C > 1 for it (the rule and table of the one-prime
+transforms), the shard runs on a cluster of C CTAs instead (K6.shard.cl,
+`csrc/ntt_cluster.cuh` with K6's shard base and period, through the
+one-row plan of the prime): a DistNTT position holds one shard of each
+polynomial, so the RNS product's positions launch one or two CTAs of K6
+on a card of 132 SMs. Its plain version, `local_cluster_plain`, is the
+walk cut where the kernels cut it (the CPU takes it where the rule is
+forced to C > 1). Launches are counted under "K5", "K6" and
+"K6.shard.cl". The layer is 64-bit for every q, as the JAX package's is.
 """
 
 from __future__ import annotations
@@ -38,8 +46,10 @@ import torch
 
 from .. import _build, nt
 from ..limb import reduce_mod_lazy64, to_tensor
-from . import hier, torch_ntt
+from . import hier, rns, torch_ntt
 from .plan import register_clear_hook
+
+CLUSTER_NAME = "K6.shard.cl"
 
 
 # -- plain versions ----------------------------------------------------------
@@ -61,7 +71,66 @@ def local_inv_plain(x: torch.Tensor, plan, shard: int,
     return torch_ntt.inv_stages(x, plan, 1, x.shape[-1], 64, shard, shards)
 
 
+def local_cluster_plain(x: torch.Tensor, plan, shard: int, shards: int,
+                        forward: bool, omf: int,
+                        clusters: int) -> torch.Tensor:
+    """The local pass of shard `shard` of `shards` (x (..., L)) cut where
+    the cluster form cuts it, C = `clusters` CTAs a chunk of l = min(L,
+    2^14): the forward runs the stages of stride >= 2^14 (K5, L > 2^14),
+    the cluster's cross stages (strides l/2 .. l/C, on its columns), each
+    CTA's stages (stride < l/C) and the OMF reduction; the inverse the
+    CTA's stages, the cross stages, then those of stride >= 2^14, and
+    stops before the global final stage (ignoring omf)."""
+    if clusters not in rns.CLUSTER_SIZES:
+        raise ValueError(f"a cluster holds {rns.CLUSTER_SIZES} CTAs, got "
+                         f"{clusters}")
+    length = x.shape[-1]
+    rows = max(1, length // hier.LOCAL_N)
+    if length // rows < rns.CLUSTER_DEGREES[0]:
+        raise ValueError(f"the cluster form takes shards of at least "
+                         f"{rns.CLUSTER_DEGREES[0]}, got {length}")
+    args = (64, shard, shards)
+    if forward:
+        for lo, hi in ((1, rows), (rows, rows * clusters),
+                       (rows * clusters, length)):
+            x = torch_ntt.fwd_stages(x, plan, lo, hi, *args)
+        if omf == 1:
+            x = reduce_mod_lazy64(x, plan.q, 4)
+        return x
+    chunk = length // rows // clusters
+    for lo, hi in ((1, chunk), (chunk, length // rows),
+                   (length // rows, length)):
+        x = torch_ntt.inv_stages(x, plan, lo, hi, *args)
+    return x
+
+
 # -- the kernel wrappers -----------------------------------------------------
+
+def cluster_count(x: torch.Tensor, log_n: int, chunks: int) -> int:
+    """C for the local pass's launch on `chunks` chunks of 2^log_n:
+    `rns.cluster_for`'s pick for K6's grid of one CTA a chunk (1 below
+    2^12, at a wave or more and off CUDA, unless the rule is forced)."""
+    if not chunks:
+        return 1
+    return rns._clusters(x, 1 << log_n, chunks, "exact")
+
+
+def local_chunks(x: torch.Tensor, plan, forward: bool, omf: int, log_n: int,
+                 log_d: int, shard_base: int, log_sub: int) -> torch.Tensor:
+    """The local pass on the 2^log_n-coefficient chunks of x, a CUDA
+    tensor, chunk c shard shard_base + (c mod 2^log_sub) of a transform of
+    2^(log_n + log_d) (`hier.local_launch`'s arguments): K6.shard.cl, a
+    cluster of C CTAs a chunk, where `cluster_count` gives C > 1, else K6.
+    The inverse ignores omf."""
+    chunks = _build.batch_of(x, 1 << log_n)
+    clusters = cluster_count(x, log_n, chunks)
+    if clusters == 1:
+        return hier.local_launch(x, plan, forward, omf, log_n, log_d,
+                                 shard_base, log_sub)
+    rows = rns.get_rns_plan(plan.n, (plan.q,)).descriptors(x.device)
+    return rns.cluster_chunks(x, rows, CLUSTER_NAME, forward, omf, log_n,
+                              log_d, shard_base, log_sub, chunks, clusters)
+
 
 @functools.lru_cache(maxsize=None)
 def intra_twiddles(plan, shard: int, shards: int, forward: bool,
@@ -97,19 +166,26 @@ register_clear_hook(intra_twiddles.cache_clear)
 def local(x: torch.Tensor, plan, shard: int, shards: int, forward: bool,
           omf: int = 1) -> torch.Tensor:
     """The local pass of shard `shard` of `shards` (x (..., L)): K6 with a
-    shard base on the GPU (and K5 for the stages of stride >= 2^14 when
-    L > 2^14), the plain version on the CPU. The inverse ignores omf."""
-    if not _build.on_card(x):
+    shard base, or K6.shard.cl where `cluster_count` picks C > 1, on the
+    GPU (and K5 for the stages of stride >= 2^14 when L > 2^14); on the
+    CPU the plain version (`local_cluster_plain` where the rule is forced
+    to C > 1). The inverse ignores omf."""
+    card = _build.on_card(x)
+    length = x.shape[-1]
+    log_d = nt.log2_exact(shards)
+    rows = max(1, length // hier.LOCAL_N)
+    log_rows = nt.log2_exact(rows)
+    log_n = nt.log2_exact(length // rows)
+    if not card:
+        clusters = cluster_count(x, log_n, _build.batch_of(x, length) * rows)
+        if clusters > 1:
+            return local_cluster_plain(x, plan, shard, shards, forward, omf,
+                                       clusters)
         if forward:
             return local_fwd_plain(x, plan, shard, shards, omf)
         return local_inv_plain(x, plan, shard, shards)
-    length = x.shape[-1]
-    log_d = nt.log2_exact(shards)
-    if length <= hier.LOCAL_N:
-        return hier.local_launch(x, plan, forward, omf,
-                                 nt.log2_exact(length), log_d, shard, 0)
-    rows = length // hier.LOCAL_N
-    log_rows = nt.log2_exact(rows)
+    if rows == 1:
+        return local_chunks(x, plan, forward, omf, log_n, log_d, shard, 0)
     w, wp = intra_twiddles(plan, shard, shards, forward, x.device)
 
     def intra(v):
@@ -117,8 +193,8 @@ def local(x: torch.Tensor, plan, shard: int, shards: int, forward: bool,
                                  forward, final_stage=False)
 
     def sub_shards(v):
-        return hier.local_launch(v, plan, forward, omf, hier.LOG_LOCAL,
-                                 log_d + log_rows, shard * rows, log_rows)
+        return local_chunks(v, plan, forward, omf, hier.LOG_LOCAL,
+                            log_d + log_rows, shard * rows, log_rows)
 
     if forward:
         return sub_shards(intra(x))

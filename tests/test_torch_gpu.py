@@ -781,8 +781,8 @@ def test_parallel_layer_on_a_one_card_mesh(cuda, monkeypatch):
     assert torch.equal(dist_dyadic_multiply(c, c, moduli[:2], mesh), want_dy)
     launched = dict(_build.launches)
     assert all(launched.get(k, 0) > 0 for k in
-               ("K4", "K5", "K6", "K8.reduce", "K9", "K10", "K11",
-                "K16")), launched
+               ("K4", "K5", "K6", "K6.shard.cl", "K8.reduce", "K9", "K10",
+                "K11", "K16")), launched
 
 
 # -- the approximate-butterfly schemes and the chains (K17, K18) ------------
@@ -1329,7 +1329,7 @@ def test_stacked_entry_points_never_take_the_plain_path(cuda, monkeypatch):
         assert sum(_build.launches.values()) == (4 if n <= 1 << 14 else 7)
 
 
-# -- the cluster form (K1.rns.cl, K6.rns.cl) ---------------------------------
+# -- the cluster form (K1.rns.cl, K6.rns.cl, K6.shard.cl) --------------------
 
 @pytest.mark.parametrize("clusters", rns.CLUSTER_SIZES)
 @pytest.mark.parametrize("log_n", range(12, 21))
@@ -1373,15 +1373,43 @@ def test_cluster_kernels_match_plain(cuda, monkeypatch, clusters, log_n):
             assert torch.equal(got, plain(x, plan, imf, omf))
 
 
+@pytest.mark.parametrize("clusters", rns.CLUSTER_SIZES)
+@pytest.mark.parametrize("log_l", range(12, 17))
+def test_shard_cluster_kernel_matches_plain(cuda, monkeypatch, clusters,
+                                            log_l):
+    """K6.shard.cl (a DistNTT position's local pass on a cluster of C
+    CTAs a shard, or above 2^14 a 2^14 sub-shard after K5) with the rule's
+    C forced, at every position of D = 2 and 4, the forward at OMF 1 and
+    4 and the inverse, batches 1 and 3, against its plain version; one
+    launch of the cluster kernel a call."""
+    from hexl_tpu_torch.ntt import shard
+    monkeypatch.setattr(rns, "cluster_for", lambda *args: clusters)
+    rng = np.random.default_rng(log_l + clusters)
+    want = {shard.CLUSTER_NAME: 1, **({"K5": 1} if log_l > 14 else {})}
+    for d in (2, 4):
+        plan = get_plan(d << log_l, _modulus(61, d << log_l))
+        for r in range(d):
+            for batch in (1, 3):
+                for forward, omf in ((True, 1), (True, 4), (False, 1)):
+                    x = _rand(rng, (batch, 1 << log_l),
+                              (4 if forward else 2) * plan.q, cuda)
+                    _build.reset_launches()
+                    got = shard.local(x, plan, r, d, forward, omf)
+                    torch.cuda.synchronize()
+                    assert dict(_build.launches) == want
+                    assert torch.equal(got, shard.local_cluster_plain(
+                        x, plan, r, d, forward, omf, clusters))
+
+
 def test_cluster_instantiations_do_not_spill(cuda):
     """Every instantiation of the cluster form, from the -Xptxas -v report
-    of the build: the forward and the whole inverse at 11 (C, chunk)
-    shapes each, the shard's inverse at 4."""
+    of the build: the forward, the whole inverse and the shard's inverse
+    at 11 (C, chunk) shapes each."""
     import re
     res = _build.kernel_resources(_build.build_all()["log"])
     clustered = {k: v for k, v in res.items()
                  if re.search(r"rns_cluster_(fwd|inv)_kernel", k)}
-    assert len(clustered) == 11 + 11 + 4
+    assert len(clustered) == 11 + 11 + 11
     spills = {k: v for k, v in clustered.items() if v[2] or v[3]}
     assert not spills, spills
 
