@@ -46,14 +46,16 @@ and K6's forms for small shards (SHARD_VARIANTS) timed in turns:
 Phases, each of which fails the run (non-zero exit) if anything is wrong:
   1. the card: CUDA present; its name and power limit from nvidia-smi;
   2. build: every kernel compiled from csrc/ with nvcc for sm_90a, with
-     the compiler's -Xptxas -v report (the run fails if a lean, chain,
-     radix-walk, K2, K3 or K5 tiled-form instantiation of the NTT or the
-     FFT-like, or any of the 131 stacked (RNS) or 33 cluster-form
-     instantiations, spills; the cluster form's most active clusters),
-     K3's most active clusters per degree, five
-     probe kernels whose SASS gives the IMADs of a 64x64 and of a 32x32
-     high and low product and of the lean butterflies' approximate 64x64
-     high product, and a kernel with an empty body (K4's launch floor);
+     the compiler's -Xptxas -v report (the run fails if a lean, approx,
+     chain, radix-walk, K2, K3, K5 tiled-form or K16 instantiation of the
+     NTT or the FFT-like, an eltwise approximate instantiation, or any of
+     the 133 stacked (RNS) or 33 cluster-form instantiations, spills; the
+     cluster form's most active clusters), K3's most active clusters per
+     degree, six probe kernels whose SASS gives the IMADs of a 64x64 and
+     of a 32x32 high and low product, of the lean and approx butterflies'
+     approximate 64x64 high product and of the eltwise family's
+     (mulhi64_approx), and a kernel with an empty body (K4's launch
+     floor);
   3. every kernel against its plain PyTorch version on the card, bit-exact:
      K1/K2 over N x q x the IMF/OMF matrix x batch (K1 at every N from 2
      to 2^14); K2 at every N from 2 to 2^12, at every P its rule gives
@@ -97,7 +99,13 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      2^20 against the plain cluster walk, every IMF/OMF pair, and the
      one-prime calls routed to it at N = 2^12 .. 2^16; K6.shard.cl
      (shard_cluster_checks) at every C, L from 2^12 to 2^16, D = 2, 4
-     and 8 and their positions, against its plain version;
+     and 8 and their positions, against its plain version; the "approx"
+     scheme (approx_kernel_checks): K1/K2 at every N from 2 to 2^14 and
+     K5/K6 from 2^15 to 2^20 for q just above 2^29, 2^50 and 2^60 and
+     just below 2^61 over the IMF/OMF matrix, K3 in every form, K16 at
+     every stage, K6 with a shard base, and K4/K8's approximate
+     instantiations (five ops, the row ops) at every IMF/OMF for q of 20
+     to 62 bits;
   4. seven main paths through the public entry points, each with the
      launch counts set to 0 just before it and read just after it.
      The first: NTT(2^14, 60-bit) forward and inverse at batch 256
@@ -150,7 +158,14 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      K2), rns_poly_mult_mod at N=2^17 x 16 primes of
      50 bits; the K17 and K18 chains at the probes' shapes; every output
      against the plain lean path, fully reduced ones against the exact
-     outputs, the K18 chains against each other;
+     outputs, the K18 chains against each other; and, counted on their
+     own, the "approx" scheme through the entry points (the scheme map
+     forced to it): NTT(2^14, 60-bit) x 256, NTT(2^6) x 8192, NTT(2^17) x
+     16, NTT(2^20) x 2, poly_mult_mod at (2^14, 64) and (2^13, 132),
+     DistNTT(2^17) on (1, 8) with local_scheme="approx", PipelineNTT on a
+     ring of 8, the five eltwise ops with an approximate body at 2^22
+     elements and a key switch at 2^14 x ds 3, each output against its
+     plain approx version and, fully reduced, the exact one;
      The seventh (seventh_path): the host-side modules through their entry
      points, in fresh processes where a cold start is what is measured:
      `prewarm` at (2^14, 60-bit, 256), (2^17, 60-bit, 16), (2^20, 60-bit,
@@ -199,7 +214,9 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      the same work on one device; the lean instantiations, K17 and K18
      beside their bounds, the lean against the exact pair at each
      sixth-path shape (40 event timings each, in turns, with their spread,
-     and graph replays), the RNS product both ways, and the chains in
+     and graph replays), each approx row against its exact row (turns
+     exact, approx, approx, exact, graph medians, with its bound), the
+     RNS product both ways, and the chains in
      Gbfly/s; the stacked kernels (K1.rns, K2.rns, K5.rns in both forms,
      K6.rns, K4.rows, K8.reduce.rows) beside their bounds; RnsNTT's pairs
      at (2^14, 16 primes, 16) and (2^17, 16 primes, 1), the RNS product
@@ -261,10 +278,11 @@ def nvidia_smi(query: str) -> str:
 
 # One multiply each, never launched: their SASS (cuobjdump) gives the
 # 32-bit IMADs that a 64x64 high and low product, a 32x32 high and low
-# product, and the approximate 64x64 high product of the lean butterflies
-# (csrc/modarith.cuh mulhi64_approx6, spelt out) compile to: the operation
-# term of each kernel's bound. Built here only, not into the port's
-# libraries.
+# product, the approximate 64x64 high product of the lean and approx
+# butterflies (csrc/modarith.cuh mulhi64_approx6, spelt out) and that of
+# the eltwise family's approximate quotients (mulhi64_approx, spelt out)
+# compile to: the operation term of each kernel's bound. Built here only,
+# not into the port's libraries.
 SASS_PROBES = r"""
 extern "C" __global__ void sass_probe_mulhi64(const unsigned long long* a,
                                               const unsigned long long* b,
@@ -290,6 +308,19 @@ extern "C" __global__ void sass_probe_mulhi64a6(const unsigned long long* a,
                        (((x1 >> 16) * (y0 & 0xFFFFu)) >> 16);
   c[0] = (unsigned long long)x1 * y1 + h01 + h10;
 }
+extern "C" __global__ void sass_probe_mulhi64a(const unsigned long long* a,
+                                               const unsigned long long* b,
+                                               unsigned long long* c) {
+  const unsigned long long x = a[0], y = b[0];
+  const unsigned x0 = (unsigned)x, x1 = (unsigned)(x >> 32);
+  const unsigned y0 = (unsigned)y, y1 = (unsigned)(y >> 32);
+  const unsigned long long p01 = (unsigned long long)x0 * y1;
+  const unsigned long long p10 = (unsigned long long)x1 * y0;
+  const unsigned long long mid = (p01 & 0xFFFFFFFFull) +
+                                 (p10 & 0xFFFFFFFFull);
+  c[0] = (unsigned long long)x1 * y1 + (p01 >> 32) + (p10 >> 32) +
+         (mid >> 32);
+}
 extern "C" __global__ void sass_probe_mulhi32(const unsigned int* a,
                                               const unsigned int* b,
                                               unsigned int* c) {
@@ -301,7 +332,8 @@ extern "C" __global__ void sass_probe_mullo32(const unsigned int* a,
   c[0] = a[0] * b[0];
 }
 """
-SASS_KINDS = ("mulhi64", "mullo64", "mulhi32", "mullo32", "mulhi64a6")
+SASS_KINDS = ("mulhi64", "mullo64", "mulhi32", "mullo32", "mulhi64a6",
+              "mulhi64a")
 
 
 def start_sass_probes(nvcc: str, out_dir: pathlib.Path):
@@ -1192,7 +1224,7 @@ def parallel_kernel_checks(rng, dev, nt, get_plan, hier, shard, pipeline,
     L = 2^15 and 2^16 (K5 on the intra-shard stages, then K6 on 2^14
     sub-shards), a modulus of each size in turn over the K5 and K6 cases;
     K6 launched with a shard base and a period (log_sub) for shards of
-    2^11 to 2^14, in both words and the lean schemes;
+    2^11 to 2^14, in both words and the approximate schemes;
     K16 at every stage of N in {2^10, 2^14, 2^17} for every size, the
     fused final stage at OMF 1 and 2 (forward 1 and 4). Returns the
     number of checks."""
@@ -1257,7 +1289,8 @@ def parallel_kernel_checks(rng, dev, nt, get_plan, hier, shard, pipeline,
             plan = get_plan(n << log_d, q)
             forms = [(64, "exact")] + [(32, "exact")] * (q < 1 << 30) + [
                 (64, s_) for s_, bound in (("lean16", 1 << 60),
-                                           ("lean8", 1 << 61)) if q < bound]
+                                           ("lean8", 1 << 61),
+                                           ("approx", 1 << 61)) if q < bound]
             for word, scheme in forms:
                 name = ("K6.shard" if (word, scheme) == (64, "exact") else
                         hier.kernel_name("K6", word, scheme))
@@ -1298,7 +1331,7 @@ def parallel_kernel_checks(rng, dev, nt, get_plan, hier, shard, pipeline,
 
 
 TILE_ARITH = ((60, 64, "exact"), (62, 64, "exact"), (29, 32, "exact"),
-              (59, 64, "lean16"), (60, 64, "lean8"))
+              (59, 64, "lean16"), (60, 64, "lean8"), (60, 64, "approx"))
 
 
 def tile_kernel_checks(rng, dev, nt, get_plan, hier, shard, torch_ntt,
@@ -1324,7 +1357,8 @@ def tile_kernel_checks(rng, dev, nt, get_plan, hier, shard, torch_ntt,
             return nt.generate_primes(1, 61, False, ntt_size=n)[0]
         return nt.generate_primes(1, bits, True, ntt_size=n)[0]
 
-    wide = {"exact": (4, 2), "lean16": (16, 8), "lean8": (8, 4)}
+    wide = {"exact": (4, 2), "lean16": (16, 8), "lean8": (8, 4),
+            "approx": (4, 2)}
     blocks = [((batch, 1 << log_d, hier.LOCAL_N), log_d)
               for log_d in range(1, 7) for batch in (1, 2, 3)]
     blocks += [((2, 128, 1024), 3), ((1, 256, 1024), 4)]
@@ -1408,7 +1442,8 @@ def rns_kernel_checks(rng, dev, nt, rns, hier, ops, torch_kernels, torch_ntt,
     import numpy as np
     import torch
     checks = 0
-    wide = {"exact": (4, 2), "lean16": (16, 8), "lean8": (8, 4)}
+    wide = {"exact": (4, 2), "lean16": (16, 8), "lean8": (8, 4),
+            "approx": (4, 2)}
 
     def rand_rows(moduli, shape, factor):
         return torch.stack([to_tensor(rng.integers(
@@ -1693,40 +1728,50 @@ def shard_cluster_checks(rng, dev, nt, get_plan, rns, shard, to_tensor,
     return checks
 
 
-# The instantiations whose registers are checked: the lean ones (mangled
-# names with the scheme argument 1 (lean16) or 2 (lean8) after a u64
-# word), the chain kernels K17/K18, every radix walk of K1/K6/K7 (the
-# forward in four forms: three u64 schemes, u32; the inverse in eight:
-# with the final stage and without, each in the three u64 schemes and
-# u32; the u64 forms in seven shapes, the u32 ones in ten, ntt_block.cuh
-# with_shape), K2's packed walk (forward and inverse, three schemes, R = 8
-# and R = 2), K3's kernels (poly.cu: the cluster form at 2^12-2^14, the
-# one-CTA form at R = 2, R = 8 and 2^10-2^13), and K12's radix walk (fft.cu
-# fft_radix_fwd_kernel and fft_radix_inv_kernel: six shapes in complex
-# double and float, three in double-float, fft_with_shape), and K5's
-# tiled form (cross_tile.cuh).
+# The instantiations whose registers are checked: the approximate ones
+# (mangled names with the scheme argument 1 (lean16), 2 (lean8) or 3
+# (approx) after a u64 word), the chain kernels K17/K18, every radix walk
+# of K1/K6/K7 (the forward in five forms: four u64 schemes, u32; the
+# inverse in ten: with the final stage and without, each in the four u64
+# schemes and u32; the u64 forms in seven shapes, the u32 ones in ten,
+# ntt_block.cuh with_shape), K2's packed walk (forward and inverse, four
+# schemes, R = 8 and R = 2), K3's kernels (poly.cu: the cluster form at
+# 2^12-2^14, the one-CTA form at R = 2, R = 8 and 2^10-2^13, each exact
+# and approx), and K12's radix walk (fft.cu fft_radix_fwd_kernel and
+# fft_radix_inv_kernel: six shapes in complex double and float, three in
+# double-float, fft_with_shape), K5's tiled form (cross_tile.cuh), K16
+# (stage.cu, exact and approx) and the eltwise bodies' approximate
+# instantiations (eltwise.cu: functors with the flag A true).
 NEW_INSTANTIATION = re.compile(
-    r"chain_kernel|kernelIyLi[12]E|radix_(packed_)?(fwd|inv)_kernel|"
-    r"poly_(cluster|cta)_kernel|cross_tile_(fwd|inv)_kernel")
-RADIX_INSTANTIATIONS = (3 + 6) * 7 + (1 + 2) * 10
-PACKED_INSTANTIATIONS = 2 * 3 * 2
-POLY_INSTANTIATIONS = 3 + 6
+    r"chain_kernel|kernelIyLi[123]E|radix_(packed_)?(fwd|inv)_kernel|"
+    r"poly_(cluster|cta)_kernel|cross_tile_(fwd|inv)_kernel|stage_kernel|"
+    r"eltwise_kernelI\w*Lb1E")
+RADIX_INSTANTIATIONS = (4 + 8) * 7 + (1 + 2) * 10
+PACKED_INSTANTIATIONS = 2 * 4 * 2
+POLY_INSTANTIATIONS = 2 * (3 + 6)
 FFT_RADIX_INSTANTIATIONS = 2 * (6 + 6 + 3)
 # K5's tiled form (cross_tile.cuh): the forward and the inverse with and
-# without the final stage, at every D (2 .. 64), in the three u64 schemes
-# and u32; its lean ones match kernelIyLi[12]E too.
-TILE_INSTANTIATIONS = 3 * 6 * 4
-# K5's lean passes, the chains, the radix walks, K2, K3, K5's tiled form.
-NEW_INSTANTIATIONS = (2 * 6 * 3 + 2 + 3 + RADIX_INSTANTIATIONS
+# without the final stage, at every D (2 .. 64), in the four u64 schemes
+# and u32; its approximate ones match kernelIyLi[123]E too.
+TILE_INSTANTIATIONS = 3 * 6 * 5
+# K16 exact and approx; the five eltwise ops' approximate bodies.
+STAGE_INSTANTIATIONS = 2
+ELTWISE_APPROX_INSTANTIATIONS = 5
+# K5's approximate passes (three schemes, six D, forward and the inverse
+# with and without its final stage), the chains, the radix walks, K2, K3,
+# K5's tiled form, K16 and the eltwise approximate bodies.
+NEW_INSTANTIATIONS = (3 * 6 * 3 + 2 + 3 + RADIX_INSTANTIATIONS
                       + PACKED_INSTANTIATIONS + POLY_INSTANTIATIONS
-                      + FFT_RADIX_INSTANTIATIONS + TILE_INSTANTIATIONS)
+                      + FFT_RADIX_INSTANTIATIONS + TILE_INSTANTIATIONS
+                      + STAGE_INSTANTIATIONS + ELTWISE_APPROX_INSTANTIATIONS)
 # The stacked instantiations (ntt_rns.cu, cross_rns.cu, eltwise.cu): K1.rns's
 # forward and inverse in the three schemes and seven shapes, K6.rns's
 # inverse (no final stage) at 2^14 in three, K2.rns forward and inverse in
 # three schemes and two radices, K5.rns in both forms forward and inverse
-# at every D in three schemes, and the two row ops of K4/K8.
+# at every D in three schemes, and the two row ops of K4/K8, exact and
+# approximate.
 RNS_INSTANTIATION = re.compile(r"_rns_kernel|eltwise_rows_kernel")
-RNS_INSTANTIATIONS = (2 * 3 * 7 + 3 + 2 * 3 * 2 + 2 * 2 * 3 * 6 + 2)
+RNS_INSTANTIATIONS = (2 * 3 * 7 + 3 + 2 * 3 * 2 + 2 * 2 * 3 * 6 + 2 * 2)
 # Moduli of the lean checks: generate_primes(1, b) gives q in (2^b,
 # 2^(b+1)); "61" is the largest prime below 2^61, where 8q is just under
 # 2^64 (lean8's raw product range).
@@ -1838,6 +1883,259 @@ def lean_kernel_checks(rng, dev, nt, get_plan, cuda_ntt, hier, torch_ntt,
                             cuda_ntt.inv_ntt(x, plan, imf, 1),
                             f"inv {what} imf={imf} OMF 1 == exact")
                     checks += 4
+    return checks
+
+
+# Moduli of the approx checks: q just above 2^29, 2^50 and 2^60, and the
+# largest prime below 2^61 (the scheme's bound: its raw product lies in
+# [0, 8q)).
+APPROX_Q_BITS = (29, 50, 60, 61)
+
+
+def approx_modulus(nt, q_bits: int, n: int) -> int:
+    if q_bits == 61:
+        return nt.generate_primes(1, 60, False, ntt_size=n)[0]
+    return nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+
+
+def eltwise_approx_cases(q, size, rng, dev, ops, plain64, nt, to_tensor):
+    """(what, kernel, kernel's output, plain output) for the five ops with
+    an approximate quotient (64-bit) under modulus q, at every IMF/OMF,
+    and the two row ops over a basis holding q; the caller has forced
+    `config.approx_butterflies` on, so the wrappers launch their
+    approximate instantiations."""
+    import numpy as np
+    import torch
+
+    def rand(bound, count=size):
+        return to_tensor(rng.integers(0, bound - 1, size=count,
+                                      dtype=np.uint64, endpoint=True), dev)
+
+    def scalar(lo, hi):
+        return int(rng.integers(lo, hi - 1, dtype=np.uint64, endpoint=True))
+
+    for imf in (1, 2, 4):
+        if q < 1 << 62:
+            x, y = rand(imf * q), rand(imf * q)
+            yield (f"mult_mod imf={imf}", ops.kernel_name("mult", 64, True),
+                   ops.mult_mod(x, y, q, imf),
+                   plain64.mult_mod(x, y, q, imf, True))
+    for imf in (1, 2, 4, 8):
+        if q < 1 << 61:
+            x, z = rand(imf * q), rand(imf * q)
+            w = nt.reduce_mod(scalar(0, imf * q), q, imf)
+            wp = nt.barrett_factor(w, 64, q)
+            for c in (z, None):
+                yield (f"fma_mod imf={imf} addend={c is not None}",
+                       ops.kernel_name("fma", 64, True),
+                       ops.fma_mod(x, w, wp, c, q, imf),
+                       plain64.fma_mod_preconned(x, w, wp, c, q, imf, True))
+    for imf, omf in ((q, 1), (q, 2), (2, 1), (4, 1), (4, 2), (2, 2)):
+        x = rand(1 << 64) if imf == q else rand(imf * q)
+        yield (f"reduce_mod imf={'q' if imf == q else imf} omf={omf}",
+               ops.kernel_name("reduce", 64, True),
+               ops.reduce_mod(x, q, imf, omf),
+               plain64.reduce_mod(x, q, imf, omf, True))
+    full = rand(1 << 64)
+    for cmp in plain64.CMP_NAMES:
+        for bound in (scalar(0, 1 << 63), scalar(1 << 63, 1 << 64)):
+            f = full.clone()
+            f[:7] = int(np.uint64(bound).view(np.int64))
+            diff = scalar(1, q)
+            yield (f"cmp_sub_mod {cmp} bound={bound}",
+                   ops.kernel_name("cmp_sub", 64, True),
+                   ops.cmp_sub_mod(f, q, cmp, bound, diff),
+                   plain64.cmp_sub_mod(f, q, cmp, bound, diff, True))
+    if q < 1 << 62 and q % 2:
+        a = rand(q)
+        yield ("montgomery_form_in", ops.kernel_name("mont_in", 64, True),
+               ops.montgomery_form_in(a, q),
+               plain64.montgomery_form_in(a, q, True))
+    if q < 1 << 62:
+        moduli = (q, nt.generate_primes(1, 40, True)[0])
+        consts = ops.row_constants(moduli, dev)
+        rows = size // 2
+        for imf in (1, 2, 4):
+            x = torch.stack([rand(imf * m, rows) for m in moduli])
+            y = torch.stack([rand(imf * m, rows) for m in moduli])
+            yield (f"mult_mod_rows imf={imf}", "K4.rows.approx",
+                   ops.mult_mod_rows(x, y, moduli, imf),
+                   plain64.mult_mod_rows(x, y, consts, imf, True))
+        x = torch.stack([rand(1 << 64, rows) for _ in moduli])
+        for omf in (1, 2):
+            yield (f"reduce_mod_rows omf={omf}", "K8.reduce.rows.approx",
+                   ops.reduce_mod_rows(x, moduli, omf),
+                   plain64.reduce_mod_rows(x, consts, omf, True))
+
+
+def approx_kernel_checks(rng, dev, nt, get_plan, cuda_ntt, hier, shard, poly,
+                         pipeline, ops, torch_kernels, torch_ntt, to_tensor,
+                         port_config, compare, route) -> int:
+    """Every instantiation of the "approx" scheme (the butterflies of the
+    JAX package's Pallas kernels) and of the eltwise family's approximate
+    quotients against its plain version, bit for bit, lazy outputs
+    included: K1/K2 at every N from 2 to 2^14 and K5/K6 at every N from
+    2^15 to 2^20, for q just above 2^29, 2^50 and 2^60 and just below
+    2^61, over the IMF/OMF matrix (fully reduced outputs also against the
+    exact kernels'); K3 at every N from 2 to 2^14 in every form it takes;
+    K16 at every stage of N in {2^10, 2^14, 2^17}; K6 with a shard base
+    (a DistNTT position's local pass) for L from 2^10 to 2^16; K4 and K8
+    (mult_mod, fma_mod, reduce_mod, cmp_sub_mod, montgomery_form_in, and
+    the row ops) at every IMF/OMF for q of 20, 29, 49, 60 and 61 bits and
+    the largest prime below 2^62. Returns the count."""
+    import numpy as np
+
+    def rand(shape, bound):
+        return to_tensor(rng.integers(0, bound, size=shape, dtype=np.uint64),
+                         dev)
+
+    checks = 0
+    a_ = "approx"
+    for log_n in range(1, 15):
+        n = 1 << log_n
+        batches = ((3, 401) if n in (2, 16, 1024, 4096, 1 << 13, 1 << 14)
+                   else (1, 3))
+        for q_bits, batch in itertools.product(APPROX_Q_BITS, batches):
+            q = approx_modulus(nt, q_bits, n)
+            plan = get_plan(n, q)
+            kernel = hier.kernel_name(route(n, batch), 64, a_)
+            what = f"n={n} q_bits={q_bits} approx batch={batch}"
+            for imf in (1, 2, 4):
+                x = rand((batch, n), imf * q)
+                for omf in (1, 4):
+                    got = cuda_ntt.fwd_ntt(x, plan, imf, omf, 64, a_)
+                    compare(kernel, got, torch_ntt.fwd_ntt(
+                        x, plan, imf, omf, 64, a_),
+                        f"fwd {what} imf={imf} omf={omf}")
+                    checks += 1
+                    if omf == 1:
+                        compare(kernel, got, cuda_ntt.fwd_ntt(x, plan, imf, 1),
+                                f"fwd {what} imf={imf} OMF 1 == exact")
+                        checks += 1
+            for imf in (1, 2):
+                x = rand((batch, n), imf * q)
+                for omf in (1, 2):
+                    got = cuda_ntt.inv_ntt(x, plan, imf, omf, 64, a_)
+                    compare(kernel, got, torch_ntt.inv_ntt(
+                        x, plan, imf, omf, 64, a_),
+                        f"inv {what} imf={imf} omf={omf}")
+                    checks += 1
+                    if omf == 1:
+                        compare(kernel, got, cuda_ntt.inv_ntt(x, plan, imf, 1),
+                                f"inv {what} imf={imf} OMF 1 == exact")
+                        checks += 1
+    for n in (1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20):
+        for q_bits in APPROX_Q_BITS:
+            q = approx_modulus(nt, q_bits, n)
+            plan = get_plan(n, q)
+            for batch in ((1, 2) if n == 1 << 20 else (1, 3)):
+                blocks = (batch, n // hier.LOCAL_N, hier.LOCAL_N)
+                k5 = k5_name(hier, n, batch, 64, a_)
+                k6 = hier.kernel_name("K6", 64, a_)
+                what = f"n={n} q_bits={q_bits} approx batch={batch}"
+                for imf in (1, 2, 4):
+                    x = rand(blocks, imf * q)
+                    c = hier.cross(x, plan, True, 1, 64, a_)
+                    compare(k5, c, hier.cross_fwd_plain(x, plan, 64, a_),
+                            f"cross fwd {what} imf={imf}")
+                    c = c.view(batch, n)
+                    for omf in (1, 4):
+                        compare(k6, hier.local(c, plan, True, omf, 64, a_),
+                                hier.local_fwd_plain(c, plan, omf, 64, a_),
+                                f"local fwd {what} imf={imf} omf={omf}")
+                    flat = x.view(batch, n)
+                    compare(k6, cuda_ntt.fwd_ntt(flat, plan, imf, 1, 64, a_),
+                            cuda_ntt.fwd_ntt(flat, plan, imf, 1),
+                            f"fwd {what} imf={imf} OMF 1 == exact")
+                    checks += 4
+                for imf in (1, 2):
+                    x = rand((batch, n), imf * q)
+                    loc = hier.local(x, plan, False, 1, 64, a_)
+                    compare(k6, loc, hier.local_inv_plain(x, plan, 64, a_),
+                            f"local inv {what} imf={imf}")
+                    for omf in (1, 2):
+                        compare(k5, hier.cross(loc.view(blocks), plan, False,
+                                               omf, 64, a_),
+                                hier.cross_inv_plain(loc.view(blocks), plan,
+                                                     omf, 64, a_),
+                                f"cross inv {what} imf={imf} omf={omf}")
+                    compare(k5, cuda_ntt.inv_ntt(x, plan, imf, 1, 64, a_),
+                            cuda_ntt.inv_ntt(x, plan, imf, 1),
+                            f"inv {what} imf={imf} OMF 1 == exact")
+                    checks += 4
+    # K3 in every form at every N (the plain approx chain; fully reduced,
+    # so the exact K3's output too).
+    for log_n in range(1, 15):
+        n = 1 << log_n
+        q = approx_modulus(nt, 61 if log_n % 2 else 60, n)
+        plan = get_plan(n, q)
+        for batch in (1, 2, 133):
+            a, b = rand((batch, n), q), rand((batch, n), q)
+            want = poly.poly_mult_plain(a, b, plan, a_)
+            for form in poly.forms_of(n):
+                with forced_form(poly, form):
+                    got = poly.poly_mult(a, b, plan, a_)
+                    exact = poly.poly_mult(a, b, plan)
+                name = poly.FORMS[form] + ".approx"
+                compare(name, got, want, f"poly_mult n={n} batch={batch} "
+                        f"form={form} approx")
+                compare(name, got, exact, f"poly_mult n={n} batch={batch} "
+                        f"form={form} approx == exact")
+                checks += 2
+    # K16 at every stage, approx.
+    for log_n in (10, 14, 17):
+        n = 1 << log_n
+        for q_bits in APPROX_Q_BITS:
+            q = approx_modulus(nt, q_bits, n)
+            plan = get_plan(n, q)
+            for k in range(log_n):
+                last = k == log_n - 1
+                for forward, bound, omfs in (
+                        (True, 4 * q, (1, 4) if last else (4,)),
+                        (False, 2 * q, (1, 2) if last else (2,))):
+                    x = rand((2, n), bound)
+                    for omf in omfs:
+                        compare("K16.approx",
+                                pipeline.stages(x, plan, forward, k, k + 1,
+                                                omf, a_),
+                                pipeline.stages_plain(x, plan, forward, k,
+                                                      k + 1, omf, a_),
+                                f"stage {k} of N=2^{log_n} q_bits={q_bits} "
+                                f"{'fwd' if forward else 'inv'} omf={omf} "
+                                "approx")
+                        checks += 1
+    # K6 with a shard base (and K5 on a shard's stages above 2^14): a
+    # DistNTT position's local pass in approx.
+    for log_l in range(10, 17):
+        for d, q_bits in ((2, 61), (8, 50)):
+            n = d << log_l
+            q = approx_modulus(nt, q_bits, n)
+            plan = get_plan(n, q)
+            for r in (0, d - 1):
+                what = f"L=2^{log_l} D={d} r={r} q_bits={q_bits} approx"
+                x = rand((3, n // d), 4 * q)
+                for omf in (1, 4):
+                    compare("K6.approx", shard.local(x, plan, r, d, True, omf,
+                                                     a_),
+                            shard.local_fwd_plain(x, plan, r, d, omf, a_),
+                            f"local fwd {what} omf={omf}")
+                x = rand((3, n // d), 2 * q)
+                compare("K6.approx", shard.local(x, plan, r, d, False, 1, a_),
+                        shard.local_inv_plain(x, plan, r, d, a_),
+                        f"local inv {what}")
+                checks += 3
+    # K4/K8's approximate instantiations, the switch forced on.
+    regime = port_config.approx_butterflies
+    port_config.approx_butterflies = lambda device: True
+    try:
+        for q_bits in (20, 29, 49, 60, 61, 62):
+            q = top_modulus(nt, q_bits)
+            for what, kernel, got, want in eltwise_approx_cases(
+                    q, 65537, rng, dev, ops, torch_kernels, nt, to_tensor):
+                compare(kernel, got, want, f"{what} q_bits={q_bits}")
+                checks += 1
+    finally:
+        port_config.approx_butterflies = regime
     return checks
 
 
@@ -3519,9 +3817,9 @@ def main() -> int:
     log(f"IMADs per product (SASS): {imads}")
     resources = _build.kernel_resources(info["log"])
     new = {k: v for k, v in resources.items() if NEW_INSTANTIATION.search(k)}
-    log(f"build: {len(new)} lean, chain, radix-walk, K2, K3 and K5 tiled "
-        f"instantiations (registers, stack, spill stores, spill loads): "
-        f"{new}")
+    log(f"build: {len(new)} lean, approx, chain, radix-walk, K2, K3, K5 "
+        f"tiled, K16 and eltwise approx instantiations (registers, stack, "
+        f"spill stores, spill loads): {new}")
     spilled = {k: v for k, v in new.items() if v[2] or v[3] or v[2] is None}
     if spilled or len(new) < NEW_INSTANTIATIONS:
         raise AssertionError(f"of {NEW_INSTANTIATIONS} new instantiations "
@@ -3764,6 +4062,12 @@ def main() -> int:
     # The lean instantiations of K1/K2/K5/K6, and the chains K17 and K18.
     checks += lean_kernel_checks(rng, dev, nt, get_plan, cuda_ntt, hier,
                                  torch_ntt, to_tensor, compare, route)
+    # The approx instantiations (the Pallas kernels' butterflies) of K1, K2,
+    # K3, K5, K6 and K16, and the eltwise family's approximate quotients.
+    checks += approx_kernel_checks(rng, dev, nt, get_plan, cuda_ntt, hier,
+                                   shard, poly, pipeline, ops, torch_kernels,
+                                   torch_ntt, to_tensor, port_config,
+                                   compare, route)
     checks += chain_kernel_checks(rng, dev, chain, df_chain, compare,
                                   compare_fft)
     # The stacked transform's kernels (K1.rns, K2.rns, K5.rns in both forms,
@@ -4323,8 +4627,8 @@ def main() -> int:
     log(f"phase 4: sixth main path's launches {launches6}")
     sixth_kernels = ("K1.lean8", "K1.lean16", "K2.lean8", "K5.lean16",
                      "K6.lean16", "K5.rns.lean16", "K6.rns.lean16",
-                     "K4.rows", "K17", "K17.exact", "K18.df", "K18.f64",
-                     "K18.f32")
+                     "K4.rows.approx", "K17", "K17.exact", "K18.df",
+                     "K18.f64", "K18.f32")
     missing = [k for k in sixth_kernels if launches6.get(k, 0) < 1]
     exact_names = [k for k in ("K1", "K2", "K5", "K6", "K5.rns", "K6.rns",
                                "K1.rns.cl", "K6.rns.cl")
@@ -4391,6 +4695,167 @@ def main() -> int:
         f"exact mod q; K18 against its f64 chain: max abs err {chain_err}")
     if chain_err["double_float"] > 1e-12 or chain_err["single"] > 1e-4:
         raise AssertionError(f"K18 chains disagree with f64: {chain_err}")
+
+    # The sixth path's approx runs: the butterflies of the JAX package's
+    # Pallas kernels ("approx"), reached through the public entry points
+    # with the scheme map forced to them (`torch_ntt.scheme_of`; the JAX
+    # package reaches that form through its Pallas backend), and the
+    # eltwise family's approximate quotients and PipelineNTT's approx
+    # stages with the switch forced on (`config.approx_butterflies`):
+    # NTT(2^14, 60-bit) at batch 256 (K1), NTT(2^6, 49-bit) at 8192 (K2),
+    # NTT(2^17, 60-bit) at 16 (K5/K6), NTT(2^20, 60-bit) at 2 (K5's tiled
+    # form, K6), poly_mult_mod at (2^14, 60-bit, 64) and (2^13, 60-bit, 132)
+    # (K3, K3.cta), DistNTT(2^17, 60-bit) on a (1, 8) mesh of cuda:0
+    # positions with local_scheme="approx" (K6 with a shard base; its cross
+    # pass, K5, exact as the JAX package's), PipelineNTT(2^14, 60-bit) on a
+    # ring of 8 (K16), the five eltwise ops with an approximate body at
+    # 2^22 elements, and a key switch at N=2^14 x ds 3 (its base
+    # conversion, K8.reduce.rows). Counted in a window of their own.
+    from hexl_tpu_torch.parallel import (DistNTT, PipelineNTT, make_mesh,
+                                         make_pipeline_mesh)
+    approx6 = {
+        "K1": ("NTT(2^14, 60-bit), batch 256", ntt14, sixth["lean8"][2]),
+        "K2": (f"NTT(2^6, 49-bit), batch {PACKED_BATCH}", ntt6,
+               sixth["lean8 packed"][2]),
+        "K5": ("NTT(2^17, 60-bit), batch 16", NTT(n17, q60_17),
+               rand((SPLIT_BATCH, n17), q60_17)),
+        "K5.tile": ("NTT(2^20, 60-bit), batch 2", NTT(n20, q60_20),
+                    rand((2, n20), q60_20)),
+    }
+    products6 = {"K3": (n14, rand((64, n14), q60), rand((64, n14), q60)),
+                 "K3.cta": (CTA_N, rand((CTA_BATCH, CTA_N), q60),
+                            rand((CTA_BATCH, CTA_N), q60))}
+    dist6 = DistNTT(n17, q60_17, make_mesh(8, 1, [dev] * 8),
+                    local_scheme="approx")
+    xd6 = rand((4, n17), q60_17)
+    pipe6 = PipelineNTT(n14, q60, make_pipeline_mesh(8, [dev] * 8))
+    xp6 = rand((8, 2, n14), q60)
+    big6 = 1 << 22
+    e6 = {"a": rand((big6,), 4 * q60), "b": rand((big6,), 4 * q60),
+          "c": rand((big6,), 4 * q60), "wide": rand((big6,), 1 << 64),
+          "r": rand((big6,), q60)}
+    fma6 = 0x123456789ABCDEF % q60
+    ks6 = key_switch_inputs(rng, n14, (50, 50, 50, 50), 2, dev, nt,
+                            to_tensor)
+    torch.cuda.synchronize()
+
+    def eltwise6(approx):
+        """The five ops with an approximate body, through the public
+        functions (the switch as the caller set it)."""
+        return {
+            "K4": port.eltwise_mult_mod(e6["a"], e6["b"], q60, 4),
+            "K8.fma": port.eltwise_fma_mod(e6["a"], fma6, e6["c"], q60, 4),
+            "K8.reduce": port.eltwise_reduce_mod(e6["wide"], q60, q60, 2),
+            "K8.cmp": port.eltwise_cmp_sub_mod(e6["wide"], q60, "nlt",
+                                               1 << 63, 7),
+            "K8.mont": port.eltwise_montgomery_form_in(e6["r"], q60)}
+
+    scheme_map = torch_ntt.scheme_of
+    torch_ntt.scheme_of = (lambda lean_ok, lean16_ok:
+                           "approx" if lean_ok else "exact")
+    port_config.approx_butterflies = lambda device: True
+    try:
+        _build.reset_launches()
+        outs6a = {}
+        for key, (_, e, x) in approx6.items():
+            y = e.forward(x)
+            outs6a[key] = (y, e.forward(x, 1, 4), e.inverse(y))
+        prods6 = {key: poly_mult_mod(a, b, n, q60)
+                  for key, (n, a, b) in products6.items()}
+        dist_y = dist6.forward(xd6)
+        dist_lazy = dist6.forward(xd6, 1, 4)
+        dist_back = dist6.inverse(dist_y)
+        pipe_lazy = pipe6.forward(xp6, 1, 4)
+        pipe_back = pipe6.inverse(pipe6.forward(xp6), 1, 1)
+        elt6 = eltwise6(True)
+        ks_out6 = port.key_switch(ks6[0], ks6[1], n14, 3, 4, 4, 2, ks6[3],
+                                  ks6[2], ks6[4])
+        torch.cuda.synchronize()
+        launches6a = dict(_build.launches)
+    finally:
+        torch_ntt.scheme_of = scheme_map
+        port_config.approx_butterflies = exact_regime
+    log(f"phase 4: sixth main path's approx launches {launches6a}")
+    approx_kernels = ("K1.approx", "K2.approx", "K5.approx", "K6.approx",
+                      "K5.tile.approx", "K3.approx", "K3.cta.approx",
+                      "K16.approx", "K4.approx", "K8.fma.approx",
+                      "K8.reduce.approx", "K8.cmp.approx", "K8.mont.approx",
+                      "K8.reduce.rows.approx")
+    missing = [k for k in approx_kernels if launches6a.get(k, 0) < 1]
+    exact_names = [k for k in ("K1", "K2", "K3", "K3.cta", "K6", "K16",
+                               "K4", "K8.fma", "K8.reduce", "K8.mont",
+                               "K8.reduce.rows")
+                   if k in launches6a]
+    if missing or exact_names:
+        raise AssertionError(f"sixth main path's approx runs launched no "
+                             f"{missing}; exact instantiations "
+                             f"{exact_names}")
+    # Every output against its plain version in "approx" and, fully
+    # reduced, against the exact outputs on the same inputs.
+    for key, (name, e, x) in approx6.items():
+        y, lazy, back = outs6a[key]
+        fwd_k = ("K6" if e.plan.n > n14 else key) + ".approx"
+        inv_k = key + ".approx"
+        compare(fwd_k, y, torch_ntt.fwd_ntt(x, e.plan, 1, 1, 64, "approx"),
+                f"sixth path: {name}.forward == the plain approx walk")
+        compare(fwd_k, lazy, torch_ntt.fwd_ntt(x, e.plan, 1, 4, 64,
+                                               "approx"),
+                f"sixth path: {name}.forward OMF 4 == the plain approx walk")
+        compare(inv_k, back, torch_ntt.inv_ntt(y, e.plan, 1, 1, 64,
+                                               "approx"),
+                f"sixth path: {name}.inverse == the plain approx walk")
+        compare(fwd_k, y, torch_ntt.fwd_ntt(x, e.plan),
+                f"sixth path: {name}.forward == the exact output")
+        if not torch.equal(back, x):
+            raise AssertionError(f"sixth path: {name} approx round trip "
+                                 "failed")
+    for key, (n, a, b) in products6.items():
+        plan = get_plan(n, q60)
+        compare(key + ".approx", prods6[key],
+                poly.poly_mult_plain(a, b, plan, "approx"),
+                f"sixth path: poly_mult_mod n={n} == the plain approx chain")
+        compare(key + ".approx", prods6[key], poly.poly_mult(a, b, plan),
+                f"sixth path: poly_mult_mod n={n} == the exact K3")
+    dist_cpu = DistNTT(n17, q60_17, make_mesh(8, 1, ["cpu"] * 8),
+                       local_scheme="approx")
+    compare("K6.approx", dist_lazy,
+            dist_cpu.forward(xd6.cpu(), 1, 4).to(dev),
+            "sixth path: DistNTT approx OMF 4 == its plain version")
+    compare("K6.approx", dist_y, cuda_ntt.fwd_ntt(xd6, e17.plan),
+            "sixth path: DistNTT approx == the exact transform")
+    if not torch.equal(dist_back, xd6):
+        raise AssertionError("sixth path: DistNTT approx round trip failed")
+    compare("K16.approx", pipe_lazy,
+            pipeline.stages_plain(xp6, plan14, True, 0, plan14.log_n, 4,
+                                  "approx"),
+            "sixth path: PipelineNTT approx OMF 4 == the plain approx walk")
+    if not torch.equal(pipe_back, xp6):
+        raise AssertionError("sixth path: PipelineNTT approx round trip "
+                             "failed")
+    wp6 = nt.barrett_factor(fma6, 64, q60)
+    plain6 = {
+        "K4": torch_kernels.mult_mod(e6["a"], e6["b"], q60, 4, True),
+        "K8.fma": torch_kernels.fma_mod_preconned(e6["a"], fma6, wp6,
+                                                  e6["c"], q60, 4, True),
+        "K8.reduce": torch_kernels.reduce_mod(e6["wide"], q60, q60, 2, True),
+        "K8.cmp": torch_kernels.cmp_sub_mod(e6["wide"], q60, "nlt", 1 << 63,
+                                            7, True),
+        "K8.mont": torch_kernels.montgomery_form_in(e6["r"], q60, True)}
+    exact6 = eltwise6(False)
+    for key, got in elt6.items():
+        compare(key + ".approx", got, plain6[key],
+                f"sixth path: {key} approx == its plain body")
+        if key != "K8.reduce":
+            compare(key + ".approx", got, exact6[key],
+                    f"sixth path: {key} approx == the exact op (fully "
+                    "reduced)")
+    compare("K8.reduce.rows.approx", ks_out6, ks.key_switch_plain(
+        ks6[0], ks6[1], n14, 3, 4, 4, 2, ks6[3], ks6[2], ks6[4]),
+        "sixth path: key switch with the approximation on == the plain "
+        "key switch")
+    log("phase 4: every output of the sixth path's approx runs == its plain "
+        "approx version and, fully reduced, the exact one; round trips "
+        "exact")
 
     # The seventh: the host-side modules through their entry points
     # (seventh_path): prewarm and the first public pair of each of
@@ -4465,17 +4930,23 @@ def main() -> int:
 
     k1 = pair_case(n14, q60, 256, 1)
     k2 = pair_case(PACKED_N, q49_6, PACKED_BATCH, 1)
-    def product_case(n, q, batch):
+    def product_case(n, q, batch, scheme="exact"):
         """poly_mult: a and b read, the product written, the four tables
         read once; two forwards, one inverse and a Barrett product a
-        coefficient."""
+        coefficient (in approx: the approximate butterflies' IMADs, the
+        final stage's two exact Shoup products)."""
         plan = get_plan(n, q)
         pa, pb = rand((batch, n), q), rand((batch, n), q)
-        return (lambda: poly.poly_mult(pa, pb, plan),
-                lambda: poly.poly_mult_plain(pa, pb, plan),
+        if scheme == "exact":
+            nimads = (2 * ntt_imads(n, batch, True)
+                      + ntt_imads(n, batch, False))
+        else:
+            log_n = n.bit_length() - 1
+            nimads = lean_imads(batch * n // 2, 3 * log_n - 1, True)
+        return (lambda: poly.poly_mult(pa, pb, plan, scheme),
+                lambda: poly.poly_mult_plain(pa, pb, plan, scheme),
                 3 * 8 * batch * n + 4 * 8 * n,
-                2 * ntt_imads(n, batch, True) + ntt_imads(n, batch, False)
-                + batch * n * per_barrett)
+                nimads + batch * n * per_barrett)
 
     k3 = product_case(n14, q60, 64)
     k3c = product_case(CTA_N, q60, CTA_BATCH)
@@ -5081,6 +5552,159 @@ def main() -> int:
         f"local pass fwd + inv, N=2^17 (8 shards), 50-bit q, batch "
         f"{SPLIT_BATCH}, lean16",
         pass_case(n17, q50_17, SPLIT_BATCH, 64, False, "lean16"))
+    # The approx instantiations at the sixth path's approx shapes, each
+    # kernel against its plain version in "approx" (bound: as the exact
+    # forms', the approximate butterflies' IMADs from the SASS of
+    # mulhi64_approx6, and the eltwise bodies' from that of mulhi64_approx).
+    # approx_ab lists each beside its exact form for the A/B of phase 5.
+    approx_replaces = ("%s (the 'approx' butterflies of "
+                       "pallas_ntt.py:53-61, jnp_ntt.py:66-112, the TPU "
+                       "kernel's default for q < 2^61)")
+    approx_ab = {}
+    for name, desc, source, tpu, shape, case, exact in (
+            ("K1.approx", "radix_fwd_kernel+radix_inv_kernel<u64, APPROX>, "
+             "1 poly/CTA", "hexl_tpu_torch/csrc/ntt.cu",
+             "hexl_tpu/ntt/pallas_ntt.py:547",
+             "fwd OMF1 + inv OMF1 pair, N=2^14, 60-bit q, batch 256, approx",
+             pair_case(n14, q60, 256, 1, "approx"),
+             pair_case(n14, q60, 256, 1)),
+            ("K2.approx", "radix_packed_fwd_kernel+radix_packed_inv_kernel"
+             "<APPROX>, P polys/CTA", "hexl_tpu_torch/csrc/ntt.cu",
+             "hexl_tpu/ntt/pallas_ntt.py:230",
+             f"fwd OMF1 + inv OMF1 pair, N=2^6, 49-bit q, batch "
+             f"{PACKED_BATCH} (P={p6}), approx",
+             pair_case(PACKED_N, q49_6, PACKED_BATCH, 1, "approx"),
+             pair_case(PACKED_N, q49_6, PACKED_BATCH, 1)),
+            ("K3.approx", "poly_cluster_kernel<APPROX>, a cluster of two "
+             "CTAs per pair", "hexl_tpu_torch/csrc/poly.cu",
+             "hexl_tpu/poly.py:72",
+             "poly_mult N=2^14, 60-bit q, batch 64, approx",
+             product_case(n14, q60, 64, "approx"),
+             product_case(n14, q60, 64)),
+            ("K3.cta.approx", "poly_cta_kernel<APPROX>, both operands in "
+             "one CTA", "hexl_tpu_torch/csrc/poly.cu", "hexl_tpu/poly.py:72",
+             f"poly_mult N=2^13, 60-bit q, batch {CTA_BATCH}, approx",
+             product_case(CTA_N, q60, CTA_BATCH, "approx"),
+             product_case(CTA_N, q60, CTA_BATCH)),
+            ("K5.approx", "cross_fwd_kernel+cross_inv_kernel<u64, APPROX, 3>",
+             "hexl_tpu_torch/csrc/ntt_hier.cu", "hexl_tpu/ntt/hier.py:164",
+             f"cross pass fwd + inv, N=2^17 (D=8), 60-bit q, batch "
+             f"{SPLIT_BATCH}, approx",
+             pass_case(n17, q60_17, SPLIT_BATCH, 64, True, "approx"),
+             pass_case(n17, q60_17, SPLIT_BATCH, 64, True)),
+            ("K5.tile.approx", "cross_tile_fwd_kernel+cross_tile_inv_kernel"
+             "<u64, APPROX, 6>", "hexl_tpu_torch/csrc/ntt_hier.cu",
+             "hexl_tpu/ntt/hier.py:164",
+             "cross pass fwd + inv, N=2^20 (D=64), 60-bit q, batch 2, approx",
+             pass_case(n20, q60_20, 2, 64, True, "approx"),
+             pass_case(n20, q60_20, 2, 64, True)),
+            ("K6.approx", "radix_fwd_kernel+radix_inv_kernel<u64, APPROX>, "
+             "1 shard/CTA", "hexl_tpu_torch/csrc/ntt_hier.cu",
+             "hexl_tpu/ntt/hier.py:255",
+             f"local pass fwd + inv, N=2^17 (8 shards), 60-bit q, batch "
+             f"{SPLIT_BATCH}, approx",
+             pass_case(n17, q60_17, SPLIT_BATCH, 64, False, "approx"),
+             pass_case(n17, q60_17, SPLIT_BATCH, 64, False))):
+        cases[name] = (desc, source, approx_replaces % tpu, shape, case)
+        approx_ab[name] = (shape, exact[0], case[0], 10)
+    x16a = rand((16, n14), q60)
+    cases["K16.approx"] = (
+        "stage_kernel<APPROX>, one radix-2 stage per launch",
+        "hexl_tpu_torch/csrc/stage.cu",
+        "port-only: hexl_tpu/parallel/pipeline.py:80-122 with "
+        "jnp_ntt._bflys's approx pair (jnp_ntt.py:96-112)",
+        "a whole fwd + inv (28 stages) of a 16 x 2^14 microbatch, 60-bit q, "
+        "approx",
+        (lambda: (pipeline.stages(x16a, plan14, True, 0, 14, 1, "approx"),
+                  pipeline.stages(x16a, plan14, False, 0, 14, 1, "approx")),
+         lambda: (pipeline.stages_plain(x16a, plan14, True, 0, 14, 1,
+                                        "approx"),
+                  pipeline.stages_plain(x16a, plan14, False, 0, 14, 1,
+                                        "approx")),
+         2 * 14 * 2 * 8 * 16 * n14 + 2 * 2 * 8 * n14,
+         lean_imads(16 * (n14 // 2), 2 * 14 - 1, True)))
+    approx_ab["K16.approx"] = (
+        cases["K16.approx"][3],
+        lambda: (pipeline.stages(x16a, plan14, True, 0, 14, 1),
+                 pipeline.stages(x16a, plan14, False, 0, 14, 1)),
+        cases["K16.approx"][4][0], 2)
+    # The eltwise bodies at 2^22 elements (a 2-polynomial ciphertext over 16
+    # primes at N = 2^17), 60-bit q; the row ops over 16 primes of 50 bits
+    # at N = 2^17 (the RNS product's pointwise step, the key switch's base
+    # conversion). Bytes: operands read once, the output written once;
+    # operations: the exact 128-bit product's IMADs and the approximate
+    # quotient's.
+    per_barrett_a = (imads["mulhi64"] + imads["mulhi64a"]
+                     + 2 * imads["mullo64"])
+    per_shoup_a = imads["mulhi64a"] + 2 * imads["mullo64"]
+    per_reduce_a = imads["mulhi64a"] + imads["mullo64"]
+    wp_e = nt.barrett_factor(fma6, 64, q60)
+    approx_eltwise = ("hexl_tpu/eltwise/pallas_kernels.py:65 (the "
+                      "approximate quotients of jnp_kernels.py:43-49, 84, "
+                      "110, 131, 158, 171)")
+
+    def forced(on, fn):
+        """fn with `config.approx_butterflies` forced to `on`."""
+        def run():
+            port_config.approx_butterflies = (
+                (lambda device: True) if on else exact_regime)
+            try:
+                return fn()
+            finally:
+                port_config.approx_butterflies = exact_regime
+        return run
+
+    elt_cases = (
+        ("K4.approx", "eltwise_kernel<MultMod<u64, true>>",
+         "mult_mod IMF 4", lambda: ops.mult_mod(e6["a"], e6["b"], q60, 4),
+         lambda: torch_kernels.mult_mod(e6["a"], e6["b"], q60, 4, True),
+         3 * 8 * big6, big6 * per_barrett_a),
+        ("K8.fma.approx", "eltwise_kernel<FmaMod<u64, true>>",
+         "fma_mod IMF 4 with an addend",
+         lambda: ops.fma_mod(e6["a"], fma6, wp_e, e6["c"], q60, 4),
+         lambda: torch_kernels.fma_mod_preconned(e6["a"], fma6, wp_e,
+                                                 e6["c"], q60, 4, True),
+         3 * 8 * big6, big6 * per_shoup_a),
+        ("K8.reduce.approx", "eltwise_kernel<ReduceMod<u64, true>>",
+         "reduce_mod IMF q -> OMF 2",
+         lambda: ops.reduce_mod(e6["wide"], q60, q60, 2),
+         lambda: torch_kernels.reduce_mod(e6["wide"], q60, q60, 2, True),
+         2 * 8 * big6, big6 * per_reduce_a),
+        ("K8.cmp.approx", "eltwise_kernel<CmpSubMod<true>>",
+         "cmp_sub_mod nlt 2^63",
+         lambda: ops.cmp_sub_mod(e6["wide"], q60, "nlt", 1 << 63, 7),
+         lambda: torch_kernels.cmp_sub_mod(e6["wide"], q60, "nlt", 1 << 63,
+                                           7, True),
+         2 * 8 * big6, big6 * per_reduce_a),
+        ("K8.mont.approx", "eltwise_kernel<MontIn<true>>",
+         "montgomery_form_in", lambda: ops.montgomery_form_in(e6["r"], q60),
+         lambda: torch_kernels.montgomery_form_in(e6["r"], q60, True),
+         2 * 8 * big6, big6 * per_barrett_a))
+    for name, desc, what, kernel, plain, nbytes, nops in elt_cases:
+        cases[name] = (
+            desc, "hexl_tpu_torch/csrc/eltwise.cu", approx_eltwise,
+            f"{what}, 2^22 elements, 60-bit q",
+            (forced(True, kernel), plain, nbytes, nops))
+        approx_ab[name] = (cases[name][3], forced(False, kernel),
+                           forced(True, kernel), 5)
+    # The row ops' approximate instantiations at the exact rows' shapes
+    # and inputs.
+    for name, desc, exact_name, kernel, plain, nops in (
+            ("K4.rows.approx", "eltwise_rows_kernel<MultMod<u64, true>>",
+             "K4.rows", lambda: ops.mult_mod_rows(*r_mult, moduli, 4),
+             lambda: torch_kernels.mult_mod_rows(*r_mult, rcon, 4, True),
+             RNS_PRIMES * n17 * per_barrett_a),
+            ("K8.reduce.rows.approx",
+             "eltwise_rows_kernel<ReduceMod<u64, true>>", "K8.reduce.rows",
+             lambda: ops.reduce_mod_rows(r_red, r_red_moduli),
+             lambda: torch_kernels.reduce_mod_rows(r_red, rcon_red, 1, True),
+             r_red.numel() * per_reduce_a)):
+        shape, case = cases[exact_name][3:]
+        cases[name] = (desc, "hexl_tpu_torch/csrc/eltwise.cu",
+                       approx_eltwise, shape,
+                       (forced(True, kernel), plain, case[2], nops))
+        approx_ab[name] = (shape, forced(False, kernel), forced(True, kernel),
+                           5)
     # The chains on six input sets in turn (`rotating`), so that a graph's
     # launches read more than the 50 MB L2 holds, as K12/K13's do.
     chain_elems = chain.ROWS * chain.LANES
@@ -5154,7 +5778,8 @@ def main() -> int:
                          if name in counted_as else
                          sum(counts.get(name, 0) for counts in
                              (launches1, launches2, launches3, launches4,
-                              launches5, launches6, launches7))),
+                              launches5, launches6, launches6a,
+                              launches7))),
             "max_abs_err": float(max_err[name]), "matched": True,
             "shape": shape, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
@@ -5304,6 +5929,33 @@ def main() -> int:
         f"lean16 against exact: exact {spread(times['exact'])}, lean "
         f"{spread(times['lean'])}; replayed: exact {replay['exact']} ms, "
         f"lean {replay['lean']} ms")
+    # The approx forms against the exact ones, the A/B that decides
+    # CUDA_APPROX_DEFAULT: each row's exact and approx calls on the same
+    # shape, in turns exact, approx, approx, exact, each turn the median
+    # of 20 replays of a CUDA graph; the approx form is faster at a row
+    # only if every approx turn is below every exact one.
+    faster_everywhere = True
+    for name, (shape, exact_fn, approx_fn, inner) in approx_ab.items():
+        turns = {"exact": [], "approx": []}
+        for turn in ("exact", "approx", "approx", "exact"):
+            turns[turn].append(graph_ms(
+                exact_fn if turn == "exact" else approx_fn, inner))
+        med = {k: statistics.median(v) for k, v in turns.items()}
+        faster = max(turns["approx"]) < min(turns["exact"])
+        faster_everywhere = faster_everywhere and faster
+        entry = next(e for e in entries if e["name"].startswith(name + " "))
+        entry["ab_exact_ms"], entry["ab_approx_ms"] = (turns["exact"],
+                                                       turns["approx"])
+        log(f"A/B {name} at {shape}: exact {turns['exact']} ms, approx "
+            f"{turns['approx']} ms (graph medians, turns exact, approx, "
+            f"approx, exact); approx/exact {med['approx'] / med['exact']:.4f}"
+            f"; approx faster at every turn: {faster}; bound "
+            f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}), approx at "
+            f"{entry['bound_ms'] / med['approx']:.1%} of it, exact at "
+            f"{entry['bound_ms'] / med['exact']:.1%}")
+    log(f"A/B approx against exact: approx faster at every row: "
+        f"{faster_everywhere}; CUDA_APPROX_DEFAULT = "
+        f"{port_config.CUDA_APPROX_DEFAULT}")
     ms_of = {entry["name"].split()[0]: entry["ms"] for entry in entries}
     bflys = chain.ROWS * chain.LANES * chain.REPS
     log(f"K17 chains ({chain.REPS} butterflies on 2 x {chain.ROWS} x "

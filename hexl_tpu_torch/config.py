@@ -8,8 +8,11 @@ Five readers, each with the JAX package's variable and semantics:
     distributed NTT's cross-phase exchange (`parallel/dist_ntt.py`);
   * `approx_mulhi_disabled()`: HEXL_TPU_DISABLE_APPROX, the kill switch of
     the approximate-quotient butterflies;
-  * `approx_butterflies(device)`: whether the 64-bit NTT on `device` runs
-    the approximate-quotient (lean16/lean8) butterflies;
+  * `approx_butterflies(device)`: whether `device` runs the approximate
+    quotients of the JAX package's `config.approx_butterflies`: the
+    lean16/lean8 butterflies of the 64-bit NTT, the "approx" ones of
+    PipelineNTT's stages and the eltwise family's approximate Barrett and
+    Shoup products;
   * `native_disabled()`: HEXL_TPU_DISABLE_NATIVE, which makes the plans
     and `nt` take their pure-Python forms instead of the g++-built host
     library (`native.py`).
@@ -67,8 +70,12 @@ def dist_overlap_slices() -> int:
 
 
 def approx_butterflies(device) -> bool:
-    """Whether the 64-bit NTT on `device` runs the approximate-quotient
-    butterflies (lean16/lean8, `ntt.torch_ntt.scheme_for`).
+    """Whether `device` runs the approximate quotients: the 64-bit NTT's
+    lean16/lean8 butterflies (`ntt.torch_ntt.scheme_for`), PipelineNTT's
+    "approx" stages (`parallel.pipeline.pipeline_scheme`) and the eltwise
+    family's approximate bodies (`eltwise.ops`), as the JAX package's
+    switch turns on its `jnp_ntt._bflys3`, `_bflys` and
+    `jnp_kernels._approx`.
 
     Always False on the CPU, where the plain walk is the bit-exactness
     oracle (as the JAX package is exact on its CPU backend), and False
@@ -82,7 +89,11 @@ def approx_butterflies(device) -> bool:
     graphs, 0.2487 and 0.2801 ms. On Hopper the approximate quotient costs
     as many multiplies as the exact one (8 IMADs each). The lean outputs
     equal the exact ones mod q (bit for bit when fully reduced); their lazy
-    outputs differ in value.
+    outputs differ in value. The approx butterflies and the eltwise
+    approximate quotients, timed against their exact forms in turns on the
+    same card (`chip_smoke.py` phase 5, two runs), were faster at no NTT
+    row (1.01x to 1.40x the time) and within 3% at the eltwise rows (0.98x
+    to 1.03x), so the default stays False for them too.
     """
     if approx_mulhi_disabled():
         return False

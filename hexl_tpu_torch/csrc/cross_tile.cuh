@@ -7,7 +7,7 @@
 // cross_inv_kernel), bit for bit: the forward stages of stride >= lc on
 // the D = 2^LOG_D rows, or the inverse ones ending with the global final
 // stage fused with N^-1 and the OMF (FINAL) or with an ordinary stage; the
-// same twiddle tables, row groups (log_groups) and lean schemes.
+// same twiddle tables, row groups (log_groups) and approximate schemes.
 //
 // Why a second form. The column form gives a thread one column, all D of
 // its coefficients in registers: at D = 64 in u64 that is 128 registers of

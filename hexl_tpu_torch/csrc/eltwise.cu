@@ -13,6 +13,13 @@
 // body is bit-identical to its plain version (eltwise/torch_kernels.py,
 // torch_kernels32.py), lazy ranges included; compares are unsigned.
 //
+// The five 64-bit bodies that hexl_tpu/eltwise/jnp_kernels.py switches to
+// approximate quotients (_approx(): mult_mod, fma_mod, reduce_mod,
+// cmp_sub_mod, montgomery_form_in) are also instantiated with that
+// quotient (mulhi64_approx, error at most 1, modarith.cuh): a compile-time
+// flag A of their functors, picked at launch by the C entries' `approx`
+// argument, so that neither form carries the other's branch.
+//
 // What bounds it on an H100: 16-32 bytes per element (one to three
 // operands read, one written) against at most two 64x64 high and two low
 // products; at the card's rates every body is bound by bytes. The design
@@ -89,15 +96,16 @@ struct AddSub {
 };
 
 // (a * b) mod q at imf 1/2/4: mu = s0, shift = i0, imf = i1.
-template <typename W>
+template <typename W, bool A = false>
 struct MultMod;
 
-template <>
-struct MultMod<u64> {
+template <bool A>
+struct MultMod<u64, A> {
   __device__ u64 operator()(const u64* a, const u64* b, const u64*,
                             long long i, const Scalars& s) const {
-    return mult_mod_barrett(reduce_lazy(a[i], s.q, s.i1),
-                            reduce_lazy(b[i], s.q, s.i1), s.q, s.s0, s.i0);
+    return mult_mod_barrett_q<A>(reduce_lazy(a[i], s.q, s.i1),
+                                 reduce_lazy(b[i], s.q, s.i1), s.q, s.s0,
+                                 s.i0);
   }
 };
 
@@ -115,13 +123,18 @@ struct MultMod<u32> {
 
 // (a * w + c) mod q at imf 1/2/4/8: w = s0, its precondition s1 (at 2^64
 // for u64, 2^32 for u32), imf = i1; no addend when c is null.
-template <typename W>
+template <typename W, bool A = false>
 struct FmaMod {
   __device__ u64 operator()(const u64* a, const u64*, const u64* c,
                             long long i, const Scalars& s) const {
     const W q = (W)s.q;
     const W x = reduce_lazy8((W)a[i], q, s.i1);
-    const W prod = halve(shoup(x, (W)s.s0, (W)s.s1, q), q);
+    W lazy;
+    if constexpr (A)
+      lazy = shoup_approx(x, (W)s.s0, (W)s.s1, q);
+    else
+      lazy = shoup(x, (W)s.s0, (W)s.s1, q);
+    const W prod = halve(lazy, q);
     if (!c) return prod;
     return halve((W)(prod + reduce_lazy8((W)c[i], q, s.i1)), q);
   }
@@ -130,10 +143,12 @@ struct FmaMod {
 // The full reduction of reduce_mod at imf == q: in u64, Barrett with
 // q_barr = s0 where x >= q; in u32, the single-word Barrett product with
 // mu = s0 and shift = s1, as jnp_kernels32.reduce_mod32 computes it.
+template <bool A>
 __device__ __forceinline__ u64 reduce_full(u64 x, const Scalars& s) {
-  return x >= s.q ? barrett_reduce(x, s.q, s.s0, s.i1) : x;
+  return x >= s.q ? barrett_reduce_q<A>(x, s.q, s.s0, s.i1) : x;
 }
 
+template <bool A>
 __device__ __forceinline__ u32 reduce_full(u32 x, const Scalars& s) {
   const u32 z = barrett_prod32(0, x, (u32)s.q, (u32)s.s0, (int)s.s1);
   return s.i1 == 1 ? halve(z, (u32)s.q) : z;
@@ -141,7 +156,7 @@ __device__ __forceinline__ u32 reduce_full(u32 x, const Scalars& s) {
 
 // The range change: mode i0 = 0 (imf == omf: unchanged), 1 (imf == q),
 // 2 or 4 (the imf); omf = i1.
-template <typename W>
+template <typename W, bool A = false>
 struct ReduceMod {
   __device__ u64 operator()(const u64* a, const u64*, const u64*,
                             long long i, const Scalars& s) const {
@@ -149,7 +164,7 @@ struct ReduceMod {
     const W q = (W)s.q;
     switch (s.i0) {
       case 0: return x;
-      case 1: return reduce_full(x, s);
+      case 1: return reduce_full<A>(x, s);
       case 2: return halve(x, q);
       default: {
         const W z = halve(x, (W)(2 * q));
@@ -170,21 +185,23 @@ struct CmpAdd {
 
 // cmp(a, bound) ? (a mod q - diff) mod q : a mod q: bound = s0, diff = s1,
 // q_barr = s2, cmp = i0.
+template <bool A = false>
 struct CmpSubMod {
   __device__ u64 operator()(const u64* a, const u64*, const u64*,
                             long long i, const Scalars& s) const {
     const u64 x = a[i];
-    const u64 red = barrett_reduce(x, s.q, s.s2, 1);
+    const u64 red = barrett_reduce_q<A>(x, s.q, s.s2, 1);
     return compare(x, s.s0, s.i0) ? halve(red - s.s1 + s.q, s.q) : red;
   }
 };
 
 // Montgomery form in (a * (2^64 mod q) mod q: mu = s0, 2^64 mod q = s1,
 // shift = i0), out (REDC(0:a), inv = s0) and mult_reduce (REDC(a*b)).
+template <bool A = false>
 struct MontIn {
   __device__ u64 operator()(const u64* a, const u64*, const u64*,
                             long long i, const Scalars& s) const {
-    return mult_mod_barrett(a[i], s.s1, s.q, s.s0, s.i0);
+    return mult_mod_barrett_q<A>(a[i], s.s1, s.q, s.s0, s.i0);
   }
 };
 
@@ -250,19 +267,45 @@ static int launch_word(int op, const u64* a, const u64* b, const u64* c,
   }
 }
 
+// The approximate-quotient instantiations: the five 64-bit ops of
+// jnp_kernels._approx().
+static int launch_approx(int op, const u64* a, const u64* b, const u64* c,
+                         u64* out, long long count, const Scalars& s,
+                         cudaStream_t stream) {
+  switch (op) {
+    case OP_MULT: return launch(MultMod<u64, true>{}, a, b, c, out, count, s,
+                                stream);
+    case OP_FMA: return launch(FmaMod<u64, true>{}, a, b, c, out, count, s,
+                               stream);
+    case OP_REDUCE: return launch(ReduceMod<u64, true>{}, a, b, c, out,
+                                  count, s, stream);
+    case OP_CMP_SUB: return launch(CmpSubMod<true>{}, a, b, c, out, count, s,
+                                   stream);
+    case OP_MONT_IN: return launch(MontIn<true>{}, a, b, c, out, count, s,
+                                   stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // out[i] = op(a[i], b[i], c[i]) for i < count; b and c may be null where
-// the op takes a scalar or no operand. word is 64 or 32 (ops 0-4 only).
+// the op takes a scalar or no operand. word is 64 or 32 (ops 0-4 only);
+// approx (word 64, ops 2, 3, 4, 6 and 7) takes the approximate quotient.
 extern "C" int hexl_eltwise(const u64* a, const u64* b, const u64* c,
                             u64* out, long long count, int op, int word,
-                            u64 q, u64 s0, u64 s1, u64 s2, int i0, int i1,
-                            cudaStream_t stream) {
+                            int approx, u64 q, u64 s0, u64 s1, u64 s2,
+                            int i0, int i1, cudaStream_t stream) {
   const Scalars s = {q, s0, s1, s2, i0, i1};
+  if (approx) {
+    if (word != 64) return (int)cudaErrorInvalidValue;
+    return launch_approx(op, a, b, c, out, count, s, stream);
+  }
   if (word == 32) return launch_word<u32>(op, a, b, c, out, count, s, stream);
   switch (op) {
     case OP_CMP_ADD: return launch(CmpAdd{}, a, b, c, out, count, s, stream);
-    case OP_CMP_SUB: return launch(CmpSubMod{}, a, b, c, out, count, s,
+    case OP_CMP_SUB: return launch(CmpSubMod<>{}, a, b, c, out, count, s,
                                    stream);
-    case OP_MONT_IN: return launch(MontIn{}, a, b, c, out, count, s, stream);
+    case OP_MONT_IN: return launch(MontIn<>{}, a, b, c, out, count, s,
+                                   stream);
     case OP_MONT_OUT: return launch(MontOut{}, a, b, c, out, count, s,
                                     stream);
     case OP_MONT_MULT: return launch(MontMult{}, a, b, c, out, count, s,
@@ -305,10 +348,11 @@ __global__ void eltwise_rows_kernel(F f, const u64* __restrict__ a,
 
 // out[r][i] = op(a[r][i], b[r][i]) under row r's modulus, for r < k and
 // i < m: op 2 (mult_mod, factor = the IMF) or 4 (reduce_mod from IMF = q
-// to OMF factor), 64-bit.
+// to OMF factor), 64-bit; approx takes the approximate quotient.
 extern "C" int hexl_eltwise_rows(const u64* a, const u64* b, u64* out,
                                  const u64* consts, int k, long long m,
-                                 int op, int factor, cudaStream_t stream) {
+                                 int op, int factor, int approx,
+                                 cudaStream_t stream) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -322,8 +366,12 @@ extern "C" int hexl_eltwise_rows(const u64* a, const u64* b, u64* out,
   long long cap = (long long)sms * 8 / k;
   if (cap < 1) cap = 1;
   const dim3 grid((unsigned)(needed < cap ? needed : cap), (unsigned)k);
-  if (op == OP_MULT)
+  if (op == OP_MULT && approx)
+    eltwise_rows_kernel<<<grid, threads, 0, stream>>>(MultMod<u64, true>{}, a, b, out, consts, m, op, factor);
+  else if (op == OP_MULT)
     eltwise_rows_kernel<<<grid, threads, 0, stream>>>(MultMod<u64>{}, a, b, out, consts, m, op, factor);
+  else if (approx)
+    eltwise_rows_kernel<<<grid, threads, 0, stream>>>(ReduceMod<u64, true>{}, a, b, out, consts, m, op, factor);
   else
     eltwise_rows_kernel<<<grid, threads, 0, stream>>>(ReduceMod<u64>{}, a, b, out, consts, m, op, factor);
   return (int)cudaGetLastError();

@@ -25,8 +25,11 @@
 // one polynomial gives a CTA of less than a warp. The 64-bit kernels also
 // run in the lean16 and lean8 schemes of the JAX engine's device bodies
 // (hexl_tpu/ntt/jnp_ntt.py::_bflys3, the approximate Shoup quotient
-// mulhi64_approx6): one more instantiation of each kernel per scheme,
-// bit-identical to the plain lean walk. On Hopper the approximate
+// mulhi64_approx6) and in the approx scheme of its Pallas kernels
+// (pallas_ntt.py::_butterflies: the same quotient on Harvey's invariants,
+// the form those kernels run for every q < 2^61): one more instantiation
+// of each kernel per scheme, bit-identical to the plain walk of that
+// scheme. On Hopper the approximate
 // quotient saves no multiply: a 32x32 high product is one IMAD, so its
 // 16-bit partial products cost as much as the exact 64x64 high product,
 // and the exact Harvey forward already has one halver, as lean16 does.
@@ -47,7 +50,7 @@
 
 // word is 64, or 32 for q < 2^30, where the precon tables and constants
 // are the plan's precon32 ones and polys_per_cta must be 1; scheme is a
-// Scheme code (modarith.cuh), a lean one with word 64 only.
+// Scheme code (modarith.cuh), an approximate one with word 64 only.
 extern "C" int hexl_ntt_fwd(const u64* x, u64* y, const u64* rop,
                             const u64* prop, u64 q, int log_n, int batch,
                             int polys_per_cta, int omf, int word, int scheme,

@@ -456,13 +456,18 @@ __global__ void __launch_bounds__(1024)
 // -- launches ----------------------------------------------------------------
 
 // f(Index<S>{}) for scheme code `scheme` (modarith.cuh Scheme): exact in
-// either word, the lean schemes in u64 only.
-template <typename W, typename F>
+// either word, the lean schemes in u64 only, and approx (u64) where the
+// caller instantiates it (WITH_APPROX: the single-modulus kernels, whose
+// TPU kernels run that form; the stacked ones keep the three schemes of
+// the JAX stacked bodies).
+template <typename W, bool WITH_APPROX = false, typename F>
 static int with_scheme(int scheme, F&& f) {
   if (scheme == EXACT) return f(Index<EXACT>{});
   if constexpr (sizeof(W) == 8) {
     if (scheme == LEAN16) return f(Index<LEAN16>{});
     if (scheme == LEAN8) return f(Index<LEAN8>{});
+    if constexpr (WITH_APPROX)
+      if (scheme == APPROX) return f(Index<APPROX>{});
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -516,7 +521,7 @@ static int sm_count() {
 }
 
 // The radix walk of scheme code `scheme`: exact in either word, the lean
-// schemes in u64 only.
+// schemes and approx in u64 only.
 template <typename W>
 static int launch_radix_fwd_scheme(int scheme, const u64* x, u64* y,
                                    const u64* rop, const u64* prop, u64 q,
@@ -524,7 +529,7 @@ static int launch_radix_fwd_scheme(int scheme, const u64* x, u64* y,
                                    int shard_base, int log_sub,
                                    cudaStream_t stream) {
   const bool two_per_sm = chunks > sm_count();
-  return with_scheme<W>(scheme, [&](auto s) {
+  return with_scheme<W, true>(scheme, [&](auto s) {
     constexpr int S = decltype(s)::value;
     return with_shape<W>(log_n, two_per_sm, [&](auto logr, auto g,
                                                  auto logn) {
@@ -551,7 +556,7 @@ static int launch_radix_inv_scheme(int scheme, const u64* x, u64* y,
   const bool two_per_sm = chunks > sm_count();
   // The kernel takes the tables from entry 1 + N on (radix_inv_pass).
   const size_t skip = 1 + ((size_t)1 << (log_n + log_d));
-  return with_scheme<W>(scheme, [&](auto s) {
+  return with_scheme<W, true>(scheme, [&](auto s) {
     constexpr int S = decltype(s)::value;
     return with_shape<W>(log_n, two_per_sm, [&](auto logr, auto g,
                                                  auto logn) {
@@ -590,7 +595,7 @@ static int launch_packed_fwd(int scheme, const u64* x, u64* y,
                              int log_n, int chunks, int polys_per_cta,
                              int omf, cudaStream_t stream) {
   const int grid = (chunks + polys_per_cta - 1) / polys_per_cta;
-  return with_scheme<u64>(scheme, [&](auto s) {
+  return with_scheme<u64, true>(scheme, [&](auto s) {
     constexpr int S = decltype(s)::value;
     return with_packed_shape(log_n, polys_per_cta, [&](auto logr, int threads,
                                                        size_t smem) {
@@ -611,7 +616,7 @@ static int launch_packed_inv(int scheme, const u64* x, u64* y,
                              cudaStream_t stream) {
   const int grid = (chunks + polys_per_cta - 1) / polys_per_cta;
   const size_t skip = 1 + ((size_t)1 << log_n);
-  return with_scheme<u64>(scheme, [&](auto s) {
+  return with_scheme<u64, true>(scheme, [&](auto s) {
     constexpr int S = decltype(s)::value;
     return with_packed_shape(log_n, polys_per_cta, [&](auto logr, int threads,
                                                        size_t smem) {

@@ -46,9 +46,10 @@
 // the global final stage. With D = 1 the same walk is K1 (u64).
 //
 // Both passes run in the exact scheme and, for u64, in the lean16 and lean8
-// schemes of the JAX engine's device bodies (modarith.cuh), each a
-// template instantiation: a lean forward's fixup runs at the end of the
-// local pass, a lean inverse's final stage in the cross pass.
+// schemes of the JAX engine's device bodies and in the approx scheme of its
+// Pallas kernels (modarith.cuh), each a template instantiation: a lean
+// forward's fixup runs at the end of the local pass, a lean inverse's final
+// stage in the cross pass.
 //
 // What bounds them on an H100: each pass reads and writes every coefficient
 // once (16 bytes per coefficient, the tensors being int64 in both
@@ -151,7 +152,7 @@ static int cross_inv_at(int log_d, const u64* x, u64* y,
 // K5 on `batch` blocks of (2^log_d, 2^log_lc), in groups of
 // 2^log_groups consecutive blocks (see the kernels). word is 64 or 32; for
 // 32 the precon tables and constants are the plan's precon32 ones. scheme
-// is a Scheme code (modarith.cuh), a lean one with word 64 only.
+// is a Scheme code (modarith.cuh), an approximate one with word 64 only.
 extern "C" int hexl_cross_fwd(const u64* x, u64* y, const u64* rop,
                               const u64* prop, u64 q, int log_d, int log_lc,
                               int log_groups, int batch, int word, int scheme,
@@ -163,15 +164,10 @@ extern "C" int hexl_cross_fwd(const u64* x, u64* y, const u64* rop,
                : cross_fwd_at<u32, EXACT, 1>(log_d, x, y, rop, prop, q,
                                              log_lc, log_groups, columns,
                                              stream);
-  if (scheme == LEAN16)
-    return cross_fwd_at<u64, LEAN16, 1>(log_d, x, y, rop, prop, q, log_lc,
-                                        log_groups, columns, stream);
-  if (scheme == LEAN8)
-    return cross_fwd_at<u64, LEAN8, 1>(log_d, x, y, rop, prop, q, log_lc,
-                                       log_groups, columns, stream);
-  if (scheme != EXACT) return (int)cudaErrorInvalidValue;
-  return cross_fwd_at<u64, EXACT, 1>(log_d, x, y, rop, prop, q, log_lc,
-                                     log_groups, columns, stream);
+  return with_scheme<u64, true>(scheme, [&](auto s) {
+    return cross_fwd_at<u64, decltype(s)::value, 1>(
+        log_d, x, y, rop, prop, q, log_lc, log_groups, columns, stream);
+  });
 }
 
 extern "C" int hexl_cross_inv(const u64* x, u64* y, const u64* irop_cross,
@@ -193,18 +189,11 @@ extern "C" int hexl_cross_inv(const u64* x, u64* y, const u64* irop_cross,
                                              columns, stream);
   }
   const InvFinal<u64> fin = {inv_n, inv_n_precon, inv_n_w, inv_n_w_precon};
-  if (scheme == LEAN16)
-    return cross_inv_at<u64, LEAN16, 1>(log_d, x, y, irop_cross, pirop_cross,
-                                        q, fin, omf, final_stage, log_lc,
-                                        log_groups, columns, stream);
-  if (scheme == LEAN8)
-    return cross_inv_at<u64, LEAN8, 1>(log_d, x, y, irop_cross, pirop_cross,
-                                       q, fin, omf, final_stage, log_lc,
-                                       log_groups, columns, stream);
-  if (scheme != EXACT) return (int)cudaErrorInvalidValue;
-  return cross_inv_at<u64, EXACT, 1>(log_d, x, y, irop_cross, pirop_cross, q,
-                                     fin, omf, final_stage, log_lc,
-                                     log_groups, columns, stream);
+  return with_scheme<u64, true>(scheme, [&](auto s) {
+    return cross_inv_at<u64, decltype(s)::value, 1>(
+        log_d, x, y, irop_cross, pirop_cross, q, fin, omf, final_stage,
+        log_lc, log_groups, columns, stream);
+  });
 }
 
 // K5's tiled form (cross_tile.cuh): the launches for D = 2^log_d, found
@@ -286,15 +275,10 @@ extern "C" int hexl_cross_tile_fwd(const u64* x, u64* y, const u64* rop,
                : cross_tile_fwd_at<u32, EXACT, 1>(
                      log_d, x, y, rop, prop, q, log_lc, log_groups, batch,
                      stream);
-  if (scheme == LEAN16)
-    return cross_tile_fwd_at<u64, LEAN16, 1>(
+  return with_scheme<u64, true>(scheme, [&](auto s) {
+    return cross_tile_fwd_at<u64, decltype(s)::value, 1>(
         log_d, x, y, rop, prop, q, log_lc, log_groups, batch, stream);
-  if (scheme == LEAN8)
-    return cross_tile_fwd_at<u64, LEAN8, 1>(
-        log_d, x, y, rop, prop, q, log_lc, log_groups, batch, stream);
-  if (scheme != EXACT) return (int)cudaErrorInvalidValue;
-  return cross_tile_fwd_at<u64, EXACT, 1>(
-      log_d, x, y, rop, prop, q, log_lc, log_groups, batch, stream);
+  });
 }
 
 extern "C" int hexl_cross_tile_inv(const u64* x, u64* y,
@@ -315,18 +299,11 @@ extern "C" int hexl_cross_tile_inv(const u64* x, u64* y,
                      final_stage, log_lc, log_groups, batch, stream);
   }
   const InvFinal<u64> fin = {inv_n, inv_n_precon, inv_n_w, inv_n_w_precon};
-  if (scheme == LEAN16)
-    return cross_tile_inv_at<u64, LEAN16, 1>(
+  return with_scheme<u64, true>(scheme, [&](auto s) {
+    return cross_tile_inv_at<u64, decltype(s)::value, 1>(
         log_d, x, y, irop_cross, pirop_cross, q, fin, omf, final_stage,
         log_lc, log_groups, batch, stream);
-  if (scheme == LEAN8)
-    return cross_tile_inv_at<u64, LEAN8, 1>(
-        log_d, x, y, irop_cross, pirop_cross, q, fin, omf, final_stage,
-        log_lc, log_groups, batch, stream);
-  if (scheme != EXACT) return (int)cudaErrorInvalidValue;
-  return cross_tile_inv_at<u64, EXACT, 1>(
-      log_d, x, y, irop_cross, pirop_cross, q, fin, omf, final_stage, log_lc,
-      log_groups, batch, stream);
+  });
 }
 
 // How many CTAs of K5's forward (forward != 0) or final inverse kernel at

@@ -36,6 +36,12 @@
 // picks it below 2^12, and at 2^12-2^13 where the cluster's 2 x batch CTAs
 // would outnumber the SMs: there the card showed it faster, the cluster's
 // second CTA then sharing an SM instead of filling an idle one.
+//
+// Both forms are templates on the butterfly scheme S: EXACT, or APPROX,
+// the approximate Shoup quotient the Pallas kernel runs for q < 2^61
+// (pallas_ntt.py::_butterflies, modarith.cuh). The product's output is
+// fully reduced, so it is the same in both; the Barrett product stays
+// exact (its output is fully reduced either way).
 #include <cooperative_groups.h>
 
 #include "ntt_block.cuh"
@@ -71,7 +77,7 @@ __device__ __forceinline__ void product_row(u64 (&v)[1 << LOGR],
 
 // The cluster form: CTAs 2c and 2c + 1 hold pair c, n / 16 threads each,
 // the forward in two groups a thread, the half's inverse in one.
-template <int LOGN>
+template <int S, int LOGN>
 __global__ void __launch_bounds__(1024)
     poly_cluster_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
                         u64* __restrict__ out, const u64* __restrict__ rop,
@@ -88,7 +94,7 @@ __global__ void __launch_bounds__(1024)
   const long long off = (long long)(blockIdx.x >> 1) << LOGN;
   const u64 q = m.q;
 
-  radix_fwd_passes<u64, EXACT, LOGR, 2, LOGN, false>(
+  radix_fwd_passes<u64, S, LOGR, 2, LOGN, false>(
       sm, [&](int) { return (r ? b : a) + off; }, LOGN, 1, 0, 1, rop, prop,
       q, 4);
   cluster.sync();
@@ -97,7 +103,7 @@ __global__ void __launch_bounds__(1024)
   // the transform's slot of r N/2 + j less r N/2.
   const u64* other = cluster.map_shared_rank(sm, r ^ 1);
   u64* mine = sm + r * HALF;
-  radix_inv_passes<u64, EXACT, LOGR, 1, LOGN - 1, false, false>(
+  radix_inv_passes<u64, S, LOGR, 1, LOGN - 1, false, false>(
       mine,
       [&](auto& v, int, int u) {
         product_row<LOGR>(v, sm, other, r * HALF, r * HALF, u, m);
@@ -115,7 +121,7 @@ __global__ void __launch_bounds__(1024)
     const int i = r * (HALF / 2) + threadIdx.x + decltype(k)::value * blockDim.x;
     const int slot = radix_slot<LOGR>(i);
     u64 x = lo[slot], y = hi[slot];
-    inv_final_butterfly<u64, EXACT>(x, y, fin, q, two_q);
+    inv_final_butterfly<u64, S>(x, y, fin, q, two_q);
     out[off + i] = halve(x, q);
     out[off + i + HALF] = halve(y, q);
   });
@@ -125,7 +131,7 @@ __global__ void __launch_bounds__(1024)
 // The one-CTA form: n / R threads, the two forwards as two packed
 // transforms (group h of a thread is operand h's), the inverse of the
 // product stored through its fused final stage.
-template <int LOGR, int LOGN>
+template <int S, int LOGR, int LOGN>
 __global__ void __launch_bounds__(1024)
     poly_cta_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
                     u64* __restrict__ out, const u64* __restrict__ rop,
@@ -137,11 +143,11 @@ __global__ void __launch_bounds__(1024)
   extern __shared__ __align__(16) unsigned char ntt_smem[];
   u64* sm = reinterpret_cast<u64*>(ntt_smem);
   const long long off = (long long)blockIdx.x << log_n;
-  radix_fwd_passes<u64, EXACT, LOGR, 2, LOGN, true>(
+  radix_fwd_passes<u64, S, LOGR, 2, LOGN, true>(
       sm, [&](int p) { return (p ? b : a) + off; }, log_n, 2, 0, 1, rop,
       prop, m.q, 4);
   // a's position j at the slot of j, b's at that of n + j.
-  radix_inv_passes<u64, EXACT, LOGR, 1, LOGN, true, false>(
+  radix_inv_passes<u64, S, LOGR, 1, LOGN, true, false>(
       sm,
       [&](auto& v, int, int u) {
         product_row<LOGR>(v, sm, sm, 0, 1 << log_n, u, m);
@@ -161,14 +167,14 @@ enum Form : int { CLUSTER = 0, ONE_CTA = 1 };
 // The cluster form's kernel for 2^12 <= n <= 2^14 (where the card showed
 // it faster than the one-CTA form, hexl_tpu_torch/poly.py::form_for):
 // f(kernel, threads, smem).
-template <typename F>
+template <int S, typename F>
 static int with_cluster_kernel(int log_n, F&& f) {
   const int threads = (1 << log_n) / 16;
   const size_t smem = ((size_t)1 << log_n) * sizeof(u64);
   switch (log_n) {
-    case 14: return f(poly_cluster_kernel<14>, threads, smem);
-    case 13: return f(poly_cluster_kernel<13>, threads, smem);
-    case 12: return f(poly_cluster_kernel<12>, threads, smem);
+    case 14: return f(poly_cluster_kernel<S, 14>, threads, smem);
+    case 13: return f(poly_cluster_kernel<S, 13>, threads, smem);
+    case 12: return f(poly_cluster_kernel<S, 12>, threads, smem);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -195,58 +201,73 @@ struct ClusterLaunch {
 
 // The one-CTA form's kernel: R = 8 from n = 8 on, 2 below, n / R threads;
 // log_n a constant of the instantiation from 2^10 up.
-template <typename F>
+template <int S, typename F>
 static int with_cta_kernel(int log_n, F&& f) {
   const size_t smem = ((size_t)2 << log_n) * sizeof(u64);
   switch (log_n) {
-    case 13: return f(poly_cta_kernel<3, 13>, (1 << log_n) / 8, smem);
-    case 12: return f(poly_cta_kernel<3, 12>, (1 << log_n) / 8, smem);
-    case 11: return f(poly_cta_kernel<3, 11>, (1 << log_n) / 8, smem);
-    case 10: return f(poly_cta_kernel<3, 10>, (1 << log_n) / 8, smem);
+    case 13: return f(poly_cta_kernel<S, 3, 13>, (1 << log_n) / 8, smem);
+    case 12: return f(poly_cta_kernel<S, 3, 12>, (1 << log_n) / 8, smem);
+    case 11: return f(poly_cta_kernel<S, 3, 11>, (1 << log_n) / 8, smem);
+    case 10: return f(poly_cta_kernel<S, 3, 10>, (1 << log_n) / 8, smem);
     default:
       if (log_n > 13 || log_n < 1) return (int)cudaErrorInvalidValue;
-      if (log_n >= 3) return f(poly_cta_kernel<3, 0>, (1 << log_n) / 8, smem);
-      return f(poly_cta_kernel<1, 0>, (1 << log_n) / 2, smem);
+      if (log_n >= 3)
+        return f(poly_cta_kernel<S, 3, 0>, (1 << log_n) / 8, smem);
+      return f(poly_cta_kernel<S, 1, 0>, (1 << log_n) / 2, smem);
   }
 }
 
-// form: CLUSTER (2^12 <= n <= 2^14) or ONE_CTA (n <= 2^13).
+// f(Index<S>{}) for scheme code `scheme`: EXACT or APPROX.
+template <typename F>
+static int with_poly_scheme(int scheme, F&& f) {
+  if (scheme == EXACT) return f(Index<EXACT>{});
+  if (scheme == APPROX) return f(Index<APPROX>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// form: CLUSTER (2^12 <= n <= 2^14) or ONE_CTA (n <= 2^13); scheme: a
+// Scheme code, EXACT or APPROX (q < 2^61).
 extern "C" int hexl_poly_mult(const u64* a, const u64* b, u64* out,
                               const u64* rop, const u64* prop,
                               const u64* irop, const u64* pirop, u64 q,
                               u64 mu, int shift, u64 inv_n, u64 inv_n_precon,
                               u64 inv_n_w, u64 inv_n_w_precon, int log_n,
-                              int batch, int form, cudaStream_t stream) {
+                              int batch, int form, int scheme,
+                              cudaStream_t stream) {
   const InvFinal<u64> fin = {inv_n, inv_n_precon, inv_n_w, inv_n_w_precon};
   const Barrett m = {q, mu, shift};
   // The kernels take the inverse tables from entry 1 + N on.
   const size_t skip = 1 + ((size_t)1 << log_n);
   const u64 *irop1 = irop + skip, *pirop1 = pirop + skip;
-  if (form == CLUSTER) {
-    if (batch > (1 << 30)) return (int)cudaErrorInvalidValue;
-    return with_cluster_kernel(log_n, [&](auto kernel, int threads,
-                                          size_t smem) {
+  return with_poly_scheme(scheme, [&](auto s) {
+    constexpr int S = decltype(s)::value;
+    if (form == CLUSTER) {
+      if (batch > (1 << 30)) return (int)cudaErrorInvalidValue;
+      return with_cluster_kernel<S>(log_n, [&](auto kernel, int threads,
+                                               size_t smem) {
+        const int err = (int)allow_smem(kernel, smem);
+        if (err != 0) return err;
+        ClusterLaunch launch(batch, threads, smem, stream);
+        return (int)cudaLaunchKernelEx(&launch.cfg, kernel, a, b, out, rop,
+                                       prop, irop1, pirop1, m, fin);
+      });
+    }
+    if (form != ONE_CTA) return (int)cudaErrorInvalidValue;
+    return with_cta_kernel<S>(log_n, [&](auto kernel, int threads,
+                                         size_t smem) {
       const int err = (int)allow_smem(kernel, smem);
       if (err != 0) return err;
-      ClusterLaunch launch(batch, threads, smem, stream);
-      return (int)cudaLaunchKernelEx(&launch.cfg, kernel, a, b, out, rop,
-                                     prop, irop1, pirop1, m, fin);
+      kernel<<<batch, threads, smem, stream>>>(a, b, out, rop, prop, irop1,
+                                               pirop1, m, fin, log_n);
+      return (int)cudaGetLastError();
     });
-  }
-  if (form != ONE_CTA) return (int)cudaErrorInvalidValue;
-  return with_cta_kernel(log_n, [&](auto kernel, int threads, size_t smem) {
-    const int err = (int)allow_smem(kernel, smem);
-    if (err != 0) return err;
-    kernel<<<batch, threads, smem, stream>>>(a, b, out, rop, prop, irop1,
-                                             pirop1, m, fin, log_n);
-    return (int)cudaGetLastError();
   });
 }
 
 // The most clusters of the cluster form at log_n the device can hold at
 // once (cudaOccupancyMaxActiveClusters), written to *clusters.
 extern "C" int hexl_poly_max_active_clusters(int log_n, int* clusters) {
-  return with_cluster_kernel(log_n, [&](auto kernel, int threads,
+  return with_cluster_kernel<EXACT>(log_n, [&](auto kernel, int threads,
                                         size_t smem) {
     const int err = (int)allow_smem(kernel, smem);
     if (err != 0) return err;

@@ -22,10 +22,16 @@
 // it is bound by bytes. It is the simple form: a run of stages through
 // shared memory would read and write each coefficient once per run, not
 // once per stage (later work).
+//
+// The kernel is a template on the butterfly scheme S: EXACT, or APPROX, the
+// pair jnp_ntt._bflys returns for q < 2^61 when the JAX package's
+// approximation is on (modarith.cuh); the inverse's last stage is the exact
+// fused one in both, as pipeline.py:113 runs it.
 #include "modarith.cuh"
 
 constexpr int STAGE_THREADS = 256;
 
+template <int S>
 __global__ void __launch_bounds__(STAGE_THREADS)
     stage_kernel(const u64* x, u64* y, const u64* __restrict__ w,
                  const u64* __restrict__ wp, u64 q, InvFinal<u64> fin,
@@ -43,19 +49,21 @@ __global__ void __launch_bounds__(STAGE_THREADS)
   u64 a = x[p];
   u64 b = x[p + t];
   if (forward) {
-    fwd_butterfly(a, b, __ldg(w + block), __ldg(wp + block), q, two_q);
+    fwd_butterfly<u64, S>(a, b, __ldg(w + block), __ldg(wp + block), q,
+                          two_q);
     if (final_stage && omf == 1) {
       a = reduce_lazy<u64>(a, q, 4);
       b = reduce_lazy<u64>(b, q, 4);
     }
   } else if (final_stage) {
-    inv_final_butterfly(a, b, fin, q, two_q);
+    inv_final_butterfly<u64, S>(a, b, fin, q, two_q);
     if (omf == 1) {
       a = halve(a, q);
       b = halve(b, q);
     }
   } else {
-    inv_butterfly(a, b, __ldg(w + block), __ldg(wp + block), q, two_q);
+    inv_butterfly<u64, S>(a, b, __ldg(w + block), __ldg(wp + block), q,
+                          two_q);
   }
   y[p] = a;
   y[p + t] = b;
@@ -63,19 +71,23 @@ __global__ void __launch_bounds__(STAGE_THREADS)
 
 // One stage of stride 2^log_t over `batch` transforms of N = 2^log_n.
 // w/wp point at the stage's first twiddle (unused by the inverse's final
-// stage, which reads fin).
+// stage, which reads fin). scheme: a Scheme code, EXACT or APPROX (q <
+// 2^61).
 extern "C" int hexl_stage(const u64* x, u64* y, const u64* w, const u64* wp,
                           u64 q, u64 inv_n, u64 inv_n_precon, u64 inv_n_w,
                           u64 inv_n_w_precon, int log_n, int log_t,
                           int forward, int final_stage, int omf, int batch,
-                          cudaStream_t stream) {
+                          int scheme, cudaStream_t stream) {
   const long long pairs = (long long)batch << (log_n - 1);
   const long long grid = (pairs + STAGE_THREADS - 1) / STAGE_THREADS;
-  if (log_n < 1 || log_t < 0 || log_t >= log_n || grid > 0x7fffffffLL)
+  if (log_n < 1 || log_t < 0 || log_t >= log_n || grid > 0x7fffffffLL ||
+      (scheme != EXACT && scheme != APPROX))
     return (int)cudaErrorInvalidValue;
   if (pairs == 0) return 0;
   const InvFinal<u64> fin = {inv_n, inv_n_precon, inv_n_w, inv_n_w_precon};
-  stage_kernel<<<(int)grid, STAGE_THREADS, 0, stream>>>(
-      x, y, w, wp, q, fin, log_n, log_t, forward, final_stage, omf, pairs);
+  if (scheme == APPROX)
+    stage_kernel<APPROX><<<(int)grid, STAGE_THREADS, 0, stream>>>(x, y, w, wp, q, fin, log_n, log_t, forward, final_stage, omf, pairs);
+  else
+    stage_kernel<EXACT><<<(int)grid, STAGE_THREADS, 0, stream>>>(x, y, w, wp, q, fin, log_n, log_t, forward, final_stage, omf, pairs);
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,15 @@ single word. `mult_mod_rows` and `reduce_mod_rows` run one op over the k
 rows of a (k, ...) block, row r under moduli[r], in one launch ("K4.rows",
 "K8.reduce.rows"), for the RNS product and the key switch's base
 conversion.
+
+Where `config.approx_butterflies` is on for the operands' device, the five
+64-bit bodies that `jnp_kernels._approx()` switches (mult_mod, fma_mod,
+reduce_mod, cmp_sub_mod, montgomery_form_in, and the two row ops) run
+their approximate-quotient form, as the JAX package's do on the TPU: the
+kernel's instantiation on that form (launch names with ".approx": "K4.approx",
+"K8.fma.approx", ...) or the plain body with `approx=True`. Fully reduced
+outputs are the same bits either way; lazy ones (fma, reduce at OMF 2)
+agree mod q.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import _build, _device, nt
+from .. import _build, _device, config, nt
 from ..limb import to_numpy, to_tensor
 from ..ntt.plan import register_clear_hook
 from ..utils import check as _chk
@@ -43,8 +52,9 @@ SMALL_Q = 1 << 30     # the single-word regime's bound on q
 _P = ctypes.c_void_p
 _U = ctypes.c_uint64
 _I = ctypes.c_int
-_ARGS = (_P, _P, _P, _P, ctypes.c_int64, _I, _I, _U, _U, _U, _U, _I, _I, _P)
-_ROWS_ARGS = (_P, _P, _P, _P, _I, ctypes.c_int64, _I, _I, _P)
+_ARGS = (_P, _P, _P, _P, ctypes.c_int64, _I, _I, _I, _U, _U, _U, _U, _I, _I,
+         _P)
+_ROWS_ARGS = (_P, _P, _P, _P, _I, ctypes.c_int64, _I, _I, _I, _P)
 _OP = {"add": 0, "sub": 1, "mult": 2, "fma": 3, "reduce": 4, "cmp_add": 5,
        "cmp_sub": 6, "mont_in": 7, "mont_out": 8, "mont_mult": 9}
 _FAMILY = {"add": "add_sub", "sub": "add_sub", "mult": "mult", "fma": "fma",
@@ -52,11 +62,24 @@ _FAMILY = {"add": "add_sub", "sub": "add_sub", "mult": "mult", "fma": "fma",
            "mont_in": "mont", "mont_out": "mont", "mont_mult": "mont"}
 
 
-def kernel_name(op: str, word: int = 64) -> str:
+# The ops with an approximate-quotient body (`jnp_kernels._approx()`).
+APPROX_OPS = ("mult", "fma", "reduce", "cmp_sub", "mont_in")
+
+
+def kernel_name(op: str, word: int = 64, approx: bool = False) -> str:
     """The launch count's name of an op in a word."""
     if op == "mult" and word == 64:
-        return "K4"
-    return f"K8.{_FAMILY[op]}" + (".u32" if word == 32 else "")
+        name = "K4"
+    else:
+        name = f"K8.{_FAMILY[op]}" + (".u32" if word == 32 else "")
+    return name + (".approx" if approx else "")
+
+
+def approx_for(a: torch.Tensor, word: int = 64) -> bool:
+    """Whether a 64-bit body on a's device takes its approximate quotient:
+    `config.approx_butterflies`, as `jnp_kernels._approx()` (the
+    single-word bodies have no approximate form)."""
+    return word == 64 and config.approx_butterflies(a.device)
 
 
 def _u64(value) -> int:
@@ -78,17 +101,21 @@ def _on_card(a: torch.Tensor, *others) -> bool:
 
 
 def _launch(op: str, word: int, a: torch.Tensor, b=None, c=None,
-            q: int = 0, s=(0, 0, 0), i=(0, 0)) -> torch.Tensor:
+            q: int = 0, s=(0, 0, 0), i=(0, 0),
+            approx: bool = False) -> torch.Tensor:
     if word not in (32, 64):
         raise ValueError("word must be 64 or 32")
+    if approx and (word != 64 or op not in APPROX_OPS):
+        raise ValueError(f"{op} in {word} bits has no approximate form")
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out
     fn = _build.function("eltwise", "hexl_eltwise", _ARGS)
     ptr = lambda t: None if t is None else t.data_ptr()
-    _build.launch_on(a.device, kernel_name(op, word), fn, a.data_ptr(),
-                     ptr(b), ptr(c), out.data_ptr(), a.numel(), _OP[op],
-                     word, q, *(_u64(v) for v in s), *i)
+    _build.launch_on(a.device, kernel_name(op, word, approx), fn,
+                     a.data_ptr(), ptr(b), ptr(c), out.data_ptr(), a.numel(),
+                     _OP[op], word, int(approx), q,
+                     *(_u64(v) for v in s), *i)
     return out
 
 
@@ -121,12 +148,13 @@ def mult_mod(a: torch.Tensor, b: torch.Tensor, modulus: int,
         mu, shift = K32.mult_constants32(modulus)
     else:
         mu, shift = nt.barrett_mult_constants(modulus)
+    approx = approx_for(a, word)
     if not _on_card(a, b):
         if word == 32:
             return K32.mult_mod32(a, b, modulus, input_mod_factor)
-        return K.mult_mod(a, b, modulus, input_mod_factor)
+        return K.mult_mod(a, b, modulus, input_mod_factor, approx)
     return _launch("mult", word, a, b, q=modulus, s=(mu, 0, 0),
-                   i=(shift, input_mod_factor))
+                   i=(shift, input_mod_factor), approx=approx)
 
 
 def fma_mod(a: torch.Tensor, w: int, wp: int, c, modulus: int,
@@ -135,11 +163,15 @@ def fma_mod(a: torch.Tensor, w: int, wp: int, c, modulus: int,
     2^64, or 2^32 for word 32); c a tensor or None; a, c < IMF*q."""
     if input_mod_factor not in (1, 2, 4, 8):
         raise ValueError("input_mod_factor must be 1, 2, 4 or 8")
+    approx = approx_for(a, word)
     if not _on_card(a, c):
-        fn = K32.fma_mod32_preconned if word == 32 else K.fma_mod_preconned
-        return fn(a, w, wp, c, modulus, input_mod_factor)
+        if word == 32:
+            return K32.fma_mod32_preconned(a, w, wp, c, modulus,
+                                           input_mod_factor)
+        return K.fma_mod_preconned(a, w, wp, c, modulus, input_mod_factor,
+                                   approx)
     return _launch("fma", word, a, None, c, q=modulus, s=(w, wp, 0),
-                   i=(0, input_mod_factor))
+                   i=(0, input_mod_factor), approx=approx)
 
 
 def reduce_mod(a: torch.Tensor, modulus: int, input_mod_factor: int,
@@ -155,15 +187,19 @@ def reduce_mod(a: torch.Tensor, modulus: int, input_mod_factor: int,
         mode = input_mod_factor
     else:
         raise ValueError("input_mod_factor must be 2, 4, or == modulus")
+    approx = approx_for(a, word)
     if not _on_card(a):
-        fn = K32.reduce_mod32 if word == 32 else K.reduce_mod
-        return fn(a, modulus, input_mod_factor, output_mod_factor)
+        if word == 32:
+            return K32.reduce_mod32(a, modulus, input_mod_factor,
+                                    output_mod_factor)
+        return K.reduce_mod(a, modulus, input_mod_factor, output_mod_factor,
+                            approx)
     if word == 32:
         s = K32.mult_constants32(modulus) + (0,)
     else:
         s = (nt.barrett_factor(1, 64, modulus), 0, 0)
     return _launch("reduce", word, a, q=modulus, s=s,
-                   i=(mode, output_mod_factor))
+                   i=(mode, output_mod_factor), approx=approx)
 
 
 # -- one op over the k rows of a (k, ...) block, row r under moduli[r] --------
@@ -183,15 +219,16 @@ register_clear_hook(row_constants.cache_clear)
 
 
 def _launch_rows(op: str, name: str, a: torch.Tensor, b, consts,
-                 factor: int) -> torch.Tensor:
+                 factor: int, approx: bool) -> torch.Tensor:
     out = torch.empty_like(a)
     m = a.numel() // a.shape[0]
     if m == 0:
         return out
     fn = _build.function("eltwise", "hexl_eltwise_rows", _ROWS_ARGS)
-    _build.launch_on(a.device, name, fn, a.data_ptr(),
-                     None if b is None else b.data_ptr(), out.data_ptr(),
-                     consts.data_ptr(), a.shape[0], m, _OP[op], factor)
+    _build.launch_on(a.device, name + (".approx" if approx else ""), fn,
+                     a.data_ptr(), None if b is None else b.data_ptr(),
+                     out.data_ptr(), consts.data_ptr(), a.shape[0], m,
+                     _OP[op], factor, int(approx))
     return out
 
 
@@ -212,9 +249,11 @@ def mult_mod_rows(a: torch.Tensor, b: torch.Tensor, moduli,
         raise ValueError("input_mod_factor must be 1, 2 or 4")
     moduli, card = _rows_operands(moduli, a, b)
     consts = row_constants(moduli, a.device)
+    approx = approx_for(a)
     if not card:
-        return K.mult_mod_rows(a, b, consts, input_mod_factor)
-    return _launch_rows("mult", "K4.rows", a, b, consts, input_mod_factor)
+        return K.mult_mod_rows(a, b, consts, input_mod_factor, approx)
+    return _launch_rows("mult", "K4.rows", a, b, consts, input_mod_factor,
+                        approx)
 
 
 def reduce_mod_rows(a: torch.Tensor, moduli,
@@ -225,10 +264,11 @@ def reduce_mod_rows(a: torch.Tensor, moduli,
         raise ValueError("output_mod_factor must be 1 or 2")
     moduli, card = _rows_operands(moduli, a)
     consts = row_constants(moduli, a.device)
+    approx = approx_for(a)
     if not card:
-        return K.reduce_mod_rows(a, consts, output_mod_factor)
+        return K.reduce_mod_rows(a, consts, output_mod_factor, approx)
     return _launch_rows("reduce", "K8.reduce.rows", a, None, consts,
-                        output_mod_factor)
+                        output_mod_factor, approx)
 
 
 def cmp_add(a: torch.Tensor, cmp: str, bound: int, diff: int):
@@ -244,19 +284,22 @@ def cmp_sub_mod(a: torch.Tensor, modulus: int, cmp: str, bound: int,
     """cmp(a, bound) ? (a mod q - diff) mod q : a mod q."""
     code = K.cmp_code(cmp)
     q_barr = nt.barrett_factor(1, 64, modulus)
+    approx = approx_for(a)
     if not _on_card(a):
-        return K.cmp_sub_mod(a, modulus, cmp, bound, diff)
+        return K.cmp_sub_mod(a, modulus, cmp, bound, diff, approx)
     return _launch("cmp_sub", 64, a, q=modulus, s=(bound, diff, q_barr),
-                   i=(code, 0))
+                   i=(code, 0), approx=approx)
 
 
 def montgomery_form_in(a: torch.Tensor, modulus: int) -> torch.Tensor:
     """a * 2^64 mod q."""
     mu, shift = nt.barrett_mult_constants(modulus)
+    approx = approx_for(a)
     if not _on_card(a):
-        return K.montgomery_form_in(a, modulus)
+        return K.montgomery_form_in(a, modulus, approx)
     return _launch("mont_in", 64, a, q=modulus,
-                   s=(mu, (1 << 64) % modulus, 0), i=(shift, 0))
+                   s=(mu, (1 << 64) % modulus, 0), i=(shift, 0),
+                   approx=approx)
 
 
 def montgomery_form_out(a: torch.Tensor, modulus: int) -> torch.Tensor:

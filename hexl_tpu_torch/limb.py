@@ -158,6 +158,20 @@ def mulhi64_approx6(x: torch.Tensor, y) -> torch.Tensor:
     return x1 * y1 + hi32_approx(x0, y1) + hi32_approx(x1, y0)
 
 
+def mulhi64_approx(x: torch.Tensor, y) -> torch.Tensor:
+    """floor(x*y / 2^64) - e with e in {0, 1}: `hexl_tpu/limb.py::
+    mulhi64_approx` bit for bit. The lo*lo partial product is dropped (its
+    only effect on the high half is a carry of at most 1); x0 y1, x1 y0 and
+    x1 y1 are kept whole, with the carry of the cross partials' low halves.
+    The sum is at most the exact high word, so the int64 sum wraps to the
+    JAX form's value. y: a tensor, or an int of u64 or int64 bits."""
+    x0, x1 = x & MASK32, shr64(x, 32)
+    y0, y1 = y & MASK32, shr64(y, 32)
+    p01, p10 = x0 * y1, x1 * y0
+    mid = (p01 & MASK32) + (p10 & MASK32)
+    return x1 * y1 + shr64(p01, 32) + shr64(p10, 32) + shr64(mid, 32)
+
+
 def mullo64(x: torch.Tensor, y) -> torch.Tensor:
     """(x * y) mod 2^64."""
     return x * y
@@ -182,12 +196,34 @@ def shoup_mul_lazy(x: torch.Tensor, w, w_precon, modulus: int
     return x * w - q_hat * s64(modulus)
 
 
+def shoup_mul_lazy_approx(x: torch.Tensor, w, w_precon, modulus: int
+                          ) -> torch.Tensor:
+    """`shoup_mul_lazy` with the quotient from `mulhi64_approx`: the raw
+    product lies in [0, 3q), and one halver at 2q brings it to [0, 2q)
+    (`hexl_tpu/limb.py::shoup_mul_lazy_approx`). Equal to the exact form
+    mod q, not bit for bit in the lazy range."""
+    r = x * w - mulhi64_approx(x, w_precon) * s64(modulus)
+    return cond_sub64_half(r, s64(2 * modulus))
+
+
 def barrett_reduce_u64(x: torch.Tensor, modulus: int, q_barr: int,
                        output_mod_factor: int = 1) -> torch.Tensor:
     """x mod q via q_barr = floor(2^64/q); OMF=2 leaves the result in
     [0, 2q)."""
     q_hat = mulhi64(x, s64(q_barr))
     r = x - q_hat * s64(modulus)
+    if output_mod_factor == 1:
+        r = cond_sub64_half(r, s64(modulus))
+    return r
+
+
+def barrett_reduce_u64_approx(x: torch.Tensor, modulus: int, q_barr: int,
+                              output_mod_factor: int = 1) -> torch.Tensor:
+    """`barrett_reduce_u64` with the quotient from `mulhi64_approx`: the
+    raw range [0, 3q) is halved at 2q to the OMF 2 contract, then at q for
+    OMF 1 (`hexl_tpu/limb.py::barrett_reduce_u64_approx`)."""
+    r = x - mulhi64_approx(x, s64(q_barr)) * s64(modulus)
+    r = cond_sub64_half(r, s64(2 * modulus))
     if output_mod_factor == 1:
         r = cond_sub64_half(r, s64(modulus))
     return r
@@ -211,18 +247,36 @@ def mult_mod_barrett(x: torch.Tensor, y: torch.Tensor, modulus: int
     return cond_sub64_half(z, s64(modulus))
 
 
+def mult_mod_barrett_approx(x: torch.Tensor, y: torch.Tensor, modulus: int
+                            ) -> torch.Tensor:
+    """`mult_mod_barrett` with the quotient from `mulhi64_approx`: the
+    raw range [0, 3q) is halved at 2q, then at q
+    (`hexl_tpu/limb.py::mult_mod_barrett_approx`); the output, in [0, q),
+    equals the exact form's."""
+    mu, shift = barrett_mult_constants(modulus)
+    hi, lo = mul64_wide(x, y)
+    c1 = shr128_to64(hi, lo, shift)
+    z = lo - mulhi64_approx(c1, s64(mu)) * s64(modulus)
+    z = cond_sub64_half(z, s64(2 * modulus))
+    return cond_sub64_half(z, s64(modulus))
+
+
 def mult_mod_barrett_rows(x: torch.Tensor, y: torch.Tensor,
                           q: torch.Tensor, mu: torch.Tensor,
-                          shift: torch.Tensor) -> torch.Tensor:
-    """mult_mod_barrett with the modulus constants as tensors that
-    broadcast against x and y (one (q, mu, shift) per row of an RNS
-    stack), so that rows of any bit lengths share one call. Shifts run
-    in two steps, (v << 1) << (63 - s), so that s = 0 needs no shift by
-    64."""
+                          shift: torch.Tensor,
+                          approx: bool = False) -> torch.Tensor:
+    """mult_mod_barrett (or, with approx, mult_mod_barrett_approx) with
+    the modulus constants as tensors that broadcast against x and y (one
+    (q, mu, shift) per row of an RNS stack), so that rows of any bit
+    lengths share one call. Shifts run in two steps, (v << 1) << (63 - s),
+    so that s = 0 needs no shift by 64."""
     hi, lo = mul64_wide(x, y)
     ones = torch.ones_like(shift)
     low_mask = ((ones << (63 - shift)) << 1) - 1
     c1 = ((lo >> shift) & low_mask) | ((hi << 1) << (63 - shift))
+    if approx:
+        z = cond_sub64_half(lo - mulhi64_approx(c1, mu) * q, 2 * q)
+        return cond_sub64_half(z, q)
     q_hat = mulhi64(c1, mu)
     return cond_sub64_half(lo - q_hat * q, q)
 

@@ -29,8 +29,9 @@ instead ("K1.rns.cl", `rns.cluster_transform`), bit for bit the same.
 
 A tensor on the GPU goes to the kernel, a tensor on the CPU to the plain
 version in `torch_ntt`; there is no other path. Launches are counted in
-`_build.launches` under "K1", "K2" and "K7" (and "K1.rns.cl"), the lean
-instantiations under "K1.lean16", "K1.lean8", "K2.lean16" and "K2.lean8".
+`_build.launches` under "K1", "K2" and "K7" (and "K1.rns.cl"), the
+approximate instantiations under "K1.lean16", "K1.lean8", "K1.approx",
+"K2.lean16", "K2.lean8" and "K2.approx".
 """
 
 from __future__ import annotations

@@ -31,7 +31,9 @@ exchanged block of a DistNTT position; `local_launch` takes the shard base
 that a position's local pass (`shard`) passes. `scheme` (word 64) picks
 the butterflies of both passes (`torch_ntt`): a lean forward's fixup runs
 at the end of the local pass, a lean inverse's final stage in the cross
-pass. The parallel layer's passes stay exact.
+pass; "approx" (the JAX Pallas kernels' form) keeps Harvey's invariants
+and the exact final stage. The parallel layer's cross pass stays exact;
+a position's local pass runs "exact" or "approx" (`shard`).
 """
 
 from __future__ import annotations

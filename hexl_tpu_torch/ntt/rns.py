@@ -63,6 +63,10 @@ ROW_FIELDS = ("q", "inv_n", "inv_n_precon", "inv_n_w", "inv_n_w_precon",
               "rop", "prop", "irop", "pirop")
 ROW_WORDS = len(ROW_FIELDS)
 TABLES = ("rop", "prop", "irop", "pirop")
+# The schemes of the stacked kernels: those of the JAX stacked bodies
+# (`jnp_ntt._bflys3`); "approx", the Pallas kernels' form, has no stacked
+# instantiation.
+STACKED_SCHEMES = ("exact", "lean16", "lean8")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -389,6 +393,9 @@ def _check_block(x: torch.Tensor, rplan: RnsPlan, forward: bool, imf: int,
                  omf: int, scheme: str) -> None:
     torch_ntt.check_factors(forward, imf, omf)
     torch_ntt.check_scheme(scheme, max(rplan.moduli), 64)
+    if scheme not in STACKED_SCHEMES:
+        raise ValueError(f"the stacked transform runs {STACKED_SCHEMES} "
+                         f"(the JAX stacked bodies' _bflys3), got {scheme!r}")
     if x.dim() < 2 or x.shape[0] != rplan.k or x.shape[-1] != rplan.n:
         raise ValueError(f"input must have shape ({rplan.k}, ..., "
                          f"{rplan.n}), got {tuple(x.shape)}")

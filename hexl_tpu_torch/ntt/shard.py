@@ -35,6 +35,12 @@ on a card of 132 SMs. Its plain version, `local_cluster_plain`, is the
 walk cut where the kernels cut it (the CPU takes it where the rule is
 forced to C > 1). Launches are counted under "K5", "K6" and
 "K6.shard.cl". The layer is 64-bit for every q, as the JAX package's is.
+
+`scheme` picks the local pass's butterflies: "exact" (the JAX package's
+XLA bodies) or "approx", the approximate quotient that the TPU kernel
+`DistNTT._pallas_local` runs for q < 2^61 (`torch_ntt`; launches "K6.approx"
+and, above 2^14, "K5.approx"). The cluster form is exact only, so a
+non-exact scheme keeps one CTA a chunk, as `rns._clusters` does.
 """
 
 from __future__ import annotations
@@ -55,20 +61,22 @@ CLUSTER_NAME = "K6.shard.cl"
 # -- plain versions ----------------------------------------------------------
 
 def local_fwd_plain(x: torch.Tensor, plan, shard: int, shards: int,
-                    omf: int) -> torch.Tensor:
+                    omf: int, scheme: str = "exact") -> torch.Tensor:
     """Shard `shard` of `shards` (x (..., L)): the forward stages of stride
-    < L, then the OMF reduction."""
-    x = torch_ntt.fwd_stages(x, plan, 1, x.shape[-1], 64, shard, shards)
+    < L, then the OMF reduction (`scheme` one of `torch_ntt.HARVEY`)."""
+    x = torch_ntt.fwd_stages(x, plan, 1, x.shape[-1], 64, shard, shards,
+                             scheme)
     if omf == 1:
         x = reduce_mod_lazy64(x, plan.q, 4)
     return x
 
 
-def local_inv_plain(x: torch.Tensor, plan, shard: int,
-                    shards: int) -> torch.Tensor:
+def local_inv_plain(x: torch.Tensor, plan, shard: int, shards: int,
+                    scheme: str = "exact") -> torch.Tensor:
     """Shard `shard` of `shards` (x (..., L)): the inverse stages of stride
     < L, without the global final stage."""
-    return torch_ntt.inv_stages(x, plan, 1, x.shape[-1], 64, shard, shards)
+    return torch_ntt.inv_stages(x, plan, 1, x.shape[-1], 64, shard, shards,
+                                scheme)
 
 
 def local_cluster_plain(x: torch.Tensor, plan, shard: int, shards: int,
@@ -106,27 +114,30 @@ def local_cluster_plain(x: torch.Tensor, plan, shard: int, shards: int,
 
 # -- the kernel wrappers -----------------------------------------------------
 
-def cluster_count(x: torch.Tensor, log_n: int, chunks: int) -> int:
+def cluster_count(x: torch.Tensor, log_n: int, chunks: int,
+                  scheme: str = "exact") -> int:
     """C for the local pass's launch on `chunks` chunks of 2^log_n:
     `rns.cluster_for`'s pick for K6's grid of one CTA a chunk (1 below
-    2^12, at a wave or more and off CUDA, unless the rule is forced)."""
+    2^12, at a wave or more, off CUDA and in a non-exact scheme, unless
+    the rule is forced)."""
     if not chunks:
         return 1
-    return rns._clusters(x, 1 << log_n, chunks, "exact")
+    return rns._clusters(x, 1 << log_n, chunks, scheme)
 
 
 def local_chunks(x: torch.Tensor, plan, forward: bool, omf: int, log_n: int,
-                 log_d: int, shard_base: int, log_sub: int) -> torch.Tensor:
+                 log_d: int, shard_base: int, log_sub: int,
+                 scheme: str = "exact") -> torch.Tensor:
     """The local pass on the 2^log_n-coefficient chunks of x, a CUDA
     tensor, chunk c shard shard_base + (c mod 2^log_sub) of a transform of
     2^(log_n + log_d) (`hier.local_launch`'s arguments): K6.shard.cl, a
-    cluster of C CTAs a chunk, where `cluster_count` gives C > 1, else K6.
-    The inverse ignores omf."""
+    cluster of C CTAs a chunk, where `cluster_count` gives C > 1, else K6
+    in `scheme`. The inverse ignores omf."""
     chunks = _build.batch_of(x, 1 << log_n)
-    clusters = cluster_count(x, log_n, chunks)
+    clusters = cluster_count(x, log_n, chunks, scheme)
     if clusters == 1:
         return hier.local_launch(x, plan, forward, omf, log_n, log_d,
-                                 shard_base, log_sub)
+                                 shard_base, log_sub, 64, scheme)
     rows = rns.get_rns_plan(plan.n, (plan.q,)).descriptors(x.device)
     return rns.cluster_chunks(x, rows, CLUSTER_NAME, forward, omf, log_n,
                               log_d, shard_base, log_sub, chunks, clusters)
@@ -164,12 +175,14 @@ register_clear_hook(intra_twiddles.cache_clear)
 
 
 def local(x: torch.Tensor, plan, shard: int, shards: int, forward: bool,
-          omf: int = 1) -> torch.Tensor:
+          omf: int = 1, scheme: str = "exact") -> torch.Tensor:
     """The local pass of shard `shard` of `shards` (x (..., L)): K6 with a
     shard base, or K6.shard.cl where `cluster_count` picks C > 1, on the
     GPU (and K5 for the stages of stride >= 2^14 when L > 2^14); on the
     CPU the plain version (`local_cluster_plain` where the rule is forced
-    to C > 1). The inverse ignores omf."""
+    to C > 1). `scheme` is "exact" or "approx". The inverse ignores
+    omf."""
+    torch_ntt.check_harvey(scheme, plan.q, "the local pass")
     card = _build.on_card(x)
     length = x.shape[-1]
     log_d = nt.log2_exact(shards)
@@ -177,24 +190,26 @@ def local(x: torch.Tensor, plan, shard: int, shards: int, forward: bool,
     log_rows = nt.log2_exact(rows)
     log_n = nt.log2_exact(length // rows)
     if not card:
-        clusters = cluster_count(x, log_n, _build.batch_of(x, length) * rows)
+        clusters = cluster_count(x, log_n, _build.batch_of(x, length) * rows,
+                                 scheme)
         if clusters > 1:
             return local_cluster_plain(x, plan, shard, shards, forward, omf,
                                        clusters)
         if forward:
-            return local_fwd_plain(x, plan, shard, shards, omf)
-        return local_inv_plain(x, plan, shard, shards)
+            return local_fwd_plain(x, plan, shard, shards, omf, scheme)
+        return local_inv_plain(x, plan, shard, shards, scheme)
     if rows == 1:
-        return local_chunks(x, plan, forward, omf, log_n, log_d, shard, 0)
+        return local_chunks(x, plan, forward, omf, log_n, log_d, shard, 0,
+                            scheme)
     w, wp = intra_twiddles(plan, shard, shards, forward, x.device)
 
     def intra(v):
         return hier.cross_launch(v, w, wp, plan, log_rows, hier.LOG_LOCAL,
-                                 forward, final_stage=False)
+                                 forward, final_stage=False, scheme=scheme)
 
     def sub_shards(v):
         return local_chunks(v, plan, forward, omf, hier.LOG_LOCAL,
-                            log_d + log_rows, shard * rows, log_rows)
+                            log_d + log_rows, shard * rows, log_rows, scheme)
 
     if forward:
         return sub_shards(intra(x))

@@ -23,7 +23,13 @@ inverse [0, 8q), one halver per butterfly) or "lean8" (q < 2^61: forward
 [0, 8q), inverse [0, 4q), two halvers). A lean forward ends with
 `fwd_fixup` back to [0, 4q), a lean inverse with its own final stage, so
 the contracts of both directions hold; lazy values differ from the exact
-walk's, fully reduced ones do not. The single-word walk has no lean form.
+walk's, fully reduced ones do not. The fourth scheme, "approx", is the
+pair the JAX package's Pallas kernels run for every q < 2^61
+(`pallas_ntt._butterflies`: `jnp_ntt._fwd_butterfly_approx`,
+`_inv_butterfly_approx`, `_shoup_approx`): the same quotient on Harvey's
+invariants (forward [0, 4q), inverse [0, 2q)), the raw product in [0, 8q)
+halved at 4q and then at 2q, no fixup, and the exact final stage. The
+single-word walk has no approximate form.
 """
 
 from __future__ import annotations
@@ -40,12 +46,15 @@ from ..limb import MASK32, cond_sub64_half, mulhi64_approx6, \
 LEAN_APPROX_MAX_Q = 1 << 61
 LEAN16_MAX_Q = 1 << 60
 LEAN16_MIN_N = 1 << 13
-SCHEMES = ("exact", "lean16", "lean8")
+SCHEMES = ("exact", "lean16", "lean8", "approx")
 # Each scheme's code in the kernels' C entries (csrc/modarith.cuh Scheme).
-SCHEME_CODE = {"exact": 0, "lean16": 1, "lean8": 2}
+SCHEME_CODE = {"exact": 0, "lean16": 1, "lean8": 2, "approx": 3}
 # The additive constant of each scheme's invariant: the halvers' bound and
 # what Y' = X + C - T adds, in both directions.
-_WIDE = {"exact": 2, "lean16": 8, "lean8": 4}
+_WIDE = {"exact": 2, "lean16": 8, "lean8": 4, "approx": 2}
+# The schemes on Harvey's invariants: no forward fixup, the exact final
+# stage.
+HARVEY = ("exact", "approx")
 
 
 def scheme_gates(q_max: int, n: int) -> tuple:
@@ -56,7 +65,10 @@ def scheme_gates(q_max: int, n: int) -> tuple:
 
 
 def scheme_of(lean_ok: bool, lean16_ok: bool) -> str:
-    """The scheme `jnp_ntt._bflys3` picks with approximation on."""
+    """The scheme `jnp_ntt._bflys3` picks with approximation on. ("approx",
+    the Pallas kernels' form, is reached through the kernel wrappers'
+    `scheme` argument only, as the JAX package reaches it through its
+    Pallas backend.)"""
     if lean16_ok:
         return "lean16"
     return "lean8" if lean_ok else "exact"
@@ -74,11 +86,19 @@ def check_scheme(scheme: str, q: int, word: int = 64) -> None:
     if scheme not in SCHEMES:
         raise ValueError(f"scheme must be one of {SCHEMES}, got {scheme!r}")
     if scheme != "exact" and word != 64:
-        raise ValueError("the single-word walk has no lean scheme")
-    if scheme == "lean8" and q >= LEAN_APPROX_MAX_Q:
-        raise ValueError("lean8 needs q < 2^61")
+        raise ValueError("the single-word walk has no approximate scheme")
+    if scheme in ("lean8", "approx") and q >= LEAN_APPROX_MAX_Q:
+        raise ValueError(f"{scheme} needs q < 2^61")
     if scheme == "lean16" and q >= LEAN16_MAX_Q:
         raise ValueError("lean16 needs q < 2^60")
+
+
+def check_harvey(scheme: str, q: int, what: str) -> None:
+    """`what` runs the schemes on Harvey's invariants only: "exact", or
+    "approx" (q < 2^61)."""
+    if scheme not in HARVEY:
+        raise ValueError(f"{what} runs {HARVEY}, got {scheme!r}")
+    check_scheme(scheme, q)
 
 
 FWD_IMF = (1, 2, 4)
@@ -123,23 +143,34 @@ def shoup_approx(x: torch.Tensor, w, w_precon, modulus: int) -> torch.Tensor:
     return x * w - mulhi64_approx6(x, w_precon) * s64(modulus)
 
 
+def shoup_approx_harvey(x: torch.Tensor, w, w_precon,
+                        modulus: int) -> torch.Tensor:
+    """`shoup_approx` halved at 4q and then at 2q: [0, 2q), as
+    `jnp_ntt._shoup_approx`."""
+    r = cond_sub64_half(shoup_approx(x, w, w_precon, modulus),
+                        s64(4 * modulus))
+    return cond_sub64_half(r, s64(2 * modulus))
+
+
 def _product(scheme: str, word: int):
-    """The butterflies' twiddle product: [0, 2q) exact, [0, 8q) lean16,
-    [0, 4q) lean8 (the raw product halved once)."""
+    """The butterflies' twiddle product: [0, 2q) exact and approx, [0, 8q)
+    lean16, [0, 4q) lean8 (the raw product halved once)."""
     if scheme == "exact":
         return _shoup(word)
     if scheme == "lean16":
         return shoup_approx
+    if scheme == "approx":
+        return shoup_approx_harvey
     return lambda x, w, wp, q: cond_sub64_half(shoup_approx(x, w, wp, q),
                                                s64(4 * q))
 
 
 def fwd_butterfly(xs: torch.Tensor, ys: torch.Tensor, w, wp, q: int,
                   scheme: str = "exact", word: int = 64) -> tuple:
-    """X' = red(X) + T, Y' = red(X) + C - T with C = 2q (exact), 8q
-    (lean16) or 4q (lean8) and T the scheme's product of Y and W:
-    `jnp_ntt._fwd_butterfly`, `_fwd_butterfly_lean16`, `_lean8`. Inputs
-    [0, 2C) -> outputs [0, 2C)."""
+    """X' = red(X) + T, Y' = red(X) + C - T with C = 2q (exact, approx),
+    8q (lean16) or 4q (lean8) and T the scheme's product of Y and W:
+    `jnp_ntt._fwd_butterfly`, `_fwd_butterfly_lean16`, `_lean8`,
+    `_approx`. Inputs [0, 2C) -> outputs [0, 2C)."""
     wide = s64(_WIDE[scheme] * q)
     tx = cond_sub64_half(xs, wide)
     tt = _product(scheme, word)(ys, w, wp, q)
@@ -149,8 +180,8 @@ def fwd_butterfly(xs: torch.Tensor, ys: torch.Tensor, w, wp, q: int,
 def inv_butterfly(xs: torch.Tensor, ys: torch.Tensor, w, wp, q: int,
                   scheme: str = "exact", word: int = 64) -> tuple:
     """X' = red(X + Y), Y' = (X + C - Y) W: `jnp_ntt._inv_butterfly`,
-    `_inv_butterfly_lean8` (lean16's), `_lean4` (lean8's). Inputs [0, C)
-    -> outputs [0, C)."""
+    `_inv_butterfly_lean8` (lean16's), `_lean4` (lean8's), `_approx`.
+    Inputs [0, C) -> outputs [0, C)."""
     wide = s64(_WIDE[scheme] * q)
     tx = cond_sub64_half(xs + ys, wide)
     return tx, _product(scheme, word)(xs + wide - ys, w, wp, q)
@@ -161,7 +192,7 @@ def fwd_fixup(x: torch.Tensor, q: int, scheme: str) -> torch.Tensor:
     `jnp_ntt._fwd_fixup`."""
     if scheme == "lean16":
         x = cond_sub64_half(x, s64(8 * q))
-    if scheme != "exact":
+    if scheme not in HARVEY:
         x = cond_sub64_half(x, s64(4 * q))
     return x
 
@@ -255,7 +286,9 @@ def inv_final(x: torch.Tensor, plan, omf: int, word: int = 64,
     axis) fused with the scale by N^-1: outputs [0, 2q), or [0, q) for
     OMF 1. A lean scheme's inputs lie in [0, C) (C = 8q or 4q) and need no
     halver, the exact Shoup product taking any 64-bit value:
-    `jnp_ntt._final_inv_stage_lean8` (lean16's), `_lean4` (lean8's)."""
+    `jnp_ntt._final_inv_stage_lean8` (lean16's), `_lean4` (lean8's);
+    approx runs the exact stage (`_final_inv_stage`, as the Pallas kernels
+    do)."""
     check_scheme(scheme, plan.q, word)
     shoup = _shoup(word)
     n, q = x.shape[-1], plan.q
@@ -263,7 +296,7 @@ def inv_final(x: torch.Tensor, plan, omf: int, word: int = 64,
     inv_n, inv_n_precon, inv_n_w, inv_n_w_precon = plan.fin(word)
     xs, ys = _split(x, 1, n // 2)
     tx = xs + ys
-    if scheme == "exact":
+    if scheme in HARVEY:
         tx = cond_sub64_half(tx, wide)
     ty = xs + wide - ys
     nx = shoup(tx, inv_n, s64(inv_n_precon), q)

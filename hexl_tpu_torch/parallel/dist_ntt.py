@@ -23,7 +23,11 @@ is bit-equal; the layer is 64-bit for every q, as the JAX package's is
 outputs differ).
 
 Outputs are bit-equal to the JAX package's `DistNTT` on the CPU, lazy ones
-included (its CPU bodies are the exact Harvey butterflies).
+included (its CPU bodies are the exact Harvey butterflies). With
+`local_scheme="approx"` the local pass runs the approximate quotient of
+the TPU kernel `_pallas_local` (q < 2^61; K6.approx) and the cross pass
+stays exact, as the JAX package's does: the outputs are then those of its
+Pallas route, lazy ones included.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch
 from .. import _device, config
 from ..eltwise import ops
 from ..limb import to_numpy
-from ..ntt import cuda_ntt, hier, shard
+from ..ntt import cuda_ntt, hier, shard, torch_ntt
 from ..ntt.plan import get_plan, register_clear_hook
 from .mesh import (Mesh, Sharded, all_to_all, gather, local,
                    mesh_devices, scatter)
@@ -57,8 +61,11 @@ class DistNTT:
     """NTT with the coefficient axis sharded over `mesh`'s 'coeff' axis."""
 
     def __init__(self, degree: int, modulus: int, mesh: Mesh,
-                 overlap_slices: Optional[int] = None):
-        """overlap_slices: run each cross-phase exchange as this many
+                 overlap_slices: Optional[int] = None,
+                 local_scheme: str = "exact"):
+        """local_scheme: the local pass's butterflies, "exact" or
+        "approx" (`ntt.shard.local`). overlap_slices: run each cross-phase
+        exchange as this many
         slices of the chunk axis, each with its own pair of exchanges.
         None reads HEXL_TPU_DIST_OVERLAP; <= 1 keeps one exchange. The
         option is kept for the JAX signature and its results are the
@@ -78,6 +85,8 @@ class DistNTT:
         if self.local_n < 2 * LANES:
             raise ValueError("local shard too small; reduce coeff axis")
         self.plan = get_plan(degree, modulus)
+        torch_ntt.check_harvey(local_scheme, modulus, "the local pass")
+        self.local_scheme = local_scheme
 
     # -- the passes on mesh values -------------------------------------------
 
@@ -114,19 +123,22 @@ class DistNTT:
 
     def _local(self, x: Sharded, forward: bool, omf: int) -> Sharded:
         return Sharded(self.mesh, [
-            [shard.local(p, self.plan, r, self.d, forward, omf)
+            [shard.local(p, self.plan, r, self.d, forward, omf,
+                         self.local_scheme)
              for r, p in enumerate(row)] for row in x.parts], x.batch_axis)
 
     def _forward(self, x: Sharded, omf: int) -> Sharded:
         if self.d == 1:
             omf = 1 if omf == 1 else 4
-            return local(lambda p: cuda_ntt.fwd_ntt(p, self.plan, 1, omf), x)
+            return local(lambda p: cuda_ntt.fwd_ntt(
+                p, self.plan, 1, omf, 64, self.local_scheme), x)
         return self._local(self._cross(x, True, omf), True, omf)
 
     def _inverse(self, x: Sharded, omf: int) -> Sharded:
         if self.d == 1:
             omf = 1 if omf == 1 else 2
-            return local(lambda p: cuda_ntt.inv_ntt(p, self.plan, 1, omf), x)
+            return local(lambda p: cuda_ntt.inv_ntt(
+                p, self.plan, 1, omf, 64, self.local_scheme), x)
         return self._cross(self._local(x, False, omf), False, omf)
 
     def _poly_mult(self, a: Sharded, b: Sharded) -> Sharded:

@@ -20,9 +20,14 @@ Each stage is one launch of K16, the flat walk's stage in one kernel
 k], the inverse's last stage fused with N^-1), with the OMF of the last
 run fused into the transform's last stage: reduce_mod_lazy64 forward,
 cond_sub inverse. Its plain version is the flat walk cut by stage
-(`torch_ntt.fwd_stages`, `inv_stages`, `inv_final`). The JAX package runs
-exact Harvey butterflies here on the CPU; the port is exact everywhere, so
-outputs are bit-equal, lazy ones included. Launches count under "K16".
+(`torch_ntt.fwd_stages`, `inv_stages`, `inv_final`). The butterflies are
+the pair the JAX stages take from `jnp_ntt._bflys` (`pipeline_scheme`):
+the exact Harvey ones, or, where `config.approx_butterflies` is on and q <
+2^61, the approximate-quotient ones of the Pallas kernels ("approx", the
+inverse's last stage exact in both). On the CPU the approximation is off,
+as the JAX package's is there, so outputs are bit-equal, lazy ones
+included; forced on both sides, they are bit-equal again. Launches count
+under "K16" and "K16.approx".
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import _build, _device
+from .. import _build, _device, config
 from ..limb import reduce_mod_lazy64, to_numpy
 from ..ntt import torch_ntt
 from ..ntt.plan import get_plan
@@ -42,7 +47,7 @@ _P = ctypes.c_void_p
 _U = ctypes.c_uint64
 _I = ctypes.c_int
 _STAGE_ARGS = (_P, _P, _P, _P, _U, _U, _U, _U, _U, _I, _I, _I, _I, _I, _I,
-               _P)
+               _I, _P)
 
 
 def _partition(k: int, d: int):
@@ -56,30 +61,48 @@ def _partition(k: int, d: int):
 
 # -- stage runs: plain version and K16 ----------------------------------------
 
+def pipeline_scheme(q: int, device) -> str:
+    """The stages' butterflies on `device`, as `jnp_ntt._bflys(q <
+    LEAN_APPROX_MAX_Q)` picks them: "approx" where
+    `config.approx_butterflies(device)` is on and q < 2^61, else
+    "exact"."""
+    if q < torch_ntt.LEAN_APPROX_MAX_Q and config.approx_butterflies(device):
+        return "approx"
+    return "exact"
+
+
+def kernel_name(scheme: str) -> str:
+    return "K16" if scheme == "exact" else f"K16.{scheme}"
+
+
 def stages_plain(x: torch.Tensor, plan, forward: bool, first: int,
-                 stop: int, omf: int) -> torch.Tensor:
+                 stop: int, omf: int, scheme: str = "exact") -> torch.Tensor:
     """Stages first .. stop-1 of the flat walk on x (..., N): forward stage
     k has 2^k blocks, inverse stage k stride 2^k (the last one fused with
-    N^-1). omf applies when the run ends with the transform's last stage."""
+    N^-1). omf applies when the run ends with the transform's last stage.
+    `scheme` is "exact" or "approx"."""
     log_n = plan.log_n
     if forward:
-        x = torch_ntt.fwd_stages(x, plan, 1 << first, 1 << stop)
+        x = torch_ntt.fwd_stages(x, plan, 1 << first, 1 << stop,
+                                 scheme=scheme)
         if stop == log_n and omf == 1:
             x = reduce_mod_lazy64(x, plan.q, 4)
         return x
-    x = torch_ntt.inv_stages(x, plan, 1 << first, 1 << min(stop, log_n - 1))
+    x = torch_ntt.inv_stages(x, plan, 1 << first, 1 << min(stop, log_n - 1),
+                             scheme=scheme)
     if stop == log_n:
-        x = torch_ntt.inv_final(x, plan, omf)
+        x = torch_ntt.inv_final(x, plan, omf, scheme=scheme)
     return x
 
 
 def stages(x: torch.Tensor, plan, forward: bool, first: int, stop: int,
-           omf: int) -> torch.Tensor:
+           omf: int, scheme: str = "exact") -> torch.Tensor:
     """`stages_plain` as one K16 launch per stage on the GPU (the first
     into a new tensor, the rest in place on it), the plain version on the
     CPU."""
+    torch_ntt.check_harvey(scheme, plan.q, "K16")
     if not _build.on_card(x):
-        return stages_plain(x, plan, forward, first, stop, omf)
+        return stages_plain(x, plan, forward, first, stop, omf, scheme)
     if first >= stop:
         return x
     out = torch.empty_like(x)
@@ -95,10 +118,11 @@ def stages(x: torch.Tensor, plan, forward: bool, first: int, stop: int,
             log_t, at = log_n - 1 - k, 1 << k
         else:            # stride 2^k
             log_t, at = k, torch_ntt.root_index(plan.n, 1 << k)
-        _build.launch_on(x.device, "K16", fn, src.data_ptr(), out.data_ptr(),
-                         w[at:].data_ptr(), wp[at:].data_ptr(), plan.q,
-                         *plan.fin(), log_n, log_t, int(forward), final, omf,
-                         batch)
+        _build.launch_on(x.device, kernel_name(scheme), fn, src.data_ptr(),
+                         out.data_ptr(), w[at:].data_ptr(),
+                         wp[at:].data_ptr(), plan.q, *plan.fin(), log_n,
+                         log_t, int(forward), final, omf, batch,
+                         torch_ntt.SCHEME_CODE[scheme])
         src = out
     return out
 
@@ -145,7 +169,8 @@ class PipelineNTT:
                 if held[d] is not None:
                     mb, v = held[d]
                     held[d] = (mb, stages(v, self.plan, forward, first, stop,
-                                          omf))
+                                          omf, pipeline_scheme(self.q,
+                                                               v.device)))
             if held[-1] is not None:
                 mb, v = held[-1]
                 done[mb] = v

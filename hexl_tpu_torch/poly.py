@@ -30,8 +30,11 @@ the form's name (and the kernels of the staged route under theirs). Where
 `config.approx_butterflies` says so, the staged route's transforms run the
 approximate-quotient butterflies that the modulus (for an RNS basis, its
 largest, as the JAX stacked pipeline does) allows; K3 and the plain chain
-stay exact. Every output is fully reduced, so the scheme changes no bit
-of it.
+stay exact in the lean schemes. Both forms of K3 and the plain chain also
+run the "approx" scheme, the butterflies the TPU kernel
+`_poly_mult_pallas` runs for q < 2^61 (launches "K3.approx",
+"K3.cta.approx"). Every output is fully reduced, so the scheme changes no
+bit of it.
 
 rns_poly_mult_mod runs the same product over an RNS basis, the counterpart
 of `hexl_tpu/poly.py::rns_poly_mult_mod`: for k > 1 distinct primes the
@@ -58,7 +61,7 @@ _P = ctypes.c_void_p
 _U = ctypes.c_uint64
 _I = ctypes.c_int
 _POLY_ARGS = (_P, _P, _P, _P, _P, _P, _P, _U, _U, _I, _U, _U, _U, _U, _I, _I,
-              _I, _P)
+              _I, _I, _P)
 
 # K3's forms (csrc/poly.cu) and their launch names.
 FORMS = {"cluster": "K3", "cta": "K3.cta"}
@@ -85,12 +88,21 @@ def forms_of(degree: int) -> list:
             or (f == "cluster" and lo <= degree <= hi)]
 
 
-def poly_mult_plain(a: torch.Tensor, b: torch.Tensor, plan) -> torch.Tensor:
-    """The plain chain: fwd (OMF 4) of both, mult_mod at IMF 4, inverse."""
-    fa = torch_ntt.fwd_ntt(a, plan, 1, 4)
-    fb = torch_ntt.fwd_ntt(b, plan, 1, 4)
+def k3_scheme(scheme: str) -> str:
+    """K3's butterflies for a call in `scheme`: "approx" stays, the lean
+    schemes (the XLA bodies' form, which the fused kernel does not run)
+    give "exact"."""
+    return scheme if scheme in torch_ntt.HARVEY else "exact"
+
+
+def poly_mult_plain(a: torch.Tensor, b: torch.Tensor, plan,
+                    scheme: str = "exact") -> torch.Tensor:
+    """The plain chain: fwd (OMF 4) of both, mult_mod at IMF 4, inverse;
+    the transforms in `scheme` ("exact" or "approx")."""
+    fa = torch_ntt.fwd_ntt(a, plan, 1, 4, 64, scheme)
+    fb = torch_ntt.fwd_ntt(b, plan, 1, 4, 64, scheme)
     prod = torch_kernels.mult_mod(fa, fb, plan.q, 4)
-    return torch_ntt.inv_ntt(prod, plan, 1, 1)
+    return torch_ntt.inv_ntt(prod, plan, 1, 1, 64, scheme)
 
 
 def poly_mult_staged(a: torch.Tensor, b: torch.Tensor, plan,
@@ -109,14 +121,16 @@ def poly_mult(a: torch.Tensor, b: torch.Tensor, plan,
               scheme: str = "exact") -> torch.Tensor:
     """a*b mod (X^N+1, q) on int64 tensors (..., N) of one shape and
     device: K3 (N <= 2^14, in `form_for`'s form) or the staged route on
-    the GPU, the plain chain on the CPU. `scheme` is the staged route's
-    (K3 and the plain chain are exact)."""
+    the GPU, the plain chain on the CPU. `scheme` is the staged route's;
+    K3 and the plain chain run `k3_scheme(scheme)`."""
     if a.shape != b.shape or a.dim() < 1 or a.shape[-1] != plan.n:
         raise ValueError(f"operands must both have shape (..., {plan.n})")
+    torch_ntt.check_scheme(scheme, plan.q)
     if plan.n > cuda_ntt.MAX_KERNEL_DEGREE:
         return poly_mult_staged(a, b, plan, scheme)
+    scheme = k3_scheme(scheme)
     if not _build.on_card(a, b):
-        return poly_mult_plain(a, b, plan)
+        return poly_mult_plain(a, b, plan, scheme)
     out = torch.empty_like(a)
     batch = _build.batch_of(a, plan.n)
     if batch == 0:
@@ -126,11 +140,13 @@ def poly_mult(a: torch.Tensor, b: torch.Tensor, plan,
     tabs = plan.tables(a.device)
     fin = (plan.inv_n, plan.inv_n_precon, plan.inv_n_w, plan.inv_n_w_precon)
     fn = _build.function("poly", "hexl_poly_mult", _POLY_ARGS)
-    _build.launch_on(a.device, FORMS[form], fn, a.data_ptr(), b.data_ptr(),
+    name = FORMS[form] + ("" if scheme == "exact" else f".{scheme}")
+    _build.launch_on(a.device, name, fn, a.data_ptr(), b.data_ptr(),
                      out.data_ptr(), tabs["rop"].data_ptr(),
                      tabs["prop"].data_ptr(), tabs["irop"].data_ptr(),
                      tabs["pirop"].data_ptr(), plan.q, mu, shift, *fin,
-                     plan.log_n, batch, _FORM_CODE[form])
+                     plan.log_n, batch, _FORM_CODE[form],
+                     torch_ntt.SCHEME_CODE[scheme])
     return out
 
 

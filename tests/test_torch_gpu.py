@@ -981,21 +981,26 @@ def test_df_chain_kernel_matches_plain(cuda, precision):
 
 
 def test_new_instantiations_do_not_spill(cuda):
-    """The lean instantiations of K5, the chain kernels, every radix walk
-    of K1/K6/K7, K2's packed walk, K3's kernels and K12's radix walk, from
-    the -Xptxas -v report of the build."""
+    """The approximate instantiations of K5 (lean16, lean8, approx), the
+    chain kernels, every radix walk of K1/K6/K7 (four u64 schemes), K2's
+    packed walk, K3's kernels (exact and approx), K12's radix walk, K16
+    and the eltwise bodies' approximate instantiations, from the -Xptxas
+    -v report of the build."""
     import re
     res = _build.kernel_resources(_build.build_all()["log"])
     new = {k: v for k, v in res.items()
-           if "chain_kernel" in k or re.search(r"kernelIyLi[12]E", k)
+           if "chain_kernel" in k or re.search(r"kernelIyLi[123]E", k)
            or re.search(r"radix_(packed_)?(fwd|inv)_kernel", k)
-           or re.search(r"poly_\w+_kernel", k)}
+           or re.search(r"poly_\w+_kernel", k) or "stage_kernel" in k
+           or re.search(r"eltwise_kernelI\w*Lb1E", k)}
     radix = [k for k in new if "radix_" in k]
-    assert len(radix) == ((3 + 6) * 7 + (1 + 2) * 10 + 2 * 3 * 2
+    assert len(radix) == ((4 + 8) * 7 + (1 + 2) * 10 + 2 * 4 * 2
                           + 2 * (6 + 6 + 3)), radix
     k3 = [k for k in new if "poly_" in k]
-    assert len(k3) == 3 + 6, k3
-    assert len(new) >= 2 * 6 * 3 + 2 + 3 + len(radix) + len(k3)
+    assert len(k3) == 2 * (3 + 6), k3
+    assert len([k for k in new if "stage_kernel" in k]) == 2
+    assert len([k for k in new if "eltwise_kernel" in k]) == 5
+    assert len(new) >= 3 * 6 * 3 + 2 + 3 + len(radix) + len(k3) + 2 + 5
     spills = {k: v for k, v in new.items() if v[2] or v[3]}
     assert not spills, spills
 
@@ -1127,7 +1132,7 @@ def test_trace_on_the_card_holds_kernel_events(cuda, tmp_path):
 
 
 TILE_ARITH = [(60, 64, "exact"), (62, 64, "exact"), (29, 32, "exact"),
-              (59, 64, "lean16"), (60, 64, "lean8")]
+              (59, 64, "lean16"), (60, 64, "lean8"), (60, 64, "approx")]
 
 
 @pytest.mark.parametrize("q_bits,word,scheme", TILE_ARITH)
@@ -1144,7 +1149,7 @@ def test_cross_tile_form_matches_plain(cuda, monkeypatch, log_d, q_bits,
     rng = np.random.default_rng(400 + log_d + q_bits)
     monkeypatch.setattr(hier, "cross_form", lambda *args: "tile")
     f_wide, i_wide = {"exact": (4, 2), "lean16": (16, 8),
-                      "lean8": (8, 4)}[scheme]
+                      "lean8": (8, 4), "approx": (4, 2)}[scheme]
     name = hier.kernel_name("K5.tile", word, scheme)
     for batch in (1, 3):
         blocks = (batch, 1 << log_d, hier.LOCAL_N)
@@ -1179,12 +1184,12 @@ def test_public_ntt_at_2_20_takes_the_tiled_form(cuda):
 
 def test_cross_tile_instantiations_do_not_spill(cuda):
     """K5's tiled form: the forward and both inverses at every D, in the
-    three u64 schemes and u32, from the -Xptxas -v report."""
+    four u64 schemes and u32, from the -Xptxas -v report."""
     import re
     res = _build.kernel_resources(_build.build_all()["log"])
     tile = {k: v for k, v in res.items()
             if re.search(r"cross_tile_(fwd|inv)_kernel", k)}
-    assert len(tile) == 3 * 6 * 4, sorted(tile)
+    assert len(tile) == 3 * 6 * 5, sorted(tile)
     assert not {k: v for k, v in tile.items() if v[2] or v[3]}
 
 
@@ -1289,12 +1294,14 @@ def test_row_ops_match_plain(cuda, k):
 
 def test_stacked_instantiations_do_not_spill(cuda):
     """Every stacked instantiation (K1.rns, K2.rns, K5.rns in both forms,
-    K6.rns and the row ops), from the -Xptxas -v report of the build."""
+    K6.rns and the row ops, exact and approximate), from the -Xptxas -v
+    report of the build."""
     import re
     res = _build.kernel_resources(_build.build_all()["log"])
     stacked = {k: v for k, v in res.items()
                if re.search(r"_rns_kernel|eltwise_rows_kernel", k)}
-    assert len(stacked) == 2 * 3 * 7 + 3 + 2 * 3 * 2 + 2 * 2 * 3 * 6 + 2
+    assert len(stacked) == (2 * 3 * 7 + 3 + 2 * 3 * 2 + 2 * 2 * 3 * 6
+                            + 2 * 2)
     spills = {k: v for k, v in stacked.items() if v[2] or v[3]}
     assert not spills, spills
 
@@ -1425,3 +1432,156 @@ def test_cluster_rule_on_the_card(cuda):
                 assert c == 1
             elif c > 1:
                 assert ctas <= rns.max_active_clusters(log_n, c, cuda)
+
+
+# -- the approx scheme (the Pallas kernels' butterflies) and the eltwise
+# family's approximate quotients --
+
+@pytest.mark.parametrize("n,batch", [(2, 1), (16, 401), (64, 8192),
+                                     (1024, 401), (4096, 3), (8192, 2),
+                                     (16384, 2), (1 << 15, 3), (1 << 20, 1)])
+@pytest.mark.parametrize("q_bits", [29, 50, 60, 61])
+def test_approx_ntt_kernels_match_plain(cuda, n, batch, q_bits):
+    """K1/K2 (N <= 2^14) and K5/K6 (above) in "approx" against the plain
+    approx walk at every IMF/OMF, and at OMF 1 against the exact kernels;
+    "61" is the largest prime below 2^61."""
+    q = (nt.generate_primes(1, 60, False, ntt_size=n)[0] if q_bits == 61
+         else nt.generate_primes(1, q_bits, True, ntt_size=n)[0])
+    plan = get_plan(n, q)
+    rng = np.random.default_rng(n + q_bits)
+    for imf in (1, 2, 4):
+        x = _rand(rng, (batch, n), imf * q, cuda)
+        for omf in (1, 4):
+            got = cuda_ntt.fwd_ntt(x, plan, imf, omf, 64, "approx")
+            torch.cuda.synchronize()
+            assert torch.equal(got, torch_ntt.fwd_ntt(x, plan, imf, omf, 64,
+                                                      "approx"))
+            if omf == 1:
+                assert torch.equal(got, cuda_ntt.fwd_ntt(x, plan, imf, 1))
+    for imf in (1, 2):
+        x = _rand(rng, (batch, n), imf * q, cuda)
+        for omf in (1, 2):
+            got = cuda_ntt.inv_ntt(x, plan, imf, omf, 64, "approx")
+            torch.cuda.synchronize()
+            assert torch.equal(got, torch_ntt.inv_ntt(x, plan, imf, omf, 64,
+                                                      "approx"))
+
+
+@pytest.mark.parametrize("log_n", range(1, 15))
+def test_approx_poly_kernel_every_form(cuda, log_n, monkeypatch):
+    """K3 in "approx" in every form it takes, against the plain approx
+    chain and the exact K3."""
+    n = 1 << log_n
+    q = nt.generate_primes(1, 60, True, ntt_size=n)[0]
+    plan = get_plan(n, q)
+    rng = np.random.default_rng(log_n)
+    a, b = (_rand(rng, (3, n), q, cuda) for _ in range(2))
+    want = poly.poly_mult_plain(a, b, plan, "approx")
+    for form in poly.forms_of(n):
+        monkeypatch.setattr(poly, "form_for", lambda *args, f=form: f)
+        _build.reset_launches()
+        got = poly.poly_mult(a, b, plan, "approx")
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {poly.FORMS[form] + ".approx": 1}
+        assert torch.equal(got, want)
+        assert torch.equal(got, poly.poly_mult(a, b, plan))
+
+
+@pytest.mark.parametrize("log_n,q_bits", [(10, 29), (14, 61), (17, 50)])
+def test_approx_stage_kernel_matches_plain(cuda, log_n, q_bits):
+    """K16 in "approx" at every stage, the fused final stage at every
+    OMF."""
+    from hexl_tpu_torch.parallel import pipeline
+    n = 1 << log_n
+    q = (nt.generate_primes(1, 60, False, ntt_size=n)[0] if q_bits == 61
+         else nt.generate_primes(1, q_bits, True, ntt_size=n)[0])
+    plan = get_plan(n, q)
+    rng = np.random.default_rng(log_n)
+    for k in range(log_n):
+        last = k == log_n - 1
+        for forward, bound, omfs in ((True, 4 * q, (1, 4) if last else (4,)),
+                                     (False, 2 * q,
+                                      (1, 2) if last else (2,))):
+            x = _rand(rng, (2, n), bound, cuda)
+            for omf in omfs:
+                got = pipeline.stages(x, plan, forward, k, k + 1, omf,
+                                      "approx")
+                torch.cuda.synchronize()
+                assert torch.equal(got, pipeline.stages_plain(
+                    x, plan, forward, k, k + 1, omf, "approx"))
+
+
+@pytest.mark.parametrize("d,log_l", [(2, 12), (8, 14), (4, 15)])
+def test_approx_shard_local_matches_plain(cuda, d, log_l):
+    """A DistNTT position's local pass in "approx" (K6 with a shard base,
+    K5 on a shard's stages above 2^14), one CTA a chunk under a wave."""
+    from hexl_tpu_torch.ntt import shard
+    n = d << log_l
+    q = nt.generate_primes(1, 60, True, ntt_size=n)[0]
+    plan = get_plan(n, q)
+    rng = np.random.default_rng(n)
+    for r in (0, d - 1):
+        x = _rand(rng, (3, n // d), 4 * q, cuda)
+        for omf in (1, 4):
+            _build.reset_launches()
+            got = shard.local(x, plan, r, d, True, omf, "approx")
+            torch.cuda.synchronize()
+            assert "K6.approx" in _build.launches
+            assert torch.equal(got, shard.local_fwd_plain(x, plan, r, d,
+                                                          omf, "approx"))
+        x = _rand(rng, (3, n // d), 2 * q, cuda)
+        got = shard.local(x, plan, r, d, False, 1, "approx")
+        torch.cuda.synchronize()
+        assert torch.equal(got, shard.local_inv_plain(x, plan, r, d,
+                                                      "approx"))
+
+
+@pytest.mark.parametrize("q_bits", [20, 29, 49, 60, 61, 62])
+def test_approx_eltwise_kernels_match_plain(cuda, q_bits, monkeypatch):
+    """K4/K8's approximate instantiations (the switch forced on) against
+    the plain bodies with approx=True, at every IMF/OMF, and the row ops."""
+    from hexl_tpu_torch import config
+    monkeypatch.setattr(config, "approx_butterflies", lambda device: True)
+    if q_bits == 62:
+        q = nt.generate_primes(1, 61, False)[0]
+    else:
+        q = nt.generate_primes(1, q_bits, True)[0]
+    rng = np.random.default_rng(q_bits)
+    size = 65537
+    for imf in (1, 2, 4):
+        a, b = (_rand(rng, (size,), imf * q, cuda) for _ in range(2))
+        _build.reset_launches()
+        got = ops.mult_mod(a, b, q, imf)
+        assert dict(_build.launches) == {"K4.approx": 1}
+        assert torch.equal(got, torch_kernels.mult_mod(a, b, q, imf, True))
+    if q < 1 << 61:
+        for imf in (1, 2, 4, 8):
+            a, c = (_rand(rng, (size,), imf * q, cuda) for _ in range(2))
+            w = nt.reduce_mod(123456789 % (imf * q), q, imf)
+            wp = nt.barrett_factor(w, 64, q)
+            assert torch.equal(ops.fma_mod(a, w, wp, c, q, imf),
+                               torch_kernels.fma_mod_preconned(
+                                   a, w, wp, c, q, imf, True))
+    wide = _rand(rng, (size,), 1 << 64, cuda)
+    for omf in (1, 2):
+        assert torch.equal(ops.reduce_mod(wide, q, q, omf),
+                           torch_kernels.reduce_mod(wide, q, q, omf, True))
+    for cmp in torch_kernels.CMP_NAMES:
+        assert torch.equal(ops.cmp_sub_mod(wide, q, cmp, 1 << 63, 5),
+                           torch_kernels.cmp_sub_mod(wide, q, cmp, 1 << 63,
+                                                     5, True))
+    if q % 2:
+        a = _rand(rng, (size,), q, cuda)
+        assert torch.equal(ops.montgomery_form_in(a, q),
+                           torch_kernels.montgomery_form_in(a, q, True))
+    moduli = (q, nt.generate_primes(1, 40, True)[0])
+    consts = ops.row_constants(moduli, cuda)
+    x = torch.stack([_rand(rng, (4097,), 4 * m, cuda) for m in moduli])
+    y = torch.stack([_rand(rng, (4097,), 4 * m, cuda) for m in moduli])
+    assert torch.equal(ops.mult_mod_rows(x, y, moduli, 4),
+                       torch_kernels.mult_mod_rows(x, y, consts, 4, True))
+    x = torch.stack([_rand(rng, (4097,), 1 << 64, cuda) for _ in moduli])
+    for omf in (1, 2):
+        assert torch.equal(ops.reduce_mod_rows(x, moduli, omf),
+                           torch_kernels.reduce_mod_rows(x, consts, omf,
+                                                         True))

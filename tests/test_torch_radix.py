@@ -163,27 +163,32 @@ def test_spill_check_counts_every_radix_shape():
     ntt = _shapes("ntt_block.cuh", "with_shape")
     u64 = [sh for sh in ntt if "U32" not in sh[1]]
     assert (len(ntt), len(u64)) == (10, 7)
-    # Forward: three u64 schemes and u32; inverse: with and without the
-    # final stage, each in the three u64 schemes and u32.
-    assert chip_smoke.RADIX_INSTANTIATIONS == (3 + 6) * 7 + (1 + 2) * 10
+    # Forward: four u64 schemes and u32; inverse: with and without the
+    # final stage, each in the four u64 schemes and u32.
+    assert chip_smoke.RADIX_INSTANTIATIONS == (4 + 8) * 7 + (1 + 2) * 10
     fft = _shapes("fft.cu", "fft_with_shape", G13=1)
     unrolled = [sh for sh in fft if "else" not in sh[1]]
     rolled = [sh for sh in fft if "fft_unrolled" not in sh[1]]
     assert (len(unrolled), len(rolled)) == (6, 3)
     assert chip_smoke.FFT_RADIX_INSTANTIATIONS == 2 * (6 + 6 + 3)
-    # K2: forward and inverse in three schemes at the two packed shapes.
+    # K2: forward and inverse in four schemes at the two packed shapes.
     block = (CSRC / "ntt_block.cuh").read_text()
     packed = block[block.index("static int with_packed_shape("):]
     packed = packed[:packed.index("\n}\n")]
     assert len(re.findall(r"return f\(Index<(\d)>\{\}", packed)) == 2
-    assert chip_smoke.PACKED_INSTANTIATIONS == 2 * 3 * 2
-    # K3: the cluster form's degrees and the one-CTA form's kernels.
+    assert chip_smoke.PACKED_INSTANTIATIONS == 2 * 4 * 2
+    # K3: the cluster form's degrees and the one-CTA form's kernels, each
+    # in the two schemes with_poly_scheme dispatches to.
     src = (CSRC / "poly.cu").read_text()
-    cluster = re.findall(r"f\(poly_cluster_kernel<(\d+)>", src)
-    cta = re.findall(r"f\(poly_cta_kernel<(\d+), (\d+)>", src)
+    cluster = re.findall(r"f\(poly_cluster_kernel<S, (\d+)>", src)
+    cta = re.findall(r"f\(poly_cta_kernel<S, (\d+), (\d+)>", src)
     assert sorted(int(k) for k in cluster) == [12, 13, 14]
     assert len(set(cta)) == 6
-    assert chip_smoke.POLY_INSTANTIATIONS == len(cluster) + len(set(cta))
+    schemes = src[src.index("static int with_poly_scheme("):]
+    schemes = schemes[:schemes.index("\n}\n")]
+    assert len(re.findall(r"return f\(Index<\w+>\{\}\)", schemes)) == 2
+    assert chip_smoke.POLY_INSTANTIATIONS == 2 * (len(cluster)
+                                                  + len(set(cta)))
     # Every other launch is the cluster's, through cudaLaunchKernelEx.
     assert "<<<" not in src.replace("kernel<<<batch", "")
     for name in ("_Z16radix_fwd_kernelIyLi0ELi3ELi2ELi14EEvPKyPyS1_S1_yiiiii",
@@ -192,10 +197,13 @@ def test_spill_check_counts_every_radix_shape():
                  "_Z20fft_radix_fwd_kernelI2CxIdELi3ELi1ELi13EEv4PtrsS2_S2_"
                  "NT_1SEiii",
                  "_Z23radix_packed_fwd_kernelILi0ELi3EEvPKyPyS1_S1_yiiii",
-                 "_Z19poly_cluster_kernelILi14EEvPKyS1_PyS1_S1_S1_S1_7Barrett8"
-                 "InvFinalIyE",
-                 "_Z15poly_cta_kernelILi3ELi13EEvPKyS1_PyS1_S1_S1_S1_7Barrett8"
-                 "InvFinalIyEi"):
+                 "_Z19poly_cluster_kernelILi3ELi14EEvPKyS1_PyS1_S1_S1_S1_"
+                 "7Barrett8InvFinalIyE",
+                 "_Z15poly_cta_kernelILi0ELi3ELi13EEvPKyS1_PyS1_S1_S1_S1_"
+                 "7Barrett8InvFinalIyEi",
+                 "_Z12stage_kernelILi3EEvPKyPyS1_S1_y8InvFinalIyEiiiiix",
+                 "_Z14eltwise_kernelI7MultModIyLb1EEEvT_PKyS4_S4_Pyx7Scalars",
+                 "_Z17cross_fwd_kernelIyLi3ELi6EEvPKyPyS1_S1_yiix"):
         assert chip_smoke.NEW_INSTANTIATION.search(name)
 
 
