@@ -48,8 +48,9 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
   2. build: every kernel compiled from csrc/ with nvcc for sm_90a, with
      the compiler's -Xptxas -v report (the run fails if a lean, approx,
      chain, radix-walk, K2, K3, K5 tiled-form or K16 instantiation of the
-     NTT or the FFT-like, an eltwise approximate instantiation, or any of
-     the 133 stacked (RNS) or 33 cluster-form instantiations, spills; the
+     NTT or the FFT-like, K3 in any of its four schemes, an eltwise or
+     K9-K11 approximate instantiation, or any of the 133 stacked (RNS) or
+     33 cluster-form instantiations, spills; the
      cluster form's most active clusters), K3's most active clusters per
      degree, six probe kernels whose SASS gives the IMADs of a 64x64 and
      of a 32x32 high and low product, of the lean and approx butterflies'
@@ -105,7 +106,12 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      just below 2^61 over the IMF/OMF matrix, K3 in every form, K16 at
      every stage, K6 with a shard base, and K4/K8's approximate
      instantiations (five ops, the row ops) at every IMF/OMF for q of 20
-     to 62 bits;
+     to 62 bits; the composites' approximate quotients and K3's lean
+     forms (composite_approx_checks): K9.approx at one and three weights,
+     K10.approx on bases whose flushed rows differ in bit length,
+     K11.approx's spread and fold, K3 and K3.cta in lean16 and lean8 at
+     every N from 2 to 2^14 in every form, each also against the exact
+     form;
   4. seven main paths through the public entry points, each with the
      launch counts set to 0 just before it and read just after it.
      The first: NTT(2^14, 60-bit) forward and inverse at batch 256
@@ -165,7 +171,14 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      DistNTT(2^17) on (1, 8) with local_scheme="approx", PipelineNTT on a
      ring of 8, the five eltwise ops with an approximate body at 2^22
      elements and a key switch at 2^14 x ds 3, each output against its
-     plain approx version and, fully reduced, the exact one;
+     plain approx version and, fully reduced, the exact one; and, counted
+     in a third window, the composites with the switch forced on:
+     dyadic_multiply at N=2^17 x 16 primes and lr_mat_vec_mult
+     (K9.approx), key_switch at N=2^15 x ds 14 over rows of two bit
+     lengths (K10.approx, K11.approx), poly_mult_mod at (2^14, 64) and
+     (2^13, 132) in lean8 and lean16 (K3.lean8, K3.cta.lean8, K3.lean16,
+     K3.cta.lean16), dist_key_switch on a (2, 4) mesh of cuda:0 positions,
+     each against the same call with the switch off;
      The seventh (seventh_path): the host-side modules through their entry
      points, in fresh processes where a cold start is what is measured:
      `prewarm` at (2^14, 60-bit, 256), (2^17, 60-bit, 16), (2^20, 60-bit,
@@ -215,7 +228,10 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      beside their bounds, the lean against the exact pair at each
      sixth-path shape (40 event timings each, in turns, with their spread,
      and graph replays), each approx row against its exact row (turns
-     exact, approx, approx, exact, graph medians, with its bound), the
+     exact, approx, approx, exact, graph medians, with its bound; K9,
+     K10, K11 and K3/K3.cta's lean forms among them), torch.remainder
+     beside K8.reduce at IMF 4 (60-bit) and K8.reduce.u32 (the one PyTorch
+     call of a reduce_mod to OMF 1 from below 4q), the
      RNS product both ways, and the chains in
      Gbfly/s; the stacked kernels (K1.rns, K2.rns, K5.rns in both forms,
      K6.rns, K4.rows, K8.reduce.rows) beside their bounds; RnsNTT's pairs
@@ -1740,15 +1756,18 @@ def shard_cluster_checks(rng, dev, nt, get_plan, rns, shard, to_tensor,
 # and approx), and K12's radix walk (fft.cu fft_radix_fwd_kernel and
 # fft_radix_inv_kernel: six shapes in complex double and float, three in
 # double-float, fft_with_shape), K5's tiled form (cross_tile.cuh), K16
-# (stage.cu, exact and approx) and the eltwise bodies' approximate
-# instantiations (eltwise.cu: functors with the flag A true).
+# (stage.cu, exact and approx), the eltwise bodies' approximate
+# instantiations (eltwise.cu: functors with the flag A true) and those of
+# K9, K10 and K11 (dyadic.cu, key_switch.cu: kernels with the flag A true).
 NEW_INSTANTIATION = re.compile(
     r"chain_kernel|kernelIyLi[123]E|radix_(packed_)?(fwd|inv)_kernel|"
     r"poly_(cluster|cta)_kernel|cross_tile_(fwd|inv)_kernel|stage_kernel|"
-    r"eltwise_kernelI\w*Lb1E")
+    r"eltwise_kernelI\w*Lb1E|(dyadic|mac_flush|spread|fold)_kernelILb1E")
 RADIX_INSTANTIATIONS = (4 + 8) * 7 + (1 + 2) * 10
 PACKED_INSTANTIATIONS = 2 * 4 * 2
-POLY_INSTANTIATIONS = 2 * (3 + 6)
+# K3's two forms (three cluster and six one-CTA kernels) in the four
+# schemes: exact, lean16, lean8, approx.
+POLY_INSTANTIATIONS = 4 * (3 + 6)
 FFT_RADIX_INSTANTIATIONS = 2 * (6 + 6 + 3)
 # K5's tiled form (cross_tile.cuh): the forward and the inverse with and
 # without the final stage, at every D (2 .. 64), in the four u64 schemes
@@ -1757,13 +1776,16 @@ TILE_INSTANTIATIONS = 3 * 6 * 5
 # K16 exact and approx; the five eltwise ops' approximate bodies.
 STAGE_INSTANTIATIONS = 2
 ELTWISE_APPROX_INSTANTIATIONS = 5
+COMPOSITE_APPROX_INSTANTIATIONS = 4   # K9, K10, K11's spread and fold
 # K5's approximate passes (three schemes, six D, forward and the inverse
 # with and without its final stage), the chains, the radix walks, K2, K3,
-# K5's tiled form, K16 and the eltwise approximate bodies.
+# K5's tiled form, K16, the eltwise approximate bodies and the composites'
+# approximate ones.
 NEW_INSTANTIATIONS = (3 * 6 * 3 + 2 + 3 + RADIX_INSTANTIATIONS
                       + PACKED_INSTANTIATIONS + POLY_INSTANTIATIONS
                       + FFT_RADIX_INSTANTIATIONS + TILE_INSTANTIATIONS
-                      + STAGE_INSTANTIATIONS + ELTWISE_APPROX_INSTANTIATIONS)
+                      + STAGE_INSTANTIATIONS + ELTWISE_APPROX_INSTANTIATIONS
+                      + COMPOSITE_APPROX_INSTANTIATIONS)
 # The stacked instantiations (ntt_rns.cu, cross_rns.cu, eltwise.cu): K1.rns's
 # forward and inverse in the three schemes and seven shapes, K6.rns's
 # inverse (no final stage) at 2^14 in three, K2.rns forward and inverse in
@@ -2136,6 +2158,101 @@ def approx_kernel_checks(rng, dev, nt, get_plan, cuda_ntt, hier, shard, poly,
                 checks += 1
     finally:
         port_config.approx_butterflies = regime
+    return checks
+
+
+def composite_approx_checks(rng, dev, nt, get_plan, poly, dyadic, ks,
+                            to_tensor, port_config, compare) -> int:
+    """The approximate-quotient instantiations of the composites and K3's
+    lean ones against their plain versions, bit for bit, and (fully
+    reduced outputs) against the exact ones: K9.approx at W = 1 and 3 over
+    moduli of mixed bit lengths; K10.approx on bases whose flushed rows
+    differ in bit length; K11.approx's spread (its lazy [0, 2 q_i) outputs)
+    and fold; K3 and K3.cta in lean16 and lean8 at every N from 2 to 2^14
+    in every form they take. The moduli are `approx_modulus`'s, at which
+    the approximate quotient is one too small for some inputs. Returns the
+    count."""
+    import numpy as np
+    import torch
+
+    def rand(shape, bound):
+        return to_tensor(rng.integers(0, bound, size=shape, dtype=np.uint64),
+                         dev)
+
+    def rows(moduli, shape):
+        return torch.stack([rand(shape, q) for q in moduli])
+
+    checks = 0
+    basis = [approx_modulus(nt, b, 1 << 15) for b in APPROX_Q_BITS]
+    consts = dyadic.row_constants(tuple(basis), dev)
+    regime = port_config.approx_butterflies
+    for weights, n in ((1, 4099), (3, 4099), (1, 1 << 17), (3, 1 << 14)):
+        x, y = (torch.stack([torch.stack([rows(basis, (n,))
+                                          for _ in range(2)])
+                             for _ in range(weights)]) for _ in range(2))
+        port_config.approx_butterflies = lambda device: True
+        try:
+            got = dyadic.dyadic(x, y, basis)
+        finally:
+            port_config.approx_butterflies = regime
+        what = f"dyadic W={weights} n={n} approx"
+        compare("K9.approx", got, dyadic.dyadic_plain(x, y, consts, True),
+                what)
+        compare("K9.approx", got, dyadic.dyadic(x, y, basis),
+                what + " == exact")
+        checks += 2
+    for n, bits, kc in ((64, (29, 50, 60, 61), 2),
+                        (1 << 14, (50, 29, 61), 3),
+                        (1 << 15, (49,) * 14 + (55,), 2)):
+        moduli = []
+        for b in bits:
+            cands = ([approx_modulus(nt, b, n)] if b == 61 else
+                     nt.generate_primes(len(bits) + 1, b, True, ntt_size=n))
+            moduli.append(next(q for q in cands if q not in moduli))
+        ds = len(bits) - 1
+        msf = [nt.inverse_mod(moduli[-1] % q, q) for q in moduli[:ds]]
+        result = torch.stack([rows(moduli[:ds], (n,)) for _ in range(kc)])
+        c = ks.constants(tuple(moduli), tuple(msf), ds, dev)
+        what = f"n={n} bits={bits[:4]} kc={kc} approx"
+        tq = torch.stack([rand((ds, n), 4 * q)
+                          for q in moduli[:ds] + moduli[-1:]])
+        keys = torch.stack([torch.stack([rows(moduli, (n,))
+                                         for _ in range(kc)])
+                            for _ in range(ds)])
+        tpp = ks.mac_flush(tq, keys, c, ds, kc, ds + 1, True)
+        compare("K10.approx", tpp, ks.mac_flush_plain(tq, keys, c.mac, ds,
+                                                      kc, ds + 1, True),
+                f"mac_flush {what}")
+        compare("K10.approx", tpp, ks.mac_flush(tq, keys, c, ds, kc, ds + 1),
+                f"mac_flush {what} == exact")
+        x = rand((kc, n), 2 * moduli[-1])
+        compare("K11.approx", ks.spread(x, c, True),
+                ks.spread_plain(x, c, True), f"spread {what}")
+        tntt = torch.stack([rand((kc, n), 4 * q) for q in moduli[:ds]])
+        got = ks.fold(result, tpp, tntt, c, True)
+        compare("K11.approx", got, ks.fold_plain(result, tpp, tntt, c, True),
+                f"fold {what}")
+        compare("K11.approx", got, ks.fold(result, tpp, tntt, c),
+                f"fold {what} == exact")
+        checks += 5
+    for log_n in range(1, 15):
+        n = 1 << log_n
+        for scheme, q_bits in (("lean16", 59), ("lean8", 61), ("lean8", 60)):
+            q = approx_modulus(nt, q_bits, n)
+            plan = get_plan(n, q)
+            for batch in ((1, 2, 133) if log_n >= 12 else (3,)):
+                a, b = rand((batch, n), q), rand((batch, n), q)
+                want = poly.poly_mult_plain(a, b, plan, scheme)
+                for form in poly.forms_of(n):
+                    with forced_form(poly, form):
+                        got = poly.poly_mult(a, b, plan, scheme)
+                        exact = poly.poly_mult(a, b, plan)
+                    name = f"{poly.FORMS[form]}.{scheme}"
+                    what = (f"poly_mult n={n} q_bits={q_bits} batch={batch} "
+                            f"form={form} {scheme}")
+                    compare(name, got, want, what)
+                    compare(name, got, exact, what + " == exact")
+                    checks += 2
     return checks
 
 
@@ -3818,8 +3935,8 @@ def main() -> int:
     resources = _build.kernel_resources(info["log"])
     new = {k: v for k, v in resources.items() if NEW_INSTANTIATION.search(k)}
     log(f"build: {len(new)} lean, approx, chain, radix-walk, K2, K3, K5 "
-        f"tiled, K16 and eltwise approx instantiations (registers, stack, "
-        f"spill stores, spill loads): {new}")
+        f"tiled, K16, eltwise approx and K9-K11 approx instantiations "
+        f"(registers, stack, spill stores, spill loads): {new}")
     spilled = {k: v for k, v in new.items() if v[2] or v[3] or v[2] is None}
     if spilled or len(new) < NEW_INSTANTIATIONS:
         raise AssertionError(f"of {NEW_INSTANTIATIONS} new instantiations "
@@ -4068,6 +4185,10 @@ def main() -> int:
                                    shard, poly, pipeline, ops, torch_kernels,
                                    torch_ntt, to_tensor, port_config,
                                    compare, route)
+    # The composites' approximate quotients (K9, K10, K11) and K3 in the
+    # lean schemes.
+    checks += composite_approx_checks(rng, dev, nt, get_plan, poly, dyadic,
+                                      ks, to_tensor, port_config, compare)
     checks += chain_kernel_checks(rng, dev, chain, df_chain, compare,
                                   compare_fft)
     # The stacked transform's kernels (K1.rns, K2.rns, K5.rns in both forms,
@@ -4857,6 +4978,96 @@ def main() -> int:
         "approx version and, fully reduced, the exact one; round trips "
         "exact")
 
+    # The sixth path's composite runs: the composites' approximate
+    # quotients and K3's lean forms through the public entry points, the
+    # switch forced on (`config.approx_butterflies`), as the JAX package
+    # takes them under its switch: dyadic_multiply at N=2^17 x 16 primes of
+    # 50 bits and lr_mat_vec_mult at 2^14 x 4 primes x 16 weights
+    # (K9.approx); key_switch at N=2^15 x ds 14 over 49-bit decomposition
+    # primes and a 55-bit key prime (rows of two bit lengths: the JAX
+    # per-row flush, K10.approx; K11.approx; the base conversion,
+    # K8.reduce.rows.approx); poly_mult_mod at (2^14, 64) and (2^13, 132)
+    # for a 60-bit q (lean8: K3.lean8, K3.cta.lean8) and a 59-bit q (lean16:
+    # K3.lean16, K3.cta.lean16); dist_key_switch at 2^14 x ds 3 on a (2, 4)
+    # mesh of cuda:0 positions (the JAX mesh key switch's per-row flush on
+    # every position: K10.approx, K11.approx). Counted in a window of their
+    # own; every output against the same call with the switch off, and the
+    # products against the plain lean chain.
+    from hexl_tpu_torch.parallel import dist_key_switch
+    dy6 = [torch.stack([torch.stack([rand((n17,), q) for q in moduli])
+                        for _ in range(2)]) for _ in range(2)]
+    lr_moduli = nt.generate_primes(4, 50, True, ntt_size=n14)
+    lr6 = [torch.stack([torch.stack([torch.stack([
+        rand((n14,), q) for q in lr_moduli]) for _ in range(2)])
+        for _ in range(LR_WEIGHTS)]) for _ in range(2)]
+    ks_n6, ks_ds6 = KS_SHAPES[-1]
+    ks6c = key_switch_inputs(rng, ks_n6, (49,) * ks_ds6 + (55,), 2, dev, nt,
+                             to_tensor)
+    dks6 = key_switch_inputs(rng, n14, (49,) * 4, 2, dev, nt, to_tensor)
+    mesh6c = make_mesh(4, 2, [dev] * 8)
+    products6c = {"K3.lean8": (n14, q60, 64),
+                  "K3.cta.lean8": (CTA_N, q60, CTA_BATCH),
+                  "K3.lean16": (n14, q59, 64),
+                  "K3.cta.lean16": (CTA_N, q59, CTA_BATCH)}
+    prods_in6c = {k: (n, q, rand((b, n), q), rand((b, n), q))
+                  for k, (n, q, b) in products6c.items()}
+    kernel_of6c = {"dyadic_multiply": "K9.approx",
+                   "lr_mat_vec_mult": "K9.approx",
+                   "key_switch": "K10.approx",
+                   "dist_key_switch": "K11.approx"}
+    torch.cuda.synchronize()
+
+    def composites6():
+        """The calls of the window (the switch as the caller set it)."""
+        out = {
+            "dyadic_multiply": port.dyadic_multiply(*dy6, moduli),
+            "lr_mat_vec_mult": port.lr_mat_vec_mult(*lr6, lr_moduli),
+            "key_switch": port.key_switch(
+                ks6c[0], ks6c[1], ks_n6, ks_ds6, ks_ds6 + 1, ks_ds6 + 1, 2,
+                ks6c[3], ks6c[2], ks6c[4]),
+            "dist_key_switch": dist_key_switch(
+                dks6[0], dks6[1], n14, 3, 4, 4, 2, dks6[3], dks6[2], dks6[4],
+                mesh6c)}
+        for key, (n, q, a, b) in prods_in6c.items():
+            out[key] = poly_mult_mod(a, b, n, q)
+        return out
+
+    port_config.approx_butterflies = lambda device: True
+    try:
+        _build.reset_launches()
+        outs6c = composites6()
+        torch.cuda.synchronize()
+        launches6c = dict(_build.launches)
+    finally:
+        port_config.approx_butterflies = exact_regime
+    log(f"phase 4: sixth main path's composite launches {launches6c}")
+    # Two dyadic products; one key switch (one flush, a spread and a fold)
+    # and the mesh key switch's 8 positions (8 flushes, 8 spreads, 8
+    # folds); each product one launch.
+    want6c = {"K9.approx": 2, "K10.approx": 1 + 8, "K11.approx": 2 + 16,
+              "K3.lean8": 1, "K3.cta.lean8": 1, "K3.lean16": 1,
+              "K3.cta.lean16": 1}
+    wrong = {k: launches6c.get(k, 0) for k, v in want6c.items()
+             if launches6c.get(k, 0) != v}
+    exact_names = [k for k in ("K9", "K10", "K11", "K3", "K3.cta",
+                               "K8.reduce.rows", "K8.reduce")
+                   if k in launches6c]
+    if wrong or exact_names or not launches6c.get("K8.reduce.rows.approx"):
+        raise AssertionError(f"sixth path's composite runs: launches {wrong} "
+                             f"(want {want6c}); exact instantiations "
+                             f"{exact_names}")
+    exact6c = composites6()
+    for key, got in outs6c.items():
+        compare(kernel_of6c.get(key, key), got, exact6c[key],
+                f"sixth path: {key} with the switch on == off")
+    for key, (n, q, a, b) in prods_in6c.items():
+        compare(key, outs6c[key], poly.poly_mult_plain(
+            a, b, get_plan(n, q), key.split(".")[-1]),
+            f"sixth path: poly_mult_mod {key} == the plain lean chain")
+    log("phase 4: every output of the sixth path's composite runs == the "
+        "same call with the switch off; the products == the plain lean "
+        "chain")
+
     # The seventh: the host-side modules through their entry points
     # (seventh_path): prewarm and the first public pair of each of
     # SEVENTH_CONFIGS in a fresh process, against the same pair in a
@@ -4889,6 +5100,9 @@ def main() -> int:
     per_shoup = imads["mulhi64"] + 2 * imads["mullo64"]
     per_shoup32 = imads["mulhi32"] + 2 * imads["mullo32"]
     per_barrett = 2 * imads["mulhi64"] + 2 * imads["mullo64"]
+    # The Barrett product with the approximate quotient (mulhi64_approx).
+    per_barrett_a = (imads["mulhi64"] + imads["mulhi64a"]
+                     + 2 * imads["mullo64"])
 
     def ntt_imads(n, batch, forward, shoup=per_shoup):
         log_n = n.bit_length() - 1
@@ -4933,8 +5147,9 @@ def main() -> int:
     def product_case(n, q, batch, scheme="exact"):
         """poly_mult: a and b read, the product written, the four tables
         read once; two forwards, one inverse and a Barrett product a
-        coefficient (in approx: the approximate butterflies' IMADs, the
-        final stage's two exact Shoup products)."""
+        coefficient (in the other schemes: the approximate butterflies'
+        IMADs, the final stage's two exact Shoup products, the Barrett
+        product's approximate quotient)."""
         plan = get_plan(n, q)
         pa, pb = rand((batch, n), q), rand((batch, n), q)
         if scheme == "exact":
@@ -4946,7 +5161,8 @@ def main() -> int:
         return (lambda: poly.poly_mult(pa, pb, plan, scheme),
                 lambda: poly.poly_mult_plain(pa, pb, plan, scheme),
                 3 * 8 * batch * n + 4 * 8 * n,
-                nimads + batch * n * per_barrett)
+                nimads + batch * n * (per_barrett if scheme == "exact"
+                                      else per_barrett_a))
 
     k3 = product_case(n14, q60, 64)
     k3c = product_case(CTA_N, q60, CTA_BATCH)
@@ -5634,8 +5850,6 @@ def main() -> int:
     # conversion). Bytes: operands read once, the output written once;
     # operations: the exact 128-bit product's IMADs and the approximate
     # quotient's.
-    per_barrett_a = (imads["mulhi64"] + imads["mulhi64a"]
-                     + 2 * imads["mullo64"])
     per_shoup_a = imads["mulhi64a"] + 2 * imads["mullo64"]
     per_reduce_a = imads["mulhi64a"] + imads["mullo64"]
     wp_e = nt.barrett_factor(fma6, 64, q60)
@@ -5705,6 +5919,81 @@ def main() -> int:
                        (forced(True, kernel), plain, case[2], nops))
         approx_ab[name] = (shape, forced(False, kernel), forced(True, kernel),
                            5)
+    # The composites' approximate quotients and K3's lean forms at the
+    # exact rows' shapes: K9.approx at N=2^17 x 16 primes (the K9 row's
+    # inputs), K10.approx and K11.approx at the 2^15 x ds 14 key switch's
+    # (the K10 and K11 rows' inputs, the form passed as the wrappers'
+    # argument), K3 and K3.cta in lean16 (a 59-bit q) and lean8 (60-bit) at
+    # the K3 rows' shapes, each lean row beside the exact product on the
+    # same q; bounds as the exact rows', the approximate quotients' IMADs
+    # from the SASS of mulhi64_approx.
+    dy_case = cases["K9"][4]
+    cases["K9.approx"] = (
+        "dyadic_kernel<true>", "hexl_tpu_torch/csrc/dyadic.cu",
+        "hexl_tpu/experimental/dyadic.py:46,74 (the approximate quotient of "
+        "limb.mult_mod_barrett_traced; XLA-fused jnp, no pallas_call)",
+        cases["K9"][3],
+        (forced(True, dy_case[0]), lambda: dyadic.dyadic_plain(dx, dy, dcon,
+                                                               True),
+         dy_case[2], 4 * mn * per_barrett_a))
+    approx_ab["K9.approx"] = (cases["K9"][3], forced(False, dy_case[0]),
+                              forced(True, dy_case[0]), 5)
+    per_reduce_exact = imads["mulhi64"] + imads["mullo64"]
+    k10_case = cases["K10"][4]
+    cases["K10.approx"] = (
+        "mac_flush_kernel<true>", "hexl_tpu_torch/csrc/key_switch.cu",
+        "hexl_tpu/experimental/key_switch.py:34-51 (_barrett_reduce_128's "
+        "approximate quotients; XLA-fused jnp, no pallas_call)",
+        cases["K10"][3],
+        (lambda: ks.mac_flush(tq, keys, kcon, ks_ds, 2, rows_, True),
+         lambda: ks.mac_flush_plain(tq, keys, kcon.mac, ks_ds, 2, rows_,
+                                    True),
+         k10_case[2],
+         k10_case[3] + out_words * (2 * (per_reduce_a - per_reduce_exact)
+                                    + per_barrett_a - per_barrett)))
+    approx_ab["K10.approx"] = (cases["K10"][3], k10_case[0],
+                               cases["K10.approx"][4][0], 5)
+    k11_case = cases["K11"][4]
+    cases["K11.approx"] = (
+        "spread_kernel<true>+fold_kernel<true>",
+        "hexl_tpu_torch/csrc/key_switch.cu",
+        "hexl_tpu/experimental/key_switch.py:236-282 (the mod-down's "
+        "approximate quotients; XLA-fused jnp, no pallas_call)",
+        cases["K11"][3],
+        (lambda: (ks.spread(xl, kcon, True),
+                  ks.fold(result, tpp, tntt, kcon, True)),
+         lambda: (ks.spread_plain(xl, kcon, True),
+                  ks.fold_plain(result, tpp, tntt, kcon, True)),
+         k11_case[2],
+         k11_case[3] + md_words * (imads["mulhi64a"] - imads["mulhi64"])))
+    approx_ab["K11.approx"] = (cases["K11"][3], k11_case[0],
+                               cases["K11.approx"][4][0], 5)
+    def lean_product_rows():
+        """{name: (cases entry, approx_ab entry)} of K3's lean rows (the
+        rule's forms at these shapes: the cluster at 2^14 x 64, the one-CTA
+        form at 2^13 x 132)."""
+        rows = {}
+        for form, n, batch in (("K3", n14, 64), ("K3.cta", CTA_N,
+                                                  CTA_BATCH)):
+            kernel = ("poly_cluster_kernel" if form == "K3"
+                      else "poly_cta_kernel")
+            for scheme, q in (("lean16", q59), ("lean8", q60)):
+                shape = (f"poly_mult N=2^{n.bit_length() - 1}, "
+                         f"{q.bit_length()}-bit q, batch {batch}, {scheme}")
+                case = product_case(n, q, batch, scheme)
+                exact = product_case(n, q, batch)
+                rows[f"{form}.{scheme}"] = (
+                    (f"{kernel}<{scheme.upper()}>",
+                     "hexl_tpu_torch/csrc/poly.cu",
+                     "hexl_tpu/poly.py:72 (_poly_mult_xla's lean butterflies "
+                     "and approximate mult_mod, poly.py:93-97)", shape,
+                     case),
+                    (shape, exact[0], case[0], 10))
+        return rows
+
+    for name, (case_row, ab_row) in lean_product_rows().items():
+        cases[name] = case_row
+        approx_ab[name] = ab_row
     # The chains on six input sets in turn (`rotating`), so that a graph's
     # launches read more than the 50 MB L2 holds, as K12/K13's do.
     chain_elems = chain.ROWS * chain.LANES
@@ -5779,13 +6068,42 @@ def main() -> int:
                          sum(counts.get(name, 0) for counts in
                              (launches1, launches2, launches3, launches4,
                               launches5, launches6, launches6a,
-                              launches7))),
+                              launches6c, launches7))),
             "max_abs_err": float(max_err[name]), "matched": True,
             "shape": shape, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         if near:
             entry["nearest_library"] = near
         entries.append(entry)
+
+    # The one PyTorch call that computes a K8.reduce row's function:
+    # eltwise_reduce_mod at IMF 2 or 4 with OMF 1 reads values below 4q <
+    # 2^63, where torch.remainder(a, q) of the int64 tensor gives the same
+    # bits. Timed beside the kernel on the same inputs at 2^22 elements:
+    # 60-bit q at IMF 4 (the K8.reduce instantiation; that row's own call,
+    # IMF q on any u64, has no such call) and the K8.reduce.u32 row's call,
+    # whose entry takes it as its library time.
+    r60 = rand(BIG, 4 * q60b)
+    for name, x, q, word in (("K8.reduce", r60, q60b, 64),
+                             ("K8.reduce.u32", e29[0], q29b, 32)):
+        got = ops.reduce_mod(x, q, 4, 1, word)
+        compare(name, got, torch.remainder(x, q),
+                f"reduce_mod IMF 4 -> OMF 1, {q.bit_length()}-bit == "
+                "torch.remainder")
+        kernel_ms = graph_ms(lambda x=x, q=q, word=word: ops.reduce_mod(
+            x, q, 4, 1, word), 20)
+        library_ms = graph_ms(lambda x=x, q=q: torch.remainder(x, q), 20)
+        entry = next(e for e in entries if e["name"].startswith(name + " "))
+        if name == "K8.reduce.u32":
+            entry["library_ms"] = library_ms
+        else:
+            entry["library_imf4"] = {"call": "torch.remainder",
+                                     "kernel_ms": kernel_ms,
+                                     "library_ms": library_ms}
+        log(f"{name} reduce_mod IMF 4 -> OMF 1, {q.bit_length()}-bit, 2^22 "
+            f"elements: kernel {kernel_ms:.4f} ms, torch.remainder "
+            f"{library_ms:.4f} ms (library/kernel "
+            f"{library_ms / kernel_ms:.3f})")
 
     # The cluster form's launch floor: the cluster probe (an empty kernel)
     # at each entry's grid, cluster shape and shared memory, once a

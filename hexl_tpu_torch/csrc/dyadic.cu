@@ -18,8 +18,15 @@
 // of the grid is one modulus, so a thread reads its row's constants once
 // and walks the coefficients with neighbouring threads on neighbouring
 // addresses; the three sums stay in registers across the weights.
+//
+// A: the approximate Barrett quotient (mult_mod_barrett_approx, one
+// halver at 2q and one at q), which the JAX package takes where its
+// config.approx_butterflies() is on (dyadic.py:46,74 through
+// limb.mult_mod_barrett_traced; lr_mat_vec.py through K.mult_mod). The
+// products are fully reduced either way, so the outputs are the same.
 #include "modarith.cuh"
 
+template <bool A>
 __global__ void dyadic_kernel(const u64* __restrict__ x,
                               const u64* __restrict__ y,
                               u64* __restrict__ out,
@@ -39,11 +46,11 @@ __global__ void dyadic_kernel(const u64* __restrict__ x,
       const long long base = (long long)w * 2 * plane + e;
       const u64 x0 = x[base], x1 = x[base + plane];
       const u64 y0 = y[base], y1 = y[base + plane];
-      const u64 p1 = halve(mult_mod_barrett(x0, y1, q, mu, shift)
-                           + mult_mod_barrett(x1, y0, q, mu, shift), q);
-      s0 = halve(s0 + mult_mod_barrett(x0, y0, q, mu, shift), q);
+      const u64 p1 = halve(mult_mod_barrett_q<A>(x0, y1, q, mu, shift)
+                           + mult_mod_barrett_q<A>(x1, y0, q, mu, shift), q);
+      s0 = halve(s0 + mult_mod_barrett_q<A>(x0, y0, q, mu, shift), q);
       s1 = halve(s1 + p1, q);
-      s2 = halve(s2 + mult_mod_barrett(x1, y1, q, mu, shift), q);
+      s2 = halve(s2 + mult_mod_barrett_q<A>(x1, y1, q, mu, shift), q);
     }
     out[e] = s0;
     out[plane + e] = s1;
@@ -51,9 +58,10 @@ __global__ void dyadic_kernel(const u64* __restrict__ x,
   }
 }
 
+// approx: 0 for the exact quotient, 1 for the approximate one.
 extern "C" int hexl_dyadic(const u64* x, const u64* y, u64* out,
                            const u64* consts, int weights, int moduli,
-                           long long n, cudaStream_t stream) {
+                           long long n, int approx, cudaStream_t stream) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -65,7 +73,11 @@ extern "C" int hexl_dyadic(const u64* x, const u64* y, u64* out,
   long long cap = (long long)sms * 8 / moduli;
   if (cap < 1) cap = 1;
   const dim3 grid((unsigned)(needed < cap ? needed : cap), (unsigned)moduli);
-  dyadic_kernel<<<grid, threads, 0, stream>>>(x, y, out, consts, weights,
-                                              moduli, n);
+  if (approx)
+    dyadic_kernel<true><<<grid, threads, 0, stream>>>(x, y, out, consts,
+                                                      weights, moduli, n);
+  else
+    dyadic_kernel<false><<<grid, threads, 0, stream>>>(x, y, out, consts,
+                                                       weights, moduli, n);
   return (int)cudaGetLastError();
 }

@@ -32,6 +32,16 @@
 // so a thread reads its row's constants once; the 128-bit sum stays in two
 // registers with an explicit carry; neighbouring threads take neighbouring
 // coefficients.
+//
+// Each kernel is a template on A, the approximate quotients the JAX
+// package takes where its config.approx_butterflies() is on: in K10 the
+// two 64-bit Barrett reductions (barrett_reduce_approx) and the fold
+// (mult_mod_barrett_approx) of _barrett_reduce_128 (key_switch.py:34-51;
+// its stacked form _barrett_reduce_128_rows stays exact, and the caller
+// picks A by that rule); in K11's spread the +qk/2 Barrett and the reduce
+// to q_i (:236-247), in its fold the Shoup product of fma_mod at IMF 8
+// (shoup_approx, jnp_kernels.py:110-111). Every output is fully reduced,
+// so both forms give the same bits.
 #include "modarith.cuh"
 
 // Grid: x over coefficients (grid-stride), y over rows.
@@ -49,6 +59,7 @@ static int grid_x(long long n, int rows, unsigned* out) {
   return 0;
 }
 
+template <bool A>
 __global__ void mac_flush_kernel(const u64* __restrict__ t,
                                  const u64* __restrict__ keys,
                                  u64* __restrict__ out,
@@ -73,14 +84,15 @@ __global__ void mac_flush_kernel(const u64* __restrict__ t,
       lo += p_lo;
       hi += __umul64hi(a, b) + (lo < p_lo ? 1 : 0);
     }
-    const u64 hi_red = barrett_reduce(hi, q, q_barr, 1);
-    const u64 lo_red = barrett_reduce(lo, q, q_barr, 1);
-    const u64 folded = mult_mod_barrett(hi_red, r_mod, q, mu, shift);
+    const u64 hi_red = barrett_reduce_q<A>(hi, q, q_barr, 1);
+    const u64 lo_red = barrett_reduce_q<A>(lo, q, q_barr, 1);
+    const u64 folded = mult_mod_barrett_q<A>(hi_red, r_mod, q, mu, shift);
     out[((long long)i * kc + k) * n + c] = halve(folded + lo_red, q);
   }
 }
 
 // x (kc, n) -> out (ds, kc, n); consts (3, ds): q_i, q_barr_i, fix_i.
+template <bool A>
 __global__ void spread_kernel(const u64* __restrict__ x,
                               u64* __restrict__ out,
                               const u64* __restrict__ consts, u64 qk,
@@ -91,14 +103,15 @@ __global__ void spread_kernel(const u64* __restrict__ x,
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        e < count; e += stride) {
-    const u64 v = barrett_reduce(x[e] + qk_half, qk, qk_barr, 1);
-    const u64 r = qk > q && v >= q ? barrett_reduce(v, q, q_barr, 1) : v;
+    const u64 v = barrett_reduce_q<A>(x[e] + qk_half, qk, qk_barr, 1);
+    const u64 r = qk > q && v >= q ? barrett_reduce_q<A>(v, q, q_barr, 1) : v;
     out[(long long)i * count + e] = r + fix;
   }
 }
 
 // result (kc, ds, n), tpp (>= ds rows, kc, n), tntt (ds, kc, n) -> out
 // (kc, ds, n); consts (3, ds): q_i, w_i, w_precon_i.
+template <bool A>
 __global__ void fold_kernel(const u64* __restrict__ result,
                             const u64* __restrict__ tpp,
                             const u64* __restrict__ tntt,
@@ -113,41 +126,59 @@ __global__ void fold_kernel(const u64* __restrict__ result,
   for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        c < n; c += stride) {
     const u64 x = reduce_lazy8(tpp[src + c] + 4 * q - tntt[src + c], q, 8);
-    const u64 prod = halve(shoup(x, w, wp, q), q);
+    const u64 prod = halve(A ? shoup_approx(x, w, wp, q) : shoup(x, w, wp, q),
+                           q);
     out[dst + c] = halve(result[dst + c] + prod, q);
   }
 }
 
+// Each entry's approx: 0 for the exact quotients, 1 for the approximate
+// ones.
 extern "C" int hexl_ks_mac_flush(const u64* t, const u64* keys, u64* out,
                                  const u64* consts, int rns, int ds, int kc,
-                                 int kms, long long n, cudaStream_t stream) {
+                                 int kms, long long n, int approx,
+                                 cudaStream_t stream) {
   unsigned gx = 0;
   const int err = grid_x(n, rns * kc, &gx);
   if (err) return err;
-  mac_flush_kernel<<<dim3(gx, rns * kc), 256, 0, stream>>>(
-      t, keys, out, consts, rns, ds, kc, kms, n);
+  const dim3 grid(gx, rns * kc);
+  if (approx)
+    mac_flush_kernel<true><<<grid, 256, 0, stream>>>(t, keys, out, consts,
+                                                     rns, ds, kc, kms, n);
+  else
+    mac_flush_kernel<false><<<grid, 256, 0, stream>>>(t, keys, out, consts,
+                                                      rns, ds, kc, kms, n);
   return (int)cudaGetLastError();
 }
 
 extern "C" int hexl_ks_spread(const u64* x, u64* out, const u64* consts,
                               u64 qk, u64 qk_barr, u64 qk_half, int ds,
-                              long long count, cudaStream_t stream) {
+                              long long count, int approx,
+                              cudaStream_t stream) {
   unsigned gx = 0;
   const int err = grid_x(count, ds, &gx);
   if (err) return err;
-  spread_kernel<<<dim3(gx, ds), 256, 0, stream>>>(x, out, consts, qk, qk_barr,
-                                                  qk_half, ds, count);
+  if (approx)
+    spread_kernel<true><<<dim3(gx, ds), 256, 0, stream>>>(
+        x, out, consts, qk, qk_barr, qk_half, ds, count);
+  else
+    spread_kernel<false><<<dim3(gx, ds), 256, 0, stream>>>(
+        x, out, consts, qk, qk_barr, qk_half, ds, count);
   return (int)cudaGetLastError();
 }
 
 extern "C" int hexl_ks_fold(const u64* result, const u64* tpp,
                             const u64* tntt, u64* out, const u64* consts,
-                            int ds, int kc, long long n,
+                            int ds, int kc, long long n, int approx,
                             cudaStream_t stream) {
   unsigned gx = 0;
   const int err = grid_x(n, ds * kc, &gx);
   if (err) return err;
-  fold_kernel<<<dim3(gx, ds * kc), 256, 0, stream>>>(result, tpp, tntt, out,
-                                                     consts, ds, kc, n);
+  if (approx)
+    fold_kernel<true><<<dim3(gx, ds * kc), 256, 0, stream>>>(
+        result, tpp, tntt, out, consts, ds, kc, n);
+  else
+    fold_kernel<false><<<dim3(gx, ds * kc), 256, 0, stream>>>(
+        result, tpp, tntt, out, consts, ds, kc, n);
   return (int)cudaGetLastError();
 }

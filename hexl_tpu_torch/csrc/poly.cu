@@ -37,11 +37,15 @@
 // would outnumber the SMs: there the card showed it faster, the cluster's
 // second CTA then sharing an SM instead of filling an idle one.
 //
-// Both forms are templates on the butterfly scheme S: EXACT, or APPROX,
-// the approximate Shoup quotient the Pallas kernel runs for q < 2^61
-// (pallas_ntt.py::_butterflies, modarith.cuh). The product's output is
-// fully reduced, so it is the same in both; the Barrett product stays
-// exact (its output is fully reduced either way).
+// Both forms are templates on the butterfly scheme S: EXACT; APPROX, the
+// approximate Shoup quotient the Pallas kernel runs for q < 2^61
+// (pallas_ntt.py::_butterflies, modarith.cuh); or LEAN16/LEAN8, the
+// butterflies of the XLA body _poly_mult_xla (poly.py:93-97, jnp_ntt.py's
+// _bflys3) where the JAX package's approximation is on. Every scheme but
+// EXACT comes from that switch, under which the JAX bodies' mult_mod
+// takes the approximate Barrett quotient too (jnp_kernels.py:84-86), and
+// so does the product here (mult_mod_barrett_q). The product's output is
+// fully reduced, so it is the same in every scheme.
 #include <cooperative_groups.h>
 
 #include "ntt_block.cuh"
@@ -54,24 +58,27 @@ struct Barrett {
   int shift;
 };
 
-// The product of two forward outputs in [0, 4q), in [0, q).
+// The product of two forward outputs in [0, 4q), in [0, q): the exact
+// Barrett quotient in the exact scheme, the approximate one in the others.
+template <int S>
 __device__ __forceinline__ u64 product(u64 a, u64 b, const Barrett& m) {
-  return mult_mod_barrett(reduce_lazy<u64>(a, m.q, 4),
-                          reduce_lazy<u64>(b, m.q, 4), m.q, m.mu, m.shift);
+  return mult_mod_barrett_q<S != EXACT>(reduce_lazy<u64>(a, m.q, 4),
+                                        reduce_lazy<u64>(b, m.q, 4), m.q,
+                                        m.mu, m.shift);
 }
 
 // The inverse's first-pass group u (R consecutive positions j at s = 0) of
 // the product of two forward outputs, position j of each at the radix slot
 // of ja + j in fa and of jb + j in fb.
-template <int LOGR>
+template <int S, int LOGR>
 __device__ __forceinline__ void product_row(u64 (&v)[1 << LOGR],
                                             const u64* fa, const u64* fb,
                                             int ja, int jb, int u,
                                             const Barrett& m) {
   static_for<0, (1 << LOGR)>([&](auto i) {
     const int j = (u << LOGR) + decltype(i)::value;
-    v[i] = product(fa[radix_slot<LOGR>(ja + j)], fb[radix_slot<LOGR>(jb + j)],
-                   m);
+    v[i] = product<S>(fa[radix_slot<LOGR>(ja + j)],
+                      fb[radix_slot<LOGR>(jb + j)], m);
   });
 }
 
@@ -106,7 +113,7 @@ __global__ void __launch_bounds__(1024)
   radix_inv_passes<u64, S, LOGR, 1, LOGN - 1, false, false>(
       mine,
       [&](auto& v, int, int u) {
-        product_row<LOGR>(v, sm, other, r * HALF, r * HALF, u, m);
+        product_row<S, LOGR>(v, sm, other, r * HALF, r * HALF, u, m);
       },
       [&](auto& v, int, int u, int s) { radix_put<u64, LOGR>(mine, v, u, s); },
       LOGN - 1, LOGN, r, 1, 0, irop1, pirop1, q, fin, 1);
@@ -130,9 +137,11 @@ __global__ void __launch_bounds__(1024)
 
 // The one-CTA form: n / R threads, the two forwards as two packed
 // transforms (group h of a thread is operand h's), the inverse of the
-// product stored through its fused final stage.
+// product stored through its fused final stage. The form with log_n a
+// run-time value (LOGN = 0) serves n <= 2^9, at most 64 threads: its
+// launch bound says so (at 1024 the lean16 instantiation spilled).
 template <int S, int LOGR, int LOGN>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(LOGN ? 1024 : 64)
     poly_cta_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
                     u64* __restrict__ out, const u64* __restrict__ rop,
                     const u64* __restrict__ prop,
@@ -150,7 +159,7 @@ __global__ void __launch_bounds__(1024)
   radix_inv_passes<u64, S, LOGR, 1, LOGN, true, false>(
       sm,
       [&](auto& v, int, int u) {
-        product_row<LOGR>(v, sm, sm, 0, 1 << log_n, u, m);
+        product_row<S, LOGR>(v, sm, sm, 0, 1 << log_n, u, m);
       },
       [&](auto& v, int, int u, int s) {
         static_for<0, (1 << LOGR)>([&](auto i) {
@@ -217,16 +226,20 @@ static int with_cta_kernel(int log_n, F&& f) {
   }
 }
 
-// f(Index<S>{}) for scheme code `scheme`: EXACT or APPROX.
+// f(Index<S>{}) for scheme code `scheme`: every Scheme.
 template <typename F>
 static int with_poly_scheme(int scheme, F&& f) {
-  if (scheme == EXACT) return f(Index<EXACT>{});
-  if (scheme == APPROX) return f(Index<APPROX>{});
-  return (int)cudaErrorInvalidValue;
+  switch (scheme) {
+    case EXACT: return f(Index<EXACT>{});
+    case LEAN16: return f(Index<LEAN16>{});
+    case LEAN8: return f(Index<LEAN8>{});
+    case APPROX: return f(Index<APPROX>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // form: CLUSTER (2^12 <= n <= 2^14) or ONE_CTA (n <= 2^13); scheme: a
-// Scheme code, EXACT or APPROX (q < 2^61).
+// Scheme code (LEAN16 q < 2^60, LEAN8 and APPROX q < 2^61).
 extern "C" int hexl_poly_mult(const u64* a, const u64* b, u64* out,
                               const u64* rop, const u64* prop,
                               const u64* irop, const u64* pirop, u64 q,

@@ -6,8 +6,13 @@ ciphertexts per modulus in NTT form give three polynomials per modulus,
 (x0*y0, x0*y1 + x1*y0, x1*y1) mod q_i. `dyadic` also takes a leading
 weights axis, summed in, which `lr_mat_vec_mult` uses. A tensor on the GPU
 goes to K9 (its source note says what bounds it on an H100), a tensor on
-the CPU to `dyadic_plain`. Every output is fully reduced, so it equals the
-JAX package's bit for bit. Launches are counted under "K9".
+the CPU to `dyadic_plain`. Where `config.approx_butterflies` is on for
+the operands' device, the Barrett products take the approximate quotient,
+as the JAX package's do where its switch is on (dyadic.py:46,74,
+`limb.mult_mod_barrett_traced(..., approx)`; lr_mat_vec.py's `K.mult_mod`):
+K9's instantiation on it (launch name "K9.approx") or the plain version
+with `approx=True`. Every output is fully reduced, so it equals the JAX
+package's bit for bit either way. Launches are counted under "K9".
 """
 
 from __future__ import annotations
@@ -18,12 +23,13 @@ import functools
 import numpy as np
 import torch
 
-from .. import _build, _device, nt
+from .. import _build, _device, config, nt
 from ..limb import cond_sub64_half, mult_mod_barrett_rows, to_numpy, to_tensor
 from ..ntt.plan import register_clear_hook
 
 _P = ctypes.c_void_p
-_ARGS = (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int64, _P)
+_ARGS = (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+         ctypes.c_int, _P)
 
 
 @functools.lru_cache(maxsize=None)
@@ -38,14 +44,15 @@ def row_constants(moduli: tuple, device: torch.device) -> torch.Tensor:
 register_clear_hook(row_constants.cache_clear)
 
 
-def dyadic_plain(x: torch.Tensor, y: torch.Tensor,
-                 consts: torch.Tensor) -> torch.Tensor:
+def dyadic_plain(x: torch.Tensor, y: torch.Tensor, consts: torch.Tensor,
+                 approx: bool = False) -> torch.Tensor:
     """The plain version: x, y (W, 2, M, n) -> (3, M, n), the dyadic
-    products summed over the weights by exact add_mods."""
+    products (with the approximate quotient where `approx`) summed over
+    the weights by exact add_mods."""
     q, mu, shift = (consts[k].view(-1, 1) for k in range(3))
 
     def mm(a, b):
-        return mult_mod_barrett_rows(a, b, q, mu, shift)
+        return mult_mod_barrett_rows(a, b, q, mu, shift, approx)
 
     def add(a, b):
         return cond_sub64_half(a + b, q)
@@ -61,7 +68,8 @@ def dyadic_plain(x: torch.Tensor, y: torch.Tensor,
 def dyadic(x: torch.Tensor, y: torch.Tensor, moduli) -> torch.Tensor:
     """sum over w of the dyadic products of x[w] and y[w], (W, 2, M, n)
     each, mod moduli[m] along M: K9 on the GPU, the plain version on the
-    CPU."""
+    CPU; the Barrett quotient approximate where `config.approx_butterflies`
+    is on for x's device."""
     moduli = tuple(int(q) for q in moduli)
     if x.shape != y.shape or x.dim() != 4 or x.shape[1] != 2 \
             or x.shape[2] != len(moduli) or x.shape[0] < 1:
@@ -72,15 +80,17 @@ def dyadic(x: torch.Tensor, y: torch.Tensor, moduli) -> torch.Tensor:
         if not 2 < q < (1 << 62):
             raise ValueError("moduli must be in (2, 2^62)")
     consts = row_constants(moduli, x.device)
+    approx = config.approx_butterflies(x.device)
     if not _build.on_card(x, y):
-        return dyadic_plain(x, y, consts)
+        return dyadic_plain(x, y, consts, approx)
     weights, _, m, n = x.shape
     out = torch.empty((3, m, n), dtype=torch.int64, device=x.device)
     if n == 0:
         return out
     fn = _build.function("dyadic", "hexl_dyadic", _ARGS)
-    _build.launch_on(x.device, "K9", fn, x.data_ptr(), y.data_ptr(),
-                     out.data_ptr(), consts.data_ptr(), weights, m, n)
+    _build.launch_on(x.device, "K9.approx" if approx else "K9", fn,
+                     x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                     consts.data_ptr(), weights, m, n, int(approx))
     return out
 
 

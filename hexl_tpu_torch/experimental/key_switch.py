@@ -28,6 +28,17 @@ the whole pipeline on the plain versions on any device. Every output is
 fully reduced, so each equals the JAX package's bit for bit. Launches are
 counted under "K10" and "K11" (and those of the NTTs and of K8 under
 theirs).
+
+Where `config.approx_butterflies` is on for the operands' device, the
+steps take the approximate quotients the JAX function takes where its
+switch is on (`jnp_kernels._approx()`): the base conversion's and the
+spread's reductions, the spread's +qk/2 Barrett (key_switch.py:236-247),
+the fold's Shoup product of fma_mod at IMF 8 (:281-282) and, by the JAX
+function's own rule (`pipeline`), the flush of the multiply-accumulate
+(`_barrett_reduce_128`, :34-51): the kernels' instantiations on them
+(launch names "K10.approx", "K11.approx", "K8.reduce.rows.approx" ...) or
+the plain versions with `approx=True`. The transforms stay exact. Every
+output is fully reduced, so the bits are the same either way.
 """
 
 from __future__ import annotations
@@ -43,8 +54,9 @@ import torch
 from .. import _build, _device, nt
 from ..eltwise import ops, torch_kernels
 from ..limb import (add128, cond_sub64_half, mul64_wide, mulhi64,
-                    mult_mod_barrett_rows, reduce_mod_lazy64, shoup_mul_lazy,
-                    to_numpy, to_tensor)
+                    mulhi64_approx, mult_mod_barrett_rows, reduce_mod_lazy64,
+                    shoup_mul_lazy, shoup_mul_lazy_approx, to_numpy,
+                    to_tensor)
 from ..ntt import (cuda_ntt, get_plan, get_rns_plan, register_clear_hook,
                    rns, torch_ntt)
 
@@ -52,9 +64,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint64
 _L = ctypes.c_int64
-_MAC_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _L, _P)
-_SPREAD_ARGS = (_P, _P, _P, _U, _U, _U, _I, _L, _P)
-_FOLD_ARGS = (_P, _P, _P, _P, _P, _I, _I, _L, _P)
+_MAC_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P)
+_SPREAD_ARGS = (_P, _P, _P, _U, _U, _U, _I, _L, _I, _P)
+_FOLD_ARGS = (_P, _P, _P, _P, _P, _I, _I, _L, _I, _P)
 
 
 def _column(rows, device) -> torch.Tensor:
@@ -98,11 +110,13 @@ register_clear_hook(constants.cache_clear)
 # -- plain versions ------------------------------------------------------------
 
 def mac_flush_plain(t: torch.Tensor, keys: torch.Tensor, consts: torch.Tensor,
-                    ds: int, kc: int, kms: int) -> torch.Tensor:
+                    ds: int, kc: int, kms: int,
+                    approx: bool = False) -> torch.Tensor:
     """t (ds + 1, ds, n), keys (ds, kc, kms, n) -> (ds + 1, kc, n): the
     128-bit sums over j of t[i][j] * keys[j][k][key_idx(i)], reduced mod
-    q_i, where key_idx(i) is i for the decomposition rows and kms - 1 for
-    the key prime's row. The key rows are gathered by slicing, which
+    q_i (with the approximate quotients of `_barrett_reduce_128` where
+    `approx`), where key_idx(i) is i for the decomposition rows and kms - 1
+    for the key prime's row. The key rows are gathered by slicing, which
     needs no index tensor (and so no host copy inside a CUDA graph)."""
     k_rows = torch.cat([keys[:, :, :ds], keys[:, :, kms - 1:kms]], dim=2)
     k_rows = k_rows.permute(2, 0, 1, 3).contiguous()     # (ds + 1, ds, kc, n)
@@ -113,74 +127,94 @@ def mac_flush_plain(t: torch.Tensor, keys: torch.Tensor, consts: torch.Tensor,
     q, q_barr, r_mod, mu, shift = (consts[c].view(-1, 1, 1) for c in range(5))
 
     def reduce(x):
-        return cond_sub64_half(x - mulhi64(x, q_barr) * q, q)
+        if approx:
+            r = cond_sub64_half(x - mulhi64_approx(x, q_barr) * q, 2 * q)
+        else:
+            r = x - mulhi64(x, q_barr) * q
+        return cond_sub64_half(r, q)
 
-    folded = mult_mod_barrett_rows(reduce(hi), r_mod, q, mu, shift)
+    folded = mult_mod_barrett_rows(reduce(hi), r_mod, q, mu, shift, approx)
     return cond_sub64_half(folded + reduce(lo), q)
 
 
-def spread_plain(x: torch.Tensor, c: SimpleNamespace) -> torch.Tensor:
-    """x (kc, n) in [0, 2qk) -> (ds, kc, n) in [0, 2 q_i)."""
-    v = torch_kernels.barrett_reduce(x + c.qk_half, c.qk, 1)
+def spread_plain(x: torch.Tensor, c: SimpleNamespace,
+                 approx: bool = False) -> torch.Tensor:
+    """x (kc, n) in [0, 2qk) -> (ds, kc, n) in [0, 2 q_i); the reductions
+    with the approximate quotient where `approx`."""
+    v = torch_kernels.barrett_reduce(x + c.qk_half, c.qk, 1, approx)
     out = []
     for q, fix in zip(c.moduli, c.fix):
-        r = torch_kernels.reduce_mod(v, q, q, 1) if c.qk > q else v
+        r = torch_kernels.reduce_mod(v, q, q, 1, approx) if c.qk > q else v
         out.append(r + fix)
     return torch.stack(out)
 
 
 def fold_plain(result: torch.Tensor, tpp: torch.Tensor, tntt: torch.Tensor,
-               c: SimpleNamespace) -> torch.Tensor:
+               c: SimpleNamespace, approx: bool = False) -> torch.Tensor:
     """result (kc, ds, n), tpp (>= ds rows, kc, n), tntt (ds, kc, n) ->
-    (kc, ds, n)."""
+    (kc, ds, n); the Shoup product with the approximate quotient where
+    `approx`."""
     out = []
     for i, (q, w, wp) in enumerate(zip(c.moduli, c.w, c.wp)):
         x = reduce_mod_lazy64(tpp[i] + 4 * q - tntt[i], q, 8)
-        prod = cond_sub64_half(shoup_mul_lazy(x, w, wp, q), q)
+        prod = (shoup_mul_lazy_approx(x, w, wp, q) if approx
+                else shoup_mul_lazy(x, w, wp, q))
+        prod = cond_sub64_half(prod, q)
         out.append(cond_sub64_half(result[:, i] + prod, q))
     return torch.stack(out, dim=1)
 
 
 # -- the kernel wrappers ---------------------------------------------------------
 
+def _name(kernel: str, approx: bool) -> str:
+    return kernel + (".approx" if approx else "")
+
+
 def mac_flush(t: torch.Tensor, keys: torch.Tensor, c: SimpleNamespace,
-              ds: int, kc: int, kms: int) -> torch.Tensor:
-    """K10 on the GPU, `mac_flush_plain` on the CPU."""
+              ds: int, kc: int, kms: int, approx: bool = False
+              ) -> torch.Tensor:
+    """K10 (its approximate-quotient instantiation where `approx`) on the
+    GPU, `mac_flush_plain` on the CPU."""
     if not _build.on_card(t, keys, c.mac):
-        return mac_flush_plain(t, keys, c.mac, ds, kc, kms)
+        return mac_flush_plain(t, keys, c.mac, ds, kc, kms, approx)
     rns, _, n = t.shape
     out = torch.empty((rns, kc, n), dtype=torch.int64, device=t.device)
     fn = _build.function("key_switch", "hexl_ks_mac_flush", _MAC_ARGS)
-    _build.launch_on(t.device, "K10", fn, t.data_ptr(), keys.data_ptr(),
-                     out.data_ptr(), c.mac.data_ptr(), rns, ds, kc, kms, n)
+    _build.launch_on(t.device, _name("K10", approx), fn, t.data_ptr(),
+                     keys.data_ptr(), out.data_ptr(), c.mac.data_ptr(), rns,
+                     ds, kc, kms, n, int(approx))
     return out
 
 
-def spread(x: torch.Tensor, c: SimpleNamespace) -> torch.Tensor:
-    """K11's spread on the GPU, `spread_plain` on the CPU."""
+def spread(x: torch.Tensor, c: SimpleNamespace,
+           approx: bool = False) -> torch.Tensor:
+    """K11's spread (approximate where `approx`) on the GPU, `spread_plain`
+    on the CPU."""
     if not _build.on_card(x, c.spread):
-        return spread_plain(x, c)
+        return spread_plain(x, c, approx)
     ds = c.spread.shape[1]
     out = torch.empty((ds,) + tuple(x.shape), dtype=torch.int64,
                       device=x.device)
     fn = _build.function("key_switch", "hexl_ks_spread", _SPREAD_ARGS)
-    _build.launch_on(x.device, "K11", fn, x.data_ptr(), out.data_ptr(),
-                     c.spread.data_ptr(), c.qk, c.qk_barr, c.qk_half, ds,
-                     x.numel())
+    _build.launch_on(x.device, _name("K11", approx), fn, x.data_ptr(),
+                     out.data_ptr(), c.spread.data_ptr(), c.qk, c.qk_barr,
+                     c.qk_half, ds, x.numel(), int(approx))
     return out
 
 
 def fold(result: torch.Tensor, tpp: torch.Tensor, tntt: torch.Tensor,
-         c: SimpleNamespace) -> torch.Tensor:
-    """K11's fold on the GPU, `fold_plain` on the CPU."""
+         c: SimpleNamespace, approx: bool = False) -> torch.Tensor:
+    """K11's fold (approximate where `approx`) on the GPU, `fold_plain` on
+    the CPU."""
     if not _build.on_card(result, tpp, tntt, c.fold):
-        return fold_plain(result, tpp, tntt, c)
+        return fold_plain(result, tpp, tntt, c, approx)
     kc, ds, n = result.shape
     out = torch.empty_like(result)
     fn = _build.function("key_switch", "hexl_ks_fold", _FOLD_ARGS)
-    _build.launch_on(result.device, "K11", fn, result.data_ptr(),
-                     tpp.data_ptr(), tntt.data_ptr(), out.data_ptr(),
-                     c.fold.data_ptr(), ds, kc, n)
+    _build.launch_on(result.device, _name("K11", approx), fn,
+                     result.data_ptr(), tpp.data_ptr(), tntt.data_ptr(),
+                     out.data_ptr(), c.fold.data_ptr(), ds, kc, n,
+                     int(approx))
     return out
 
 
@@ -218,9 +252,13 @@ def assemble(off: torch.Tensor, diag: torch.Tensor,
 # transforms take for a prime, `rns_plan` what the stacked transforms take
 # for a basis; `constants` the basis's constants, as the other steps take
 # them; take, stack, unbind, others and assemble act on the pipeline's
-# values (tensors here, sharded values in `parallel.composites`).
+# values (tensors here, sharded values in `parallel.composites`);
+# `approx` says whether a value's device takes the approximate quotients,
+# `row_flush` whether the flush is the JAX function's per-row one whatever
+# the bit lengths (`pipeline`).
 _TENSORS = dict(
-    plan=get_plan, rns_plan=get_rns_plan,
+    plan=get_plan, rns_plan=get_rns_plan, approx=ops.approx_for,
+    row_flush=False,
     constants=lambda moduli, msf, ds, like: constants(moduli, msf, ds,
                                                       like.device),
     take=lambda x, i: x[i], stack=torch.stack,
@@ -234,12 +272,27 @@ WRAPPERS = SimpleNamespace(
 PLAIN = SimpleNamespace(
     **_TENSORS, fwd=torch_ntt.fwd_ntt, inv=torch_ntt.inv_ntt,
     fwd_rns=rns.fwd_ntt_rns_plain, inv_rns=rns.inv_ntt_rns_plain,
-    reduce=lambda x, q: torch_kernels.reduce_mod(x, q, q, 1),
+    reduce=lambda x, q: torch_kernels.reduce_mod(x, q, q, 1,
+                                                 ops.approx_for(x)),
     reduce_rows=lambda x, moduli: torch_kernels.reduce_mod_rows(
-        x, ops.row_constants(tuple(moduli), x.device), 1),
-    mac_flush=lambda t, keys, c, ds, kc, kms: mac_flush_plain(
-        t, keys, c.mac, ds, kc, kms),
+        x, ops.row_constants(tuple(moduli), x.device), 1, ops.approx_for(x)),
+    mac_flush=lambda t, keys, c, ds, kc, kms, approx: mac_flush_plain(
+        t, keys, c.mac, ds, kc, kms, approx),
     spread=spread_plain, fold=fold_plain)
+
+
+def flush_approx(steps, moduli, ds: int, approx: bool) -> bool:
+    """Whether the flush takes the approximate quotients: only where the
+    JAX key switch runs `_barrett_reduce_128`, which takes them under its
+    switch (key_switch.py:34-51) — its per-row branch, for flushed rows
+    (the ds decomposition primes and the key prime) of differing bit
+    lengths (key_switch.py:191-192, 210-224; its other case, one row, is
+    refused by `arguments`), and every row of its mesh key switch
+    (parallel/composites.py:138, `steps.row_flush`). Its stacked branch,
+    `_barrett_reduce_128_rows` (:191-209), stays exact."""
+    rows = tuple(moduli[:ds]) + (moduli[-1],)
+    return approx and (steps.row_flush
+                       or len({q.bit_length() for q in rows}) > 1)
 
 
 def pipeline(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
@@ -251,6 +304,7 @@ def pipeline(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
     targets as one (ds, ds - 1, n) block and the mod-down's forwards; else
     one call a prime."""
     c = steps.constants(moduli, msf, ds, t_target)
+    approx = steps.approx(t_target)
     plans = [steps.plan(n, q) for q in moduli[:ds]] + [steps.plan(n,
                                                                  moduli[-1])]
     if ds > 1 and len(set(moduli[:ds])) == ds:
@@ -286,18 +340,19 @@ def pipeline(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
                 ops_i.insert(i, steps.take(t_target, i))
             rows.append(steps.stack(ops_i))
         t_rows = steps.stack(rows)
-    tpp = steps.mac_flush(t_rows, keys, c, ds, kc, kms)
+    tpp = steps.mac_flush(t_rows, keys, c, ds, kc, kms,
+                          flush_approx(steps, moduli, ds, approx))
     # Mod-down: the key prime's row, (2, 2) inverse; the spread to every
     # q_i; the (4, 4) forward NTTs (stacked where the transforms above
     # were); the fold into result.
     t_last = steps.inv(steps.take(tpp, ds), plans[ds], 2, 2)
-    spread_out = steps.spread(t_last, c)
+    spread_out = steps.spread(t_last, c, approx)
     if rplan is not None:
         t_ntt = steps.fwd_rns(spread_out, rplan, 4, 4)
     else:
         t_ntt = steps.stack([steps.fwd(steps.take(spread_out, i), plans[i],
                                        4, 4) for i in range(ds)])
-    return steps.fold(result, tpp, t_ntt, c)
+    return steps.fold(result, tpp, t_ntt, c, approx)
 
 
 def arguments(result, t_target, n, ds, kms, rns, kc, moduli, keys, msf,

@@ -5,7 +5,8 @@ product of each weight's ciphertext pair, summed over the weights. The JAX
 package sums by an adder tree of exact add_mods of fully reduced values,
 so any order gives the same bits: here the sum runs inside one launch of
 K9 (`dyadic.dyadic` with the weights axis), or its plain version on the
-CPU.
+CPU, with the approximate Barrett quotient where `config.approx_butterflies`
+is on, as the JAX package's `K.mult_mod` takes it where its switch is on.
 """
 
 from __future__ import annotations

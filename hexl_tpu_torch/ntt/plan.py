@@ -11,7 +11,7 @@ the per-shard stacked copies of `hier.HierTables`, have no counterpart:
 every walk reads the flat tables, a shard at its offset in them.)
 
 The twiddle tables are HEXL's only state, the role weights play in a model;
-`NttPlan.build` takes them from the host library (`native.root_tables`,
+`NttPlan(N, q)` takes them from the host library (`native.root_tables`,
 built with g++; the Python tables below are the plain versions, taken with
 HEXL_TPU_DISABLE_NATIVE set), `plan_from_arrays` carries them over from
 another plan's host arrays, and `save_plan_cache`/`load_plan_cache` keep
@@ -108,8 +108,42 @@ class NttPlan:
     Host tables are numpy uint64; `tables(device)` gives int64 tensors of
     the same bits on a device, copied once per device."""
 
-    def __init__(self, degree: int, modulus: int, root: int, rop, prop, irop,
-                 pirop):
+    def __init__(self, degree: int, modulus: int, root: int | None = None,
+                 device=None):
+        """The JAX plan's constructor: check (N, q), take the minimal
+        primitive 2N-th root when none is given (refusing one that is not
+        primitive), build the tables, and with `device` copy them there."""
+        check_arguments(degree, modulus)
+        if root is None:
+            root = nt.minimal_primitive_root(2 * degree, modulus)
+        elif not nt.is_primitive_root(root, 2 * degree, modulus):
+            raise ValueError(f"{root} is not a primitive {2 * degree}-th "
+                             f"root of unity mod {modulus}")
+        tables = native.root_tables(degree, modulus, root)
+        if tables is not None:
+            rop, irop, prop, pirop = tables
+        else:
+            rop, irop = root_of_unity_powers(degree, modulus, root)
+            prop, pirop = precon(rop, modulus, 64), precon(irop, modulus, 64)
+        self._set_tables(degree, modulus, root, rop, prop, irop, pirop)
+        if device is not None:
+            self.tables(device)
+
+    @classmethod
+    def from_tables(cls, degree: int, modulus: int, root: int, rop, prop,
+                    irop, pirop) -> "NttPlan":
+        """A plan of host tables already computed (unchecked: see
+        `plan_from_arrays` for the checked form)."""
+        plan = cls.__new__(cls)
+        plan._set_tables(degree, modulus, root, rop, prop, irop, pirop)
+        return plan
+
+    @classmethod
+    def build(cls, degree: int, modulus: int, root: int | None = None
+              ) -> "NttPlan":
+        return cls(degree, modulus, root)
+
+    def _set_tables(self, degree, modulus, root, rop, prop, irop, pirop):
         self.n = degree
         self.q = modulus
         self.log_n = nt.log2_exact(degree)
@@ -137,23 +171,6 @@ class NttPlan:
         q < 2^30 with N >= 1024 runs the single-word transform, whose lazy
         outputs differ in value from the 64-bit walk's."""
         return self.bit_shift == 32 and self.n >= MIN_2D_N
-
-    @classmethod
-    def build(cls, degree: int, modulus: int, root: int | None = None
-              ) -> "NttPlan":
-        check_arguments(degree, modulus)
-        if root is None:
-            root = nt.minimal_primitive_root(2 * degree, modulus)
-        elif not nt.is_primitive_root(root, 2 * degree, modulus):
-            raise ValueError(f"{root} is not a primitive {2 * degree}-th "
-                             f"root of unity mod {modulus}")
-        tables = native.root_tables(degree, modulus, root)
-        if tables is not None:
-            rop, irop, prop, pirop = tables
-        else:
-            rop, irop = root_of_unity_powers(degree, modulus, root)
-            prop, pirop = precon(rop, modulus, 64), precon(irop, modulus, 64)
-        return cls(degree, modulus, root, rop, prop, irop, pirop)
 
     def tables(self, device) -> Dict[str, torch.Tensor]:
         """rop, prop, irop, pirop (and prop32, pirop32 for q < 2^30) as
@@ -226,7 +243,8 @@ def plan_from_arrays(degree: int, modulus: int, root: int, rop, prop, irop,
             raise ValueError(f"corrupt irop table for {where}")
     if int(irop[degree - 1]) != pow(root_inv, degree // 2, modulus):
         raise ValueError(f"corrupt irop table for {where}")
-    return NttPlan(degree, modulus, root, rop, prop, irop, pirop)
+    return NttPlan.from_tables(degree, modulus, root, rop, prop, irop,
+                               pirop)
 
 
 # -- the cache, its hooks and its disk form ------------------------------------
@@ -254,7 +272,7 @@ def get_plan(degree: int, modulus: int, device=None) -> NttPlan:
         with _CACHE_LOCK:
             plan = _PLAN_CACHE.get(key)
             if plan is None:
-                plan = NttPlan.build(degree, modulus)
+                plan = NttPlan(degree, modulus)
                 _PLAN_CACHE[key] = plan
     if device is not None:
         plan.tables(device)

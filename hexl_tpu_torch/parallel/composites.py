@@ -24,6 +24,7 @@ from typing import Sequence
 import torch
 
 from .. import _device
+from ..eltwise import ops
 from ..limb import to_numpy
 from .dist_ntt import get_dist_ntt
 from .mesh import Mesh, Sharded, gather, local, scatter
@@ -65,7 +66,10 @@ def _mesh_steps(mesh: Mesh) -> SimpleNamespace:
     DistNTT, every other step at each position on its parts. The stacked
     steps run one call a prime, as the JAX package's mesh key switch runs
     them (hexl_tpu/parallel/composites.py:106-126): the transforms through
-    each prime's DistNTT, the base conversion through K8 row by row."""
+    each prime's DistNTT, the base conversion through K8 row by row. The
+    flush is the JAX package's per-row one (composites.py:138), so under
+    the approximation switch every row takes its approximate quotients
+    (`row_flush`)."""
     steps = _ks.WRAPPERS
 
     def take(x, i):
@@ -88,6 +92,7 @@ def _mesh_steps(mesh: Mesh) -> SimpleNamespace:
                                     for q in moduli],
         constants=lambda moduli, msf, ds, like: functools.partial(
             _ks.constants, moduli, msf, ds),
+        approx=lambda x: ops.approx_for(x.parts[0][0]), row_flush=True,
         take=take, stack=stack, unbind=unbind,
         others=lambda x: local(_ks.others, x),
         assemble=lambda off, diag, last: local(_ks.assemble, off, diag,
@@ -99,12 +104,14 @@ def _mesh_steps(mesh: Mesh) -> SimpleNamespace:
         reduce_rows=lambda x, moduli: stack([
             local(lambda p, q=q: steps.reduce(p, q), xi)
             for q, xi in zip(moduli, unbind(x))]),
-        mac_flush=lambda t, keys, c, ds, kc, kms: local(
-            lambda tp, k: steps.mac_flush(tp, k, c(k.device), ds, kc, kms),
-            t, keys),
-        spread=lambda x, c: local(lambda p: steps.spread(p, c(p.device)), x),
-        fold=lambda res, tpp, tn, c: local(
-            lambda r, tp, t: steps.fold(r, tp, t, c(r.device)), res, tpp, tn))
+        mac_flush=lambda t, keys, c, ds, kc, kms, approx: local(
+            lambda tp, k: steps.mac_flush(tp, k, c(k.device), ds, kc, kms,
+                                          approx), t, keys),
+        spread=lambda x, c, approx: local(
+            lambda p: steps.spread(p, c(p.device), approx), x),
+        fold=lambda res, tpp, tn, c, approx: local(
+            lambda r, tp, t: steps.fold(r, tp, t, c(r.device), approx), res,
+            tpp, tn))
 
 
 def dist_key_switch(result, t_target, n: int, decomp_modulus_size: int,

@@ -27,14 +27,17 @@ route of `_poly_mult_staged` (poly.py:83-90): the 64-bit transforms of
 `cuda_ntt` (K5/K6 on the GPU, even for q < 2^30, as the JAX package's are)
 and the mult_mod of K4. Launches are counted in `_build.launches` under
 the form's name (and the kernels of the staged route under theirs). Where
-`config.approx_butterflies` says so, the staged route's transforms run the
-approximate-quotient butterflies that the modulus (for an RNS basis, its
-largest, as the JAX stacked pipeline does) allows; K3 and the plain chain
-stay exact in the lean schemes. Both forms of K3 and the plain chain also
-run the "approx" scheme, the butterflies the TPU kernel
-`_poly_mult_pallas` runs for q < 2^61 (launches "K3.approx",
-"K3.cta.approx"). Every output is fully reduced, so the scheme changes no
-bit of it.
+`config.approx_butterflies` says so, every route runs the approximate-
+quotient butterflies that the modulus (for an RNS basis, its largest, as
+the JAX stacked pipeline does) allows, as the JAX package's XLA body
+`_poly_mult_xla` does (poly.py:93-97): lean16 or lean8 (`torch_ntt.
+scheme_for`), K3 too (launches "K3.lean16", "K3.lean8", "K3.cta.lean16",
+"K3.cta.lean8"). Both forms of K3 and the plain chain also run the
+"approx" scheme, the butterflies the TPU kernel `_poly_mult_pallas` runs
+for q < 2^61 (launches "K3.approx", "K3.cta.approx"). In every scheme but
+the exact one, K3's and the plain chain's mult_mod takes the approximate
+Barrett quotient, as the JAX bodies' `K.mult_mod` does under the switch.
+Every output is fully reduced, so the scheme changes no bit of it.
 
 rns_poly_mult_mod runs the same product over an RNS basis, the counterpart
 of `hexl_tpu/poly.py::rns_poly_mult_mod`: for k > 1 distinct primes the
@@ -88,20 +91,14 @@ def forms_of(degree: int) -> list:
             or (f == "cluster" and lo <= degree <= hi)]
 
 
-def k3_scheme(scheme: str) -> str:
-    """K3's butterflies for a call in `scheme`: "approx" stays, the lean
-    schemes (the XLA bodies' form, which the fused kernel does not run)
-    give "exact"."""
-    return scheme if scheme in torch_ntt.HARVEY else "exact"
-
-
 def poly_mult_plain(a: torch.Tensor, b: torch.Tensor, plan,
                     scheme: str = "exact") -> torch.Tensor:
     """The plain chain: fwd (OMF 4) of both, mult_mod at IMF 4, inverse;
-    the transforms in `scheme` ("exact" or "approx")."""
+    the transforms in `scheme`, the mult_mod with the approximate quotient
+    in every scheme but "exact" (`_poly_mult_xla` under the switch)."""
     fa = torch_ntt.fwd_ntt(a, plan, 1, 4, 64, scheme)
     fb = torch_ntt.fwd_ntt(b, plan, 1, 4, 64, scheme)
-    prod = torch_kernels.mult_mod(fa, fb, plan.q, 4)
+    prod = torch_kernels.mult_mod(fa, fb, plan.q, 4, scheme != "exact")
     return torch_ntt.inv_ntt(prod, plan, 1, 1, 64, scheme)
 
 
@@ -121,14 +118,12 @@ def poly_mult(a: torch.Tensor, b: torch.Tensor, plan,
               scheme: str = "exact") -> torch.Tensor:
     """a*b mod (X^N+1, q) on int64 tensors (..., N) of one shape and
     device: K3 (N <= 2^14, in `form_for`'s form) or the staged route on
-    the GPU, the plain chain on the CPU. `scheme` is the staged route's;
-    K3 and the plain chain run `k3_scheme(scheme)`."""
+    the GPU, the plain chain on the CPU, every one in `scheme`."""
     if a.shape != b.shape or a.dim() < 1 or a.shape[-1] != plan.n:
         raise ValueError(f"operands must both have shape (..., {plan.n})")
     torch_ntt.check_scheme(scheme, plan.q)
     if plan.n > cuda_ntt.MAX_KERNEL_DEGREE:
         return poly_mult_staged(a, b, plan, scheme)
-    scheme = k3_scheme(scheme)
     if not _build.on_card(a, b):
         return poly_mult_plain(a, b, plan, scheme)
     out = torch.empty_like(a)

@@ -983,24 +983,29 @@ def test_df_chain_kernel_matches_plain(cuda, precision):
 def test_new_instantiations_do_not_spill(cuda):
     """The approximate instantiations of K5 (lean16, lean8, approx), the
     chain kernels, every radix walk of K1/K6/K7 (four u64 schemes), K2's
-    packed walk, K3's kernels (exact and approx), K12's radix walk, K16
-    and the eltwise bodies' approximate instantiations, from the -Xptxas
-    -v report of the build."""
+    packed walk, K3's kernels (exact, lean16, lean8 and approx), K12's
+    radix walk, K16, the eltwise bodies' approximate instantiations and
+    those of K9, K10 and K11, from the -Xptxas -v report of the build."""
     import re
     res = _build.kernel_resources(_build.build_all()["log"])
     new = {k: v for k, v in res.items()
            if "chain_kernel" in k or re.search(r"kernelIyLi[123]E", k)
            or re.search(r"radix_(packed_)?(fwd|inv)_kernel", k)
            or re.search(r"poly_\w+_kernel", k) or "stage_kernel" in k
-           or re.search(r"eltwise_kernelI\w*Lb1E", k)}
+           or re.search(r"eltwise_kernelI\w*Lb1E", k)
+           or re.search(r"(dyadic|mac_flush|spread|fold)_kernelILb1E", k)}
     radix = [k for k in new if "radix_" in k]
     assert len(radix) == ((4 + 8) * 7 + (1 + 2) * 10 + 2 * 4 * 2
                           + 2 * (6 + 6 + 3)), radix
     k3 = [k for k in new if "poly_" in k]
-    assert len(k3) == 2 * (3 + 6), k3
+    assert len(k3) == 4 * (3 + 6), k3
     assert len([k for k in new if "stage_kernel" in k]) == 2
     assert len([k for k in new if "eltwise_kernel" in k]) == 5
-    assert len(new) >= 3 * 6 * 3 + 2 + 3 + len(radix) + len(k3) + 2 + 5
+    composites = [k for k in new
+                  if re.search(r"(dyadic|mac_flush|spread|fold)_kernel", k)]
+    assert len(composites) == 4, composites
+    assert len(new) >= (3 * 6 * 3 + 2 + 3 + len(radix) + len(k3) + 2 + 5
+                        + len(composites))
     spills = {k: v for k, v in new.items() if v[2] or v[3]}
     assert not spills, spills
 
@@ -1585,3 +1590,116 @@ def test_approx_eltwise_kernels_match_plain(cuda, q_bits, monkeypatch):
         assert torch.equal(ops.reduce_mod_rows(x, moduli, omf),
                            torch_kernels.reduce_mod_rows(x, consts, omf,
                                                          True))
+
+
+# -- the composites' approximate quotients and K3 in the lean schemes ---------
+
+@pytest.fixture
+def approx_switch(monkeypatch):
+    """The approximation switch forced on (`config.approx_butterflies`)."""
+    from hexl_tpu_torch import config
+    monkeypatch.setattr(config, "approx_butterflies", lambda device: True)
+
+
+def _approx_modulus(q_bits, n=1024):
+    """q just above 2^q_bits, or, for 61, the largest prime below 2^61."""
+    if q_bits == 61:
+        return nt.generate_primes(1, 60, False, ntt_size=n)[0]
+    return nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
+
+
+@pytest.mark.parametrize("weights", [1, 3])
+def test_approx_dyadic_kernel_matches_plain(cuda, weights, approx_switch):
+    """K9.approx over moduli of mixed bit lengths against the plain version
+    with the approximate quotient, and (fully reduced) the exact one."""
+    moduli = [_approx_modulus(b) for b in (29, 50, 60, 61)]
+    rng = np.random.default_rng(40 + weights)
+    n = 4099
+    x, y = (torch.stack([torch.stack([torch.stack([
+        _rand(rng, (n,), q, cuda) for q in moduli]) for _ in range(2)])
+        for _ in range(weights)]) for _ in range(2))
+    consts = dyadic_mod.row_constants(tuple(moduli), cuda)
+    _build.reset_launches()
+    got = dyadic_mod.dyadic(x, y, moduli)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"K9.approx": 1}
+    assert torch.equal(got, dyadic_mod.dyadic_plain(x, y, consts, True))
+    assert torch.equal(got, dyadic_mod.dyadic_plain(x, y, consts))
+
+
+@pytest.mark.parametrize("n,bits,kc", [(64, (40, 41, 45), 2),
+                                       (1 << 14, (60, 50, 59, 45), 3),
+                                       (1 << 15, (29, 50, 59, 49), 2)])
+def test_approx_key_switch_kernels_match_plain(cuda, n, bits, kc,
+                                               approx_switch):
+    """K10.approx and K11.approx against their plain versions with the
+    approximate quotients, lazy spread outputs included; the key switch
+    with the switch on (mixed bit lengths: the per-row flush) against the
+    plain pipeline, with its launches by name."""
+    rng = np.random.default_rng(n + 1)
+    result, t, keys, moduli, msf = _key_switch_inputs(rng, n, bits, kc,
+                                                      cuda)
+    ds = len(bits) - 1
+    c = ks_mod.constants(tuple(moduli), tuple(msf), ds, cuda)
+    tq = torch.stack([_rand(rng, (ds, n), 4 * q, cuda)
+                      for q in moduli[:ds] + moduli[-1:]])
+    tpp = ks_mod.mac_flush(tq, keys, c, ds, kc, ds + 1, True)
+    torch.cuda.synchronize()
+    assert torch.equal(tpp, ks_mod.mac_flush_plain(tq, keys, c.mac, ds, kc,
+                                                   ds + 1, True))
+    assert torch.equal(tpp, ks_mod.mac_flush_plain(tq, keys, c.mac, ds, kc,
+                                                   ds + 1))
+    x = _rand(rng, (kc, n), 2 * moduli[-1], cuda)
+    got = ks_mod.spread(x, c, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ks_mod.spread_plain(x, c, True))
+    tntt = torch.stack([_rand(rng, (kc, n), 4 * q, cuda)
+                        for q in moduli[:ds]])
+    got = ks_mod.fold(result, tpp, tntt, c, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ks_mod.fold_plain(result, tpp, tntt, c, True))
+    assert torch.equal(got, ks_mod.fold_plain(result, tpp, tntt, c))
+    _build.reset_launches()
+    got = key_switch(result, t, n, ds, ds + 1, ds + 1, kc, moduli, keys, msf)
+    torch.cuda.synchronize()
+    assert _build.launches["K10.approx"] == 1
+    assert _build.launches["K11.approx"] == 2
+    assert "K10" not in _build.launches and "K11" not in _build.launches
+    assert torch.equal(got, ks_mod.key_switch_plain(
+        result, t, n, ds, ds + 1, ds + 1, kc, moduli, keys, msf))
+
+
+@pytest.mark.parametrize("log_n", range(1, 15))
+@pytest.mark.parametrize("scheme", ["lean16", "lean8"])
+def test_lean_poly_kernel_every_form(cuda, log_n, scheme, monkeypatch):
+    """K3 in lean16 and lean8 in every form it takes, against the plain
+    lean chain (the approximate mult_mod) and the exact K3."""
+    n = 1 << log_n
+    q = _approx_modulus(59 if scheme == "lean16" else 61, n)
+    plan = get_plan(n, q)
+    rng = np.random.default_rng(700 + log_n)
+    a, b = (_rand(rng, (3, n), q, cuda) for _ in range(2))
+    want = poly.poly_mult_plain(a, b, plan, scheme)
+    for form in poly.forms_of(n):
+        monkeypatch.setattr(poly, "form_for", lambda *args, f=form: f)
+        _build.reset_launches()
+        got = poly.poly_mult(a, b, plan, scheme)
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {f"{poly.FORMS[form]}.{scheme}": 1}
+        assert torch.equal(got, want)
+        assert torch.equal(got, poly.poly_mult(a, b, plan))
+
+
+def test_public_lean_product_goes_through_k3(cuda, approx_switch):
+    """poly_mult_mod with the switch on takes the scheme `scheme_for`
+    gives into K3: lean16 at 2^14 (q < 2^60), lean8 at 2^12."""
+    for n, q_bits, scheme, form in ((1 << 14, 59, "lean16", "K3"),
+                                    (1 << 12, 60, "lean8", "K3")):
+        q = _approx_modulus(q_bits, n)
+        rng = np.random.default_rng(n)
+        a, b = (_rand(rng, (4, n), q, cuda) for _ in range(2))
+        _build.reset_launches()
+        got = poly_mult_mod(a, b, n, q)
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {f"{form}.{scheme}": 1}
+        assert torch.equal(got, poly.poly_mult_plain(a, b, get_plan(n, q)))

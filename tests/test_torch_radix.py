@@ -178,7 +178,7 @@ def test_spill_check_counts_every_radix_shape():
     assert len(re.findall(r"return f\(Index<(\d)>\{\}", packed)) == 2
     assert chip_smoke.PACKED_INSTANTIATIONS == 2 * 4 * 2
     # K3: the cluster form's degrees and the one-CTA form's kernels, each
-    # in the two schemes with_poly_scheme dispatches to.
+    # in the four schemes with_poly_scheme dispatches to.
     src = (CSRC / "poly.cu").read_text()
     cluster = re.findall(r"f\(poly_cluster_kernel<S, (\d+)>", src)
     cta = re.findall(r"f\(poly_cta_kernel<S, (\d+), (\d+)>", src)
@@ -186,8 +186,8 @@ def test_spill_check_counts_every_radix_shape():
     assert len(set(cta)) == 6
     schemes = src[src.index("static int with_poly_scheme("):]
     schemes = schemes[:schemes.index("\n}\n")]
-    assert len(re.findall(r"return f\(Index<\w+>\{\}\)", schemes)) == 2
-    assert chip_smoke.POLY_INSTANTIATIONS == 2 * (len(cluster)
+    assert len(re.findall(r"return f\(Index<\w+>\{\}\)", schemes)) == 4
+    assert chip_smoke.POLY_INSTANTIATIONS == 4 * (len(cluster)
                                                   + len(set(cta)))
     # Every other launch is the cluster's, through cudaLaunchKernelEx.
     assert "<<<" not in src.replace("kernel<<<batch", "")
@@ -203,7 +203,13 @@ def test_spill_check_counts_every_radix_shape():
                  "7Barrett8InvFinalIyEi",
                  "_Z12stage_kernelILi3EEvPKyPyS1_S1_y8InvFinalIyEiiiiix",
                  "_Z14eltwise_kernelI7MultModIyLb1EEEvT_PKyS4_S4_Pyx7Scalars",
-                 "_Z17cross_fwd_kernelIyLi3ELi6EEvPKyPyS1_S1_yiix"):
+                 "_Z17cross_fwd_kernelIyLi3ELi6EEvPKyPyS1_S1_yiix",
+                 "_Z19poly_cluster_kernelILi1ELi14EEvPKyS1_PyS1_S1_S1_S1_"
+                 "7Barrett8InvFinalIyE",
+                 "_Z13dyadic_kernelILb1EEvPKyS1_PyS1_iix",
+                 "_Z16mac_flush_kernelILb1EEvPKyS1_PyS1_iiiix",
+                 "_Z13spread_kernelILb1EEvPKyPyS1_yyyix",
+                 "_Z11fold_kernelILb1EEvPKyS1_S1_PyS1_iix"):
         assert chip_smoke.NEW_INSTANTIATION.search(name)
 
 
