@@ -16,7 +16,18 @@ card in turns parent, this tree, this tree, parent:
 (K5's rows at D = 8 .. 64 among them; the key switch at every
 KS_SHAPES entry, its transforms, and the graft pipeline; a DistNTT
 position's local pass at every shape of the fifth path, and each
-fifth-path call, one a graph replay). K5 alone, at
+fifth-path call, one a graph replay; the streaming kernels' rows,
+`stream_runs`: each K8 family and K4 at 2^22 elements, K4 at 2 x 2^12,
+the approximate forms, the row ops, torch.remainder beside K8.reduce at
+IMF 4, K10 and K10.approx at every KS_SHAPES entry at kc 2 and 1, each
+with its share of the bytes bound; every row with its per-turn
+medians). The streaming kernels' rows alone on the port at ROOT, and
+STREAM_VARIANTS' copies of this tree (and PARENT's sources) in turns:
+
+    python3 chip_smoke.py --stream-times ROOT
+    python3 chip_smoke.py --stream-variants [PARENT [ROUNDS [NAMES]]]
+
+K5 alone, at
 every D in both words and forms, and the variants of its tiled form
 against each other:
 
@@ -48,8 +59,9 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
   2. build: every kernel compiled from csrc/ with nvcc for sm_90a, with
      the compiler's -Xptxas -v report (the run fails if a lean, approx,
      chain, radix-walk, K2, K3, K5 tiled-form or K16 instantiation of the
-     NTT or the FFT-like, K3 in any of its four schemes, an eltwise or
-     K9-K11 approximate instantiation, or any of the 133 stacked (RNS) or
+     NTT or the FFT-like, K3 in any of its four schemes, an eltwise body,
+     K10 at any kc, a K9 or K11 approximate instantiation, or any of the
+     133 stacked (RNS) or
      33 cluster-form instantiations, spills; the
      cluster form's most active clusters), K3's most active clusters per
      degree, six probe kernels whose SASS gives the IMADs of a 64x64 and
@@ -70,7 +82,12 @@ Phases, each of which fails the run (non-zero exit) if anything is wrong:
      K7 (the single-word NTT) at every N from 2 to 2^15; K4 and K8 (the
      eltwise family: every op x word x IMF/OMF, every predicate with
      inputs and bounds on both sides of 2^63) for q of 20, 29, 49, 60 and
-     61 bits and the largest prime below 2^62; K9 (the dyadic product, one
+     61 bits and the largest prime below 2^62, and the streaming kernels
+     at the edges of their 16-byte bodies (edge_kernel_checks: K4/K8
+     with every approximate form, the row ops and K10 at every kc it is
+     built for, at counts 1, 3, 5, 1023 and 2^22 + 3, inputs and outputs
+     8 bytes off a 16-byte boundary, odd row lengths, empty tensors); K9
+     (the dyadic product, one
      and four weights, moduli of mixed bit lengths); K10 and K11 (the key
      switch's multiply-accumulate with its flush, and its mod-down); K12
      and K13 (the FFT-like's block walks and cross pass) in f64, single
@@ -488,10 +505,16 @@ def import_port(root: pathlib.Path) -> None:
                              f"port at {root}")
 
 
-def eltwise_grid(count: int, sms: int) -> tuple:
+ELTWISE_THREADS = 128   # csrc/eltwise.cu THREADS
+
+
+def eltwise_grid(count: int, resident: int) -> tuple:
     """(blocks, threads) of an eltwise launch of `count` elements
-    (csrc/eltwise.cu launch: 256 threads, at most 8 CTAs a SM)."""
-    return min(-(-count // 256), 8 * sms), 256
+    (csrc/eltwise.cu grid_for: a CTA of ELTWISE_THREADS for every as many
+    pairs of elements, at most the `resident` CTAs the card holds)."""
+    pairs = (count + 1) // 2
+    return (max(1, min(-(-pairs // ELTWISE_THREADS), resident)),
+            ELTWISE_THREADS)
 
 
 def negacyclic_product(a, b, q: int):
@@ -528,16 +551,31 @@ def top_modulus(nt, q_bits: int, n: int = 1024) -> int:
     return nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
 
 
-def eltwise_cases(q, size, rng, dev, ops, plain64, plain32, nt, to_tensor):
+def placed(t, offset):
+    """t copied `offset` words into a fresh buffer of its device: a
+    contiguous view 8 bytes off a 16-byte boundary where offset is odd (as
+    x[1:] is)."""
+    import torch
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    buf[offset:].copy_(t.reshape(-1))
+    return buf[offset:].view(t.shape)
+
+
+def eltwise_cases(q, size, rng, dev, ops, plain64, plain32, nt, to_tensor,
+                  offset=0):
     """(what, kernel, kernel's output, plain output) for every op of K4/K8
     under modulus q: both words where q < 2^30, the IMF/OMF matrix, the
     vector and scalar forms, every predicate with bounds on both sides of
-    2^63 and inputs over the whole u64 range."""
+    2^63 and inputs over the whole u64 range; every input `placed` at
+    `offset`."""
     import numpy as np
 
     def rand(bound):
-        return to_tensor(rng.integers(0, bound - 1, size=size,
-                                      dtype=np.uint64, endpoint=True), dev)
+        return placed(to_tensor(rng.integers(0, bound - 1, size=size,
+                                             dtype=np.uint64, endpoint=True),
+                                dev), offset)
 
     def scalar(lo, hi):
         return int(rng.integers(lo, hi - 1, dtype=np.uint64, endpoint=True))
@@ -585,7 +623,7 @@ def eltwise_cases(q, size, rng, dev, ops, plain64, plain32, nt, to_tensor):
     full = rand(1 << 64)
     for cmp in plain64.CMP_NAMES:
         for bound in (scalar(0, 1 << 63), scalar(1 << 63, 1 << 64)):
-            f = full.clone()
+            f = placed(full.clone(), offset)
             f[:7] = int(np.uint64(bound).view(np.int64))
             diff = scalar(1, 1 << 64)
             yield (f"cmp_add {cmp} bound={bound}", "K8.cmp",
@@ -1756,13 +1794,15 @@ def shard_cluster_checks(rng, dev, nt, get_plan, rns, shard, to_tensor,
 # and approx), and K12's radix walk (fft.cu fft_radix_fwd_kernel and
 # fft_radix_inv_kernel: six shapes in complex double and float, three in
 # double-float, fft_with_shape), K5's tiled form (cross_tile.cuh), K16
-# (stage.cu, exact and approx), the eltwise bodies' approximate
-# instantiations (eltwise.cu: functors with the flag A true) and those of
-# K9, K10 and K11 (dyadic.cu, key_switch.cu: kernels with the flag A true).
+# (stage.cu, exact and approx), every eltwise body (eltwise.cu's streaming
+# template, exact and approximate), K10 at every kc it is built for
+# (key_switch.cu, exact and approximate) and the approximate
+# instantiations of K9 and K11 (dyadic.cu, key_switch.cu: kernels with the
+# flag A true).
 NEW_INSTANTIATION = re.compile(
     r"chain_kernel|kernelIyLi[123]E|radix_(packed_)?(fwd|inv)_kernel|"
     r"poly_(cluster|cta)_kernel|cross_tile_(fwd|inv)_kernel|stage_kernel|"
-    r"eltwise_kernelI\w*Lb1E|(dyadic|mac_flush|spread|fold)_kernelILb1E")
+    r"eltwise_kernel|mac_flush_kernel|(dyadic|spread|fold)_kernelILb1E")
 RADIX_INSTANTIATIONS = (4 + 8) * 7 + (1 + 2) * 10
 PACKED_INSTANTIATIONS = 2 * 4 * 2
 # K3's two forms (three cluster and six one-CTA kernels) in the four
@@ -1773,19 +1813,23 @@ FFT_RADIX_INSTANTIATIONS = 2 * (6 + 6 + 3)
 # without the final stage, at every D (2 .. 64), in the four u64 schemes
 # and u32; its approximate ones match kernelIyLi[123]E too.
 TILE_INSTANTIATIONS = 3 * 6 * 5
-# K16 exact and approx; the five eltwise ops' approximate bodies.
+# K16 exact and approx; the eltwise bodies: 11 in 64 bits and 6 in the
+# single word (add/sub and fma each with and without their vector operand)
+# and the 6 approximate ones; K10 at component groups of 1-4, exact and
+# approximate.
 STAGE_INSTANTIATIONS = 2
-ELTWISE_APPROX_INSTANTIATIONS = 5
-COMPOSITE_APPROX_INSTANTIATIONS = 4   # K9, K10, K11's spread and fold
+ELTWISE_INSTANTIATIONS = 11 + 6 + 6
+MAC_INSTANTIATIONS = 2 * 4
+COMPOSITE_APPROX_INSTANTIATIONS = 3   # K9, K11's spread and fold
 # K5's approximate passes (three schemes, six D, forward and the inverse
 # with and without its final stage), the chains, the radix walks, K2, K3,
-# K5's tiled form, K16, the eltwise approximate bodies and the composites'
+# K5's tiled form, K16, the eltwise bodies, K10 and the other composites'
 # approximate ones.
 NEW_INSTANTIATIONS = (3 * 6 * 3 + 2 + 3 + RADIX_INSTANTIATIONS
                       + PACKED_INSTANTIATIONS + POLY_INSTANTIATIONS
                       + FFT_RADIX_INSTANTIATIONS + TILE_INSTANTIATIONS
-                      + STAGE_INSTANTIATIONS + ELTWISE_APPROX_INSTANTIATIONS
-                      + COMPOSITE_APPROX_INSTANTIATIONS)
+                      + STAGE_INSTANTIATIONS + ELTWISE_INSTANTIATIONS
+                      + MAC_INSTANTIATIONS + COMPOSITE_APPROX_INSTANTIATIONS)
 # The stacked instantiations (ntt_rns.cu, cross_rns.cu, eltwise.cu): K1.rns's
 # forward and inverse in the three schemes and seven shapes, K6.rns's
 # inverse (no final stage) at 2^14 in three, K2.rns forward and inverse in
@@ -1920,18 +1964,21 @@ def approx_modulus(nt, q_bits: int, n: int) -> int:
     return nt.generate_primes(1, q_bits, True, ntt_size=n)[0]
 
 
-def eltwise_approx_cases(q, size, rng, dev, ops, plain64, nt, to_tensor):
+def eltwise_approx_cases(q, size, rng, dev, ops, plain64, nt, to_tensor,
+                         offset=0):
     """(what, kernel, kernel's output, plain output) for the five ops with
     an approximate quotient (64-bit) under modulus q, at every IMF/OMF,
-    and the two row ops over a basis holding q; the caller has forced
-    `config.approx_butterflies` on, so the wrappers launch their
-    approximate instantiations."""
+    and the two row ops over a basis holding q (rows of size // 2); the
+    caller has forced `config.approx_butterflies` on, so the wrappers
+    launch their approximate instantiations; every input `placed` at
+    `offset`."""
     import numpy as np
     import torch
 
     def rand(bound, count=size):
-        return to_tensor(rng.integers(0, bound - 1, size=count,
-                                      dtype=np.uint64, endpoint=True), dev)
+        return placed(to_tensor(rng.integers(0, bound - 1, size=count,
+                                             dtype=np.uint64, endpoint=True),
+                                dev), offset)
 
     def scalar(lo, hi):
         return int(rng.integers(lo, hi - 1, dtype=np.uint64, endpoint=True))
@@ -1961,7 +2008,7 @@ def eltwise_approx_cases(q, size, rng, dev, ops, plain64, nt, to_tensor):
     full = rand(1 << 64)
     for cmp in plain64.CMP_NAMES:
         for bound in (scalar(0, 1 << 63), scalar(1 << 63, 1 << 64)):
-            f = full.clone()
+            f = placed(full.clone(), offset)
             f[:7] = int(np.uint64(bound).view(np.int64))
             diff = scalar(1, q)
             yield (f"cmp_sub_mod {cmp} bound={bound}",
@@ -1978,16 +2025,221 @@ def eltwise_approx_cases(q, size, rng, dev, ops, plain64, nt, to_tensor):
         consts = ops.row_constants(moduli, dev)
         rows = size // 2
         for imf in (1, 2, 4):
-            x = torch.stack([rand(imf * m, rows) for m in moduli])
-            y = torch.stack([rand(imf * m, rows) for m in moduli])
+            x, y = (placed(torch.stack([rand(imf * m, rows) for m in moduli]),
+                           offset) for _ in range(2))
             yield (f"mult_mod_rows imf={imf}", "K4.rows.approx",
                    ops.mult_mod_rows(x, y, moduli, imf),
                    plain64.mult_mod_rows(x, y, consts, imf, True))
-        x = torch.stack([rand(1 << 64, rows) for _ in moduli])
+        x = placed(torch.stack([rand(1 << 64, rows) for _ in moduli]),
+                   offset)
         for omf in (1, 2):
             yield (f"reduce_mod_rows omf={omf}", "K8.reduce.rows.approx",
                    ops.reduce_mod_rows(x, moduli, omf),
                    plain64.reduce_mod_rows(x, consts, omf, True))
+
+
+# The edges of the streaming kernels (K4/K8 and the row ops, K10): counts
+# that are no multiple of a thread's 16-byte accesses (EDGE_COUNTS, and
+# 2^22 + 3 elements), inputs 8 bytes off a 16-byte boundary, and empty
+# tensors; K4/K8 under a 29-bit q (both words) and a 60-bit one (q in
+# (2^60, 2^61), 64-bit only), K10 at ds below, at and past a group of its
+# four j trips, and at kc of every component group size, a full group of
+# four with one left, and two with one left.
+EDGE_COUNTS = (1, 3, 5, 1023)
+EDGE_Q_BITS = (29, 60)
+EDGE_KS_NS = (1, 3, 5, 1023, 1024)
+EDGE_KS_DS = (1, 3, 5)
+EDGE_KS_KCS = (1, 2, 3, 4, 5, 9)
+
+
+def eltwise_into(ops, build, out, op, word, a, b=None, c=None, q=0,
+                 s=(0, 0, 0), i=(0, 0), approx=False):
+    """The C entry hexl_eltwise (as `ops._launch` calls it) into a given
+    `out`, which the wrappers always allocate 16-byte aligned: the flat
+    kernel's scalar head, where out starts 8 bytes off."""
+    fn = build.function("eltwise", "hexl_eltwise", ops._ARGS)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    build.launch_on(a.device, "edge check", fn, a.data_ptr(), ptr(b), ptr(c),
+                    out.data_ptr(), a.numel(), ops._OP[op], word,
+                    int(approx), q, *s, *i)
+    return out
+
+
+def eltwise_edge_checks(rng, dev, nt, build, ops, plain64, plain32,
+                        to_tensor, port_config, compare, q_bits,
+                        sizes=EDGE_COUNTS + ((1 << 22) + 3, 0)) -> int:
+    """K4/K8 under a q of q_bits: every op (both words where q < 2^30) and
+    every approximate instantiation at each of `sizes`, inputs placed at
+    offsets 0 and 1; the flat kernel's head (out placed at offset 1,
+    through `eltwise_into`) with the inputs at either offset, for
+    mult_mod, reduce_mod, fma_mod (approximate) and add_mod (u32). Returns
+    the count."""
+    import numpy as np
+    import torch
+
+    def rand(shape, bound, offset=0):
+        return placed(to_tensor(rng.integers(0, bound - 1, size=shape,
+                                             dtype=np.uint64, endpoint=True),
+                                dev), offset)
+
+    checks = 0
+    regime = port_config.approx_butterflies
+    q = top_modulus(nt, q_bits)
+    for size in sizes:
+        for offset in ((0, 1) if size else (0,)):
+            tag = f"q_bits={q_bits} count={size} offset={offset}"
+            for what, kernel, got, want in eltwise_cases(
+                    q, size, rng, dev, ops, plain64, plain32, nt, to_tensor,
+                    offset):
+                compare(kernel, got, want, f"{what} {tag}")
+                checks += 1
+            port_config.approx_butterflies = lambda device: True
+            try:
+                for what, kernel, got, want in eltwise_approx_cases(
+                        q, size, rng, dev, ops, plain64, nt, to_tensor,
+                        offset):
+                    compare(kernel, got, want, f"{what} {tag}")
+                    checks += 1
+            finally:
+                port_config.approx_butterflies = regime
+    mu, shift = nt.barrett_mult_constants(q)
+    w = nt.reduce_mod(12345, q, 1)
+    wp = nt.barrett_factor(w, 64, q)
+    for size in sizes:
+        if not size:
+            continue
+        for in_offset in (0, 1):
+            a, b = (rand(size, q, in_offset) for _ in range(2))
+            x = rand(size, 1 << 64, in_offset)
+            out = placed(torch.empty_like(a), 1)
+            tag = (f"q_bits={q_bits} count={size} out offset 1, inputs "
+                   f"{in_offset}")
+            compare("K4", eltwise_into(ops, build, out, "mult", 64, a, b,
+                                       q=q, s=(mu, 0, 0), i=(shift, 1)),
+                    plain64.mult_mod(a, b, q, 1), f"mult_mod {tag}")
+            compare("K8.reduce", eltwise_into(
+                ops, build, out, "reduce", 64, x, q=q,
+                s=(nt.barrett_factor(1, 64, q), 0, 0), i=(1, 1)),
+                plain64.reduce_mod(x, q, q, 1), f"reduce_mod {tag}")
+            checks += 2
+            if q < 1 << 61:
+                z = rand(size, 8 * q, in_offset)
+                compare("K8.fma.approx", eltwise_into(
+                    ops, build, out, "fma", 64, z, c=z, q=q, s=(w, wp, 0),
+                    i=(0, 8), approx=True),
+                    plain64.fma_mod_preconned(z, w, wp, z, q, 8, True),
+                    f"fma_mod approx {tag}")
+                checks += 1
+            if q < ops.SMALL_Q:
+                compare("K8.add_sub.u32", eltwise_into(
+                    ops, build, out, "add", 32, a, b, q=q),
+                    plain32.add_mod32(a, b, q), f"add_mod word=32 {tag}")
+                checks += 1
+    return checks
+
+
+def rows_edge_checks(rng, dev, nt, ops, plain64, to_tensor, port_config,
+                     compare, lengths=EDGE_COUNTS + (0,)) -> int:
+    """K4.rows (IMF 1 and 4) and K8.reduce.rows, exact and approximate,
+    over three rows of mixed moduli at each row length (an odd one starts
+    every other row 8 bytes off), inputs placed at offsets 0 and 1.
+    Returns the count."""
+    import numpy as np
+    import torch
+
+    def rand(shape, bound, offset=0):
+        return placed(to_tensor(rng.integers(0, bound - 1, size=shape,
+                                             dtype=np.uint64, endpoint=True),
+                                dev), offset)
+
+    checks = 0
+    regime = port_config.approx_butterflies
+    moduli = [top_modulus(nt, b) for b in (29, 50, 60)]
+    consts = ops.row_constants(tuple(moduli), dev)
+    for m in lengths:
+        for offset in ((0, 1) if m else (0,)):
+            for approx in (False, True):
+                port_config.approx_butterflies = lambda device: approx
+                sfx = ".approx" if approx else ""
+                tag = f"k=3 m={m} offset={offset} approx={approx}"
+                try:
+                    for imf in (1, 4):
+                        a, b = (placed(torch.stack([rand(m, imf * q)
+                                                    for q in moduli]),
+                                       offset) for _ in range(2))
+                        compare("K4.rows" + sfx,
+                                ops.mult_mod_rows(a, b, moduli, imf),
+                                plain64.mult_mod_rows(a, b, consts, imf,
+                                                      approx),
+                                f"mult_mod_rows imf={imf} {tag}")
+                    x = rand((3, m), 1 << 64, offset)
+                    compare("K8.reduce.rows" + sfx,
+                            ops.reduce_mod_rows(x, moduli, 1),
+                            plain64.reduce_mod_rows(x, consts, 1, approx),
+                            f"reduce_mod_rows {tag}")
+                finally:
+                    port_config.approx_butterflies = regime
+                checks += 3
+    return checks
+
+
+def mac_edge_checks(rng, dev, nt, ks, to_tensor, compare, ds,
+                    ns=EDGE_KS_NS + (0,)) -> int:
+    """K10 and K10.approx at every kc of EDGE_KS_KCS over ds + 1 rows of
+    mixed moduli, at each n (odd ones; n = 0 launches nothing), with t and
+    the keys placed at offset 1 (each alone and both). Returns the
+    count."""
+    import numpy as np
+    import torch
+
+    def rand(shape, bound):
+        return to_tensor(rng.integers(0, bound - 1, size=shape,
+                                      dtype=np.uint64, endpoint=True), dev)
+
+    checks = 0
+    bits = (50, 29, 61, 45, 60, 40)[:ds] + (55,)
+    moduli = [top_modulus(nt, b) for b in bits]
+    msf = [nt.inverse_mod(moduli[-1] % q, q) for q in moduli[:ds]]
+    c = ks.constants(tuple(moduli), tuple(msf), ds, dev)
+    for n in ns:
+        for kc in EDGE_KS_KCS:
+            tq = torch.stack([rand((ds, n), 4 * q)
+                              for q in moduli[:ds] + moduli[-1:]])
+            keys = torch.stack([torch.stack([torch.stack([
+                rand(n, q) for q in moduli]) for _ in range(kc)])
+                for _ in range(ds)])
+            for t_off, k_off in ((0, 0), (1, 0), (0, 1), (1, 1)):
+                if not n and (t_off or k_off):
+                    continue
+                t_, k_ = placed(tq, t_off), placed(keys, k_off)
+                for approx in (False, True):
+                    name = "K10" + (".approx" if approx else "")
+                    compare(name, ks.mac_flush(t_, k_, c, ds, kc, ds + 1,
+                                               approx),
+                            ks.mac_flush_plain(t_, k_, c.mac, ds, kc, ds + 1,
+                                               approx),
+                            f"mac_flush n={n} ds={ds} kc={kc} offsets "
+                            f"{t_off}/{k_off} approx={approx}")
+                    checks += 1
+    return checks
+
+
+def edge_kernel_checks(rng, dev, nt, build, ops, ks, plain64, plain32,
+                       to_tensor, port_config, compare) -> int:
+    """The streaming kernels at the edges of their 16-byte bodies, bit for
+    bit against their plain versions: K4/K8 at EDGE_Q_BITS (2^22 + 3
+    elements beside the odd counts), the row ops, K10 at EDGE_KS_DS.
+    Returns the count."""
+    checks = 0
+    for q_bits in EDGE_Q_BITS:
+        checks += eltwise_edge_checks(rng, dev, nt, build, ops, plain64,
+                                      plain32, to_tensor, port_config,
+                                      compare, q_bits)
+    checks += rows_edge_checks(rng, dev, nt, ops, plain64, to_tensor,
+                               port_config, compare)
+    for ds in EDGE_KS_DS:
+        checks += mac_edge_checks(rng, dev, nt, ks, to_tensor, compare, ds)
+    return checks
 
 
 def approx_kernel_checks(rng, dev, nt, get_plan, cuda_ntt, hier, shard, poly,
@@ -2439,6 +2691,13 @@ WALK_ROWS = {name: name for name in (
     "K7", "K12.f64", "K12.f32", "K12.df", "K3", "K3.cta")}
 WALK_ROWS["K2"] = "K2.n6"
 WALK_ROWS["K5.tile"] = "K5.d64"
+# The kernels-line entries timed on `stream_runs`' rows (rotating inputs at
+# the entries' shapes), as WALK_ROWS' on `walk_runs`'.
+STREAM_ROWS = {name: name for name in (
+    "K8.add_sub", "K8.add_sub.u32", "K8.mult.u32", "K8.fma", "K8.fma.u32",
+    "K8.reduce", "K8.reduce.u32", "K8.cmp", "K8.mont", "K4.rows",
+    "K8.reduce.rows")}
+STREAM_ROWS.update({"K4": "K4.small", "K10": "K10.n15.ds14"})
 
 
 def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
@@ -2577,6 +2836,174 @@ def walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
 # ds 14): the other three KS_SHAPES and the graft pipeline (`ks_runs`).
 WALK_KS_ROWS = ("KS.n14.ds3", "KS.n14.ds3.ntts", "KS.n14.ds5",
                 "KS.n14.ds5.ntts", "KS.n15.ds3", "KS.n15.ds3.ntts", "graft")
+
+
+# The streaming kernels' rows of the A/B (`stream_runs`): each K8 family and
+# K4 at 2^22 elements (BIG; 60-bit q, i.e. q in (2^60, 2^61), or 29-bit for
+# the single word), "K4.small" at K4's main-path shape (2 x 2^12, IMF 4,
+# 50-bit), the approximate forms, the row ops at phase 5's shapes, and
+# torch.remainder on K8.reduce.imf4's and K8.reduce.u32's inputs (the one
+# PyTorch call of reduce_mod IMF 4 -> OMF 1), and an int64 copy and sum
+# as yardsticks of the card's rate for two- and three-word traffic (other
+# functions); K10 and K10.approx at every
+# KS_SHAPES entry (49-bit primes), kc 2 and kc 1 on the same t. Every row
+# rotates input sets beyond the 50 MB L2 (STREAM_L2_BYTES of inputs at
+# least, two sets at least), and keeps each call's output until its input
+# set comes round again (`kept`), so that a graph's calls write fresh
+# buffers, not one buffer the L2 holds.
+STREAM_L2_BYTES = 160e6
+
+
+def kept(fn, count):
+    """fn, each of its outputs kept alive for `count` calls (a ring), so
+    that `count` calls in a row write `count` distinct buffers."""
+    ring = collections.deque(maxlen=count)
+
+    def run():
+        out = fn()
+        ring.append(out)
+        return out
+    return run
+
+
+def stream_runs(rng, dev, nt, ops, ks, port_config, to_tensor) -> dict:
+    """{row: (fn, bytes)} of the streaming kernels' rows (see above), each
+    fn one call on the next input set; bytes: each input read once and
+    the output written once, the rows' bytes bound. Through the public
+    wrappers (`ops.*`, `ks.mac_flush`, `ks.constants`) that an earlier
+    tree of the port shares; the approximate forms with
+    `config.approx_butterflies` forced on around each call."""
+    import numpy as np
+    import torch
+
+    def rand(shape, bound):
+        return to_tensor(rng.integers(0, bound - 1, size=shape,
+                                      dtype=np.uint64, endpoint=True), dev)
+
+    def sets_for(nbytes):
+        return max(2, -(-int(STREAM_L2_BYTES) // nbytes))
+
+    def rotate(make, nbytes):
+        return rotating([make() for _ in range(sets_for(nbytes))])
+
+    def forced(fn):
+        def run():
+            regime = port_config.approx_butterflies
+            port_config.approx_butterflies = lambda device: True
+            try:
+                return fn()
+            finally:
+                port_config.approx_butterflies = regime
+        return run
+
+    runs = {}
+    elems = BIG[0] * BIG[1] * BIG[2]
+    word = 8 * elems
+    q60, q29 = top_modulus(nt, 60, BIG[-1]), top_modulus(nt, 29, BIG[-1])
+    w60 = (12345, nt.barrett_factor(12345, 64, q60))
+    w29 = (12345, nt.barrett_factor(12345, 32, q29))
+
+    def elt(name, bounds, call, approx=False):
+        nbytes = len(bounds) * word
+        nxt = rotate(lambda: [rand(BIG, b) for b in bounds], nbytes)
+        fn = kept(lambda: call(*nxt()), sets_for(nbytes))
+        runs[name] = (forced(fn) if approx else fn,
+                      (len(bounds) + 1) * word)
+
+    elt("K4", (4 * q60, 4 * q60), lambda a, b: ops.mult_mod(a, b, q60, 4))
+    elt("K4.approx", (4 * q60, 4 * q60),
+        lambda a, b: ops.mult_mod(a, b, q60, 4), True)
+    elt("K8.add_sub", (q60, q60), lambda a, b: ops.add_mod(a, b, q60))
+    elt("K8.add_sub.u32", (q29, q29), lambda a, b: ops.add_mod(a, b, q29, 32))
+    elt("K8.mult.u32", (q29, q29),
+        lambda a, b: ops.mult_mod(a, b, q29, 1, 32))
+    elt("K8.fma", (8 * q60, 8 * q60),
+        lambda a, c: ops.fma_mod(a, *w60, c, q60, 8))
+    elt("K8.fma.approx", (8 * q60, 8 * q60),
+        lambda a, c: ops.fma_mod(a, *w60, c, q60, 8), True)
+    elt("K8.fma.u32", (8 * q29, 8 * q29),
+        lambda a, c: ops.fma_mod(a, *w29, c, q29, 8, 32))
+    elt("K8.reduce", (1 << 64,), lambda x: ops.reduce_mod(x, q60, q60, 1))
+    elt("K8.reduce.approx", (1 << 64,),
+        lambda x: ops.reduce_mod(x, q60, q60, 1), True)
+    elt("K8.reduce.imf4", (4 * q60,), lambda x: ops.reduce_mod(x, q60, 4, 1))
+    elt("torch.remainder", (4 * q60,), lambda x: torch.remainder(x, q60))
+    elt("K8.reduce.u32", (4 * q29,),
+        lambda x: ops.reduce_mod(x, q29, 4, 1, 32))
+    elt("torch.remainder.u32", (4 * q29,), lambda x: torch.remainder(x, q29))
+    elt("K8.cmp", (1 << 64,),
+        lambda x: ops.cmp_sub_mod(x, q60, "nlt", 1 << 63, 42))
+    elt("K8.cmp.approx", (1 << 64,),
+        lambda x: ops.cmp_sub_mod(x, q60, "nlt", 1 << 63, 42), True)
+    elt("K8.cmp.add", (1 << 64,),
+        lambda x: ops.cmp_add(x, "nlt", 1 << 63, 42))
+    elt("K8.mont", (q60, q60),
+        lambda a, b: ops.montgomery_mult_reduce(a, b, q60))
+    elt("K8.mont.approx", (q60,), lambda a: ops.montgomery_form_in(a, q60),
+        True)
+    # Yardsticks of the card's rate for the same traffic (not the same
+    # function): an int64 copy (two words an element) and an int64 sum
+    # (three).
+    elt("torch.copy", (1 << 63,), lambda x: x.clone())
+    elt("torch.add", (1 << 62, 1 << 62), lambda a, b: a + b)
+    # K4 at its main-path shape (2 x 2^12, IMF 4, 50-bit), where the launch
+    # floor bounds it.
+    q50 = nt.generate_primes(1, 50, True, ntt_size=1 << 12)[0]
+    small_bytes = 2 * 8 * (2 << 12)
+    small = rotate(lambda: [rand((2, 1 << 12), 4 * q50) for _ in range(2)],
+                   small_bytes)
+    runs["K4.small"] = (kept(lambda: ops.mult_mod(*small(), q50, 4),
+                             sets_for(small_bytes)), 3 * 8 * (2 << 12))
+    # The row ops: K4.rows at the RNS product's (16, 2^17), IMF 4;
+    # K8.reduce.rows at the 2^15 x ds 14 key switch's base conversion,
+    # (14, 13, 2^15) from IMF q.
+    n17 = 1 << 17
+    moduli = nt.generate_primes(RNS_PRIMES, 50, True, ntt_size=n17)
+    rows_words = RNS_PRIMES * n17
+    nxt_rows = rotate(lambda: [torch.stack([rand((n17,), 4 * q)
+                                            for q in moduli])
+                               for _ in range(2)], 2 * 8 * rows_words)
+    run = kept(lambda: ops.mult_mod_rows(*nxt_rows(), moduli, 4),
+               sets_for(2 * 8 * rows_words))
+    runs["K4.rows"] = (run, 3 * 8 * rows_words)
+    runs["K4.rows.approx"] = (forced(run), 3 * 8 * rows_words)
+    n15, ds14 = KS_SHAPES[-1]
+    red_moduli = nt.generate_primes(ds14, 49, True, ntt_size=n15)
+    red_shape = (ds14, ds14 - 1, n15)
+    red_words = ds14 * (ds14 - 1) * n15
+    nxt_red = rotate(lambda: rand(red_shape, 1 << 64), 8 * red_words)
+    run_red = kept(lambda: ops.reduce_mod_rows(nxt_red(), red_moduli),
+                   sets_for(8 * red_words))
+    runs["K8.reduce.rows"] = (run_red, 2 * 8 * red_words)
+    runs["K8.reduce.rows.approx"] = (forced(run_red), 2 * 8 * red_words)
+    # K10 at each key switch shape, kc 2 and kc 1 (the first component's
+    # keys) on the same t.
+    for n, ds in KS_SHAPES:
+        ks_moduli = nt.generate_primes(ds + 1, 49, True, ntt_size=n)
+        msf = [nt.inverse_mod(ks_moduli[-1] % q, q) for q in ks_moduli[:ds]]
+        c = ks.constants(tuple(ks_moduli), tuple(msf), ds, dev)
+        rns, kms = ds + 1, ds + 1
+        t_words, key_words = rns * ds * n, ds * 2 * kms * n
+        sets = []
+        for _ in range(sets_for(8 * (t_words + key_words))):
+            t = torch.stack([rand((ds, n), 4 * q) for q in ks_moduli])
+            keys = torch.stack([torch.stack([torch.stack([
+                rand((n,), q) for q in ks_moduli]) for _ in range(2)])
+                for _ in range(ds)])
+            sets.append((t, keys, keys[:, :1].contiguous()))
+        tag = f"K10%s.n{n.bit_length() - 1}.ds{ds}%s"
+        for kc in (2, 1):
+            nbytes = 8 * (t_words + kc * key_words // 2 + rns * kc * n)
+            for approx in (False, True):
+                def run(kc=kc, approx=approx, nxt=rotating(sets), c=c, ds=ds,
+                        kms=kms):
+                    t, keys2, keys1 = nxt()
+                    return ks.mac_flush(t, keys2 if kc == 2 else keys1, c,
+                                        ds, kc, kms, approx)
+                runs[tag % (".approx" if approx else "",
+                            "" if kc == 2 else ".kc1")] = (
+                    kept(run, len(sets)), nbytes)
+    return runs
 
 
 def per_prime_rns(get_plan, cuda_ntt, poly):
@@ -3158,8 +3585,8 @@ def shard_variants(names=tuple(SHARD_VARIANTS)) -> int:
 def walk_times(root: pathlib.Path) -> int:
     """`--walk-times ROOT`: build the port at ROOT and print, as one JSON
     line, the device ms of each row of `walk_runs` (with the fifth path's
-    rows) in 20 graph replays of 20 calls each (of one call for the
-    fifth path's calls)."""
+    rows) and of `stream_runs` in 20 graph replays of 20 calls each (of one
+    call for the fifth path's calls), and the stream rows' bytes."""
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -3167,14 +3594,48 @@ def walk_times(root: pathlib.Path) -> int:
         return 2
     import_port(root)
     from hexl_tpu_torch import _build, nt
+    from hexl_tpu_torch import config as port_config
+    from hexl_tpu_torch.eltwise import ops
     from hexl_tpu_torch.limb import to_tensor
     from hexl_tpu_torch.ntt import cuda_ntt, get_plan, hier, shard
+    ks = importlib.import_module("hexl_tpu_torch.experimental.key_switch")
     _build.build_all()
-    runs = walk_runs(np.random.default_rng(SEED), torch.device("cuda", 0),
-                     nt, get_plan, cuda_ntt, hier, shard, to_tensor, True)
-    print(json.dumps({name: graph_times(fn, 1 if name.startswith("fifth")
-                                        else 20)
-                      for name, fn in runs.items()}))
+    rng, dev = np.random.default_rng(SEED), torch.device("cuda", 0)
+    runs = walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard,
+                     to_tensor, True)
+    times = {name: graph_times(fn, 1 if name.startswith("fifth") else 20)
+             for name, fn in runs.items()}
+    del runs
+    stream = stream_runs(rng, dev, nt, ops, ks, port_config, to_tensor)
+    times.update({name: graph_times(fn, 20)
+                  for name, (fn, _) in stream.items()})
+    print(json.dumps({"times": times, "bytes": {
+        name: nbytes for name, (_, nbytes) in stream.items()}}))
+    return 0
+
+
+def stream_times(root: pathlib.Path) -> int:
+    """`--stream-times ROOT`: build the port at ROOT and print, as one JSON
+    line, the device ms of each row of `stream_runs` in 20 graph replays
+    of 20 calls each, and each row's bytes."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available", file=sys.stderr)
+        return 2
+    import_port(root)
+    from hexl_tpu_torch import _build, nt
+    from hexl_tpu_torch import config as port_config
+    from hexl_tpu_torch.eltwise import ops
+    from hexl_tpu_torch.limb import to_tensor
+    ks = importlib.import_module("hexl_tpu_torch.experimental.key_switch")
+    _build.build_all()
+    runs = stream_runs(np.random.default_rng(SEED), torch.device("cuda", 0),
+                       nt, ops, ks, port_config, to_tensor)
+    print(json.dumps({"times": {name: graph_times(fn, 20)
+                                for name, (fn, _) in runs.items()},
+                      "bytes": {name: nbytes
+                                for name, (_, nbytes) in runs.items()}}))
     return 0
 
 
@@ -3296,10 +3757,10 @@ def fifth_local_shapes(calls, shard) -> dict:
     seen = {}
     local = shard.local
 
-    def recording(x, plan, r, shards, forward, omf=1):
+    def recording(x, plan, r, shards, forward, omf=1, *scheme):
         key = (plan.n, shards, x.numel() // x.shape[-1], forward, omf)
         seen.setdefault(key, [plan, r, 0])[2] += 1
-        return local(x, plan, r, shards, forward, omf)
+        return local(x, plan, r, shards, forward, omf, *scheme)
 
     shard.local = recording
     try:
@@ -3451,50 +3912,177 @@ def shard_times(root: pathlib.Path = ROOT) -> int:
     return 0
 
 
+def turns_of(order, flag: str):
+    """Run `chip_smoke.py FLAG ROOT` for each (label, root) of `order` in
+    turn, each in its own process: ({label: [{row: [ms, ...]} per turn]},
+    {row: bytes}), or None where a turn failed."""
+    turns, nbytes = {}, {}
+    for label, root in order:
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), flag,
+             str(root.resolve())], capture_output=True, text=True,
+            timeout=900)
+        if proc.returncode:
+            log(proc.stdout[-4000:], proc.stderr[-4000:])
+            return None
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        turns.setdefault(label, []).append(out["times"])
+        nbytes.update(out["bytes"])
+    return turns, nbytes
+
+
+def ab_summary(turns: dict, nbytes: dict, base: str, what: str) -> dict:
+    """Each row's median [min, max] over every label's turns, the median of
+    each turn (in the order run), the ratio to `base`'s median and, where
+    the row's bound is its bytes, each label's share of that bound; logged
+    a row a line and returned."""
+    summary = {}
+    rows = []
+    for label_turns in turns.values():
+        for turn in label_turns:
+            rows += [r for r in turn if r not in rows]
+    for row in rows:
+        entry = {}
+        for label, label_turns in turns.items():
+            pooled = [v for turn in label_turns for v in turn.get(row, [])]
+            if not pooled:
+                continue
+            med = statistics.median(pooled)
+            entry[label] = {"median": med, "min": min(pooled),
+                            "max": max(pooled),
+                            "turns": [statistics.median(t[row])
+                                      for t in label_turns if row in t]}
+            if row in nbytes:
+                entry[label]["share"] = (nbytes[row] / HBM_BYTES_PER_S * 1e3
+                                         / med)
+            if label != base and base in entry:
+                entry[label]["over_" + base] = med / entry[base]["median"]
+        summary[row] = entry
+        log(f"{what} {row}: " + "; ".join(
+            f"{label} {v['median']:.4f} ms [{v['min']:.4f}, {v['max']:.4f}]"
+            f" turns {', '.join(f'{m:.4f}' for m in v['turns'])}"
+            + (f", {v['share']:.1%} of bytes bound" if "share" in v else "")
+            + (f", {v['over_' + base]:.3f}x {base}"
+               if "over_" + base in v else "")
+            for label, v in entry.items()))
+    return summary
+
+
 def walk_ab(parent: pathlib.Path) -> int:
-    """`--walk-ab PARENT`: the walk rows of the port at PARENT (a `git
-    archive` of an earlier commit) against this tree's, on one card, in
-    turns parent, this tree, this tree, parent (`walk_times` in a process
-    each), with each side's median and spread over its 40 replays."""
+    """`--walk-ab PARENT`: the walk rows (`walk_runs`, `stream_runs`) of the
+    port at PARENT (a `git archive` of an earlier commit) against this
+    tree's, on one card, in turns parent, this tree, this tree, parent
+    (`walk_times` in a process each), with each side's median, spread and
+    per-turn medians over its 40 replays, and the stream rows' shares of
+    their bytes bound."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
     card = nvidia_smi("name,power.limit")
     log(card)
-    times = {"parent": {}, "new": {}}
-    for side, root in (("parent", parent), ("new", ROOT), ("new", ROOT),
-                       ("parent", parent)):
-        proc = subprocess.run(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--walk-times",
-             str(root.resolve())], capture_output=True, text=True,
-            timeout=900)
-        if proc.returncode:
-            log(proc.stdout[-4000:], proc.stderr[-4000:])
-            return 1
-        for row, v in json.loads(proc.stdout.strip().splitlines()[-1]).items():
-            times[side].setdefault(row, []).extend(v)
-    summary = {}
-    for row in times["new"]:
-        n_ = times["new"][row]
-        if row not in times["parent"]:
-            summary[row] = {"new": {"median": statistics.median(n_),
-                                    "min": min(n_), "max": max(n_)}}
-            log(f"A/B {row}: new only {statistics.median(n_):.4f} ms "
-                f"[{min(n_):.4f}, {max(n_):.4f}]")
-            continue
-        p_ = times["parent"][row]
-        summary[row] = {side: {"median": statistics.median(v), "min": min(v),
-                               "max": max(v)}
-                        for side, v in (("parent", p_), ("new", n_))}
-        summary[row]["new/parent"] = (statistics.median(n_)
-                                      / statistics.median(p_))
-        log(f"A/B {row}: parent {statistics.median(p_):.4f} ms "
-            f"[{min(p_):.4f}, {max(p_):.4f}], new {statistics.median(n_):.4f}"
-            f" ms [{min(n_):.4f}, {max(n_):.4f}], new/parent "
-            f"{summary[row]['new/parent']:.3f}")
+    result = turns_of((("parent", parent), ("new", ROOT), ("new", ROOT),
+                       ("parent", parent)), "--walk-times")
+    if result is None:
+        return 1
+    summary = ab_summary(*result, "parent", "A/B")
     log(card)
     log(json.dumps({"walk_ab": summary, "card": card}))
+    return 0
+
+
+# Variants of the streaming kernels' redesign, each a copy of the port
+# under build/exp/<name>/ (eltwise.cu and key_switch.cu alone to build)
+# with each (pattern, replacement) applied once to those sources; a
+# variant may set knobs of both kernels, whose rows are timed apart.
+# "base" is this tree's (eltwise: four 16-byte accesses a trip for a body
+# that reads one operand, one for a body that reads two, 128 threads, one
+# wave, loads through the read-only path (__ldg), plain stores; K10: 128
+# threads, j groups of 4, evict-first loads). "u4": four accesses for
+# every body; "u1": one for every body; "t256": eltwise CTAs of 256
+# threads; "t64": of 64 (twice the CTAs of 128 under a wave); "k256": K10
+# CTAs of 256 threads; "j2": K10's j groups of 2; "cs": the eltwise
+# 16-byte loads and stores marked as touched once (__ldcs/__stcs,
+# evict-first); "kldg": K10's 16-byte loads through the read-only path.
+ELTWISE_CS = ((r"__ldg\(reinterpret_cast<const ulonglong2\*>\(v\) \+ p\)",
+               "__ldcs(reinterpret_cast<const ulonglong2*>(v) + p)"),
+              (r"reinterpret_cast<ulonglong2\*>\(v\)\[p\] = x;",
+               "__stcs(reinterpret_cast<ulonglong2*>(v) + p, x);"))
+STREAM_VARIANTS = {
+    "base": (),
+    "u4": ((r"UNROLL_TWO_INPUTS = 1;", "UNROLL_TWO_INPUTS = 4;"),),
+    "u1": ((r"UNROLL_ONE_INPUT = 4;", "UNROLL_ONE_INPUT = 1;"),),
+    "t256": ((r"\bTHREADS = 128;", "THREADS = 256;"),),
+    "t64": ((r"\bTHREADS = 128;", "THREADS = 64;"),),
+    "k256": ((r"MAC_THREADS = 128;", "MAC_THREADS = 256;"),),
+    "j2": ((r"MAC_J = 4;", "MAC_J = 2;"),),
+    "cs": ELTWISE_CS,
+    "kldg": ((r"__ldcs\(reinterpret_cast<const ulonglong2\*>\(row\) \+ p\)",
+              "__ldg(reinterpret_cast<const ulonglong2*>(row) + p)"),),
+}
+STREAM_SOURCES = ("eltwise.cu", "key_switch.cu")
+
+
+def stream_copy(src: pathlib.Path, name: str, subs=()) -> pathlib.Path:
+    """The port at `src` copied to build/exp/<name>/ with only
+    STREAM_SOURCES left to build, each substitution applied once."""
+    root = ROOT / "build" / "exp" / name
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(src / "hexl_tpu_torch", root / "hexl_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    csrc = root / "hexl_tpu_torch" / "csrc"
+    for path in csrc.glob("*.cu"):
+        if path.name not in STREAM_SOURCES:
+            path.unlink()
+    for pattern, repl in subs:
+        hits = 0
+        for name_ in STREAM_SOURCES:
+            path = csrc / name_
+            text, count = re.subn(pattern, repl, path.read_text())
+            hits += count
+            path.write_text(text)
+        if hits != 1:
+            raise AssertionError(f"{name}: {pattern} matched {hits} times")
+    return root
+
+
+def stream_variants(parent=None, rounds=1, names=None) -> int:
+    """`--stream-variants [PARENT [ROUNDS [NAMES]]]`: STREAM_VARIANTS'
+    copies of this tree (those of the comma-separated NAMES, default all;
+    and PARENT's sources, as "parent", first), built at once, then
+    `--stream-times` on each in its own process in turns (the list, then
+    backwards, ROUNDS times, default once): each row's medians, per-turn
+    medians, ratio to the first and share of the bytes bound, with each
+    copy's -Xptxas -v report of the two kernels."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available", file=sys.stderr)
+        return 2
+    card = nvidia_smi("name,power.limit")
+    log(card)
+    roots = {}
+    if parent is not None:
+        roots["parent"] = stream_copy(parent, "parent")
+    for name in names or STREAM_VARIANTS:
+        roots[name] = stream_copy(ROOT, name, STREAM_VARIANTS[name])
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from hexl_tpu_torch import _build; r = _build.kernel_resources("
+         "_build.build_all()['log']); print({k: v for k, v in r.items() "
+         "if 'eltwise' in k or 'mac_flush' in k})", str(root)],
+        stdout=subprocess.PIPE, text=True) for root in roots.values()]
+    for name, proc in zip(roots, builds):
+        text, _ = proc.communicate()
+        if proc.returncode:
+            return 1
+        log(f"stream variant {name} resources: {text.strip()}")
+    order = list(roots.items())
+    result = turns_of((order + order[::-1]) * rounds, "--stream-times")
+    if result is None:
+        return 1
+    summary = ab_summary(*result, order[0][0], "stream")
+    log(card)
+    log(json.dumps({"stream_variants": summary, "card": card}))
     return 0
 
 
@@ -3935,7 +4523,7 @@ def main() -> int:
     resources = _build.kernel_resources(info["log"])
     new = {k: v for k, v in resources.items() if NEW_INSTANTIATION.search(k)}
     log(f"build: {len(new)} lean, approx, chain, radix-walk, K2, K3, K5 "
-        f"tiled, K16, eltwise approx and K9-K11 approx instantiations "
+        f"tiled, K16, eltwise, K10 and K9/K11 approx instantiations "
         f"(registers, stack, spill stores, spill loads): {new}")
     spilled = {k: v for k, v in new.items() if v[2] or v[3] or v[2] is None}
     if spilled or len(new) < NEW_INSTANTIATIONS:
@@ -4128,6 +4716,12 @@ def main() -> int:
                 to_tensor):
             compare(kernel, got, want, f"{what} q_bits={q_bits}")
             checks += 1
+    # The streaming kernels' edges: odd counts, 2^22 + 3 elements, inputs
+    # and outputs 8 bytes off a 16-byte boundary, empty tensors (K4/K8 and
+    # their approximate forms, the row ops, K10 at every kc).
+    checks += edge_kernel_checks(rng, dev, nt, _build, ops, ks, torch_kernels,
+                                 torch_kernels32, to_tensor, port_config,
+                                 compare)
     # K9 over moduli of mixed bit lengths, alone and with 4 weights.
     dy_moduli = [top_modulus(nt, b) for b in (20, 40, 50, 60, 62)]
     for weights in (1, 4):
@@ -6039,7 +6633,10 @@ def main() -> int:
     # Rows 1, 2, 3, 6, 7, 10, 11 (K12) and the lean row's K1/K6 on rotating
     # inputs (`walk_runs`); their plain versions and bounds as above.
     walk = walk_runs(rng, dev, nt, get_plan, cuda_ntt, hier, shard, to_tensor)
-    for name, row in WALK_ROWS.items():
+    # K4, K8's families, the row ops and K10 likewise (`stream_runs`).
+    stream = stream_runs(rng, dev, nt, ops, ks, port_config, to_tensor)
+    walk.update({row: fn for row, (fn, _) in stream.items()})
+    for name, row in {**WALK_ROWS, **STREAM_ROWS}.items():
         desc, source, replaces, shape, case = cases[name]
         cases[name] = (desc, source, replaces,
                        f"{shape}, inputs rotating beyond the L2",
@@ -6079,20 +6676,22 @@ def main() -> int:
     # The one PyTorch call that computes a K8.reduce row's function:
     # eltwise_reduce_mod at IMF 2 or 4 with OMF 1 reads values below 4q <
     # 2^63, where torch.remainder(a, q) of the int64 tensor gives the same
-    # bits. Timed beside the kernel on the same inputs at 2^22 elements:
+    # bits. Timed beside the kernel on the same rotating inputs at 2^22
+    # elements (`stream_runs`; held equal on one input here):
     # 60-bit q at IMF 4 (the K8.reduce instantiation; that row's own call,
     # IMF q on any u64, has no such call) and the K8.reduce.u32 row's call,
     # whose entry takes it as its library time.
     r60 = rand(BIG, 4 * q60b)
-    for name, x, q, word in (("K8.reduce", r60, q60b, 64),
-                             ("K8.reduce.u32", e29[0], q29b, 32)):
+    for name, x, q, word, rows in (
+            ("K8.reduce", r60, q60b, 64, ("K8.reduce.imf4",
+                                          "torch.remainder")),
+            ("K8.reduce.u32", e29[0], q29b, 32, ("K8.reduce.u32",
+                                                 "torch.remainder.u32"))):
         got = ops.reduce_mod(x, q, 4, 1, word)
         compare(name, got, torch.remainder(x, q),
                 f"reduce_mod IMF 4 -> OMF 1, {q.bit_length()}-bit == "
                 "torch.remainder")
-        kernel_ms = graph_ms(lambda x=x, q=q, word=word: ops.reduce_mod(
-            x, q, 4, 1, word), 20)
-        library_ms = graph_ms(lambda x=x, q=q: torch.remainder(x, q), 20)
+        kernel_ms, library_ms = (graph_ms(walk[row], 20) for row in rows)
         entry = next(e for e in entries if e["name"].startswith(name + " "))
         if name == "K8.reduce.u32":
             entry["library_ms"] = library_ms
@@ -6124,14 +6723,15 @@ def main() -> int:
             " of bound")
 
     # K4's floor: the empty probe with K4's grid at the main path's 2 x 2^12
-    # elements (32 CTAs of 256 threads), in the same graph harness; and K4
+    # elements (32 CTAs of 128 threads, far under a wave, so that the
+    # occupancy does not enter: 8 CTAs an SM stands in for it), in the
+    # same graph harness; and K4
     # at 2^22 elements (2 x 16 x 2^17, IMF 4, 60-bit q), where its bound is
     # bytes. PERF.md row 4 takes the larger of the floor and the bytes
     # bound as K4's bound at 2 x 2^12.
-    k4_blocks, k4_threads = eltwise_grid(2 * n12, sms)
+    k4_blocks, k4_threads = eltwise_grid(2 * n12, 8 * sms)
     floor_ms = graph_ms(lambda: launch_empty(k4_blocks, k4_threads), 20)
-    e60x4 = [rand(BIG, 4 * q60b) for _ in range(2)]
-    k4_big_ms = graph_ms(lambda: ops.mult_mod(*e60x4, q60b, 4), 20)
+    k4_big_ms = graph_ms(walk["K4"], 20)
     k4_big_bound, k4_big_by = bound(8 * 3 * elems,
                                     elems * per_barrett)
     k4_entry = next(e for e in entries if e["name"].startswith("K4 "))
@@ -6763,6 +7363,13 @@ if __name__ == "__main__":
         sys.exit(ks_times(pathlib.Path(sys.argv[2]).resolve()))
     if len(sys.argv) == 3 and sys.argv[1] == "--walk-ab":
         sys.exit(walk_ab(pathlib.Path(sys.argv[2]).resolve()))
+    if len(sys.argv) == 3 and sys.argv[1] == "--stream-times":
+        sys.exit(stream_times(pathlib.Path(sys.argv[2]).resolve()))
+    if 2 <= len(sys.argv) <= 5 and sys.argv[1] == "--stream-variants":
+        sys.exit(stream_variants(
+            pathlib.Path(sys.argv[2]).resolve() if len(sys.argv) > 2
+            else None, int(sys.argv[3]) if len(sys.argv) > 3 else 1,
+            sys.argv[4].split(",") if len(sys.argv) > 4 else None))
     if len(sys.argv) == 5 and sys.argv[1] == "--seventh-child":
         sys.exit(seventh_child(*sys.argv[2:]))
     sys.exit(main())

@@ -68,6 +68,11 @@ _MAC_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P)
 _SPREAD_ARGS = (_P, _P, _P, _U, _U, _U, _I, _L, _I, _P)
 _FOLD_ARGS = (_P, _P, _P, _P, _P, _I, _I, _L, _I, _P)
 
+# K10's largest group of key components (csrc/key_switch.cu MAC_GROUP):
+# a group's accumulator pairs live in registers, and t is read once a
+# group.
+MAC_GROUP = 4
+
 
 def _column(rows, device) -> torch.Tensor:
     """Per-row constants (a list of u64 lists) as a (len, rows) int64
@@ -179,6 +184,8 @@ def mac_flush(t: torch.Tensor, keys: torch.Tensor, c: SimpleNamespace,
         return mac_flush_plain(t, keys, c.mac, ds, kc, kms, approx)
     rns, _, n = t.shape
     out = torch.empty((rns, kc, n), dtype=torch.int64, device=t.device)
+    if n == 0:
+        return out
     fn = _build.function("key_switch", "hexl_ks_mac_flush", _MAC_ARGS)
     _build.launch_on(t.device, _name("K10", approx), fn, t.data_ptr(),
                      keys.data_ptr(), out.data_ptr(), c.mac.data_ptr(), rns,

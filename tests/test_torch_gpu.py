@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from hexl_tpu_torch import (NTT, FFTLike, RnsNTT, _build,
                             dyadic_multiply,
                             eltwise_add_mod,
@@ -984,28 +985,33 @@ def test_new_instantiations_do_not_spill(cuda):
     """The approximate instantiations of K5 (lean16, lean8, approx), the
     chain kernels, every radix walk of K1/K6/K7 (four u64 schemes), K2's
     packed walk, K3's kernels (exact, lean16, lean8 and approx), K12's
-    radix walk, K16, the eltwise bodies' approximate instantiations and
-    those of K9, K10 and K11, from the -Xptxas -v report of the build."""
+    radix walk, K16, every eltwise body (the streaming template: 17 exact
+    and 6 approximate instantiations), K10 at every kc it is built for
+    (exact and approximate) and the approximate instantiations of K9 and
+    K11, from the -Xptxas -v report of the build."""
     import re
     res = _build.kernel_resources(_build.build_all()["log"])
     new = {k: v for k, v in res.items()
            if "chain_kernel" in k or re.search(r"kernelIyLi[123]E", k)
            or re.search(r"radix_(packed_)?(fwd|inv)_kernel", k)
            or re.search(r"poly_\w+_kernel", k) or "stage_kernel" in k
-           or re.search(r"eltwise_kernelI\w*Lb1E", k)
-           or re.search(r"(dyadic|mac_flush|spread|fold)_kernelILb1E", k)}
+           or re.search(r"eltwise_kernel|mac_flush_kernel", k)
+           or re.search(r"(dyadic|spread|fold)_kernelILb1E", k)}
     radix = [k for k in new if "radix_" in k]
     assert len(radix) == ((4 + 8) * 7 + (1 + 2) * 10 + 2 * 4 * 2
                           + 2 * (6 + 6 + 3)), radix
     k3 = [k for k in new if "poly_" in k]
     assert len(k3) == 4 * (3 + 6), k3
     assert len([k for k in new if "stage_kernel" in k]) == 2
-    assert len([k for k in new if "eltwise_kernel" in k]) == 5
+    eltwise = [k for k in new if "eltwise_kernel" in k]
+    assert len(eltwise) == 17 + 6, eltwise
+    mac = [k for k in new if "mac_flush_kernel" in k]
+    assert len(mac) == 2 * ks_mod.MAC_GROUP, mac
     composites = [k for k in new
-                  if re.search(r"(dyadic|mac_flush|spread|fold)_kernel", k)]
-    assert len(composites) == 4, composites
-    assert len(new) >= (3 * 6 * 3 + 2 + 3 + len(radix) + len(k3) + 2 + 5
-                        + len(composites))
+                  if re.search(r"(dyadic|spread|fold)_kernel", k)]
+    assert len(composites) == 3, composites
+    assert len(new) >= (3 * 6 * 3 + 2 + 3 + len(radix) + len(k3) + 2
+                        + len(eltwise) + len(mac) + len(composites))
     spills = {k: v for k, v in new.items() if v[2] or v[3]}
     assert not spills, spills
 
@@ -1703,3 +1709,59 @@ def test_public_lean_product_goes_through_k3(cuda, approx_switch):
         torch.cuda.synchronize()
         assert dict(_build.launches) == {f"{form}.{scheme}": 1}
         assert torch.equal(got, poly.poly_mult_plain(a, b, get_plan(n, q)))
+
+
+# -- the streaming kernels' edges (K4/K8, the row ops, K10) --------------------
+
+def _strict(kernel, got, want, what):
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"{kernel} at {what}"
+
+
+@pytest.mark.parametrize("q_bits", chip_smoke.EDGE_Q_BITS)
+def test_eltwise_kernels_at_their_edges(cuda, q_bits):
+    """Every eltwise op (both words where q < 2^30) and every approximate
+    instantiation at counts that leave a scalar tail (1, 3, 5, 1023,
+    2^22 + 3) and empty, inputs 8 bytes off a 16-byte boundary or not; the
+    flat kernel's head with its output so placed."""
+    from hexl_tpu_torch import config
+    rng = np.random.default_rng(q_bits + 17)
+    assert chip_smoke.eltwise_edge_checks(
+        rng, cuda, nt, _build, ops, torch_kernels, torch_kernels32,
+        to_tensor, config, _strict, q_bits) > 0
+
+
+def test_row_kernels_at_their_edges(cuda):
+    """K4.rows and K8.reduce.rows, exact and approximate, at odd row
+    lengths (every other row 8 bytes off), offset inputs and empty rows."""
+    from hexl_tpu_torch import config
+    assert chip_smoke.rows_edge_checks(
+        np.random.default_rng(18), cuda, nt, ops, torch_kernels, to_tensor,
+        config, _strict) > 0
+
+
+@pytest.mark.parametrize("ds", chip_smoke.EDGE_KS_DS)
+def test_mac_flush_kernel_at_its_edges(cuda, ds):
+    """K10 and K10.approx at every component group size and past one
+    group (EDGE_KS_KCS), at odd n and n = 0, with t and the keys 8 bytes
+    off a 16-byte boundary."""
+    assert chip_smoke.mac_edge_checks(np.random.default_rng(ds), cuda, nt,
+                                      ks_mod, to_tensor, _strict, ds) > 0
+
+
+@pytest.mark.parametrize("kc", [ks_mod.MAC_GROUP + 1,
+                                2 * ks_mod.MAC_GROUP + 1])
+def test_key_switch_past_one_component_group(cuda, kc):
+    """The public key switch at a kc past one of K10's component groups
+    (full groups on the grid's z axis, then the one left) goes through
+    K10 and matches the plain pipeline."""
+    rng = np.random.default_rng(19 + kc)
+    n, bits = 64, (40, 41, 45)
+    result, t, keys, moduli, msf = _key_switch_inputs(rng, n, bits, kc,
+                                                      cuda)
+    _build.reset_launches()
+    got = key_switch(result, t, n, 2, 3, 3, kc, moduli, keys, msf)
+    torch.cuda.synchronize()
+    assert _build.launches["K10"] >= 1
+    assert torch.equal(got, ks_mod.key_switch_plain(
+        result, t, n, 2, 3, 3, kc, moduli, keys, msf))
