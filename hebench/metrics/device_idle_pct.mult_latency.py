@@ -1,0 +1,5 @@
+"""device_idle_pct.mult_latency: share of the untraced window with no device
+operation running: the traced busy time a call over the untraced window's
+time a call."""
+
+from hebench.readers import device_idle_pct as read  # noqa: F401
