@@ -14,7 +14,8 @@ Every C entry launches on the stream it is given and returns
 launch under the kernel's name in `launches`. The kernel wrappers share
 `on_card` (the checks of their operands, and the choice between the kernel
 and the plain version), `batch_of` and `launch_on` (the device and stream
-around `launch`).
+around `launch`; while a `utils.profiling.recording()` is open, each call
+is recorded as the span `hexl.launch`).
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ import time
 
 import torch
 
+from .utils import profiling
+
 PKG_DIR = pathlib.Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent / "build" / "hexl_tpu_torch"
@@ -43,7 +46,8 @@ GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 MAX_BATCH = (1 << 31) - 1      # the kernels take the batch as a C int
 
 # Launches per kernel name since the last reset; read by chip_smoke.py to
-# show that the main path went through the kernels.
+# show that the main path went through the kernels, and by the benchmark
+# (`hebench`) for its launches a call.
 launches: collections.Counter = collections.Counter()
 
 _libs: dict = {}
@@ -220,10 +224,17 @@ def launch(kernel: str, fn, *args) -> None:
 
 def launch_on(device: torch.device, kernel: str, fn, *args) -> None:
     """`launch` on `device`, with its current stream as the C entry's last
-    argument."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        launch(kernel, fn, *args, stream)
+    argument; inside the span `hexl.launch` while a recording is open."""
+    # One test a launch: with no recording, no span is made or entered.
+    if profiling.records is None:
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            launch(kernel, fn, *args, stream)
+        return
+    with profiling.Span(profiling.LAUNCH, annotate=False):
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            launch(kernel, fn, *args, stream)
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

@@ -26,6 +26,7 @@ import torch
 from .. import _build, _device, config, nt
 from ..limb import cond_sub64_half, mult_mod_barrett_rows, to_numpy, to_tensor
 from ..ntt.plan import register_clear_hook
+from ..utils import profiling
 
 _P = ctypes.c_void_p
 _ARGS = (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
@@ -65,11 +66,9 @@ def dyadic_plain(x: torch.Tensor, y: torch.Tensor, consts: torch.Tensor,
     return torch.stack(acc)
 
 
-def dyadic(x: torch.Tensor, y: torch.Tensor, moduli) -> torch.Tensor:
-    """sum over w of the dyadic products of x[w] and y[w], (W, 2, M, n)
-    each, mod moduli[m] along M: K9 on the GPU, the plain version on the
-    CPU; the Barrett quotient approximate where `config.approx_butterflies`
-    is on for x's device."""
+def _checked(x: torch.Tensor, y: torch.Tensor, moduli) -> tuple:
+    """`dyadic`'s checks of the operands' shapes and of the moduli, which
+    it returns as a tuple of ints."""
     moduli = tuple(int(q) for q in moduli)
     if x.shape != y.shape or x.dim() != 4 or x.shape[1] != 2 \
             or x.shape[2] != len(moduli) or x.shape[0] < 1:
@@ -79,6 +78,20 @@ def dyadic(x: torch.Tensor, y: torch.Tensor, moduli) -> torch.Tensor:
     for q in moduli:
         if not 2 < q < (1 << 62):
             raise ValueError("moduli must be in (2, 2^62)")
+    return moduli
+
+
+def dyadic(x: torch.Tensor, y: torch.Tensor, moduli) -> torch.Tensor:
+    """sum over w of the dyadic products of x[w] and y[w], (W, 2, M, n)
+    each, mod moduli[m] along M: K9 on the GPU, the plain version on the
+    CPU; the Barrett quotient approximate where `config.approx_butterflies`
+    is on for x's device."""
+    return _dyadic(x, y, _checked(x, y, moduli))
+
+
+def _dyadic(x: torch.Tensor, y: torch.Tensor, moduli: tuple
+            ) -> torch.Tensor:
+    """`dyadic` on operands and moduli that passed its checks."""
     consts = row_constants(moduli, x.device)
     approx = config.approx_butterflies(x.device)
     if not _build.on_card(x, y):
@@ -102,6 +115,17 @@ def dyadic_multiply(operand1, operand2, moduli, device=None):
     int64 tensors of u64 bits run on their device; numpy uint64 operands
     run there too, else on `device` (default CUDA). The result is numpy iff
     an operand was numpy, as in the JAX package."""
-    (x, y), host = _device.operands((operand1, operand2), device)
-    out = dyadic(x.unsqueeze(0), y.unsqueeze(0), moduli)
-    return to_numpy(out) if host else out
+    if not profiling.on():
+        (x, y), host = _device.operands((operand1, operand2), device)
+        x, y = x.unsqueeze(0), y.unsqueeze(0)
+        out = _dyadic(x, y, _checked(x, y, moduli))
+        return to_numpy(out) if host else out
+    with profiling.Span("hexl.dyadic_multiply"):
+        with profiling.Span(profiling.CHECKS):
+            (x, y), host = _device.operands((operand1, operand2), device)
+        x, y = x.unsqueeze(0), y.unsqueeze(0)
+        with profiling.Span("hexl.dyadic"):
+            with profiling.Span(profiling.CHECKS):
+                moduli = _checked(x, y, moduli)
+            out = _dyadic(x, y, moduli)
+        return to_numpy(out) if host else out

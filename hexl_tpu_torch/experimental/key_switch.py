@@ -59,6 +59,7 @@ from ..limb import (add128, cond_sub64_half, mul64_wide, mulhi64,
                     to_tensor)
 from ..ntt import (cuda_ntt, get_plan, get_rns_plan, register_clear_hook,
                    rns, torch_ntt)
+from ..utils import profiling
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -286,6 +287,11 @@ PLAIN = SimpleNamespace(
     mac_flush=lambda t, keys, c, ds, kc, kms, approx: mac_flush_plain(
         t, keys, c.mac, ds, kc, kms, approx),
     spread=spread_plain, fold=fold_plain)
+# WRAPPERS with each step inside the span `hexl.ks.<entry>`: what
+# `key_switch` takes where `profiling.on()`.
+TRACED = SimpleNamespace(**{
+    name: profiling.traced(f"hexl.ks.{name}", step) if callable(step)
+    else step for name, step in vars(WRAPPERS).items()})
 
 
 def flush_approx(steps, moduli, ds: int, approx: bool) -> bool:
@@ -400,12 +406,22 @@ def key_switch(result, t_target, n: int, decomp_modulus_size: int,
     modswitch_factors: decomp_modulus_size factors qk^-1 mod qi
     rns_modulus_size must be decomp_modulus_size + 1, as the JAX function
     requires. Operands and devices as in `dyadic_multiply`."""
-    args, host = arguments(result, t_target, n, decomp_modulus_size,
-                            key_modulus_size, rns_modulus_size,
-                            key_component_count, moduli, key_switch_keys,
-                            modswitch_factors, device)
-    out = pipeline(WRAPPERS, *args)
-    return to_numpy(out) if host else out
+    if not profiling.on():
+        args, host = arguments(result, t_target, n, decomp_modulus_size,
+                                key_modulus_size, rns_modulus_size,
+                                key_component_count, moduli, key_switch_keys,
+                                modswitch_factors, device)
+        out = pipeline(WRAPPERS, *args)
+        return to_numpy(out) if host else out
+    with profiling.Span("hexl.key_switch"):
+        with profiling.Span(profiling.CHECKS):
+            args, host = arguments(result, t_target, n, decomp_modulus_size,
+                                    key_modulus_size, rns_modulus_size,
+                                    key_component_count, moduli,
+                                    key_switch_keys, modswitch_factors,
+                                    device)
+        out = pipeline(TRACED, *args)
+        return to_numpy(out) if host else out
 
 
 def key_switch_plain(result, t_target, n: int, decomp_modulus_size: int,

@@ -21,11 +21,22 @@ either package loads in the other. Everything else is derived from them.
 The cache (`get_plan`) holds one plan per (N, q); `clear_plan_cache` drops
 it and runs the hooks (`register_clear_hook`) that flush every derived
 cache holding a plan or its device tables.
+
+`cache_stats` counts the plan caches' work: `misses`, the builds of a plan
+(`get_plan`), a stacked plan (`rns.get_rns_plan`), a plan's tables on a
+device (`NttPlan.tables`) and a stacked plan's row descriptors on a device
+(`RnsPlan.descriptors`); `build_s`, the seconds they took, a build inside
+another counted once; and, only while a `utils.profiling.recording()` is
+open, `hits` of `get_plan` and `get_rns_plan`. `clear_plan_cache` leaves
+them as they are.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import threading
+import time
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
@@ -33,11 +44,28 @@ import torch
 
 from .. import native, nt
 from ..limb import to_tensor
+from ..utils import profiling
 
 MAX_DEGREE = 1 << 20
 MAX_MODULUS = 1 << 62
 MIN_2D_N = 1024          # the JAX plan's 2-D tables, and its q < 2^30 regime
 SINGLE_WORD_Q = 1 << 30  # below it, 4q < 2^32: one u32 word per coefficient
+
+# The plan caches' misses, build seconds and (while recording) hits.
+cache_stats: collections.Counter = collections.Counter()
+
+
+@contextlib.contextmanager
+def building():
+    """Count one miss of a plan cache, and the block's seconds into
+    `cache_stats["build_s"]` in place of those of the builds inside it."""
+    cache_stats["misses"] += 1
+    before = cache_stats["build_s"]
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        cache_stats["build_s"] = before + time.perf_counter() - t0
 
 
 def check_arguments(degree: int, modulus: int) -> None:
@@ -184,8 +212,9 @@ class NttPlan:
                     names = ["rop", "prop", "irop", "pirop"]
                     if self.bit_shift == 32:
                         names += ["prop32", "pirop32"]
-                    tabs = {name: to_tensor(getattr(self, name), device)
-                            for name in names}
+                    with building():
+                        tabs = {name: to_tensor(getattr(self, name), device)
+                                for name in names}
                     self._dev[key] = tabs
         return tabs
 
@@ -272,15 +301,19 @@ def get_plan(degree: int, modulus: int, device=None) -> NttPlan:
         with _CACHE_LOCK:
             plan = _PLAN_CACHE.get(key)
             if plan is None:
-                plan = NttPlan(degree, modulus)
+                with building():
+                    plan = NttPlan(degree, modulus)
                 _PLAN_CACHE[key] = plan
+    elif profiling.records is not None:
+        cache_stats["hits"] += 1
     if device is not None:
         plan.tables(device)
     return plan
 
 
 def clear_plan_cache() -> None:
-    """Drop every cached plan, then run the registered hooks."""
+    """Drop every cached plan, then run the registered hooks; `cache_stats`
+    is left as it is."""
     with _CACHE_LOCK:
         _PLAN_CACHE.clear()
     for fn in _CLEAR_HOOKS:

@@ -55,8 +55,9 @@ import torch
 from .. import _build, _device, nt
 from ..limb import reduce_mod_lazy64, to_numpy, to_tensor
 from ..utils import check as _check
+from ..utils import profiling
 from . import cuda_ntt, hier, torch_ntt
-from .plan import get_plan, register_clear_hook
+from .plan import building, cache_stats, get_plan, register_clear_hook
 
 # A row descriptor's 64-bit words, in csrc/rns.cuh RnsRow's order.
 ROW_FIELDS = ("q", "inv_n", "inv_n_precon", "inv_n_w", "inv_n_w_precon",
@@ -111,12 +112,14 @@ class RnsPlan:
                 rows = self._rows.get(key)
                 if rows is None:
                     words = []
-                    for plan in self.plans:
-                        tabs = plan.tables(device)
-                        words.append([plan.q, *plan.fin(64)]
-                                     + [tabs[t].data_ptr() for t in TABLES])
-                    rows = to_tensor(np.array(words, dtype=np.uint64),
-                                     device)
+                    with building():
+                        for plan in self.plans:
+                            tabs = plan.tables(device)
+                            words.append([plan.q, *plan.fin(64)]
+                                         + [tabs[t].data_ptr()
+                                            for t in TABLES])
+                        rows = to_tensor(np.array(words, dtype=np.uint64),
+                                         device)
                     self._words[key] = words
                     self._rows[key] = rows
         return rows
@@ -147,8 +150,11 @@ def get_rns_plan(degree: int, moduli, device=None) -> RnsPlan:
         with _RNS_LOCK:
             rplan = _RNS_PLANS.get(key)
             if rplan is None:
-                rplan = RnsPlan(degree, key[1])
+                with building():
+                    rplan = RnsPlan(degree, key[1])
                 _RNS_PLANS[key] = rplan
+    elif profiling.records is not None:
+        cache_stats["hits"] += 1
     if device is not None:
         rplan.descriptors(device)
     return rplan
@@ -581,7 +587,8 @@ class RnsNTT:
         self.degree = degree
         self.moduli = self.plan.moduli
 
-    def _dispatch(self, x, forward: bool, imf: int, omf: int):
+    def _operand(self, x, forward: bool, imf: int):
+        """(x as a tensor, host): the input's checks."""
         (tx,), host = _device.operands((x,), self.device)
         if tx.dim() < 2 or tx.shape[0] != self.plan.k:
             raise ValueError(
@@ -590,10 +597,25 @@ class RnsNTT:
         _check.check_row_bounds(
             tx, [imf * q for q in self.moduli],
             f"{'forward' if forward else 'inverse'} RNS NTT input")
-        out = _stacked(tx, self.plan, imf, omf, forward,
-                       torch_ntt.scheme_for(max(self.moduli), self.degree,
-                                            tx.device))
-        return to_numpy(out) if host else out
+        return tx, host
+
+    def _route(self, tx, forward: bool, imf: int, omf: int):
+        return _stacked(tx, self.plan, imf, omf, forward,
+                        torch_ntt.scheme_for(max(self.moduli), self.degree,
+                                             tx.device))
+
+    def _dispatch(self, x, forward: bool, imf: int, omf: int):
+        if not profiling.on():
+            tx, host = self._operand(x, forward, imf)
+            out = self._route(tx, forward, imf, omf)
+            return to_numpy(out) if host else out
+        name = "hexl.rns_ntt.forward" if forward else "hexl.rns_ntt.inverse"
+        with profiling.Span(name):
+            with profiling.Span(profiling.CHECKS):
+                tx, host = self._operand(x, forward, imf)
+            with profiling.Span("hexl.rns_ntt.route"):
+                out = self._route(tx, forward, imf, omf)
+            return to_numpy(out) if host else out
 
     def forward(self, x, input_mod_factor: int = 1,
                 output_mod_factor: int = 1):

@@ -2,8 +2,8 @@
 
 As in the JAX package, `from hexl_tpu_torch.utils import check` imports
 the *module*; `check_bounds`/`debug_enabled`/`vlog`/`get_logger` are also
-re-exported here. `profiling` (`trace`, `ntt_cost`) is imported on its
-own.
+re-exported here. `profiling` (`trace`, `recording`, `summary` and the
+spans) is imported on its own.
 """
 
 from . import check

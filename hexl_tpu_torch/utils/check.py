@@ -12,7 +12,6 @@ import numpy as np
 import torch
 
 from .. import config
-from ..limb import to_numpy
 
 
 def debug_enabled() -> bool:
@@ -29,6 +28,9 @@ def check_bounds(values, bound: int, message: str) -> None:
     """Check that every element (u64 bits) is < bound, in debug mode only."""
     if not debug_enabled():
         return
+    # Imported here: limb imports nt, whose import of _build imports this
+    # package.
+    from ..limb import to_numpy
     if isinstance(values, torch.Tensor):
         arr = to_numpy(values)
     else:
@@ -43,6 +45,7 @@ def check_row_bounds(values, bounds, message: str) -> None:
     naming the row as "(prime i)", in debug mode only."""
     if not debug_enabled():
         return
+    from ..limb import to_numpy
     if isinstance(values, torch.Tensor):
         values = to_numpy(values)
     for i, bound in enumerate(bounds):

@@ -1,6 +1,6 @@
 """The port's utilities against the JAX package's: HEXL_TPU_VLOG logging
-(and the eltwise ops' vlog(3) records), the analytic `ntt_cost`, the
-torch.profiler `trace`, `prewarm`, and the top-level exports."""
+(and the eltwise ops' vlog(3) records), the torch.profiler `trace`,
+`prewarm`, and the top-level exports."""
 
 import json
 import logging
@@ -10,10 +10,9 @@ import numpy as np
 import pytest
 
 import hexl_tpu_torch
-from hexl_tpu.utils.profiling import ntt_cost as jax_ntt_cost
 from hexl_tpu_torch import eltwise_add_mod, nt, prewarm, utils
 from hexl_tpu_torch.utils import get_logger, vlog
-from hexl_tpu_torch.utils.profiling import ntt_cost, trace
+from hexl_tpu_torch.utils.profiling import trace
 
 
 def test_vlog(monkeypatch, caplog):
@@ -44,16 +43,6 @@ def test_utils_reexports():
                              "get_logger", "vlog"]
     assert utils.check.check_bounds is utils.check_bounds
     assert utils.debug_enabled() in (True, False)
-
-
-@pytest.mark.parametrize("approx", [True, False])
-@pytest.mark.parametrize("q_bits", [20, 29, 30, 50, 60])
-def test_ntt_cost_equals_jax(q_bits, approx):
-    for log_n in range(1, 21):
-        n = 1 << log_n
-        assert (ntt_cost(n, q_bits, approx)
-                == jax_ntt_cost(n, q_bits, approx))
-    assert ntt_cost(1 << 14) == jax_ntt_cost(1 << 14)
 
 
 def test_trace_on_the_cpu_writes_events(tmp_path):
