@@ -4236,8 +4236,12 @@ def trace_breakdown(path: str, calls: int) -> dict:
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X"]
-    kernel_of = {e["args"]["correlation"]: (e["ts"], e["ts"] + e["dur"])
-                 for e in events if e.get("cat") == "kernel"}
+    # A graph replay's kernels share its cudaGraphLaunch's correlation id.
+    kernel_of = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernel_of[e["args"]["correlation"]].append(
+                (e["ts"], e["ts"] + e["dur"]))
     host = [e for e in events if e.get("cat") in (
         "cpu_op", "cuda_runtime", "user_annotation")]
     windows = [e for e in events if e.get("cat") == "user_annotation"
@@ -4252,9 +4256,9 @@ def trace_breakdown(path: str, calls: int) -> dict:
                          and lo <= e["ts"]
                          and e["ts"] + e["dur"] <= hi + 1e-3),
                         key=lambda e: (e["ts"], -e["dur"]))
-        spans = sorted(kernel_of[c] for c in (
+        spans = sorted(k for c in (
             e.get("args", {}).get("correlation") for e in nested
-            if e.get("cat") == "cuda_runtime") if c in kernel_of)
+            if e.get("cat") == "cuda_runtime") for k in kernel_of.get(c, ()))
         busy, reach = 0.0, float("-inf")
         for a, b in spans:
             if b > reach:

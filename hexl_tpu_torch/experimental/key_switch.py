@@ -39,10 +39,38 @@ function's own rule (`pipeline`), the flush of the multiply-accumulate
 (launch names "K10.approx", "K11.approx", "K8.reduce.rows.approx" ...) or
 the plain versions with `approx=True`. The transforms stay exact. Every
 output is fully reduced, so the bits are the same either way.
+
+On the card the chain before the fold is replayed from a CUDA graph.
+`switch` (every step up to the mod-down's forward NTTs: 14 launches and
+the aten gather and copies of `others` and `assemble`) does the same
+thing on every call of one key (`graph_key`): the device and its current
+stream, (n, ds, kms, kc), the moduli and modswitch factors, the keys'
+address and shape, the approximate flag, and the route rules in force
+(`rns.cluster_for`, `hier.cross_form`, `cuda_ntt.polys_per_cta`, so that
+a rule forced in a test or a timing gets a graph of its own). A key's
+first call runs eagerly, which fills every cache the chain reads (plans,
+descriptors, constants, `_others_index`, the occupancy queries), so that
+nothing is copied from the host or queried inside a capture; its second
+captures `switch` on a static copy of t_target into a graph with its own
+memory pool (`capture`); every later call copies t_target into the
+graph's input and replays it (`graph`). The fold (K11) is launched
+eagerly every time, from the caller's result and the graph's outputs into
+a new tensor: no output is shared between calls, and on one stream the
+next replay cannot overwrite the graph's outputs before a fold has read
+them. The eager chain runs instead on the CPU, in debug mode (its checks
+read the operands on the host, which a replay would skip) and while the
+current stream is itself being captured (an outer graph then records the
+kernels, as it did before). A failed capture raises. `graphs` holds at
+most GRAPH_CACHE keys, the least recently used evicted first, and
+`clear_plan_cache` empties it. `graph_stats` counts the card calls that
+ran eagerly, captured and replayed; a replay adds the launches counted
+during its capture to `_build.launches`, so every call counts the same
+launches whichever way it ran.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from types import SimpleNamespace
@@ -57,9 +85,9 @@ from ..limb import (add128, cond_sub64_half, mul64_wide, mulhi64,
                     mulhi64_approx, mult_mod_barrett_rows, reduce_mod_lazy64,
                     shoup_mul_lazy, shoup_mul_lazy_approx, to_numpy,
                     to_tensor)
-from ..ntt import (cuda_ntt, get_plan, get_rns_plan, register_clear_hook,
-                   rns, torch_ntt)
-from ..utils import profiling
+from ..ntt import (cuda_ntt, get_plan, get_rns_plan, hier,
+                   register_clear_hook, rns, torch_ntt)
+from ..utils import check, profiling
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -255,6 +283,121 @@ def assemble(off: torch.Tensor, diag: torch.Tensor,
     return out
 
 
+# -- the graph of the chain on the card (module docstring) ---------------------
+
+# The most keys `graphs` holds. SEAL's largest default set has 15 levels
+# at 2^15, and a graph at ds 15 holds about 0.25 GB of device memory.
+GRAPH_CACHE = 32
+# graph_key -> None (seen once, run eagerly) or `capture`'s entry, the
+# least recently used first.
+graphs: collections.OrderedDict = collections.OrderedDict()
+# The card calls that ran the chain eagerly, captured it, replayed it.
+graph_stats: collections.Counter = collections.Counter()
+
+
+def graph_key(stream: int, t_target, keys, n, ds, kms, kc, moduli,
+              msf) -> tuple:
+    """What a graph of the chain holds fixed: t_target's device and the
+    `stream` it runs on, the shape, the basis, the keys' address and shape,
+    the approximate flag and the route rules in force."""
+    return (t_target.device, stream, n, ds, kms, kc, moduli, msf,
+            keys.data_ptr(), tuple(keys.shape), ops.approx_for(t_target),
+            rns.cluster_for, hier.cross_form, cuda_ntt.polys_per_cta)
+
+
+def _release(entry) -> None:
+    """Let a dropped graph's pending replays finish before its memory
+    goes."""
+    if entry is not None and entry.t_static.is_cuda:
+        torch.cuda.synchronize(entry.t_static.device)
+
+
+def lookup(key, make):
+    """The cache's bookkeeping for one card call of `key`: None where the
+    key is new (the caller runs the chain eagerly), `make()`'s entry where
+    it was seen once, the cached entry after; counts the call in
+    `graph_stats` and evicts beyond GRAPH_CACHE keys."""
+    if key not in graphs:
+        graph_stats["eager"] += 1
+        graphs[key] = None
+        while len(graphs) > GRAPH_CACHE:
+            _release(graphs.popitem(last=False)[1])
+        return None
+    graphs.move_to_end(key)
+    entry = graphs[key]
+    if entry is None:
+        entry = graphs[key] = make()
+        graph_stats["captures"] += 1
+    else:
+        graph_stats["replays"] += 1
+    return entry
+
+
+def _clear_graphs() -> None:
+    for entry in graphs.values():
+        _release(entry)
+    graphs.clear()
+
+
+# The graphs hold the addresses of the cached plans' descriptors and of
+# the constants.
+register_clear_hook(_clear_graphs)
+
+
+def capture(t_target, keys, n, ds, kms, kc, moduli, msf) -> SimpleNamespace:
+    """`switch` through the kernel wrappers, captured into a CUDA graph on
+    a static input of t_target's shape and device (the current device):
+    the entry holding the graph, its input `t_static`, its outputs `tpp`
+    and `t_ntt`, the constants and flag the fold takes, and the launches
+    the chain makes. The capture runs nothing, so the launches it counted
+    are taken off `_build.launches` again; `graph` adds them."""
+    t_static = torch.empty_like(t_target)
+    cuda_graph = torch.cuda.CUDAGraph()
+    before = collections.Counter(_build.launches)
+    # thread_local: an unsafe call of this thread inside the capture
+    # raises, other threads' calls are left alone.
+    with torch.cuda.graph(cuda_graph, stream=torch.cuda.Stream(),
+                          capture_error_mode="thread_local"):
+        tpp, t_ntt, c, approx = switch(WRAPPERS, t_static, keys, n, ds, kms,
+                                       kc, moduli, msf)
+    launched = collections.Counter(_build.launches) - before
+    _build.launches.clear()
+    _build.launches.update(before)
+    return SimpleNamespace(graph=cuda_graph, t_static=t_static, tpp=tpp,
+                           t_ntt=t_ntt, c=c, approx=approx,
+                           launches=launched)
+
+
+def graph(entry, t_target) -> None:
+    """Replay `entry`'s graph on t_target, on the current stream, and count
+    its launches."""
+    entry.t_static.copy_(t_target)
+    entry.graph.replay()
+    _build.launches.update(entry.launches)
+
+
+def run(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
+    """`pipeline(steps, ...)`; on the card through the graph of the
+    chain's key, except in debug mode, under an outer capture and on a
+    key's first call."""
+    if not t_target.is_cuda:
+        return pipeline(steps, result, t_target, keys, n, ds, kms, kc,
+                        moduli, msf)
+    with torch.cuda.device(t_target.device):
+        if check.debug_enabled() or torch.cuda.is_current_stream_capturing():
+            graph_stats["eager"] += 1
+            return pipeline(steps, result, t_target, keys, n, ds, kms, kc,
+                            moduli, msf)
+        args = (t_target, keys, n, ds, kms, kc, moduli, msf)
+        entry = lookup(graph_key(torch.cuda.current_stream().cuda_stream,
+                                 *args), lambda: steps.capture(*args))
+        if entry is None:
+            return pipeline(steps, result, *args)
+        steps.graph(entry, t_target)
+        return steps.fold(result, entry.tpp, entry.t_ntt, entry.c,
+                          entry.approx)
+
+
 # The steps of the pipeline: through the wrappers (kernels on the GPU),
 # or through the plain versions on any device. `plan` gives what the
 # transforms take for a prime, `rns_plan` what the stacked transforms take
@@ -263,7 +406,8 @@ def assemble(off: torch.Tensor, diag: torch.Tensor,
 # values (tensors here, sharded values in `parallel.composites`);
 # `approx` says whether a value's device takes the approximate quotients,
 # `row_flush` whether the flush is the JAX function's per-row one whatever
-# the bit lengths (`pipeline`).
+# the bit lengths (`pipeline`). WRAPPERS also holds the graph path's
+# `capture` and `graph` (`run`).
 _TENSORS = dict(
     plan=get_plan, rns_plan=get_rns_plan, approx=ops.approx_for,
     row_flush=False,
@@ -276,7 +420,8 @@ WRAPPERS = SimpleNamespace(
     fwd_rns=rns.fwd_ntt_rns, inv_rns=rns.inv_ntt_rns,
     reduce=lambda x, q: ops.reduce_mod(x, q, q, 1),
     reduce_rows=lambda x, moduli: ops.reduce_mod_rows(x, moduli, 1),
-    mac_flush=mac_flush, spread=spread, fold=fold)
+    mac_flush=mac_flush, spread=spread, fold=fold, capture=capture,
+    graph=graph)
 PLAIN = SimpleNamespace(
     **_TENSORS, fwd=torch_ntt.fwd_ntt, inv=torch_ntt.inv_ntt,
     fwd_rns=rns.fwd_ntt_rns_plain, inv_rns=rns.inv_ntt_rns_plain,
@@ -308,14 +453,15 @@ def flush_approx(steps, moduli, ds: int, approx: bool) -> bool:
                        or len({q.bit_length() for q in rows}) > 1)
 
 
-def pipeline(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
-    """The key switch's order of steps, with its lazy ranges, over the
-    values and steps of `steps` (WRAPPERS, PLAIN, or a mesh's). Where the
-    ds > 1 decomposition primes are distinct, the transforms that differ
-    only in the prime run stacked, as the JAX function runs them
-    (key_switch.py:105-160): the target's inverses, the base-converted
-    targets as one (ds, ds - 1, n) block and the mod-down's forwards; else
-    one call a prime."""
+def switch(steps, t_target, keys, n, ds, kms, kc, moduli, msf):
+    """The key switch's steps up to and including the mod-down's forward
+    NTTs, with their lazy ranges, over the values and steps of `steps`
+    (WRAPPERS, PLAIN, or a mesh's): (tpp, t_ntt, c, approx), what the fold
+    takes besides result. Where the ds > 1 decomposition primes are
+    distinct, the transforms that differ only in the prime run stacked, as
+    the JAX function runs them (key_switch.py:105-160): the target's
+    inverses, the base-converted targets as one (ds, ds - 1, n) block and
+    the mod-down's forwards; else one call a prime."""
     c = steps.constants(moduli, msf, ds, t_target)
     approx = steps.approx(t_target)
     plans = [steps.plan(n, q) for q in moduli[:ds]] + [steps.plan(n,
@@ -357,7 +503,7 @@ def pipeline(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
                           flush_approx(steps, moduli, ds, approx))
     # Mod-down: the key prime's row, (2, 2) inverse; the spread to every
     # q_i; the (4, 4) forward NTTs (stacked where the transforms above
-    # were); the fold into result.
+    # were).
     t_last = steps.inv(steps.take(tpp, ds), plans[ds], 2, 2)
     spread_out = steps.spread(t_last, c, approx)
     if rplan is not None:
@@ -365,7 +511,14 @@ def pipeline(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
     else:
         t_ntt = steps.stack([steps.fwd(steps.take(spread_out, i), plans[i],
                                        4, 4) for i in range(ds)])
-    return steps.fold(result, tpp, t_ntt, c, approx)
+    return tpp, t_ntt, c, approx
+
+
+def pipeline(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
+    """The key switch over the values and steps of `steps`: `switch`, then
+    the fold into result."""
+    return steps.fold(result, *switch(steps, t_target, keys, n, ds, kms, kc,
+                                      moduli, msf))
 
 
 def arguments(result, t_target, n, ds, kms, rns, kc, moduli, keys, msf,
@@ -411,7 +564,7 @@ def key_switch(result, t_target, n: int, decomp_modulus_size: int,
                                 key_modulus_size, rns_modulus_size,
                                 key_component_count, moduli, key_switch_keys,
                                 modswitch_factors, device)
-        out = pipeline(WRAPPERS, *args)
+        out = run(WRAPPERS, *args)
         return to_numpy(out) if host else out
     with profiling.Span("hexl.key_switch"):
         with profiling.Span(profiling.CHECKS):
@@ -420,7 +573,7 @@ def key_switch(result, t_target, n: int, decomp_modulus_size: int,
                                     key_component_count, moduli,
                                     key_switch_keys, modswitch_factors,
                                     device)
-        out = pipeline(TRACED, *args)
+        out = run(TRACED, *args)
         return to_numpy(out) if host else out
 
 

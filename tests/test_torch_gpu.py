@@ -405,6 +405,150 @@ def test_key_switch_kernels_match_plain(cuda, n, bits, kc):
     assert torch.equal(result, before)
 
 
+@pytest.fixture
+def fresh_graphs(cuda):
+    """The key switch's graph cache and its counters emptied before and
+    after the test."""
+    def empty():
+        torch.cuda.synchronize()
+        ks_mod.graphs.clear()
+        ks_mod.graph_stats.clear()
+
+    empty()
+    yield
+    empty()
+
+
+def _ks_shape(rng, n, moduli, kc, dev):
+    """A key switch over `moduli` (decomposition primes, then the key
+    prime) with one set of keys: make() gives the arguments of a call on
+    fresh result and target."""
+    ds = len(moduli) - 1
+
+    def rows(count):
+        return torch.stack([_rand(rng, (n,), q, dev) for q in moduli[:count]])
+
+    keys = torch.stack([torch.stack([rows(ds + 1) for _ in range(kc)])
+                        for _ in range(ds)])
+    msf = [nt.inverse_mod(moduli[-1] % q, q) for q in moduli[:ds]]
+
+    def make():
+        result = torch.stack([rows(ds) for _ in range(kc)])
+        return (result, rows(ds), n, ds, ds + 1, ds + 1, kc, moduli, keys,
+                msf)
+    return make
+
+
+def _ks_moduli(n, bits, repeat=False):
+    """Distinct primes of the bit sizes, the last the key prime; with
+    `repeat` the second decomposition prime equal to the first (the
+    unstacked branch)."""
+    moduli = list(nt.generate_primes(len(bits), bits[0], True, ntt_size=n))
+    if repeat:
+        moduli[1] = moduli[0]
+    return moduli
+
+
+def test_key_switch_graph_calls_match_plain(cuda, fresh_graphs):
+    """A key's first call runs eagerly, its second captures, the rest
+    replay: each equal word for word to the plain pipeline, and each
+    counting the same launches."""
+    n = 1 << 15
+    make = _ks_shape(np.random.default_rng(21), n, _ks_moduli(n, (49,) * 4),
+                     2, cuda)
+    counts = []
+    for _ in range(5):
+        args = make()
+        before = args[0].clone()
+        _build.reset_launches()
+        got = key_switch(*args)
+        counts.append(dict(_build.launches))
+        torch.cuda.synchronize()
+        assert torch.equal(got, ks_mod.key_switch_plain(*args))
+        assert torch.equal(args[0], before)
+    assert dict(ks_mod.graph_stats) == {"eager": 1, "captures": 1,
+                                        "replays": 3}
+    assert all(c == counts[0] for c in counts)
+    assert counts[0]["K10"] == 1 and counts[0]["K11"] == 2
+
+
+def test_key_switch_graph_outputs_are_not_shared(cuda, fresh_graphs):
+    """Eight calls in flight on one graph: each output its own tensor,
+    all still right after the eighth call."""
+    n = 1 << 15
+    make = _ks_shape(np.random.default_rng(22), n, _ks_moduli(n, (49,) * 4),
+                     2, cuda)
+    calls = [make() for _ in range(8)]
+    outs = [key_switch(*args) for args in calls]
+    torch.cuda.synchronize()
+    assert len({o.data_ptr() for o in outs}) == 8
+    for args, got in zip(calls, outs):
+        assert torch.equal(got, ks_mod.key_switch_plain(*args))
+    assert ks_mod.graph_stats["replays"] == 6
+
+
+def test_key_switch_graphs_of_interleaved_shapes(cuda, fresh_graphs):
+    """ds 2 and ds 3 at 2^15 (stacked) and a repeated decomposition prime
+    (the unstacked branch), called in turn: a graph each."""
+    n = 1 << 15
+    rng = np.random.default_rng(23)
+    shapes = [_ks_shape(rng, n, _ks_moduli(n, bits, repeat), 2, cuda)
+              for bits, repeat in (((49,) * 3, False), ((49,) * 4, False),
+                                   ((49,) * 3, True))]
+    for _ in range(3):
+        for make in shapes:
+            args = make()
+            got = key_switch(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ks_mod.key_switch_plain(*args))
+    assert dict(ks_mod.graph_stats) == {"eager": 3, "captures": 3,
+                                        "replays": 3}
+    assert sum(v is not None for v in ks_mod.graphs.values()) == 3
+
+
+def test_key_switch_graph_after_clear_plan_cache(cuda, fresh_graphs):
+    """clear_plan_cache drops the graphs (they hold the plans' addresses):
+    the next call of the key runs eagerly on the new plans."""
+    from hexl_tpu_torch.ntt import clear_plan_cache
+
+    n = 1 << 15
+    make = _ks_shape(np.random.default_rng(24), n, _ks_moduli(n, (49,) * 4),
+                     2, cuda)
+    for turn in range(2):
+        for _ in range(3):
+            args = make()
+            got = key_switch(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ks_mod.key_switch_plain(*args))
+        if turn == 0:
+            clear_plan_cache()
+            assert not ks_mod.graphs
+    assert dict(ks_mod.graph_stats) == {"eager": 2, "captures": 2,
+                                        "replays": 2}
+
+
+def test_key_switch_inside_an_outer_capture(cuda, fresh_graphs):
+    """Under an outer capture the chain runs eagerly, so the outer graph
+    records its kernels; replayed on new operands it gives their switch."""
+    n = 1 << 15
+    make = _ks_shape(np.random.default_rng(25), n, _ks_moduli(n, (49,) * 4),
+                     2, cuda)
+    for _ in range(3):
+        key_switch(*make())
+    torch.cuda.synchronize()
+    args = make()
+    outer = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(outer, capture_error_mode="relaxed"):
+        got = key_switch(*args)
+    assert ks_mod.graph_stats["eager"] == 2
+    fresh = make()
+    args[0].copy_(fresh[0])
+    args[1].copy_(fresh[1])
+    outer.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, ks_mod.key_switch_plain(*fresh))
+
+
 def test_slice3_entry_points_never_take_the_plain_path(cuda, monkeypatch):
     """The eltwise family and the composites on CUDA tensors launch their
     kernels (single word where the JAX routing picks it), never a plain
