@@ -9,7 +9,14 @@
 //   in 128 bits, wrapping mod 2^128 like limb.add128, then acc mod q_i
 //   exactly: the high and low words are each reduced by Barrett and folded
 //   with 2^64 mod q_i. key_idx(i) is i, or kms - 1 for the key prime's row
-//   i = ds. The JAX package has a stacked form (one static Barrett shift
+//   i = ds, so below the top level (kms > ds + 1) the key prime's row is
+//   the keys' last. The wrap bound: t < 4 q_i (the (4, 4) forward
+//   transforms' range; the target itself < q_i) and keys < q_i, so
+//   acc < ds * 4 q_i * q_i, which stays below 2^128 while
+//   ds * 4 q_i^2 < 2^128: for rows below 2^60 any ds < 64, and SEAL's
+//   {60, 40 x 19, 60} chain at ds 20 reaches 2^126.33, a factor of 3.2
+//   below the wrap. Above the bound the sum wraps as the JAX package's
+//   does. The JAX package has a stacked form (one static Barrett shift
 //   for rows of one bit length) and a per-(i, k) loop; both are fully
 //   reduced, so one launch with per-row constants (q, q_barr, 2^64 mod q,
 //   mu, shift in `consts`, (5, rns)) serves every basis.

@@ -63,9 +63,15 @@ current stream is itself being captured (an outer graph then records the
 kernels, as it did before). A failed capture raises. `graphs` holds at
 most GRAPH_CACHE keys, the least recently used evicted first, and
 `clear_plan_cache` empties it. `graph_stats` counts the card calls that
-ran eagerly, captured and replayed; a replay adds the launches counted
-during its capture to `_build.launches`, so every call counts the same
-launches whichever way it ran.
+ran eagerly, captured and replayed, the host seconds spent in `capture`
+(`capture_s`) and the device bytes the held graphs' memory pools reserve
+(`pool_bytes`: what `torch.cuda.memory_reserved` grew by over each
+capture, less the entries evicted or cleared since); a replay adds the
+launches counted during its capture to `_build.launches`, so every call
+counts the same launches whichever way it ran. One set of keys used at
+several levels (`keys[:ds]` of a deeper key, as a CKKS chain uses its
+relinearisation key below the top level) gives a graph a level: the
+shape and ds are in the key.
 """
 
 from __future__ import annotations
@@ -73,6 +79,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import time
 from types import SimpleNamespace
 from typing import Sequence
 
@@ -285,13 +292,15 @@ def assemble(off: torch.Tensor, diag: torch.Tensor,
 
 # -- the graph of the chain on the card (module docstring) ---------------------
 
-# The most keys `graphs` holds. SEAL's largest default set has 15 levels
-# at 2^15, and a graph at ds 15 holds about 0.25 GB of device memory.
+# The most keys `graphs` holds. SEAL's deepest CKKS chain at 2^15
+# ({60, 40 x 19, 60}) multiplies at 19 levels, and a graph at ds 15 holds
+# about 0.25 GB of device memory.
 GRAPH_CACHE = 32
 # graph_key -> None (seen once, run eagerly) or `capture`'s entry, the
 # least recently used first.
 graphs: collections.OrderedDict = collections.OrderedDict()
-# The card calls that ran the chain eagerly, captured it, replayed it.
+# The card calls that ran the chain eagerly, captured it, replayed it;
+# `capture_s` and `pool_bytes` (module docstring).
 graph_stats: collections.Counter = collections.Counter()
 
 
@@ -307,8 +316,11 @@ def graph_key(stream: int, t_target, keys, n, ds, kms, kc, moduli,
 
 def _release(entry) -> None:
     """Let a dropped graph's pending replays finish before its memory
-    goes."""
-    if entry is not None and entry.t_static.is_cuda:
+    goes, and take its pool off `pool_bytes`."""
+    if entry is None:
+        return
+    graph_stats["pool_bytes"] -= entry.pool_bytes
+    if entry.t_static.is_cuda:
         torch.cuda.synchronize(entry.t_static.device)
 
 
@@ -348,9 +360,11 @@ def capture(t_target, keys, n, ds, kms, kc, moduli, msf) -> SimpleNamespace:
     """`switch` through the kernel wrappers, captured into a CUDA graph on
     a static input of t_target's shape and device (the current device):
     the entry holding the graph, its input `t_static`, its outputs `tpp`
-    and `t_ntt`, the constants and flag the fold takes, and the launches
-    the chain makes. The capture runs nothing, so the launches it counted
-    are taken off `_build.launches` again; `graph` adds them."""
+    and `t_ntt`, the constants and flag the fold takes, the launches the
+    chain makes and the bytes its pool reserves. The capture runs
+    nothing, so the launches it counted are taken off `_build.launches`
+    again; `graph` adds them. Adds to `capture_s` and `pool_bytes`."""
+    t0 = time.perf_counter()
     t_static = torch.empty_like(t_target)
     cuda_graph = torch.cuda.CUDAGraph()
     before = collections.Counter(_build.launches)
@@ -358,14 +372,20 @@ def capture(t_target, keys, n, ds, kms, kc, moduli, msf) -> SimpleNamespace:
     # raises, other threads' calls are left alone.
     with torch.cuda.graph(cuda_graph, stream=torch.cuda.Stream(),
                           capture_error_mode="thread_local"):
+        # Read after `torch.cuda.graph` has emptied the allocator's cache:
+        # what is reserved from here on is the graph's own pool.
+        reserved = torch.cuda.memory_reserved(t_target.device)
         tpp, t_ntt, c, approx = switch(WRAPPERS, t_static, keys, n, ds, kms,
                                        kc, moduli, msf)
+    pool_bytes = torch.cuda.memory_reserved(t_target.device) - reserved
     launched = collections.Counter(_build.launches) - before
     _build.launches.clear()
     _build.launches.update(before)
+    graph_stats["pool_bytes"] += pool_bytes
+    graph_stats["capture_s"] += time.perf_counter() - t0
     return SimpleNamespace(graph=cuda_graph, t_static=t_static, tpp=tpp,
                            t_ntt=t_ntt, c=c, approx=approx,
-                           launches=launched)
+                           launches=launched, pool_bytes=pool_bytes)
 
 
 def graph(entry, t_target) -> None:

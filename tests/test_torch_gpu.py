@@ -28,6 +28,7 @@ from hexl_tpu_torch.limb import to_tensor
 from hexl_tpu_torch.ntt import (cuda_ntt, fwd_ntt_mxu, get_mxu_plan, get_plan,
                                 hier, inv_ntt_mxu, mxu_ntt, ntt32, rns,
                                 torch_ntt)
+import ks_cases
 
 dyadic_mod = importlib.import_module("hexl_tpu_torch.experimental.dyadic")
 ks_mod = importlib.import_module("hexl_tpu_torch.experimental.key_switch")
@@ -419,6 +420,13 @@ def fresh_graphs(cuda):
     empty()
 
 
+def _calls():
+    """The graph cache's call counters (`graph_stats` also holds
+    `capture_s` and `pool_bytes`)."""
+    return {k: ks_mod.graph_stats[k] for k in ("eager", "captures",
+                                               "replays")}
+
+
 def _ks_shape(rng, n, moduli, kc, dev):
     """A key switch over `moduli` (decomposition primes, then the key
     prime) with one set of keys: make() gives the arguments of a call on
@@ -466,8 +474,7 @@ def test_key_switch_graph_calls_match_plain(cuda, fresh_graphs):
         torch.cuda.synchronize()
         assert torch.equal(got, ks_mod.key_switch_plain(*args))
         assert torch.equal(args[0], before)
-    assert dict(ks_mod.graph_stats) == {"eager": 1, "captures": 1,
-                                        "replays": 3}
+    assert _calls() == {"eager": 1, "captures": 1, "replays": 3}
     assert all(c == counts[0] for c in counts)
     assert counts[0]["K10"] == 1 and counts[0]["K11"] == 2
 
@@ -501,8 +508,7 @@ def test_key_switch_graphs_of_interleaved_shapes(cuda, fresh_graphs):
             got = key_switch(*args)
             torch.cuda.synchronize()
             assert torch.equal(got, ks_mod.key_switch_plain(*args))
-    assert dict(ks_mod.graph_stats) == {"eager": 3, "captures": 3,
-                                        "replays": 3}
+    assert _calls() == {"eager": 3, "captures": 3, "replays": 3}
     assert sum(v is not None for v in ks_mod.graphs.values()) == 3
 
 
@@ -523,8 +529,80 @@ def test_key_switch_graph_after_clear_plan_cache(cuda, fresh_graphs):
         if turn == 0:
             clear_plan_cache()
             assert not ks_mod.graphs
-    assert dict(ks_mod.graph_stats) == {"eager": 2, "captures": 2,
-                                        "replays": 2}
+    assert _calls() == {"eager": 2, "captures": 2, "replays": 2}
+
+
+def test_key_switch_graphs_of_one_key_at_every_level(cuda, fresh_graphs,
+                                                     monkeypatch):
+    """One relinearisation key over {60, 40 x 4, 60} at 2^15 used at ds 5 ..
+    1 of kms 6 (keys[:ds], as a CKKS chain uses it below the top level): a
+    graph a level, each call equal to the plain pipeline word for word;
+    each capture adds to `capture_s` and its pool to `pool_bytes`, and
+    evicted levels take theirs off again."""
+    n = 1 << 15
+    moduli = (nt.generate_primes(1, 59, False, ntt_size=n)
+              + nt.generate_primes(4, 39, False, ntt_size=n)
+              + nt.generate_primes(2, 59, False, ntt_size=n)[1:])
+    kms, kc = len(moduli), 2
+    rng = np.random.default_rng(26)
+
+    def rows(count):
+        return torch.stack([_rand(rng, (n,), q, cuda)
+                            for q in moduli[:count]])
+
+    keys = torch.stack([torch.stack([rows(kms) for _ in range(kc)])
+                        for _ in range(kms - 1)])
+    msf = [nt.inverse_mod(moduli[-1] % q, q) for q in moduli[:kms - 1]]
+    for _ in range(3):
+        for ds in range(kms - 1, 0, -1):
+            args = (torch.stack([rows(ds) for _ in range(kc)]), rows(ds), n,
+                    ds, kms, ds + 1, kc, moduli, keys[:ds], msf[:ds])
+            got = key_switch(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ks_mod.key_switch_plain(*args))
+    assert _calls() == {"eager": 5, "captures": 5, "replays": 5}
+    pools = [e.pool_bytes for e in ks_mod.graphs.values()]
+    assert len(pools) == 5 and all(p > 0 for p in pools)
+    assert ks_mod.graph_stats["pool_bytes"] == sum(pools)
+    assert ks_mod.graph_stats["capture_s"] > 0
+    monkeypatch.setattr(ks_mod, "GRAPH_CACHE", 4)
+    args = (torch.stack([rows(1) for _ in range(kc)]), rows(1), n, 1, kms,
+            2, kc, moduli, keys[:1].clone(), msf[:1])
+    key_switch(*args)                  # a new key: evicts ds 5 and 4
+    assert ks_mod.graph_stats["pool_bytes"] == sum(pools[2:])
+
+
+def test_mac_flush_at_ds_20_with_worst_case_operands(cuda):
+    """K10 at ds 20 with 60-bit rows, t = 4q - 1 and keys q - 1: 2^126.3
+    before the flush, within a factor of 3.2 of the 128-bit wrap; equal to
+    the exact sum and to the plain version, above and below the top
+    level."""
+    ds, n = 20, 4096 + 2
+    for kms in (21, 22):
+        moduli = tuple(nt.generate_primes(kms, 59, False, ntt_size=1))
+        t, keys, want, _ = ks_cases.worst_case_mac(moduli, ds, kms, n, cuda)
+        c = ks_mod.constants(moduli, tuple(pow(moduli[-1], -1, q)
+                                           for q in moduli[:ds]), ds, cuda)
+        for approx in (False, True):
+            got = ks_mod.mac_flush(t, keys, c, ds, 2, kms, approx)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            assert torch.equal(got, ks_mod.mac_flush_plain(
+                t, keys, c.mac, ds, 2, kms, approx))
+
+
+def test_ckks_chain_every_level_matches_the_reference(cuda, fresh_graphs):
+    """The benchmark's `ckks-n32768-mult-levels` multiply (`dyadic_multiply`
+    then `key_switch`) at each of its 19 levels, in the timed shapes and
+    on its graphs, word for word against the plain reference
+    (`hebench/levels.py`)."""
+    from hebench import levels, registry
+
+    reg = registry.Registry(registry.load_benchmark())
+    op, st = levels.setup(reg, "ckks-n32768-mult-levels", 2**31 + 22, cuda)
+    assert _calls() == {"eager": 19, "captures": 19, "replays": 0}
+    assert levels.mismatches(op, st) == {d: [0, 0] for d in st.levels}
+    assert _calls()["replays"] == 19
 
 
 def test_key_switch_inside_an_outer_capture(cuda, fresh_graphs):

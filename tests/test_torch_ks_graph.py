@@ -1,9 +1,12 @@
 """The key switch's graph path (`experimental/key_switch.py`) on the CPU:
 what its key holds, the cache's bookkeeping driven with a stand-in for
-the capture, the clear hook, CPU operands bypassing it, and `pipeline`
-as `switch` then the fold. The capture and replay themselves run only on
+the capture, the clear hook, CPU operands bypassing it, `pipeline` as
+`switch` then the fold, one key at several levels of a CKKS chain, and
+the capture's counters (`capture_s`, `pool_bytes`) under a stand-in for
+torch.cuda's capture. The capture and replay themselves run only on
 the card (`tests/test_torch_gpu.py`)."""
 
+import contextlib
 import importlib
 from types import SimpleNamespace
 
@@ -111,9 +114,12 @@ def test_cpu_operands_leave_the_graphs_alone(ds, repeat):
 
 def test_clear_plan_cache_empties_the_graphs():
     ks.graphs[("seen",)] = None
-    ks.graphs[("captured",)] = SimpleNamespace(t_static=torch.zeros(2))
+    ks.graphs[("captured",)] = SimpleNamespace(t_static=torch.zeros(2),
+                                               pool_bytes=5)
+    ks.graph_stats["pool_bytes"] = 5
     clear_plan_cache()
     assert not ks.graphs
+    assert ks.graph_stats["pool_bytes"] == 0
 
 
 def test_lookup_runs_eagerly_then_captures_then_replays():
@@ -174,3 +180,99 @@ def test_pipeline_is_switch_then_the_fold(ds, repeat):
     assert torch.equal(folded, ks.pipeline(ks.PLAIN, result, t, keys, *rest))
     assert torch.equal(folded, key_switch(result, t, n, ds, kms, kms, kc,
                                           moduli, keys, msf))
+
+
+def level_args(ds_top=5, n=64, kc=2):
+    """A CKKS chain's relinearisation key over {60, 40 x (ds_top - 1), 60}
+    and, for each level ds of 1 .. ds_top, the arguments of a call there:
+    keys[:ds] of the one key, the first ds primes and modswitch factors."""
+    moduli = (tuple(nt.generate_primes(1, 59, False, ntt_size=n))
+              + tuple(nt.generate_primes(ds_top - 1, 39, False, ntt_size=n))
+              + tuple(nt.generate_primes(2, 59, False, ntt_size=n)[1:]))
+    kms = ds_top + 1
+    rng = np.random.default_rng(ds_top)
+
+    def rows(qs, lead=()):
+        return torch.from_numpy(np.stack(
+            [rng.integers(0, q, lead + (n,), dtype=np.uint64) for q in qs],
+            axis=len(lead)).view(np.int64))
+
+    keys = rows(moduli, (ds_top, kc))
+    msf = tuple(pow(moduli[-1], -1, q) for q in moduli[:ds_top])
+    return {ds: (rows(moduli[:ds], (kc,)), rows(moduli[:ds]), keys[:ds], n,
+                 ds, kms, kc, moduli, msf[:ds])
+            for ds in range(1, ds_top + 1)}
+
+
+def test_one_key_at_several_levels_takes_a_graph_a_level():
+    """keys[:ds] of one key share its address; the level's ds and the
+    keys' shape tell the graphs apart, and each level runs eagerly, then
+    captures, then replays."""
+    levels = level_args()
+    assert len({a[2].data_ptr() for a in levels.values()}) == 1
+    keys = {ds: key_of(a) for ds, a in levels.items()}
+    assert len(set(keys.values())) == len(levels)
+
+    def make():
+        return SimpleNamespace(t_static=torch.zeros(1), pool_bytes=0)
+
+    for turn in range(3):
+        for ds in sorted(keys, reverse=True):
+            entry = ks.lookup(keys[ds], make)
+            assert (entry is None) == (turn == 0)
+    assert dict(ks.graph_stats) == {"eager": 5, "captures": 5,
+                                    "replays": 5}
+    assert all(ks.graphs[k] is not None for k in keys.values())
+
+
+class FakeCapture:
+    """torch.cuda's graph capture on the CPU: the chain runs (through the
+    plain versions under the wrappers) and `memory_reserved` grows by
+    `step` bytes between each read."""
+
+    def __init__(self, monkeypatch, step=1 << 20):
+        self.reads = 0
+        self.step = step
+
+        def reserved(device):
+            self.reads += 1
+            return self.reads * step
+
+        @contextlib.contextmanager
+        def graph(*args, **kwargs):
+            yield
+
+        monkeypatch.setattr(torch.cuda, "memory_reserved", reserved)
+        monkeypatch.setattr(torch.cuda, "graph", graph)
+        monkeypatch.setattr(torch.cuda, "CUDAGraph", SimpleNamespace)
+        monkeypatch.setattr(torch.cuda, "Stream", SimpleNamespace)
+
+
+def test_capture_counts_its_seconds_and_its_pool(monkeypatch):
+    """Each capture adds its host seconds to `capture_s` and its pool to
+    `pool_bytes`; an evicted level's pool comes off again, and so does a
+    cleared one's."""
+    fake = FakeCapture(monkeypatch)
+    monkeypatch.setattr(ks, "GRAPH_CACHE", 2)
+    levels = level_args(ds_top=3)
+
+    def call(ds):
+        result, t, keys, *rest = levels[ds]
+        return ks.lookup(key_of(levels[ds]),
+                         lambda: ks.capture(t, keys, *rest))
+
+    assert call(3) is None
+    entry = call(3)
+    assert entry.pool_bytes == fake.step
+    assert ks.graph_stats["pool_bytes"] == fake.step
+    first_s = ks.graph_stats["capture_s"]
+    assert first_s > 0
+    assert entry.tpp.shape == (4, 2, 64) and entry.t_ntt.shape == (3, 2, 64)
+    assert call(2) is None and call(2).pool_bytes == fake.step
+    assert ks.graph_stats["pool_bytes"] == 2 * fake.step
+    assert ks.graph_stats["capture_s"] > first_s
+    assert call(1) is None               # evicts level 3, the oldest
+    assert ks.graph_stats["pool_bytes"] == fake.step
+    clear_plan_cache()
+    assert ks.graph_stats["pool_bytes"] == 0
+    assert ks.graph_stats["captures"] == 2
