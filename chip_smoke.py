@@ -918,12 +918,19 @@ def transform_launches(rns, sms, dev, n, rows, batch, stacked=True):
 def key_switch_launches(rns, sms, dev, n, ds):
     """{kernel: launches} of one key switch (kc 2) at (n, ds > 1, distinct
     primes): its transforms (`key_switch_transforms`) under the cluster
-    rule, the base conversions, K10, K11 twice."""
-    out = collections.Counter({"K8.reduce": 1, "K8.reduce.rows": 1,
-                               "K10": 1, "K11": 2})
-    for _, rows, batch, _, _, _ in key_switch_transforms(ds):
-        out.update(transform_launches(rns, sms, dev, n, rows, batch,
-                                      rows > 1))
+    rule, the base conversions, K10, K11 twice. Above 2^14 the block's
+    base conversion rides in its cross pass (K5.rns.conv, no
+    K8.reduce.rows)."""
+    out = collections.Counter({"K8.reduce": 1, "K10": 1, "K11": 2})
+    fused = n > 1 << 14
+    if not fused:
+        out["K8.reduce.rows"] = 1
+    for label, rows, batch, _, _, _ in key_switch_transforms(ds):
+        launches = transform_launches(rns, sms, dev, n, rows, batch,
+                                      rows > 1)
+        if fused and label == "fwd":
+            launches["K5.rns.conv"] = launches.pop("K5.rns")
+        out.update(launches)
     return dict(out)
 
 
@@ -5583,8 +5590,8 @@ def main() -> int:
     # 50 bits and lr_mat_vec_mult at 2^14 x 4 primes x 16 weights
     # (K9.approx); key_switch at N=2^15 x ds 14 over 49-bit decomposition
     # primes and a 55-bit key prime (rows of two bit lengths: the JAX
-    # per-row flush, K10.approx; K11.approx; the base conversion,
-    # K8.reduce.rows.approx); poly_mult_mod at (2^14, 64) and (2^13, 132)
+    # per-row flush, K10.approx; K11.approx; the block's base conversion
+    # in its cross pass's load, K5.rns.conv.approx); poly_mult_mod at (2^14, 64) and (2^13, 132)
     # for a 60-bit q (lean8: K3.lean8, K3.cta.lean8) and a 59-bit q (lean16:
     # K3.lean16, K3.cta.lean16); dist_key_switch at 2^14 x ds 3 on a (2, 4)
     # mesh of cuda:0 positions (the JAX mesh key switch's per-row flush on
@@ -5648,9 +5655,9 @@ def main() -> int:
     wrong = {k: launches6c.get(k, 0) for k, v in want6c.items()
              if launches6c.get(k, 0) != v}
     exact_names = [k for k in ("K9", "K10", "K11", "K3", "K3.cta",
-                               "K8.reduce.rows", "K8.reduce")
+                               "K5.rns.conv", "K8.reduce")
                    if k in launches6c]
-    if wrong or exact_names or not launches6c.get("K8.reduce.rows.approx"):
+    if wrong or exact_names or not launches6c.get("K5.rns.conv.approx"):
         raise AssertionError(f"sixth path's composite runs: launches {wrong} "
                              f"(want {want6c}); exact instantiations "
                              f"{exact_names}")
@@ -6100,6 +6107,96 @@ def main() -> int:
                             r_red.numel() * (hi64 + lo64))),
     }
     cases.update(stacked_cases)
+    # The key switch's base-conversion block as the main path reads it at
+    # 2^15 x ds 15 (SEAL's 55-bit BFV primes, the stream cell's top level).
+    # K5.rns.conv alone (`rns.conv_cross`) on (15, 2^15) source limbs of
+    # any u64 words against the plain gather, row reduction and cross
+    # stages; bytes: each limb read once (the limbs sit in the L2, so the
+    # loads of the other rows' limbs hit it) and the (15, 14, 2^15) block
+    # written once, with each row's forward twiddles; operations: one
+    # Barrett reduction a word and the cross stages' Shoup products. K10's
+    # row-map form (`ks.mac_flush_parts`, kc 2) on the block's three parts
+    # against `ks.mac_flush_parts_plain`; bytes and operations as K10's.
+    # Beside each, the form it took the place of on the same inputs
+    # (`replaced_ms`): K5.rns's forward cross pass on the staged block,
+    # K10 on the assembled block.
+    bfv_ds = 15
+    bfv_basis = tuple(nt.generate_primes(bfv_ds, 54, False, ntt_size=ks_n))
+    bfv_moduli = bfv_basis + tuple(nt.generate_primes(1, 55, False,
+                                                      ntt_size=ks_n))
+    conv_plan = rns.get_rns_plan(ks_n, bfv_basis)
+    conv_rows = conv_plan.descriptors(dev)
+    conv_consts = ops.row_constants(bfv_basis, dev)
+    conv_x = rand((bfv_ds, ks_n), 1 << 64)
+    conv_log_d = ks_n.bit_length() - 1 - hier.LOG_LOCAL
+    conv_words = bfv_ds * (bfv_ds - 1) * ks_n
+    conv_view = (bfv_ds, bfv_ds - 1, 1 << conv_log_d, hier.LOCAL_N)
+
+    def conv_plain():
+        block = torch_kernels.reduce_mod_rows(ks.others(conv_x),
+                                              conv_consts, 1).view(conv_view)
+        return torch.stack([hier.cross_fwd_plain(block[i], p, 64, "exact")
+                            for i, p in enumerate(conv_plan.plans)]).view(
+            bfv_ds, bfv_ds - 1, ks_n)
+
+    def conv_kernel():
+        return rns.conv_cross(conv_x, conv_rows, conv_plan, conv_consts)
+
+    compare("K5.rns.conv", conv_kernel(), conv_plain(),
+            "K5.rns.conv alone, (15, 14, 2^15), 55-bit primes")
+    compare("K5.rns.conv", rns.fwd_ntt_rns_conv(conv_x, conv_plan,
+                                                conv_consts),
+            rns.fwd_ntt_rns_conv_plain(conv_x, conv_plan, conv_consts),
+            "fwd_ntt_rns_conv, (15, 14, 2^15), 55-bit primes")
+    conv_staged = ops.reduce_mod_rows(ks.others(conv_x), bfv_basis)
+    part_t = torch.stack([rand((bfv_ds, ks_n), 4 * q) for q in bfv_moduli])
+    part_keys = torch.stack([torch.stack([torch.stack([
+        rand((ks_n,), q) for q in bfv_moduli]) for _ in range(2)])
+        for _ in range(bfv_ds)])
+    part_c = ks.constants(bfv_moduli, tuple(
+        nt.inverse_mod(bfv_moduli[-1] % q, q) for q in bfv_basis), bfv_ds,
+        dev)
+    part_off = torch.stack([torch.cat([part_t[i, :i], part_t[i, i + 1:]])
+                            for i in range(bfv_ds)])
+    part_diag = torch.stack([part_t[i, i] for i in range(bfv_ds)])
+    part_last = part_t[bfv_ds].clone()
+    part_args = (part_keys, part_c, bfv_ds, 2, bfv_ds + 1)
+    compare("K10.parts", ks.mac_flush_parts(part_off, part_diag, part_last,
+                                            *part_args),
+            ks.mac_flush_parts_plain(part_off, part_diag, part_last,
+                                     part_keys, part_c.mac, bfv_ds, 2,
+                                     bfv_ds + 1),
+            "K10's row map, (16, 15, 2^15), kc 2, 55-bit primes")
+    part_out = (bfv_ds + 1) * 2 * ks_n
+    cases["K5.rns.conv"] = (
+        "cross_fwd_conv_rns_kernel, column form, the block's gather and "
+        "reduction in its load", "hexl_tpu_torch/csrc/cross_rns.cu",
+        "hexl_tpu/experimental/key_switch.py:134-154 (XLA-fused gather and "
+        "reduction) + hexl_tpu/ntt/hier.py:164",
+        f"key-switch block fwd cross pass, N=2^15 (D=2), ({bfv_ds}, "
+        f"{bfv_ds - 1}) of {bfv_ds} 55-bit primes",
+        (conv_kernel, conv_plain,
+         8 * (bfv_ds * ks_n + conv_words)
+         + bfv_ds * 2 * 8 * ((1 << conv_log_d) - 1),
+         conv_words * (hi64 + lo64)
+         + conv_log_d * (conv_words // 2) * per_shoup))
+    cases["K10.parts"] = (
+        "mac_flush_parts_kernel, the block read in its three parts",
+        "hexl_tpu_torch/csrc/key_switch.cu",
+        "hexl_tpu/experimental/key_switch.py:172-224 (XLA-fused jnp; no "
+        "pallas_call)", f"key-switch MAC + flush, N=2^15, ds {bfv_ds}, kc 2",
+        (lambda: ks.mac_flush_parts(part_off, part_diag, part_last,
+                                    *part_args),
+         lambda: ks.mac_flush_parts_plain(part_off, part_diag, part_last,
+                                          part_keys, part_c.mac, bfv_ds, 2,
+                                          bfv_ds + 1),
+         8 * (part_t.numel() + part_keys.numel() + part_out),
+         part_out * (bfv_ds * (hi64 + lo64) + 2 * (hi64 + lo64)
+                     + per_barrett)))
+    replaced = {
+        "K5.rns.conv": lambda: rns._cross(conv_staged, conv_rows, conv_plan,
+                                          bfv_ds - 1, True, 1, "exact"),
+        "K10.parts": lambda: ks.mac_flush(part_t, *part_args)}
     # The cluster form at the key switch's shapes (ds 3): K1.rns.cl's pair
     # at (2^14, 3 primes of 49 bits, batch 1), K6.rns.cl's local pass
     # forward + inverse at (2^15, 3 primes, batch 1), each in clusters of
@@ -6648,6 +6745,8 @@ def main() -> int:
     # Entries whose launches are counted under another kernel's name: the
     # fifth path's K6 and K5 launches are all DistNTT positions'.
     counted_as = {"K6.shard": "K6", "K5.col": "K5"}
+    # K10's two forms share its launch name.
+    launch_name = {"K10.parts": "K10"}
     entries = []
     for name, (desc, source, replaces, shape, case) in cases.items():
         kernel, plain, nbytes, nops = case[:4]
@@ -6666,7 +6765,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": (launches5.get(counted_as[name], 0)
                          if name in counted_as else
-                         sum(counts.get(name, 0) for counts in
+                         sum(counts.get(launch_name.get(name, name), 0)
+                             for counts in
                              (launches1, launches2, launches3, launches4,
                               launches5, launches6, launches6a,
                               launches6c, launches7))),
@@ -6675,6 +6775,11 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         if near:
             entry["nearest_library"] = near
+        if name in replaced:
+            entry["replaced_ms"] = graph_ms(replaced[name], 20)
+            log(f"{name}: the form it took the place of, on the same "
+                f"inputs, {entry['replaced_ms']:.4f} ms (this form "
+                f"{ms / entry['replaced_ms']:.3f}x of it)")
         entries.append(entry)
 
     # The one PyTorch call that computes a K8.reduce row's function:

@@ -69,6 +69,45 @@ __global__ void __launch_bounds__(CROSS_THREADS)
       row_final(row), omf, log_lc, 0, row_columns);
 }
 
+// K5.rns.conv: the column form's forward with the key switch's base
+// conversion in its load. x is the (k, N) block of source limbs (the
+// target's inverse transforms, each below its own prime); stacked row i,
+// batch b of the (k, k - 1, N) output is source limb b + (b >= i), every
+// limb but the i-th in order (experimental/key_switch.py `others`), each
+// word reduced mod q_i from IMF = q_i by K8.reduce.rows' Barrett step
+// (eltwise.cu reduce_full at OMF 1: only a word >= q_i is reduced, with
+// q_barr_i = consts[4 i + 3] of ops.row_constants and the approximate
+// quotient where A), then the cross stages of cross_fwd_columns in the
+// exact scheme. It replaces the gather of the limbs into the block, the
+// block's reduction (K8.reduce.rows) and the cross pass over it: the
+// limbs are read where they lie (N words each, within the L2 at the key
+// switch's shapes) and the block is written once.
+template <bool A, int LOG_D>
+__global__ void __launch_bounds__(CROSS_THREADS)
+    cross_fwd_conv_rns_kernel(const u64* __restrict__ x, u64* __restrict__ y,
+                              const RnsRow* __restrict__ rows,
+                              const u64* __restrict__ consts, int log_lc,
+                              long long row_columns) {
+  constexpr int D = 1 << LOG_D;
+  const int i = blockIdx.y;
+  const RnsRow& row = rows[i];
+  u64 *tw, *twp;
+  stage_twiddles(tw, twp, row.rop, row.prop, D, D);
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= row_columns) return;
+  const long long b = g >> log_lc;
+  const long long src = (b + (b >= i)) << (LOG_D + log_lc);
+  const u64 q = row.q, q_barr = consts[4 * i + 3];
+  u64 v[D];
+  load_column(v, x + src, g & ((1LL << log_lc) - 1), log_lc);
+  static_for<0, D>([&](auto d) {
+    v[d] = v[d] >= q ? barrett_reduce_q<A>(v[d], q, q_barr, 1) : v[d];
+  });
+  column_fwd_stages<u64, EXACT, LOG_D>(v, tw, twp, 1, q, 2 * q);
+  store_column(v, y + (((long long)i * row_columns) << LOG_D),
+               column_base(g, LOG_D, log_lc), log_lc);
+}
+
 // Tiled form: row blockIdx.y's `row_tiles` tiles of TILE_COEFFS.
 template <int S, int LOG_D>
 __global__ void __launch_bounds__(TILE_THREADS)
@@ -208,6 +247,34 @@ extern "C" int hexl_cross_inv_rns(const u64* x, u64* y, const void* rows,
   return cross_rns_launch<false>(x, y, static_cast<const RnsRow*>(rows), k,
                                  log_d, log_lc, batch, cross_skip, omf,
                                  scheme, stream);
+}
+
+// K5.rns.conv's entry: x (k, 2^(log_d + log_lc)) source limbs, y the
+// (k, k - 1, 2^(log_d + log_lc)) block, rows and consts (k, 4) of the k
+// primes; approx takes the approximate quotient in the reduction.
+extern "C" int hexl_cross_fwd_conv_rns(const u64* x, u64* y,
+                                       const void* rows, const u64* consts,
+                                       int k, int log_d, int log_lc,
+                                       int approx, cudaStream_t stream) {
+  const long long row_columns = (long long)(k - 1) << log_lc;
+  const int ctas = cross_grid(row_columns);
+  if (k < 2 || k > RNS_MAX_ROWS || ctas == 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)ctas, (unsigned)k);
+  const RnsRow* r = static_cast<const RnsRow*>(rows);
+  return with_log_d(log_d, [&](auto ld) {
+    constexpr int LOG_D = decltype(ld)::value;
+    const size_t smem = cross_smem<u64>(LOG_D);
+    if (approx)
+      cross_fwd_conv_rns_kernel<true, LOG_D>
+          <<<grid, CROSS_THREADS, smem, stream>>>(x, y, r, consts, log_lc,
+                                                  row_columns);
+    else
+      cross_fwd_conv_rns_kernel<false, LOG_D>
+          <<<grid, CROSS_THREADS, smem, stream>>>(x, y, r, consts, log_lc,
+                                                  row_columns);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int hexl_cross_tile_fwd_rns(const u64* x, u64* y,

@@ -58,7 +58,12 @@
 // writes every word singly instead, a branch it takes once. A CTA of 128
 // threads for every 128 pairs of a row: at the key switch's shapes that
 // timed better than 256 threads and than one full wave of CTAs striding
-// (chip_smoke.py --stream-variants). K11: a grid row per (row, component)
+// (chip_smoke.py --stream-variants). A second entry,
+// hexl_ks_mac_flush_parts, reads t in the three parts the key switch's
+// stacked branch makes of it (the (ds, ds - 1, n) base-converted block,
+// the target, the key prime's row) where they lie, so that no assembled
+// copy of t is written and read again: the same body, a thread resolving
+// each trip's row once (PartRows). K11: a grid row per (row, component)
 // pair; neighbouring threads take neighbouring coefficients.
 //
 // Each kernel is a template on A, the approximate quotients the JAX
@@ -115,12 +120,36 @@ __device__ __forceinline__ void mac(u64& hi, u64& lo, u64 a, u64 b) {
   hi += __umul64hi(a, b) + (lo < p_lo ? 1 : 0);
 }
 
+// Where row i's trip j of t lies: in the assembled (rns, ds, n) block,
+// at j n from the row's start (`trow`).
+struct BlockRows {
+  const u64* trow;
+  long long n;
+  __device__ __forceinline__ const u64* operator()(int j) const {
+    return trow + (long long)j * n;
+  }
+};
+
+// In the three parts of the block (hexl_ks_mac_flush_parts): for row i <
+// ds, `diag` (the target's row i) at j == i, else row j - (j > i) of
+// `off` (the row's (ds - 1, n) base-converted block); for row ds (`i` =
+// ds, never a trip) row j of `off`, the key prime's (ds, n) block.
+struct PartRows {
+  const u64* off;
+  const u64* diag;
+  int i;
+  long long n;
+  __device__ __forceinline__ const u64* operator()(int j) const {
+    return j == i ? diag : off + (long long)(j - (j > i)) * n;
+  }
+};
+
 // The MAC and flush of row i's coefficient pair p for the KC components
-// of a group (krow and orow at its first) of kc; VEC: every row 16-byte
-// aligned and n even.
-template <bool A, int KC, bool VEC>
+// of a group (krow and orow at its first) of kc, t's trip j at rows(j);
+// VEC: every row 16-byte aligned and n even.
+template <bool A, int KC, bool VEC, typename Rows>
 __device__ __forceinline__ void mac_flush_pair(
-    const u64* __restrict__ trow, const u64* __restrict__ krow,
+    const Rows& rows, const u64* __restrict__ krow,
     u64* __restrict__ orow, int ds, int kc, int kms, long long n, u64 q,
     u64 q_barr, u64 r_mod, u64 mu, int shift, long long p) {
   const long long key_stride = (long long)kc * kms * n;   // next j
@@ -133,7 +162,7 @@ __device__ __forceinline__ void mac_flush_pair(
 #pragma unroll
     for (int u = 0; u < MAC_J; ++u) {
       if (j0 + u < ds) {
-        tv[u] = mac_pair<VEC>(trow + (long long)(j0 + u) * n, p, n);
+        tv[u] = mac_pair<VEC>(rows(j0 + u), p, n);
 #pragma unroll
         for (int k = 0; k < KC; ++k)
           kv[u][k] = mac_pair<VEC>(
@@ -189,46 +218,85 @@ __global__ void __launch_bounds__(MAC_THREADS)
   const long long p = (long long)blockIdx.x * MAC_THREADS + threadIdx.x;
   if (p >= (n + 1) / 2) return;
   // Every row starts at a multiple of n words from its base.
+  const BlockRows rows{trow, n};
   if (n % 2 == 0 && ((uintptr_t)t & 15) == 0 && ((uintptr_t)keys & 15) == 0 &&
       ((uintptr_t)out & 15) == 0)
-    mac_flush_pair<A, KC, true>(trow, krow, orow, ds, kc, kms, n, q, q_barr,
+    mac_flush_pair<A, KC, true>(rows, krow, orow, ds, kc, kms, n, q, q_barr,
                                 r_mod, mu, shift, p);
   else
-    mac_flush_pair<A, KC, false>(trow, krow, orow, ds, kc, kms, n, q, q_barr,
+    mac_flush_pair<A, KC, false>(rows, krow, orow, ds, kc, kms, n, q, q_barr,
+                                 r_mod, mu, shift, p);
+}
+
+// mac_flush_kernel on t in its three parts (PartRows): rns = ds + 1 rows.
+template <bool A, int KC>
+__global__ void __launch_bounds__(MAC_THREADS)
+    mac_flush_parts_kernel(const u64* __restrict__ off,
+                           const u64* __restrict__ diag,
+                           const u64* __restrict__ last,
+                           const u64* __restrict__ keys,
+                           u64* __restrict__ out,
+                           const u64* __restrict__ consts, int rns, int ds,
+                           int kc, int kms, long long n, int k0) {
+  const int i = blockIdx.y;
+  const int key_idx = i == ds ? kms - 1 : i;
+  const long long k = k0 + (long long)KC * blockIdx.z;
+  const u64 q = consts[i], q_barr = consts[rns + i];
+  const u64 r_mod = consts[2 * rns + i], mu = consts[3 * rns + i];
+  const int shift = (int)consts[4 * rns + i];
+  const PartRows rows{i == ds ? last : off + (long long)i * (ds - 1) * n,
+                      diag + (long long)i * n, i, n};
+  const u64* krow = keys + (k * kms + key_idx) * n;
+  u64* orow = out + ((long long)i * kc + k) * n;
+  const long long p = (long long)blockIdx.x * MAC_THREADS + threadIdx.x;
+  if (p >= (n + 1) / 2) return;
+  // Every row starts at a multiple of n words from its base.
+  if (n % 2 == 0 && (((uintptr_t)off | (uintptr_t)diag | (uintptr_t)last |
+                      (uintptr_t)keys | (uintptr_t)out) & 15) == 0)
+    mac_flush_pair<A, KC, true>(rows, krow, orow, ds, kc, kms, n, q, q_barr,
+                                r_mod, mu, shift, p);
+  else
+    mac_flush_pair<A, KC, false>(rows, krow, orow, ds, kc, kms, n, q, q_barr,
                                  r_mod, mu, shift, p);
 }
 
 // `groups` groups of KC components from k0: a CTA for every MAC_THREADS
-// pairs of a row (a pair a thread), rns rows.
-template <bool A, int KC>
-static int launch_mac(const u64* t, const u64* keys, u64* out,
+// pairs of a row (a pair a thread), rns rows; t is the assembled block,
+// or (PARTS) its three parts.
+template <bool A, int KC, bool PARTS>
+static int launch_mac(const u64* const (&t)[3], const u64* keys, u64* out,
                       const u64* consts, int rns, int ds, int kc, int kms,
                       long long n, int k0, int groups, cudaStream_t stream) {
   const long long gx = ((n + 1) / 2 + MAC_THREADS - 1) / MAC_THREADS;
-  mac_flush_kernel<A, KC><<<dim3((unsigned)gx, rns, groups), MAC_THREADS, 0, stream>>>(t, keys, out, consts, rns, ds, kc, kms, n, k0);
+  const dim3 grid((unsigned)gx, rns, groups);
+  if constexpr (PARTS)
+    mac_flush_parts_kernel<A, KC><<<grid, MAC_THREADS, 0, stream>>>(t[0], t[1], t[2], keys, out, consts, rns, ds, kc, kms, n, k0);
+  else
+    mac_flush_kernel<A, KC><<<grid, MAC_THREADS, 0, stream>>>(t[0], keys, out, consts, rns, ds, kc, kms, n, k0);
   return (int)cudaGetLastError();
 }
 
 // kc / MAC_GROUP groups of MAC_GROUP components, then the kc % MAC_GROUP
 // left in one group.
-template <bool A>
-static int launch_mac_groups(const u64* t, const u64* keys, u64* out,
-                             const u64* consts, int rns, int ds, int kc,
-                             int kms, long long n, cudaStream_t stream) {
+template <bool A, bool PARTS>
+static int launch_mac_groups(const u64* const (&t)[3], const u64* keys,
+                             u64* out, const u64* consts, int rns, int ds,
+                             int kc, int kms, long long n,
+                             cudaStream_t stream) {
   const int full = kc / MAC_GROUP, left = kc % MAC_GROUP;
   if (full) {
-    const int err = launch_mac<A, MAC_GROUP>(t, keys, out, consts, rns, ds,
-                                             kc, kms, n, 0, full, stream);
+    const int err = launch_mac<A, MAC_GROUP, PARTS>(
+        t, keys, out, consts, rns, ds, kc, kms, n, 0, full, stream);
     if (err) return err;
   }
   const int k0 = full * MAC_GROUP;
   switch (left) {
-    case 1: return launch_mac<A, 1>(t, keys, out, consts, rns, ds, kc, kms,
-                                    n, k0, 1, stream);
-    case 2: return launch_mac<A, 2>(t, keys, out, consts, rns, ds, kc, kms,
-                                    n, k0, 1, stream);
-    case 3: return launch_mac<A, 3>(t, keys, out, consts, rns, ds, kc, kms,
-                                    n, k0, 1, stream);
+    case 1: return launch_mac<A, 1, PARTS>(t, keys, out, consts, rns, ds, kc,
+                                           kms, n, k0, 1, stream);
+    case 2: return launch_mac<A, 2, PARTS>(t, keys, out, consts, rns, ds, kc,
+                                           kms, n, k0, 1, stream);
+    case 3: return launch_mac<A, 3, PARTS>(t, keys, out, consts, rns, ds, kc,
+                                           kms, n, k0, 1, stream);
     default: return 0;
   }
 }
@@ -283,10 +351,33 @@ extern "C" int hexl_ks_mac_flush(const u64* t, const u64* keys, u64* out,
   if (rns < 1 || rns > 65535 || ds < 1 || kc < 1 ||
       kc / MAC_GROUP > 65535 || n < 1)
     return (int)cudaErrorInvalidValue;
-  return approx ? launch_mac_groups<true>(t, keys, out, consts, rns, ds, kc,
-                                          kms, n, stream)
-                : launch_mac_groups<false>(t, keys, out, consts, rns, ds, kc,
-                                           kms, n, stream);
+  const u64* const parts[3] = {t, nullptr, nullptr};
+  return approx ? launch_mac_groups<true, false>(parts, keys, out, consts,
+                                                 rns, ds, kc, kms, n, stream)
+                : launch_mac_groups<false, false>(parts, keys, out, consts,
+                                                  rns, ds, kc, kms, n,
+                                                  stream);
+}
+
+// K10 on the (ds + 1, ds, n) block t in its three parts, which it reads
+// where they lie instead of an assembled copy: off (ds, ds - 1, n), row
+// i's t[i][j] for j != i in order; diag (ds, n), t[i][i]; last (ds, n),
+// the key prime's row t[ds]. The rest as hexl_ks_mac_flush with rns =
+// ds + 1.
+extern "C" int hexl_ks_mac_flush_parts(const u64* off, const u64* diag,
+                                       const u64* last, const u64* keys,
+                                       u64* out, const u64* consts, int ds,
+                                       int kc, int kms, long long n,
+                                       int approx, cudaStream_t stream) {
+  if (ds < 1 || ds >= 65535 || kc < 1 || kc / MAC_GROUP > 65535 || n < 1)
+    return (int)cudaErrorInvalidValue;
+  const u64* const parts[3] = {off, diag, last};
+  return approx ? launch_mac_groups<true, true>(parts, keys, out, consts,
+                                                ds + 1, ds, kc, kms, n,
+                                                stream)
+                : launch_mac_groups<false, true>(parts, keys, out, consts,
+                                                 ds + 1, ds, kc, kms, n,
+                                                 stream);
 }
 
 extern "C" int hexl_ks_spread(const u64* x, u64* out, const u64* consts,

@@ -15,8 +15,16 @@ the ds > 1 decomposition primes are distinct, the transforms that differ
 only in the prime run stacked over them, as the JAX function runs them
 (key_switch.py:105-160, `ntt.rns`: K1.rns/K2.rns, or K5.rns and K6.rns):
 the target's inverses, the base-converted targets as one (ds, ds - 1, n)
-block, and the mod-down's forwards; the base conversion of that block is
-one K8.reduce.rows launch, row i mod q_i. Otherwise each transform is a
+block, and the mod-down's forwards. On the card K10 reads the
+transformed block, the target and the key prime's row as three parts
+where they lie (`mac_flush_parts`), and the block is made by the route
+`block_route` names: above 2^14 ("fused") K5.rns.conv loads each row's
+other targets from the inverses' output, reduces them mod q_i and runs
+the cross pass (`rns.fwd_ntt_rns_conv`); elsewhere ("staged") the other
+targets are gathered into the block (`others`) and reduced in one
+K8.reduce.rows launch, row i mod q_i, before the stacked forward. The
+plain steps assemble the (ds + 1, ds, n) block (`assemble`) for the
+multiply-accumulate. Otherwise each transform is a
 call a prime, and the base conversion of row i reduces the stack of the
 other targets mod q_i in one K8 launch. A value below q_i, which the JAX
 function leaves alone, is left alone by the reduction too.
@@ -41,15 +49,17 @@ the plain versions with `approx=True`. The transforms stay exact. Every
 output is fully reduced, so the bits are the same either way.
 
 On the card the chain before the fold is replayed from a CUDA graph.
-`switch` (every step up to the mod-down's forward NTTs: 14 launches and
-the aten gather and copies of `others` and `assemble`) does the same
-thing on every call of one key (`graph_key`): the device and its current
+`switch` (every step up to the mod-down's forward NTTs: 13 launches on the
+fused route; 14 and the aten gather of `others` on the staged one) does
+the same thing on every call of one key
+(`graph_key`): the device and its current
 stream, (n, ds, kms, kc), the moduli and modswitch factors, the keys'
 address and shape, the approximate flag, and the route rules in force
 (`rns.cluster_for`, `hier.cross_form`, `cuda_ntt.polys_per_cta`, so that
 a rule forced in a test or a timing gets a graph of its own). A key's
 first call runs eagerly, which fills every cache the chain reads (plans,
-descriptors, constants, `_others_index`, the occupancy queries), so that
+descriptors, constants, row constants, `_others_index`, the occupancy
+queries), so that
 nothing is copied from the host or queried inside a capture; its second
 captures `switch` on a static copy of t_target into a graph with its own
 memory pool (`capture`); every later call copies t_target into the
@@ -67,11 +77,12 @@ ran eagerly, captured and replayed, the host seconds spent in `capture`
 (`capture_s`) and the device bytes the held graphs' memory pools reserve
 (`pool_bytes`: what `torch.cuda.memory_reserved` grew by over each
 capture, less the entries evicted or cleared since); a replay adds the
-launches counted during its capture to `_build.launches`, so every call
-counts the same launches whichever way it ran. One set of keys used at
-several levels (`keys[:ds]` of a deeper key, as a CKKS chain uses its
-relinearisation key below the top level) gives a graph a level: the
-shape and ds are in the key.
+launches counted during its capture to `_build.launches`, and its route to
+`block_stats` (the stacked card calls by the block's route), so every
+call counts the same launches and route whichever way it ran. One set of
+keys used at several levels (`keys[:ds]` of a deeper key, as a CKKS chain
+uses its relinearisation key below the top level) gives a graph a level:
+the shape and ds are in the key.
 """
 
 from __future__ import annotations
@@ -101,6 +112,7 @@ _I = ctypes.c_int
 _U = ctypes.c_uint64
 _L = ctypes.c_int64
 _MAC_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P)
+_MAC_PARTS_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P)
 _SPREAD_ARGS = (_P, _P, _P, _U, _U, _U, _I, _L, _I, _P)
 _FOLD_ARGS = (_P, _P, _P, _P, _P, _I, _I, _L, _I, _P)
 
@@ -178,6 +190,16 @@ def mac_flush_plain(t: torch.Tensor, keys: torch.Tensor, consts: torch.Tensor,
     return cond_sub64_half(folded + reduce(lo), q)
 
 
+def mac_flush_parts_plain(off: torch.Tensor, diag: torch.Tensor,
+                          last: torch.Tensor, keys: torch.Tensor,
+                          consts: torch.Tensor, ds: int, kc: int, kms: int,
+                          approx: bool = False) -> torch.Tensor:
+    """`mac_flush_plain` of the block assembled from its three parts
+    (`assemble`)."""
+    return mac_flush_plain(assemble(off, diag, last), keys, consts, ds, kc,
+                           kms, approx)
+
+
 def spread_plain(x: torch.Tensor, c: SimpleNamespace,
                  approx: bool = False) -> torch.Tensor:
     """x (kc, n) in [0, 2qk) -> (ds, kc, n) in [0, 2 q_i); the reductions
@@ -226,6 +248,29 @@ def mac_flush(t: torch.Tensor, keys: torch.Tensor, c: SimpleNamespace,
     _build.launch_on(t.device, _name("K10", approx), fn, t.data_ptr(),
                      keys.data_ptr(), out.data_ptr(), c.mac.data_ptr(), rns,
                      ds, kc, kms, n, int(approx))
+    return out
+
+
+def mac_flush_parts(off: torch.Tensor, diag: torch.Tensor, last: torch.Tensor,
+                    keys: torch.Tensor, c: SimpleNamespace, ds: int, kc: int,
+                    kms: int, approx: bool = False) -> torch.Tensor:
+    """`mac_flush` of `assemble(off, diag, last)`, the block read in its
+    three parts where they lie: K10's row-map form on the GPU (one launch,
+    counted as "K10"; `csrc/key_switch.cu` hexl_ks_mac_flush_parts),
+    `mac_flush_parts_plain` on the CPU."""
+    if not _build.on_card(off, diag, last, keys, c.mac):
+        return mac_flush_parts_plain(off, diag, last, keys, c.mac, ds, kc,
+                                     kms, approx)
+    n = diag.shape[-1]
+    out = torch.empty((ds + 1, kc, n), dtype=torch.int64, device=diag.device)
+    if n == 0:
+        return out
+    fn = _build.function("key_switch", "hexl_ks_mac_flush_parts",
+                         _MAC_PARTS_ARGS)
+    _build.launch_on(diag.device, _name("K10", approx), fn, off.data_ptr(),
+                     diag.data_ptr(), last.data_ptr(), keys.data_ptr(),
+                     out.data_ptr(), c.mac.data_ptr(), ds, kc, kms, n,
+                     int(approx))
     return out
 
 
@@ -302,6 +347,10 @@ graphs: collections.OrderedDict = collections.OrderedDict()
 # The card calls that ran the chain eagerly, captured it, replayed it;
 # `capture_s` and `pool_bytes` (module docstring).
 graph_stats: collections.Counter = collections.Counter()
+# The card calls of the stacked branch by the route of the base-conversion
+# block (`block_route`): "fused" or "staged"; a replay counts its
+# capture's route. `clear_plan_cache` leaves it alone.
+block_stats: collections.Counter = collections.Counter()
 
 
 def graph_key(stream: int, t_target, keys, n, ds, kms, kc, moduli,
@@ -361,13 +410,15 @@ def capture(t_target, keys, n, ds, kms, kc, moduli, msf) -> SimpleNamespace:
     a static input of t_target's shape and device (the current device):
     the entry holding the graph, its input `t_static`, its outputs `tpp`
     and `t_ntt`, the constants and flag the fold takes, the launches the
-    chain makes and the bytes its pool reserves. The capture runs
-    nothing, so the launches it counted are taken off `_build.launches`
-    again; `graph` adds them. Adds to `capture_s` and `pool_bytes`."""
+    chain makes, the route of its block and the bytes its pool reserves.
+    The capture runs nothing, so the launches and the route it counted are
+    taken off `_build.launches` and `block_stats` again; `graph` adds
+    them. Adds to `capture_s` and `pool_bytes`."""
     t0 = time.perf_counter()
     t_static = torch.empty_like(t_target)
     cuda_graph = torch.cuda.CUDAGraph()
     before = collections.Counter(_build.launches)
+    routes = collections.Counter(block_stats)
     # thread_local: an unsafe call of this thread inside the capture
     # raises, other threads' calls are left alone.
     with torch.cuda.graph(cuda_graph, stream=torch.cuda.Stream(),
@@ -381,19 +432,24 @@ def capture(t_target, keys, n, ds, kms, kc, moduli, msf) -> SimpleNamespace:
     launched = collections.Counter(_build.launches) - before
     _build.launches.clear()
     _build.launches.update(before)
+    routed = block_stats - routes
+    block_stats.clear()
+    block_stats.update(routes)
     graph_stats["pool_bytes"] += pool_bytes
     graph_stats["capture_s"] += time.perf_counter() - t0
     return SimpleNamespace(graph=cuda_graph, t_static=t_static, tpp=tpp,
                            t_ntt=t_ntt, c=c, approx=approx,
-                           launches=launched, pool_bytes=pool_bytes)
+                           launches=launched, routes=routed,
+                           pool_bytes=pool_bytes)
 
 
 def graph(entry, t_target) -> None:
     """Replay `entry`'s graph on t_target, on the current stream, and count
-    its launches."""
+    its launches and route."""
     entry.t_static.copy_(t_target)
     entry.graph.replay()
     _build.launches.update(entry.launches)
+    block_stats.update(entry.routes)
 
 
 def run(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
@@ -418,6 +474,32 @@ def run(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
                           entry.approx)
 
 
+def block_route(x: torch.Tensor, n: int, ds: int):
+    """The route of the stacked branch's (ds, ds - 1, n) base-conversion
+    block on x's device: "fused" where `rns.conv_fused` (K5.rns.conv reads
+    the target's inverses where they lie), "staged" elsewhere on the card
+    (the gather, K8.reduce.rows and the stacked forward), None off the
+    card."""
+    if not x.is_cuda:
+        return None
+    return "fused" if rns.conv_fused(x, n, ds) else "staged"
+
+
+def _conv_fwd(t_intt, rplan, moduli):
+    """WRAPPERS' conv_fwd: the block by `block_route`'s route, which a card
+    call counts in `block_stats`: `rns.fwd_ntt_rns_conv` where "fused",
+    else the gather, `ops.reduce_mod_rows` and `rns.fwd_ntt_rns`."""
+    route = block_route(t_intt, rplan.n, rplan.k)
+    if route is not None:
+        block_stats[route] += 1
+    if route == "fused":
+        return rns.fwd_ntt_rns_conv(
+            t_intt, rplan, ops.row_constants(tuple(moduli), t_intt.device),
+            ops.approx_for(t_intt))
+    return rns.fwd_ntt_rns(ops.reduce_mod_rows(others(t_intt), moduli, 1),
+                           rplan, 4, 4)
+
+
 # The steps of the pipeline: through the wrappers (kernels on the GPU),
 # or through the plain versions on any device. `plan` gives what the
 # transforms take for a prime, `rns_plan` what the stacked transforms take
@@ -426,31 +508,36 @@ def run(steps, result, t_target, keys, n, ds, kms, kc, moduli, msf):
 # values (tensors here, sharded values in `parallel.composites`);
 # `approx` says whether a value's device takes the approximate quotients,
 # `row_flush` whether the flush is the JAX function's per-row one whatever
-# the bit lengths (`pipeline`). WRAPPERS also holds the graph path's
-# `capture` and `graph` (`run`).
+# the bit lengths (`pipeline`). `conv_fwd` and `mac_flush_parts` are the
+# stacked branch's base-conversion block and its multiply-accumulate, in
+# WRAPPERS the block by `block_route`'s route. WRAPPERS also holds the
+# graph path's `capture` and `graph` (`run`).
 _TENSORS = dict(
     plan=get_plan, rns_plan=get_rns_plan, approx=ops.approx_for,
     row_flush=False,
     constants=lambda moduli, msf, ds, like: constants(moduli, msf, ds,
                                                       like.device),
     take=lambda x, i: x[i], stack=torch.stack,
-    unbind=lambda x: list(x.unbind(0)), others=others, assemble=assemble)
+    unbind=lambda x: list(x.unbind(0)))
 WRAPPERS = SimpleNamespace(
     **_TENSORS, fwd=cuda_ntt.fwd_ntt, inv=cuda_ntt.inv_ntt,
     fwd_rns=rns.fwd_ntt_rns, inv_rns=rns.inv_ntt_rns,
     reduce=lambda x, q: ops.reduce_mod(x, q, q, 1),
-    reduce_rows=lambda x, moduli: ops.reduce_mod_rows(x, moduli, 1),
-    mac_flush=mac_flush, spread=spread, fold=fold, capture=capture,
-    graph=graph)
+    mac_flush=mac_flush, spread=spread, fold=fold, conv_fwd=_conv_fwd,
+    mac_flush_parts=mac_flush_parts, capture=capture, graph=graph)
 PLAIN = SimpleNamespace(
     **_TENSORS, fwd=torch_ntt.fwd_ntt, inv=torch_ntt.inv_ntt,
     fwd_rns=rns.fwd_ntt_rns_plain, inv_rns=rns.inv_ntt_rns_plain,
     reduce=lambda x, q: torch_kernels.reduce_mod(x, q, q, 1,
                                                  ops.approx_for(x)),
-    reduce_rows=lambda x, moduli: torch_kernels.reduce_mod_rows(
-        x, ops.row_constants(tuple(moduli), x.device), 1, ops.approx_for(x)),
     mac_flush=lambda t, keys, c, ds, kc, kms, approx: mac_flush_plain(
         t, keys, c.mac, ds, kc, kms, approx),
+    conv_fwd=lambda x, rplan, moduli: rns.fwd_ntt_rns_conv_plain(
+        x, rplan, ops.row_constants(tuple(moduli), x.device),
+        ops.approx_for(x)),
+    mac_flush_parts=lambda off, diag, last, keys, c, ds, kc, kms, approx:
+        mac_flush_parts_plain(off, diag, last, keys, c.mac, ds, kc, kms,
+                              approx),
     spread=spread_plain, fold=fold_plain)
 # WRAPPERS with each step inside the span `hexl.ks.<entry>`: what
 # `key_switch` takes where `profiling.on()`.
@@ -486,6 +573,7 @@ def switch(steps, t_target, keys, n, ds, kms, kc, moduli, msf):
     approx = steps.approx(t_target)
     plans = [steps.plan(n, q) for q in moduli[:ds]] + [steps.plan(n,
                                                                  moduli[-1])]
+    flush = flush_approx(steps, moduli, ds, approx)
     if ds > 1 and len(set(moduli[:ds])) == ds:
         rplan = steps.rns_plan(n, moduli[:ds])
         # The target's inverse NTTs, (2, 1), one stacked transform.
@@ -493,12 +581,13 @@ def switch(steps, t_target, keys, n, ds, kms, kc, moduli, msf):
         # Row i < ds: the other targets base-converted to q_i and forward-
         # transformed at (4, 4), one stacked (ds, ds - 1, n) block, with the
         # target itself (already in NTT form) at j = i; the key prime's row:
-        # every target base-converted to qk, one batched transform.
-        conv = steps.reduce_rows(steps.others(t_intt), moduli[:ds])
+        # every target base-converted to qk, one batched transform. The
+        # multiply-accumulate reads the three parts.
         key_row = steps.fwd(steps.reduce(t_intt, moduli[-1]), plans[ds], 4,
                             4)
-        t_rows = steps.assemble(steps.fwd_rns(conv, rplan, 4, 4), t_target,
-                                key_row)
+        off = steps.conv_fwd(t_intt, rplan, moduli[:ds])
+        tpp = steps.mac_flush_parts(off, t_target, key_row, keys, c, ds, kc,
+                                    kms, flush)
     else:
         rplan = None
         # The target's inverse NTTs, (2, 1), one per decomposition prime.
@@ -518,9 +607,7 @@ def switch(steps, t_target, keys, n, ds, kms, kc, moduli, msf):
             if i < ds:
                 ops_i.insert(i, steps.take(t_target, i))
             rows.append(steps.stack(ops_i))
-        t_rows = steps.stack(rows)
-    tpp = steps.mac_flush(t_rows, keys, c, ds, kc, kms,
-                          flush_approx(steps, moduli, ds, approx))
+        tpp = steps.mac_flush(steps.stack(rows), keys, c, ds, kc, kms, flush)
     # Mod-down: the key prime's row, (2, 2) inverse; the spread to every
     # q_i; the (4, 4) forward NTTs (stacked where the transforms above
     # were).

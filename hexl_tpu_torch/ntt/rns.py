@@ -40,6 +40,11 @@ walk, from the row's descriptor values); there is no other path. Launches
 are counted in `_build.launches` under "K1.rns", "K2.rns", "K5.rns",
 "K5.tile.rns", "K6.rns", "K1.rns.cl" and "K6.rns.cl" (the lean ones under
 "K1.rns.lean16" ...).
+
+`fwd_ntt_rns_conv` is the key switch's base-conversion block in one
+stacked forward: K5.rns.conv ("K5.rns.conv", ".approx"), the column form
+with the block's gather and reduction in its load, then the local pass;
+`conv_fused` is the rule that routes the key switch's block to it.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ import numpy as np
 import torch
 
 from .. import _build, _device, nt
+from ..eltwise import torch_kernels
 from ..limb import reduce_mod_lazy64, to_numpy, to_tensor
 from ..utils import check as _check
 from ..utils import profiling
@@ -78,6 +84,7 @@ _LOCAL_INV_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
 _CROSS_FWD_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
 _CROSS_INV_ARGS = (_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P)
 _CLUSTER_ARGS = (_P, _P, _P) + (_I,) * 8 + (_P,)
+_CONV_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _P)
 
 
 class RnsPlan:
@@ -496,14 +503,21 @@ def _local(x, rows, rplan, batch, forward, omf, scheme):
                    x, rows, hier.LOG_LOCAL, log_d, batch, code)
 
 
+def _cross_form(log_n: int, transforms: int, scheme: str,
+                aligned: bool) -> str:
+    """`hier.cross_form` for a stacked cross pass of `transforms` u64
+    transforms of 2^log_n."""
+    return hier.cross_form(log_n - hier.LOG_LOCAL, hier.LOG_LOCAL, transforms,
+                           64, scheme, aligned)
+
+
 def _cross(x, rows, rplan, batch, forward, omf, scheme):
     """K5.rns in `hier.cross_form`'s form for the stacked batch: the cross
     pass of the split; the inverse ends with the final stage and the
     OMF."""
     log_d = rplan.log_n - hier.LOG_LOCAL
     aligned = x.data_ptr() % 16 == 0
-    form = hier.cross_form(log_d, hier.LOG_LOCAL, rplan.k * batch, 64,
-                           scheme, aligned)
+    form = _cross_form(rplan.log_n, rplan.k * batch, scheme, aligned)
     if form not in hier.cross_forms(log_d, hier.LOG_LOCAL, aligned):
         raise ValueError(f"K5's {form} form does not take blocks of "
                          f"({1 << log_d}, {hier.LOCAL_N})")
@@ -518,15 +532,29 @@ def _cross(x, rows, rplan, batch, forward, omf, scheme):
                    x, rows, log_d, hier.LOG_LOCAL, batch, skip, omf, code)
 
 
+def _stacked_clusters(x, rplan: RnsPlan, batch: int, scheme: str) -> int:
+    """`cluster_for`'s C for a stacked call of `batch` transforms a row."""
+    if batch and cuda_ntt.polys_per_cta(rplan.n, batch) == 1:
+        return _clusters(x, rplan.n, rplan.k * batch << max(
+            0, rplan.log_n - hier.LOG_LOCAL), scheme)
+    return 1
+
+
+def _local_pass(x, rows, rplan, batch, forward, omf, scheme, clusters):
+    """The whole transform up to 2^14, the local pass above."""
+    if clusters > 1:
+        return _cluster(x, rows, rplan, batch, forward, omf, clusters)
+    if rplan.n <= cuda_ntt.MAX_KERNEL_DEGREE:
+        return _whole(x, rows, rplan, batch, forward, omf, scheme)
+    return _local(x, rows, rplan, batch, forward, omf, scheme)
+
+
 def _stacked(x: torch.Tensor, rplan: RnsPlan, imf: int, omf: int,
              forward: bool, scheme: str) -> torch.Tensor:
     _check_block(x, rplan, forward, imf, omf, scheme)
     card = _build.on_card(x)
     batch = _build.batch_of(x, rplan.n) // rplan.k
-    clusters = 1
-    if batch and cuda_ntt.polys_per_cta(rplan.n, batch) == 1:
-        clusters = _clusters(x, rplan.n, rplan.k * batch << max(
-            0, rplan.log_n - hier.LOG_LOCAL), scheme)
+    clusters = _stacked_clusters(x, rplan, batch, scheme)
     if not card:
         if clusters > 1:
             return _cluster_plain(x, rplan, clusters, forward, omf, True)
@@ -537,12 +565,8 @@ def _stacked(x: torch.Tensor, rplan: RnsPlan, imf: int, omf: int,
     rows = rplan.descriptors(x.device)
 
     def local(v):
-        """The whole transform up to 2^14, the local pass above."""
-        if clusters > 1:
-            return _cluster(v, rows, rplan, batch, forward, omf, clusters)
-        if rplan.n <= cuda_ntt.MAX_KERNEL_DEGREE:
-            return _whole(v, rows, rplan, batch, forward, omf, scheme)
-        return _local(v, rows, rplan, batch, forward, omf, scheme)
+        return _local_pass(v, rows, rplan, batch, forward, omf, scheme,
+                           clusters)
     if rplan.n <= cuda_ntt.MAX_KERNEL_DEGREE:
         return local(x)
     if forward:
@@ -566,6 +590,78 @@ def inv_ntt_rns(x: torch.Tensor, rplan: RnsPlan, input_mod_factor: int = 1,
     """Inverse NTT of x (k, ..., N), row i under moduli[i]."""
     return _stacked(x, rplan, input_mod_factor, output_mod_factor, False,
                     scheme)
+
+
+# -- the key switch's base-conversion block -----------------------------------
+
+def conv_fused(x: torch.Tensor, n: int, k: int) -> bool:
+    """The route rule of the key switch's base-conversion block: whether
+    its k stacked rows at degree n take `fwd_ntt_rns_conv`'s K5.rns.conv
+    on x's device. A CUDA device, k > 1, n above 2^14, and the column form
+    being the one `_cross` picks for the staged route's (k, k - 1, n)
+    block (a new tensor, so aligned) in the exact scheme that the key
+    switch's transforms take."""
+    if k < 2 or n <= cuda_ntt.MAX_KERNEL_DEGREE or x.device.type != "cuda":
+        return False
+    return _cross_form(nt.log2_exact(n), k * (k - 1), "exact",
+                       True) == "column"
+
+
+def fwd_ntt_rns_conv_plain(x: torch.Tensor, rplan: RnsPlan,
+                           consts: torch.Tensor,
+                           approx: bool = False) -> torch.Tensor:
+    """The plain version of `fwd_ntt_rns_conv`: the block gathered, each
+    row reduced from IMF = q_i (`torch_kernels.reduce_mod_rows`), the
+    stacked forward at (4, 4)."""
+    block = torch.stack([torch.cat([x[:i], x[i + 1:]])
+                         for i in range(rplan.k)])
+    return fwd_ntt_rns_plain(
+        torch_kernels.reduce_mod_rows(block, consts, 1, approx), rplan, 4, 4)
+
+
+def conv_cross(x: torch.Tensor, rows: torch.Tensor, rplan: RnsPlan,
+               consts: torch.Tensor, approx: bool = False) -> torch.Tensor:
+    """K5.rns.conv alone ("K5.rns.conv", ".approx" where approx): x (k, N)
+    source limbs on the card -> the (k, k - 1, N) block after its
+    base conversion and the forward cross pass; rows: `rplan`'s
+    descriptors."""
+    k = rplan.k
+    block = torch.empty((k, k - 1, rplan.n), dtype=torch.int64,
+                        device=x.device)
+    fn = _build.function("cross_rns", "hexl_cross_fwd_conv_rns", _CONV_ARGS)
+    _build.launch_on(x.device, "K5.rns.conv" + (".approx" if approx else ""),
+                     fn, x.data_ptr(), block.data_ptr(), rows.data_ptr(),
+                     consts.data_ptr(), k, rplan.log_n - hier.LOG_LOCAL,
+                     hier.LOG_LOCAL, int(approx))
+    return block
+
+
+def fwd_ntt_rns_conv(x: torch.Tensor, rplan: RnsPlan, consts: torch.Tensor,
+                     approx: bool = False) -> torch.Tensor:
+    """The key switch's base-conversion block, forward-transformed: x (k,
+    N) of any u64 words -> (k, k - 1, N), row i holding x's rows b != i in
+    order, each reduced mod moduli[i] from IMF = q_i to OMF 1 (with the
+    approximate quotient where `approx`), then the stacked forward NTT at
+    (4, 4). consts: `ops.row_constants` of the basis. On the card two
+    launches: K5.rns.conv (`conv_cross`, the column form's cross pass
+    with the gather and the reduction in its load, `csrc/cross_rns.cu`),
+    then the local pass as `fwd_ntt_rns` runs it; it takes every N above
+    2^14, where the split has a cross pass. On the CPU the plain
+    version."""
+    if x.dim() != 2 or tuple(x.shape) != (rplan.k, rplan.n) or rplan.k < 2:
+        raise ValueError(f"the source limbs must have shape ({rplan.k}, "
+                         f"{rplan.n}) with at least 2 rows, got "
+                         f"{tuple(x.shape)}")
+    if not _build.on_card(x, consts):
+        return fwd_ntt_rns_conv_plain(x, rplan, consts, approx)
+    if rplan.n <= cuda_ntt.MAX_KERNEL_DEGREE:
+        raise ValueError(f"K5.rns.conv takes N above 2^14, got N = "
+                         f"{rplan.n}")
+    rows = rplan.descriptors(x.device)
+    block = conv_cross(x, rows, rplan, consts, approx)
+    batch = rplan.k - 1
+    return _local_pass(block, rows, rplan, batch, True, 4, "exact",
+                       _stacked_clusters(block, rplan, batch, "exact"))
 
 
 class RnsNTT:

@@ -66,10 +66,11 @@ def _mesh_steps(mesh: Mesh) -> SimpleNamespace:
     DistNTT, every other step at each position on its parts. The stacked
     steps run one call a prime, as the JAX package's mesh key switch runs
     them (hexl_tpu/parallel/composites.py:106-126): the transforms through
-    each prime's DistNTT, the base conversion through K8 row by row. The
-    flush is the JAX package's per-row one (composites.py:138), so under
-    the approximation switch every row takes its approximate quotients
-    (`row_flush`)."""
+    each prime's DistNTT, the base conversion through K8 row by row
+    (`conv_fwd`), the block assembled before the multiply-accumulate
+    (`mac_flush_parts`). The flush is the JAX package's per-row one
+    (composites.py:138), so under the approximation switch every row takes
+    its approximate quotients (`row_flush`)."""
     steps = _ks.WRAPPERS
 
     def take(x, i):
@@ -86,6 +87,23 @@ def _mesh_steps(mesh: Mesh) -> SimpleNamespace:
             getattr(d, method)(xi, imf, omf)
             for d, xi in zip(dists, unbind(x))])
 
+    fwd_rns = per_prime("forward")
+
+    def reduce_rows(x, moduli):
+        return stack([local(lambda p, q=q: steps.reduce(p, q), xi)
+                      for q, xi in zip(moduli, unbind(x))])
+
+    def mac_flush(t, keys, c, ds, kc, kms, approx):
+        return local(lambda tp, k: steps.mac_flush(tp, k, c(k.device), ds,
+                                                   kc, kms, approx), t, keys)
+
+    def conv_fwd(x, dists, moduli):
+        return fwd_rns(reduce_rows(local(_ks.others, x), moduli), dists, 4,
+                       4)
+
+    def mac_flush_parts(off, diag, last, *args):
+        return mac_flush(local(_ks.assemble, off, diag, last), *args)
+
     return SimpleNamespace(
         plan=lambda n, q: get_dist_ntt(n, q, mesh),
         rns_plan=lambda n, moduli: [get_dist_ntt(n, q, mesh)
@@ -94,19 +112,12 @@ def _mesh_steps(mesh: Mesh) -> SimpleNamespace:
             _ks.constants, moduli, msf, ds),
         approx=lambda x: ops.approx_for(x.parts[0][0]), row_flush=True,
         take=take, stack=stack, unbind=unbind,
-        others=lambda x: local(_ks.others, x),
-        assemble=lambda off, diag, last: local(_ks.assemble, off, diag,
-                                               last),
         fwd=lambda x, d, imf, omf: d.forward(x, imf, omf),
         inv=lambda x, d, imf, omf: d.inverse(x, imf, omf),
-        fwd_rns=per_prime("forward"), inv_rns=per_prime("inverse"),
+        fwd_rns=fwd_rns, inv_rns=per_prime("inverse"),
         reduce=lambda x, q: local(lambda p: steps.reduce(p, q), x),
-        reduce_rows=lambda x, moduli: stack([
-            local(lambda p, q=q: steps.reduce(p, q), xi)
-            for q, xi in zip(moduli, unbind(x))]),
-        mac_flush=lambda t, keys, c, ds, kc, kms, approx: local(
-            lambda tp, k: steps.mac_flush(tp, k, c(k.device), ds, kc, kms,
-                                          approx), t, keys),
+        mac_flush=mac_flush, conv_fwd=conv_fwd,
+        mac_flush_parts=mac_flush_parts,
         spread=lambda x, c, approx: local(
             lambda p: steps.spread(p, c(p.device), approx), x),
         fold=lambda res, tpp, tn, c, approx: local(

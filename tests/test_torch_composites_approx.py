@@ -39,6 +39,7 @@ from hexl_tpu.parallel import dist_key_switch as jax_dist_key_switch
 from hexl_tpu.parallel import make_mesh as jax_make_mesh
 from hexl_tpu_torch import dyadic_multiply, key_switch, lr_mat_vec_mult, nt
 from hexl_tpu_torch.limb import mulhi64, mulhi64_approx, to_numpy, to_tensor
+from hexl_tpu_torch.ntt import rns
 from hexl_tpu_torch.parallel import dist_key_switch, make_mesh
 
 dyadic = importlib.import_module("hexl_tpu_torch.experimental.dyadic")
@@ -304,6 +305,8 @@ def test_flush_rule():
     ("key_switch.cu", "hexl_ks_mac_flush", ks._MAC_ARGS),
     ("key_switch.cu", "hexl_ks_spread", ks._SPREAD_ARGS),
     ("key_switch.cu", "hexl_ks_fold", ks._FOLD_ARGS),
+    ("key_switch.cu", "hexl_ks_mac_flush_parts", ks._MAC_PARTS_ARGS),
+    ("cross_rns.cu", "hexl_cross_fwd_conv_rns", rns._CONV_ARGS),
 ])
 def test_c_entries_take_the_wrapper_arguments(source, entry, args):
     """Each wrapper's ctypes argument list matches its C entry's, the form

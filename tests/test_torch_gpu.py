@@ -532,6 +532,182 @@ def test_key_switch_graph_after_clear_plan_cache(cuda, fresh_graphs):
     assert _calls() == {"eager": 2, "captures": 2, "replays": 2}
 
 
+# -- the key switch's base-conversion block, fused (K5.rns.conv, K10's parts)
+
+def _block_basis(kind, ds, n=1 << 15):
+    """ds distinct decomposition primes: SEAL's 55-bit BFV ones ("bfv"), or
+    the CKKS chain's {60, 40 x (ds - 1)} ("ckks")."""
+    if kind == "bfv":
+        return tuple(nt.generate_primes(ds, 54, False, ntt_size=n))
+    return (tuple(nt.generate_primes(1, 59, False, ntt_size=n))
+            + tuple(nt.generate_primes(ds - 1, 39, False, ntt_size=n)))
+
+
+@pytest.mark.parametrize("approx", [False, True], ids=["exact", "approx"])
+@pytest.mark.parametrize("kind", ["bfv", "ckks"])
+@pytest.mark.parametrize("ds", [2, 3, 15, 20])
+def test_conv_fwd_kernel_matches_the_staged_block(cuda, monkeypatch, ds,
+                                                  kind, approx):
+    """K5.rns.conv and the local pass (`rns.fwd_ntt_rns_conv`) against the
+    staged block `fwd_ntt_rns(reduce_mod_rows(others(x)), rplan, 4, 4)`
+    word for word, at 2^15: source limbs below their primes with every
+    fifth word q_j - 1 (a 60-bit limb's largest reduced into 40-bit rows)
+    and every eleventh any u64."""
+    from hexl_tpu_torch import config
+    monkeypatch.setattr(config, "approx_butterflies", lambda device: approx)
+    n = 1 << 15
+    moduli = _block_basis(kind, ds, n)
+    rng = np.random.default_rng(ds * 7 + len(kind))
+    x = np.stack([rng.integers(0, q, n, dtype=np.uint64) for q in moduli])
+    for j, q in enumerate(moduli):
+        x[j, ::5] = q - 1
+        x[j, ::11] = rng.integers(0, 1 << 64, x[j, ::11].size,
+                                  dtype=np.uint64, endpoint=False)
+    x = to_tensor(x, cuda)
+    rplan = rns.get_rns_plan(n, moduli)
+    assert rns.conv_fused(x, n, ds)
+    want = rns.fwd_ntt_rns(ops.reduce_mod_rows(ks_mod.others(x), moduli, 1),
+                           rplan, 4, 4)
+    _build.reset_launches()
+    got = rns.fwd_ntt_rns_conv(x, rplan, ops.row_constants(moduli, cuda),
+                               approx)
+    torch.cuda.synchronize()
+    assert _build.launches["K5.rns.conv" + (".approx" if approx else "")] \
+        == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("log_n", [16, 17, 20])
+def test_conv_fwd_kernel_at_every_cross_width(cuda, log_n):
+    """`rns.fwd_ntt_rns_conv` takes every N above 2^14, whichever route
+    `rns.conv_fused` prefers there: at D = 4, 8 and 64 (where the staged
+    block's cross pass takes the tiled form, so the key switch keeps the
+    staged route) on three 55-bit primes, against the staged block word
+    for word."""
+    n = 1 << log_n
+    moduli = _block_basis("bfv", 3, n)
+    rng = np.random.default_rng(log_n)
+    x = torch.stack([_rand(rng, (n,), 1 << 64, cuda) for _ in moduli])
+    rplan = rns.get_rns_plan(n, moduli)
+    assert rns.conv_fused(x, n, 3) == (log_n < 20)
+    want = rns.fwd_ntt_rns(ops.reduce_mod_rows(ks_mod.others(x), moduli, 1),
+                           rplan, 4, 4)
+    got = rns.fwd_ntt_rns_conv(x, rplan, ops.row_constants(moduli, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _split(t, ds):
+    """The (ds + 1, ds, n) block's three parts: off (ds, ds - 1, n), diag
+    (ds, n), last (ds, n)."""
+    off = torch.stack([torch.cat([t[i, :i], t[i, i + 1:]])
+                       for i in range(ds)])
+    diag = torch.stack([t[i, i] for i in range(ds)])
+    return off, diag, t[ds].clone()
+
+
+@pytest.mark.parametrize("kc", [1, 2, 3, 4, 5])
+def test_mac_flush_parts_kernel_matches_the_assembled_block(cuda, kc):
+    """K10 through its row map (`mac_flush_parts`) against K10 on the
+    assembled block and the exact sums: t and keys at their largest
+    (`ks_cases.worst_case_mac`) on SEAL's CKKS chain at ds 20 and the BFV
+    basis at ds 15; random operands with one part 8 bytes off a 16-byte
+    boundary, and odd n (the single-word branch); exact and approximate."""
+    n = 1 << 15
+    for kind, ds in (("ckks", 20), ("bfv", 15)):
+        moduli = _block_basis(kind, ds, n) + tuple(
+            q for q in nt.generate_primes(2, 59, False, ntt_size=n)
+            if q not in _block_basis(kind, ds, n))[:1]
+        kms = len(moduli)
+        t, keys, want, _ = ks_cases.worst_case_mac(moduli, ds, kms, n, cuda)
+        keys = keys[:, [0] * kc].contiguous()
+        want = want[:, [0] * kc]
+        c = ks_mod.constants(moduli, tuple(nt.inverse_mod(moduli[-1] % q, q)
+                                           for q in moduli[:ds]), ds, cuda)
+        off, diag, last = _split(t, ds)
+        for approx in (False, True):
+            got = ks_mod.mac_flush_parts(off, diag, last, keys, c, ds, kc,
+                                         kms, approx)
+            _strict("K10 parts", got, want, f"worst case {kind} kc={kc}")
+            _strict("K10 parts", got, ks_mod.mac_flush(t, keys, c, ds, kc,
+                                                       kms, approx),
+                    f"worst case {kind} kc={kc} approx={approx}")
+    rng = np.random.default_rng(30 + kc)
+    ds = 3
+    moduli = _block_basis("ckks", ds + 1, 1 << 12)
+    c = ks_mod.constants(moduli, tuple(nt.inverse_mod(moduli[-1] % q, q)
+                                       for q in moduli[:ds]), ds, cuda)
+    for n in (1 << 12, (1 << 12) + 1):
+        rows = list(moduli[:ds]) + [moduli[-1]]
+        t = torch.stack([_rand(rng, (ds, n), 4 * q, cuda) for q in rows])
+        keys = torch.stack([torch.stack([torch.stack([
+            _rand(rng, (n,), q, cuda) for q in moduli]) for _ in range(kc)])
+            for _ in range(ds)])
+        off, diag, last = _split(t, ds)
+        for which in (None, 0, 1, 2):
+            args = [off, diag, last]
+            if which is not None:
+                args[which] = chip_smoke.placed(args[which], 1)
+            for approx in (False, True):
+                _strict("K10 parts", ks_mod.mac_flush_parts(
+                    *args, keys, c, ds, kc, ds + 1, approx),
+                    ks_mod.mac_flush(t, keys, c, ds, kc, ds + 1, approx),
+                    f"n={n} part {which} off, approx={approx}")
+
+
+def test_block_stats_counts_the_route_of_each_card_call(cuda, fresh_graphs,
+                                                        monkeypatch):
+    """At 2^15 (ds 3) every call, eager, captured and replayed, takes the
+    fused route (K5.rns.conv: no K8.reduce.rows); a stacked call at 2^14
+    the staged one. K10 reads the block's parts on both. Each equal to
+    the plain pipeline."""
+    import collections
+    monkeypatch.setattr(ks_mod, "block_stats", collections.Counter())
+    for n, route in ((1 << 15, "fused"), (1 << 14, "staged")):
+        make = _ks_shape(np.random.default_rng(n), n,
+                         _ks_moduli(n, (49,) * 4), 2, cuda)
+        for _ in range(3):
+            args = make()
+            _build.reset_launches()
+            got = key_switch(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ks_mod.key_switch_plain(*args))
+            fused = route == "fused"
+            assert (_build.launches["K5.rns.conv"] == 1) == fused
+            assert (_build.launches["K8.reduce.rows"] == 1) != fused
+        assert ks_mod.block_stats[route] == 3
+    assert _calls() == {"eager": 2, "captures": 2, "replays": 2}
+    assert ks_mod.block_stats == {"fused": 3, "staged": 3}
+
+
+def test_key_switch_of_the_d19_chain_at_every_level(cuda, fresh_graphs):
+    """SEAL's {60, 40 x 19, 60} chain at 2^15, one (20, 2, 21, 2^15) key,
+    ds 20 .. 2 (and 1): each level called eagerly, captured and replayed
+    on one input, each output equal to `key_switch_plain` on the card."""
+    n = 1 << 15
+    moduli = (_block_basis("ckks", 20, n)
+              + tuple(nt.generate_primes(2, 59, False, ntt_size=n))[1:])
+    kms, kc = len(moduli), 2
+    rng = np.random.default_rng(27)
+
+    def rows(count):
+        return torch.stack([_rand(rng, (n,), q, cuda)
+                            for q in moduli[:count]])
+
+    keys = torch.stack([torch.stack([rows(kms) for _ in range(kc)])
+                        for _ in range(kms - 1)])
+    msf = [nt.inverse_mod(moduli[-1] % q, q) for q in moduli[:kms - 1]]
+    for ds in range(kms - 1, 0, -1):
+        args = (torch.stack([rows(ds) for _ in range(kc)]), rows(ds), n, ds,
+                kms, ds + 1, kc, moduli, keys[:ds], msf[:ds])
+        want = ks_mod.key_switch_plain(*args)
+        for _ in range(3):
+            got = key_switch(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"ds {ds}"
+    assert _calls() == {"eager": 20, "captures": 20, "replays": 20}
+
+
 def test_key_switch_graphs_of_one_key_at_every_level(cuda, fresh_graphs,
                                                      monkeypatch):
     """One relinearisation key over {60, 40 x 4, 60} at 2^15 used at ds 5 ..
@@ -674,13 +850,14 @@ def test_slice3_entry_points_never_take_the_plain_path(cuda, monkeypatch):
     # ds = 2 at 2^15, distinct primes: three stacked transforms over the
     # decomposition primes (the target's inverses, the converted block,
     # the mod-down's forwards) and the key prime's forward and inverse, of
-    # two passes each; the rows' and the key prime's base conversion; K10,
-    # K11 twice.
+    # two passes each; the block's base conversion in its cross pass
+    # (K5.rns.conv), the key prime's in K8; K10, K11 twice.
+    block = _routed(cuda, n, 2, 1, True)
+    block["K5.rns.conv"] = block.pop("K5.rns")
     assert dict(_build.launches) == _launches(
-        (_routed(cuda, n, 2, 1, True), 2), (_routed(cuda, n, 2, 2, True), 1),
-        (_routed(cuda, n, 1, 2), 2),
-        ({"K9": 2, "K8.reduce.rows": 1, "K8.reduce": 1, "K10": 1, "K11": 2},
-         1))
+        (_routed(cuda, n, 2, 1, True), 1), (block, 1),
+        (_routed(cuda, n, 2, 2, True), 1), (_routed(cuda, n, 1, 2), 2),
+        ({"K9": 2, "K8.reduce": 1, "K10": 1, "K11": 2}, 1))
 
 
 def _fft_value(rng, shape, precision, dev):
@@ -1209,15 +1386,16 @@ def test_new_instantiations_do_not_spill(cuda):
     packed walk, K3's kernels (exact, lean16, lean8 and approx), K12's
     radix walk, K16, every eltwise body (the streaming template: 17 exact
     and 6 approximate instantiations), K10 at every kc it is built for
-    (exact and approximate) and the approximate instantiations of K9 and
-    K11, from the -Xptxas -v report of the build."""
+    (exact and approximate) in both forms (the assembled block and its
+    parts) and the approximate instantiations of K9 and K11, from the
+    -Xptxas -v report of the build."""
     import re
     res = _build.kernel_resources(_build.build_all()["log"])
     new = {k: v for k, v in res.items()
            if "chain_kernel" in k or re.search(r"kernelIyLi[123]E", k)
            or re.search(r"radix_(packed_)?(fwd|inv)_kernel", k)
            or re.search(r"poly_\w+_kernel", k) or "stage_kernel" in k
-           or re.search(r"eltwise_kernel|mac_flush_kernel", k)
+           or re.search(r"eltwise_kernel|mac_flush_(parts_)?kernel", k)
            or re.search(r"(dyadic|spread|fold)_kernelILb1E", k)}
     radix = [k for k in new if "radix_" in k]
     assert len(radix) == ((4 + 8) * 7 + (1 + 2) * 10 + 2 * 4 * 2
@@ -1229,11 +1407,14 @@ def test_new_instantiations_do_not_spill(cuda):
     assert len(eltwise) == 17 + 6, eltwise
     mac = [k for k in new if "mac_flush_kernel" in k]
     assert len(mac) == 2 * ks_mod.MAC_GROUP, mac
+    parts = [k for k in new if "mac_flush_parts_kernel" in k]
+    assert len(parts) == 2 * ks_mod.MAC_GROUP, parts
     composites = [k for k in new
                   if re.search(r"(dyadic|spread|fold)_kernel", k)]
     assert len(composites) == 3, composites
     assert len(new) >= (3 * 6 * 3 + 2 + 3 + len(radix) + len(k3) + 2
-                        + len(eltwise) + len(mac) + len(composites))
+                        + len(eltwise) + len(mac) + len(parts)
+                        + len(composites))
     spills = {k: v for k, v in new.items() if v[2] or v[3]}
     assert not spills, spills
 
@@ -1527,14 +1708,14 @@ def test_row_ops_match_plain(cuda, k):
 
 def test_stacked_instantiations_do_not_spill(cuda):
     """Every stacked instantiation (K1.rns, K2.rns, K5.rns in both forms,
-    K6.rns and the row ops, exact and approximate), from the -Xptxas -v
-    report of the build."""
+    K5.rns.conv, K6.rns and the row ops, exact and approximate), from the
+    -Xptxas -v report of the build."""
     import re
     res = _build.kernel_resources(_build.build_all()["log"])
     stacked = {k: v for k, v in res.items()
                if re.search(r"_rns_kernel|eltwise_rows_kernel", k)}
     assert len(stacked) == (2 * 3 * 7 + 3 + 2 * 3 * 2 + 2 * 2 * 3 * 6
-                            + 2 * 2)
+                            + 2 * 2 + 2 * 6)
     spills = {k: v for k, v in stacked.items() if v[2] or v[3]}
     assert not spills, spills
 

@@ -27,8 +27,8 @@ PUBLIC = {"hexl.dyadic_multiply", "hexl.key_switch", "hexl.rns_ntt.forward",
           "hexl.rns_ntt.inverse"}
 # The steps `pipeline` takes on its stacked branch (ds > 1, distinct primes).
 STACKED_STEPS = {"constants", "approx", "plan", "rns_plan", "inv_rns",
-                 "others", "reduce_rows", "reduce", "fwd", "fwd_rns",
-                 "assemble", "take", "mac_flush", "inv", "spread", "fold"}
+                 "conv_fwd", "reduce", "fwd", "fwd_rns", "mac_flush_parts",
+                 "take", "inv", "spread", "fold"}
 
 
 def _rows(rng, moduli, n, lead=()):
