@@ -1809,7 +1809,7 @@ def shard_cluster_checks(rng, dev, nt, get_plan, rns, shard, to_tensor,
 NEW_INSTANTIATION = re.compile(
     r"chain_kernel|kernelIyLi[123]E|radix_(packed_)?(fwd|inv)_kernel|"
     r"poly_(cluster|cta)_kernel|cross_tile_(fwd|inv)_kernel|stage_kernel|"
-    r"eltwise_kernel|mac_flush_kernel|(dyadic|spread|fold)_kernelILb1E")
+    r"eltwise_kernel|mac_flush_parts_kernel|(dyadic|spread|fold)_kernelILb1E")
 RADIX_INSTANTIATIONS = (4 + 8) * 7 + (1 + 2) * 10
 PACKED_INSTANTIATIONS = 2 * 4 * 2
 # K3's two forms (three cluster and six one-CTA kernels) in the four
@@ -2190,12 +2190,22 @@ def rows_edge_checks(rng, dev, nt, ops, plain64, to_tensor, port_config,
     return checks
 
 
+def block_parts(t, ds):
+    """The (ds + 1, ds, n) block t in the three parts K10 reads: off (ds,
+    ds - 1, n), row i's t[i][j] for j != i; diag (ds, n), t[i][i]; last
+    (ds, n), t[ds]."""
+    import torch
+    off = torch.stack([torch.cat([t[i, :i], t[i, i + 1:]])
+                       for i in range(ds)])
+    return off, torch.stack([t[i, i] for i in range(ds)]), t[ds].clone()
+
+
 def mac_edge_checks(rng, dev, nt, ks, to_tensor, compare, ds,
                     ns=EDGE_KS_NS + (0,)) -> int:
-    """K10 and K10.approx at every kc of EDGE_KS_KCS over ds + 1 rows of
-    mixed moduli, at each n (odd ones; n = 0 launches nothing), with t and
-    the keys placed at offset 1 (each alone and both). Returns the
-    count."""
+    """K10 and K10.approx (`mac_flush_parts`) at every kc of EDGE_KS_KCS
+    over ds + 1 rows of mixed moduli, at each n (odd ones; n = 0 launches
+    nothing), with each part of t and the keys placed at offset 1 (each
+    alone and all four). Returns the count."""
     import numpy as np
     import torch
 
@@ -2215,18 +2225,20 @@ def mac_edge_checks(rng, dev, nt, ks, to_tensor, compare, ds,
             keys = torch.stack([torch.stack([torch.stack([
                 rand(n, q) for q in moduli]) for _ in range(kc)])
                 for _ in range(ds)])
-            for t_off, k_off in ((0, 0), (1, 0), (0, 1), (1, 1)):
-                if not n and (t_off or k_off):
+            operands = block_parts(tq, ds) + (keys,)
+            for offs in ((0,) * 4, (1, 0, 0, 0), (0, 1, 0, 0), (0, 0, 1, 0),
+                         (0, 0, 0, 1), (1,) * 4):
+                if not n and any(offs):
                     continue
-                t_, k_ = placed(tq, t_off), placed(keys, k_off)
+                args = [placed(x, o) for x, o in zip(operands, offs)]
                 for approx in (False, True):
                     name = "K10" + (".approx" if approx else "")
-                    compare(name, ks.mac_flush(t_, k_, c, ds, kc, ds + 1,
-                                               approx),
-                            ks.mac_flush_plain(t_, k_, c.mac, ds, kc, ds + 1,
-                                               approx),
-                            f"mac_flush n={n} ds={ds} kc={kc} offsets "
-                            f"{t_off}/{k_off} approx={approx}")
+                    compare(name, ks.mac_flush_parts(*args, c, ds, kc,
+                                                     ds + 1, approx),
+                            ks.mac_flush_plain(tq, keys, c.mac, ds, kc,
+                                               ds + 1, approx),
+                            f"mac_flush_parts n={n} ds={ds} kc={kc} offsets "
+                            f"{offs} approx={approx}")
                     checks += 1
     return checks
 
@@ -2478,12 +2490,14 @@ def composite_approx_checks(rng, dev, nt, get_plan, poly, dyadic, ks,
         keys = torch.stack([torch.stack([rows(moduli, (n,))
                                          for _ in range(kc)])
                             for _ in range(ds)])
-        tpp = ks.mac_flush(tq, keys, c, ds, kc, ds + 1, True)
+        parts = block_parts(tq, ds)
+        tpp = ks.mac_flush_parts(*parts, keys, c, ds, kc, ds + 1, True)
         compare("K10.approx", tpp, ks.mac_flush_plain(tq, keys, c.mac, ds,
                                                       kc, ds + 1, True),
-                f"mac_flush {what}")
-        compare("K10.approx", tpp, ks.mac_flush(tq, keys, c, ds, kc, ds + 1),
-                f"mac_flush {what} == exact")
+                f"mac_flush_parts {what}")
+        compare("K10.approx", tpp, ks.mac_flush_parts(*parts, keys, c, ds,
+                                                      kc, ds + 1),
+                f"mac_flush_parts {what} == exact")
         x = rand((kc, n), 2 * moduli[-1])
         compare("K11.approx", ks.spread(x, c, True),
                 ks.spread_plain(x, c, True), f"spread {what}")
@@ -2877,7 +2891,7 @@ def stream_runs(rng, dev, nt, ops, ks, port_config, to_tensor) -> dict:
     """{row: (fn, bytes)} of the streaming kernels' rows (see above), each
     fn one call on the next input set; bytes: each input read once and
     the output written once, the rows' bytes bound. Through the public
-    wrappers (`ops.*`, `ks.mac_flush`, `ks.constants`) that an earlier
+    wrappers (`ops.*`, `ks.mac_flush_parts`, `ks.constants`) that an earlier
     tree of the port shares; the approximate forms with
     `config.approx_butterflies` forced on around each call."""
     import numpy as np
@@ -2997,16 +3011,18 @@ def stream_runs(rng, dev, nt, ops, ks, port_config, to_tensor) -> dict:
             keys = torch.stack([torch.stack([torch.stack([
                 rand((n,), q) for q in ks_moduli]) for _ in range(2)])
                 for _ in range(ds)])
-            sets.append((t, keys, keys[:, :1].contiguous()))
+            sets.append(block_parts(t, ds)
+                        + (keys, keys[:, :1].contiguous()))
         tag = f"K10%s.n{n.bit_length() - 1}.ds{ds}%s"
         for kc in (2, 1):
             nbytes = 8 * (t_words + kc * key_words // 2 + rns * kc * n)
             for approx in (False, True):
                 def run(kc=kc, approx=approx, nxt=rotating(sets), c=c, ds=ds,
                         kms=kms):
-                    t, keys2, keys1 = nxt()
-                    return ks.mac_flush(t, keys2 if kc == 2 else keys1, c,
-                                        ds, kc, kms, approx)
+                    *parts, keys2, keys1 = nxt()
+                    return ks.mac_flush_parts(*parts, keys2 if kc == 2
+                                              else keys1, c, ds, kc, kms,
+                                              approx)
                 runs[tag % (".approx" if approx else "",
                             "" if kc == 2 else ".kc1")] = (
                     kept(run, len(sets)), nbytes)
@@ -4753,9 +4769,11 @@ def main() -> int:
         c = ks.constants(tuple(moduli), tuple(msf), ds, dev)
         tq = torch.stack([rand((ds, n), 4 * q) for q in moduli])
         what = f"n={n} ds={ds} kc={kc}"
-        tpp = ks.mac_flush(tq, keys, c, ds, kc, ds + 1)
+        tpp = ks.mac_flush_parts(*block_parts(tq, ds), keys, c, ds, kc,
+                                 ds + 1)
         compare("K10", tpp, ks.mac_flush_plain(tq, keys, c.mac, ds, kc,
-                                              ds + 1), f"mac_flush {what}")
+                                              ds + 1),
+                f"mac_flush_parts {what}")
         x = rand((kc, n), 2 * moduli[-1])
         compare("K11", ks.spread(x, c), ks.spread_plain(x, c),
                 f"spread {what}")
@@ -5953,15 +5971,16 @@ def main() -> int:
     kcon = ks.constants(tuple(ks_moduli), tuple(msf), ks_ds, dev)
     rows_ = ks_ds + 1
     tq = torch.stack([rand((ks_ds, ks_n), 4 * q) for q in ks_moduli])
-    tpp = ks.mac_flush(tq, keys, kcon, ks_ds, 2, rows_)
+    tq_parts = block_parts(tq, ks_ds)
+    tpp = ks.mac_flush_parts(*tq_parts, keys, kcon, ks_ds, 2, rows_)
     xl = rand((2, ks_n), 2 * ks_moduli[-1])
     tntt = torch.stack([rand((2, ks_n), 4 * q) for q in ks_moduli[:ks_ds]])
     out_words = rows_ * 2 * ks_n
     cases["K10"] = (
-        "mac_flush_kernel", "hexl_tpu_torch/csrc/key_switch.cu",
+        "mac_flush_parts_kernel", "hexl_tpu_torch/csrc/key_switch.cu",
         "hexl_tpu/experimental/key_switch.py:172-224 (XLA-fused jnp; no "
         "pallas_call)", f"key-switch MAC + flush, N=2^15, ds {ks_ds}, kc 2",
-        (lambda: ks.mac_flush(tq, keys, kcon, ks_ds, 2, rows_),
+        (lambda: ks.mac_flush_parts(*tq_parts, keys, kcon, ks_ds, 2, rows_),
          lambda: ks.mac_flush_plain(tq, keys, kcon.mac, ks_ds, 2, rows_),
          8 * (rows_ * ks_ds * ks_n + keys.numel() + out_words),
          out_words * (ks_ds * (hi64 + lo64) + 2 * (hi64 + lo64)
@@ -6117,9 +6136,8 @@ def main() -> int:
     # Barrett reduction a word and the cross stages' Shoup products. K10's
     # row-map form (`ks.mac_flush_parts`, kc 2) on the block's three parts
     # against `ks.mac_flush_parts_plain`; bytes and operations as K10's.
-    # Beside each, the form it took the place of on the same inputs
-    # (`replaced_ms`): K5.rns's forward cross pass on the staged block,
-    # K10 on the assembled block.
+    # Beside K5.rns.conv, the form it took the place of on the same inputs
+    # (`replaced_ms`): K5.rns's forward cross pass on the staged block.
     bfv_ds = 15
     bfv_basis = tuple(nt.generate_primes(bfv_ds, 54, False, ntt_size=ks_n))
     bfv_moduli = bfv_basis + tuple(nt.generate_primes(1, 55, False,
@@ -6156,10 +6174,7 @@ def main() -> int:
     part_c = ks.constants(bfv_moduli, tuple(
         nt.inverse_mod(bfv_moduli[-1] % q, q) for q in bfv_basis), bfv_ds,
         dev)
-    part_off = torch.stack([torch.cat([part_t[i, :i], part_t[i, i + 1:]])
-                            for i in range(bfv_ds)])
-    part_diag = torch.stack([part_t[i, i] for i in range(bfv_ds)])
-    part_last = part_t[bfv_ds].clone()
+    part_off, part_diag, part_last = block_parts(part_t, bfv_ds)
     part_args = (part_keys, part_c, bfv_ds, 2, bfv_ds + 1)
     compare("K10.parts", ks.mac_flush_parts(part_off, part_diag, part_last,
                                             *part_args),
@@ -6195,8 +6210,7 @@ def main() -> int:
                      + per_barrett)))
     replaced = {
         "K5.rns.conv": lambda: rns._cross(conv_staged, conv_rows, conv_plan,
-                                          bfv_ds - 1, True, 1, "exact"),
-        "K10.parts": lambda: ks.mac_flush(part_t, *part_args)}
+                                          bfv_ds - 1, True, 1, "exact")}
     # The cluster form at the key switch's shapes (ds 3): K1.rns.cl's pair
     # at (2^14, 3 primes of 49 bits, batch 1), K6.rns.cl's local pass
     # forward + inverse at (2^15, 3 primes, batch 1), each in clusters of
@@ -6636,11 +6650,12 @@ def main() -> int:
     per_reduce_exact = imads["mulhi64"] + imads["mullo64"]
     k10_case = cases["K10"][4]
     cases["K10.approx"] = (
-        "mac_flush_kernel<true>", "hexl_tpu_torch/csrc/key_switch.cu",
+        "mac_flush_parts_kernel<true>", "hexl_tpu_torch/csrc/key_switch.cu",
         "hexl_tpu/experimental/key_switch.py:34-51 (_barrett_reduce_128's "
         "approximate quotients; XLA-fused jnp, no pallas_call)",
         cases["K10"][3],
-        (lambda: ks.mac_flush(tq, keys, kcon, ks_ds, 2, rows_, True),
+        (lambda: ks.mac_flush_parts(*tq_parts, keys, kcon, ks_ds, 2, rows_,
+                                    True),
          lambda: ks.mac_flush_plain(tq, keys, kcon.mac, ks_ds, 2, rows_,
                                     True),
          k10_case[2],

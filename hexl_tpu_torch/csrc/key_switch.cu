@@ -48,23 +48,22 @@
 // registers, with an explicit carry. Any kc runs as kc / MAC_GROUP full
 // groups on the grid's z axis, then one launch for the kc % MAC_GROUP
 // left, the real kc the stride of the keys and the output (the callers
-// pass kc = 2: one group, one launch). t and the key rows are read 16
-// bytes at a time, marked as touched once (__ldcs), and the j loop runs in
-// groups of MAC_J trips whose loads are all issued before the group's
+// pass kc = 2: one group, one launch). t is read in the three parts the
+// key switch makes of it, where they lie, so that no assembled copy of the
+// block is written and read again: the (ds, ds - 1, n) base-converted
+// block, the target and the key prime's row, a thread resolving each
+// trip's row once (PartRows). t and the key rows are read 16 bytes at a
+// time, marked as touched once (__ldcs), and the j loop runs in groups of
+// MAC_J trips whose loads are all issued before the group's
 // multiply-accumulates, so several trips' loads are in flight ahead of
-// the dependent adds. Where a row of t, of
-// the keys or of the output is not 16-byte aligned, or n is odd (keys come
-// from the caller, and a view may start 8 bytes off), the kernel reads and
-// writes every word singly instead, a branch it takes once. A CTA of 128
-// threads for every 128 pairs of a row: at the key switch's shapes that
-// timed better than 256 threads and than one full wave of CTAs striding
-// (chip_smoke.py --stream-variants). A second entry,
-// hexl_ks_mac_flush_parts, reads t in the three parts the key switch's
-// stacked branch makes of it (the (ds, ds - 1, n) base-converted block,
-// the target, the key prime's row) where they lie, so that no assembled
-// copy of t is written and read again: the same body, a thread resolving
-// each trip's row once (PartRows). K11: a grid row per (row, component)
-// pair; neighbouring threads take neighbouring coefficients.
+// the dependent adds. Where a part, the keys or the output is not 16-byte
+// aligned, or n is odd (keys come from the caller, and a view may start 8
+// bytes off), the kernel reads and writes every word singly instead, a
+// branch it takes once. A CTA of 128 threads for every 128 pairs of a
+// row: at the key switch's shapes that timed better than 256 threads and
+// than one full wave of CTAs striding (chip_smoke.py --stream-variants).
+// K11: a grid row per (row, component) pair; neighbouring threads take
+// neighbouring coefficients.
 //
 // Each kernel is a template on A, the approximate quotients the JAX
 // package takes where its config.approx_butterflies() is on: in K10 the
@@ -120,19 +119,9 @@ __device__ __forceinline__ void mac(u64& hi, u64& lo, u64 a, u64 b) {
   hi += __umul64hi(a, b) + (lo < p_lo ? 1 : 0);
 }
 
-// Where row i's trip j of t lies: in the assembled (rns, ds, n) block,
-// at j n from the row's start (`trow`).
-struct BlockRows {
-  const u64* trow;
-  long long n;
-  __device__ __forceinline__ const u64* operator()(int j) const {
-    return trow + (long long)j * n;
-  }
-};
-
-// In the three parts of the block (hexl_ks_mac_flush_parts): for row i <
-// ds, `diag` (the target's row i) at j == i, else row j - (j > i) of
-// `off` (the row's (ds - 1, n) base-converted block); for row ds (`i` =
+// Where row i's trip j of t lies in the three parts of the block: for
+// row i < ds, `diag` (the target's row i) at j == i, else row j - (j > i)
+// of `off` (the row's (ds - 1, n) base-converted block); for row ds (`i` =
 // ds, never a trip) row j of `off`, the key prime's (ds, n) block.
 struct PartRows {
   const u64* off;
@@ -200,35 +189,8 @@ __device__ __forceinline__ void mac_flush_pair(
   }
 }
 
-// Row blockIdx.y, components k0 + KC blockIdx.z .. + KC - 1 of kc.
-template <bool A, int KC>
-__global__ void __launch_bounds__(MAC_THREADS)
-    mac_flush_kernel(const u64* __restrict__ t, const u64* __restrict__ keys,
-                     u64* __restrict__ out, const u64* __restrict__ consts,
-                     int rns, int ds, int kc, int kms, long long n, int k0) {
-  const int i = blockIdx.y;
-  const int key_idx = i == ds ? kms - 1 : i;
-  const long long k = k0 + (long long)KC * blockIdx.z;
-  const u64 q = consts[i], q_barr = consts[rns + i];
-  const u64 r_mod = consts[2 * rns + i], mu = consts[3 * rns + i];
-  const int shift = (int)consts[4 * rns + i];
-  const u64* trow = t + (long long)i * ds * n;
-  const u64* krow = keys + (k * kms + key_idx) * n;
-  u64* orow = out + ((long long)i * kc + k) * n;
-  const long long p = (long long)blockIdx.x * MAC_THREADS + threadIdx.x;
-  if (p >= (n + 1) / 2) return;
-  // Every row starts at a multiple of n words from its base.
-  const BlockRows rows{trow, n};
-  if (n % 2 == 0 && ((uintptr_t)t & 15) == 0 && ((uintptr_t)keys & 15) == 0 &&
-      ((uintptr_t)out & 15) == 0)
-    mac_flush_pair<A, KC, true>(rows, krow, orow, ds, kc, kms, n, q, q_barr,
-                                r_mod, mu, shift, p);
-  else
-    mac_flush_pair<A, KC, false>(rows, krow, orow, ds, kc, kms, n, q, q_barr,
-                                 r_mod, mu, shift, p);
-}
-
-// mac_flush_kernel on t in its three parts (PartRows): rns = ds + 1 rows.
+// Row blockIdx.y, components k0 + KC blockIdx.z .. + KC - 1 of kc, t in
+// its three parts (PartRows); rns = ds + 1 rows.
 template <bool A, int KC>
 __global__ void __launch_bounds__(MAC_THREADS)
     mac_flush_parts_kernel(const u64* __restrict__ off,
@@ -261,42 +223,41 @@ __global__ void __launch_bounds__(MAC_THREADS)
 }
 
 // `groups` groups of KC components from k0: a CTA for every MAC_THREADS
-// pairs of a row (a pair a thread), rns rows; t is the assembled block,
-// or (PARTS) its three parts.
-template <bool A, int KC, bool PARTS>
-static int launch_mac(const u64* const (&t)[3], const u64* keys, u64* out,
-                      const u64* consts, int rns, int ds, int kc, int kms,
-                      long long n, int k0, int groups, cudaStream_t stream) {
+// pairs of a row (a pair a thread), rns rows.
+template <bool A, int KC>
+static int launch_mac(const u64* off, const u64* diag, const u64* last,
+                      const u64* keys, u64* out, const u64* consts, int rns,
+                      int ds, int kc, int kms, long long n, int k0,
+                      int groups, cudaStream_t stream) {
   const long long gx = ((n + 1) / 2 + MAC_THREADS - 1) / MAC_THREADS;
   const dim3 grid((unsigned)gx, rns, groups);
-  if constexpr (PARTS)
-    mac_flush_parts_kernel<A, KC><<<grid, MAC_THREADS, 0, stream>>>(t[0], t[1], t[2], keys, out, consts, rns, ds, kc, kms, n, k0);
-  else
-    mac_flush_kernel<A, KC><<<grid, MAC_THREADS, 0, stream>>>(t[0], keys, out, consts, rns, ds, kc, kms, n, k0);
+  mac_flush_parts_kernel<A, KC><<<grid, MAC_THREADS, 0, stream>>>(
+      off, diag, last, keys, out, consts, rns, ds, kc, kms, n, k0);
   return (int)cudaGetLastError();
 }
 
 // kc / MAC_GROUP groups of MAC_GROUP components, then the kc % MAC_GROUP
 // left in one group.
-template <bool A, bool PARTS>
-static int launch_mac_groups(const u64* const (&t)[3], const u64* keys,
-                             u64* out, const u64* consts, int rns, int ds,
-                             int kc, int kms, long long n,
-                             cudaStream_t stream) {
-  const int full = kc / MAC_GROUP, left = kc % MAC_GROUP;
+template <bool A>
+static int launch_mac_groups(const u64* off, const u64* diag,
+                             const u64* last, const u64* keys, u64* out,
+                             const u64* consts, int ds, int kc, int kms,
+                             long long n, cudaStream_t stream) {
+  const int rns = ds + 1, full = kc / MAC_GROUP, left = kc % MAC_GROUP;
   if (full) {
-    const int err = launch_mac<A, MAC_GROUP, PARTS>(
-        t, keys, out, consts, rns, ds, kc, kms, n, 0, full, stream);
+    const int err = launch_mac<A, MAC_GROUP>(off, diag, last, keys, out,
+                                             consts, rns, ds, kc, kms, n, 0,
+                                             full, stream);
     if (err) return err;
   }
   const int k0 = full * MAC_GROUP;
   switch (left) {
-    case 1: return launch_mac<A, 1, PARTS>(t, keys, out, consts, rns, ds, kc,
-                                           kms, n, k0, 1, stream);
-    case 2: return launch_mac<A, 2, PARTS>(t, keys, out, consts, rns, ds, kc,
-                                           kms, n, k0, 1, stream);
-    case 3: return launch_mac<A, 3, PARTS>(t, keys, out, consts, rns, ds, kc,
-                                           kms, n, k0, 1, stream);
+    case 1: return launch_mac<A, 1>(off, diag, last, keys, out, consts, rns,
+                                    ds, kc, kms, n, k0, 1, stream);
+    case 2: return launch_mac<A, 2>(off, diag, last, keys, out, consts, rns,
+                                    ds, kc, kms, n, k0, 1, stream);
+    case 3: return launch_mac<A, 3>(off, diag, last, keys, out, consts, rns,
+                                    ds, kc, kms, n, k0, 1, stream);
     default: return 0;
   }
 }
@@ -344,26 +305,12 @@ __global__ void fold_kernel(const u64* __restrict__ result,
 
 // Each entry's approx: 0 for the exact quotients, 1 for the approximate
 // ones.
-extern "C" int hexl_ks_mac_flush(const u64* t, const u64* keys, u64* out,
-                                 const u64* consts, int rns, int ds, int kc,
-                                 int kms, long long n, int approx,
-                                 cudaStream_t stream) {
-  if (rns < 1 || rns > 65535 || ds < 1 || kc < 1 ||
-      kc / MAC_GROUP > 65535 || n < 1)
-    return (int)cudaErrorInvalidValue;
-  const u64* const parts[3] = {t, nullptr, nullptr};
-  return approx ? launch_mac_groups<true, false>(parts, keys, out, consts,
-                                                 rns, ds, kc, kms, n, stream)
-                : launch_mac_groups<false, false>(parts, keys, out, consts,
-                                                  rns, ds, kc, kms, n,
-                                                  stream);
-}
-
+//
 // K10 on the (ds + 1, ds, n) block t in its three parts, which it reads
-// where they lie instead of an assembled copy: off (ds, ds - 1, n), row
-// i's t[i][j] for j != i in order; diag (ds, n), t[i][i]; last (ds, n),
-// the key prime's row t[ds]. The rest as hexl_ks_mac_flush with rns =
-// ds + 1.
+// where they lie: off (ds, ds - 1, n), row i's t[i][j] for j != i in
+// order (at ds = 1 an empty block it never reads); diag (ds, n), t[i][i];
+// last (ds, n), the key prime's row t[ds]. keys (ds, kc, kms, n), out
+// (ds + 1, kc, n), consts (5, ds + 1) (the module comment).
 extern "C" int hexl_ks_mac_flush_parts(const u64* off, const u64* diag,
                                        const u64* last, const u64* keys,
                                        u64* out, const u64* consts, int ds,
@@ -371,13 +318,10 @@ extern "C" int hexl_ks_mac_flush_parts(const u64* off, const u64* diag,
                                        int approx, cudaStream_t stream) {
   if (ds < 1 || ds >= 65535 || kc < 1 || kc / MAC_GROUP > 65535 || n < 1)
     return (int)cudaErrorInvalidValue;
-  const u64* const parts[3] = {off, diag, last};
-  return approx ? launch_mac_groups<true, true>(parts, keys, out, consts,
-                                                ds + 1, ds, kc, kms, n,
-                                                stream)
-                : launch_mac_groups<false, true>(parts, keys, out, consts,
-                                                 ds + 1, ds, kc, kms, n,
-                                                 stream);
+  return approx ? launch_mac_groups<true>(off, diag, last, keys, out,
+                                          consts, ds, kc, kms, n, stream)
+                : launch_mac_groups<false>(off, diag, last, keys, out,
+                                           consts, ds, kc, kms, n, stream);
 }
 
 extern "C" int hexl_ks_spread(const u64* x, u64* out, const u64* consts,

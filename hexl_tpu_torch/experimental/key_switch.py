@@ -10,31 +10,35 @@ spread (K11), and after the mod-down's (4,4) forward NTTs the fold
 (K11) computes add_mod(result, fma_mod(..., IMF 8)). The transforms always
 take the 64-bit walk, as the JAX function's do (it calls the 64-bit bodies
 and the RNS transforms directly, never the public engine's single-word
-route): `cuda_ntt` with word 64, K1/K2 up to 2^14 and K5/K6 above. Where
-the ds > 1 decomposition primes are distinct, the transforms that differ
-only in the prime run stacked over them, as the JAX function runs them
-(key_switch.py:105-160, `ntt.rns`: K1.rns/K2.rns, or K5.rns and K6.rns):
-the target's inverses, the base-converted targets as one (ds, ds - 1, n)
-block, and the mod-down's forwards. On the card K10 reads the
-transformed block, the target and the key prime's row as three parts
-where they lie (`mac_flush_parts`), and the block is made by the route
-`block_route` names: above 2^14 ("fused") K5.rns.conv loads each row's
-other targets from the inverses' output, reduces them mod q_i and runs
-the cross pass (`rns.fwd_ntt_rns_conv`); elsewhere ("staged") the other
-targets are gathered into the block (`others`) and reduced in one
-K8.reduce.rows launch, row i mod q_i, before the stacked forward. The
-plain steps assemble the (ds + 1, ds, n) block (`assemble`) for the
-multiply-accumulate. Otherwise each transform is a
-call a prime, and the base conversion of row i reduces the stack of the
-other targets mod q_i in one K8 launch. A value below q_i, which the JAX
-function leaves alone, is left alone by the reduction too.
+route): `cuda_ntt` with word 64, K1/K2 up to 2^14 and K5/K6 above.
+
+`switch` has one flow. The target's inverses give one stacked value; the
+key prime's row is every target base-converted to qk and forward-
+transformed, one batched call; the block (ds, ds - 1, n) holds in row i
+the other targets base-converted to q_i and forward-transformed; and the
+multiply-accumulate reads the block, the target (its own row's term, in
+NTT form) and the key prime's row as three parts where they lie
+(`mac_flush_parts`: one K10 launch, no assembled copy). Where the ds > 1
+decomposition primes are distinct, the transforms that differ only in the
+prime run stacked over them, as the JAX function runs them
+(key_switch.py:105-160, `ntt.rns`: K1.rns/K2.rns, or K5.rns and K6.rns),
+and the block is made by the route `block_route` names: above 2^14
+("fused") K5.rns.conv loads each row's other targets from the inverses'
+output, reduces them mod q_i and runs the cross pass
+(`rns.fwd_ntt_rns_conv`); elsewhere ("staged") the other targets are
+gathered (`others`) and reduced in one K8.reduce.rows launch, row i mod
+q_i, before the stacked forward. Otherwise (ds = 1 or a repeated prime)
+each transform is a call a prime and row i of the block one K8 reduction
+of the other targets' stack; at ds = 1 the block is empty. A value below
+q_i, which the JAX function leaves alone, is left alone by the reduction
+too.
 
 A tensor on the GPU goes to the kernels; a tensor on the CPU to the plain
-versions (`mac_flush_plain`, `spread_plain`, `fold_plain`, and the plain
-NTT walk and eltwise bodies under the wrappers). `key_switch_plain` runs
-the whole pipeline on the plain versions on any device. Every output is
-fully reduced, so each equals the JAX package's bit for bit. Launches are
-counted under "K10" and "K11" (and those of the NTTs and of K8 under
+versions (`mac_flush_parts_plain`, `spread_plain`, `fold_plain`, and the
+plain NTT walk and eltwise bodies under the wrappers). `key_switch_plain`
+runs the whole pipeline on the plain versions on any device. Every output
+is fully reduced, so each equals the JAX package's bit for bit. Launches
+are counted under "K10" and "K11" (and those of the NTTs and of K8 under
 theirs).
 
 Where `config.approx_butterflies` is on for the operands' device, the
@@ -48,41 +52,32 @@ function's own rule (`pipeline`), the flush of the multiply-accumulate
 the plain versions with `approx=True`. The transforms stay exact. Every
 output is fully reduced, so the bits are the same either way.
 
-On the card the chain before the fold is replayed from a CUDA graph.
-`switch` (every step up to the mod-down's forward NTTs: 13 launches on the
-fused route; 14 and the aten gather of `others` on the staged one) does
-the same thing on every call of one key
-(`graph_key`): the device and its current
-stream, (n, ds, kms, kc), the moduli and modswitch factors, the keys'
-address and shape, the approximate flag, and the route rules in force
-(`rns.cluster_for`, `hier.cross_form`, `cuda_ntt.polys_per_cta`, so that
-a rule forced in a test or a timing gets a graph of its own). A key's
-first call runs eagerly, which fills every cache the chain reads (plans,
-descriptors, constants, row constants, `_others_index`, the occupancy
-queries), so that
-nothing is copied from the host or queried inside a capture; its second
-captures `switch` on a static copy of t_target into a graph with its own
-memory pool (`capture`); every later call copies t_target into the
-graph's input and replays it (`graph`). The fold (K11) is launched
-eagerly every time, from the caller's result and the graph's outputs into
-a new tensor: no output is shared between calls, and on one stream the
-next replay cannot overwrite the graph's outputs before a fold has read
-them. The eager chain runs instead on the CPU, in debug mode (its checks
-read the operands on the host, which a replay would skip) and while the
-current stream is itself being captured (an outer graph then records the
-kernels, as it did before). A failed capture raises. `graphs` holds at
-most GRAPH_CACHE keys, the least recently used evicted first, and
-`clear_plan_cache` empties it. `graph_stats` counts the card calls that
-ran eagerly, captured and replayed, the host seconds spent in `capture`
-(`capture_s`) and the device bytes the held graphs' memory pools reserve
-(`pool_bytes`: what `torch.cuda.memory_reserved` grew by over each
-capture, less the entries evicted or cleared since); a replay adds the
-launches counted during its capture to `_build.launches`, and its route to
-`block_stats` (the stacked card calls by the block's route), so every
-call counts the same launches and route whichever way it ran. One set of
-keys used at several levels (`keys[:ds]` of a deeper key, as a CKKS chain
-uses its relinearisation key below the top level) gives a graph a level:
-the shape and ds are in the key.
+On the card the chain before the fold is replayed from a CUDA graph
+(`run`). `switch` (every step up to the mod-down's forward NTTs: 13
+launches on the fused route; 14 and the aten gather of `others` on the
+staged one) does the same thing on every call of one key (`graph_key`,
+which holds the route rules in force, so that a rule forced in a test or
+a timing gets a graph of its own). A key's first call runs eagerly, which
+fills every cache the chain reads (plans, descriptors, constants, row
+constants, `_others_index`, the occupancy queries), so that nothing is
+copied from the host or queried inside a capture; its second captures
+`switch` on a static copy of t_target into a graph with its own memory
+pool (`capture`); every later call copies t_target into the graph's input
+and replays it (`graph`). The fold (K11) is launched eagerly every time,
+from the caller's result and the graph's outputs into a new tensor: no
+output is shared between calls, and on one stream the next replay cannot
+overwrite the graph's outputs before a fold has read them. The eager
+chain runs instead on the CPU, in debug mode (its checks read the
+operands on the host, which a replay would skip) and while the current
+stream is itself being captured (an outer graph then records the
+kernels). A failed capture raises. `graphs` holds at most GRAPH_CACHE
+keys, the least recently used evicted first, and `clear_plan_cache`
+empties it. A replay adds the launches counted during its capture to
+`_build.launches`, and its route to `block_stats`, so every call counts
+the same launches and route whichever way it ran. One set of keys used at
+several levels (`keys[:ds]` of a deeper key, as a CKKS chain uses its
+relinearisation key below the top level) gives a graph a level: the shape
+and ds are in the key.
 """
 
 from __future__ import annotations
@@ -111,7 +106,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint64
 _L = ctypes.c_int64
-_MAC_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P)
 _MAC_PARTS_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P)
 _SPREAD_ARGS = (_P, _P, _P, _U, _U, _U, _I, _L, _I, _P)
 _FOLD_ARGS = (_P, _P, _P, _P, _P, _I, _I, _L, _I, _P)
@@ -233,30 +227,12 @@ def _name(kernel: str, approx: bool) -> str:
     return kernel + (".approx" if approx else "")
 
 
-def mac_flush(t: torch.Tensor, keys: torch.Tensor, c: SimpleNamespace,
-              ds: int, kc: int, kms: int, approx: bool = False
-              ) -> torch.Tensor:
-    """K10 (its approximate-quotient instantiation where `approx`) on the
-    GPU, `mac_flush_plain` on the CPU."""
-    if not _build.on_card(t, keys, c.mac):
-        return mac_flush_plain(t, keys, c.mac, ds, kc, kms, approx)
-    rns, _, n = t.shape
-    out = torch.empty((rns, kc, n), dtype=torch.int64, device=t.device)
-    if n == 0:
-        return out
-    fn = _build.function("key_switch", "hexl_ks_mac_flush", _MAC_ARGS)
-    _build.launch_on(t.device, _name("K10", approx), fn, t.data_ptr(),
-                     keys.data_ptr(), out.data_ptr(), c.mac.data_ptr(), rns,
-                     ds, kc, kms, n, int(approx))
-    return out
-
-
 def mac_flush_parts(off: torch.Tensor, diag: torch.Tensor, last: torch.Tensor,
                     keys: torch.Tensor, c: SimpleNamespace, ds: int, kc: int,
                     kms: int, approx: bool = False) -> torch.Tensor:
-    """`mac_flush` of `assemble(off, diag, last)`, the block read in its
-    three parts where they lie: K10's row-map form on the GPU (one launch,
-    counted as "K10"; `csrc/key_switch.cu` hexl_ks_mac_flush_parts),
+    """K10 (its approximate-quotient instantiation where `approx`) on the
+    block `assemble(off, diag, last)`, read in its three parts where they
+    lie: one launch on the GPU, counted as "K10";
     `mac_flush_parts_plain` on the CPU."""
     if not _build.on_card(off, diag, last, keys, c.mac):
         return mac_flush_parts_plain(off, diag, last, keys, c.mac, ds, kc,
@@ -345,7 +321,10 @@ GRAPH_CACHE = 32
 # least recently used first.
 graphs: collections.OrderedDict = collections.OrderedDict()
 # The card calls that ran the chain eagerly, captured it, replayed it;
-# `capture_s` and `pool_bytes` (module docstring).
+# `capture_s`, the host seconds spent in `capture`; `pool_bytes`, the
+# device bytes the held graphs' memory pools reserve (what
+# `torch.cuda.memory_reserved` grew by over each capture, less the entries
+# evicted or cleared since).
 graph_stats: collections.Counter = collections.Counter()
 # The card calls of the stacked branch by the route of the base-conversion
 # block (`block_route`): "fused" or "staged"; a replay counts its
@@ -504,34 +483,32 @@ def _conv_fwd(t_intt, rplan, moduli):
 # or through the plain versions on any device. `plan` gives what the
 # transforms take for a prime, `rns_plan` what the stacked transforms take
 # for a basis; `constants` the basis's constants, as the other steps take
-# them; take, stack, unbind, others and assemble act on the pipeline's
-# values (tensors here, sharded values in `parallel.composites`);
-# `approx` says whether a value's device takes the approximate quotients,
-# `row_flush` whether the flush is the JAX function's per-row one whatever
-# the bit lengths (`pipeline`). `conv_fwd` and `mac_flush_parts` are the
-# stacked branch's base-conversion block and its multiply-accumulate, in
-# WRAPPERS the block by `block_route`'s route. WRAPPERS also holds the
-# graph path's `capture` and `graph` (`run`).
+# them; take (an index or a slice of the leading axis) and stack act on
+# the pipeline's values (tensors here, sharded values in
+# `parallel.composites`); `approx` says whether a value's device takes
+# the approximate quotients, `row_flush` whether the flush is the JAX
+# function's per-row one whatever the bit lengths (`pipeline`).
+# `conv_fwd` is the stacked branch's base-conversion block, in WRAPPERS by
+# `block_route`'s route; `mac_flush_parts` the multiply-accumulate of
+# both branches. WRAPPERS also holds the graph path's `capture` and
+# `graph` (`run`).
 _TENSORS = dict(
     plan=get_plan, rns_plan=get_rns_plan, approx=ops.approx_for,
     row_flush=False,
     constants=lambda moduli, msf, ds, like: constants(moduli, msf, ds,
                                                       like.device),
-    take=lambda x, i: x[i], stack=torch.stack,
-    unbind=lambda x: list(x.unbind(0)))
+    take=lambda x, i: x[i], stack=torch.stack)
 WRAPPERS = SimpleNamespace(
     **_TENSORS, fwd=cuda_ntt.fwd_ntt, inv=cuda_ntt.inv_ntt,
     fwd_rns=rns.fwd_ntt_rns, inv_rns=rns.inv_ntt_rns,
     reduce=lambda x, q: ops.reduce_mod(x, q, q, 1),
-    mac_flush=mac_flush, spread=spread, fold=fold, conv_fwd=_conv_fwd,
+    spread=spread, fold=fold, conv_fwd=_conv_fwd,
     mac_flush_parts=mac_flush_parts, capture=capture, graph=graph)
 PLAIN = SimpleNamespace(
     **_TENSORS, fwd=torch_ntt.fwd_ntt, inv=torch_ntt.inv_ntt,
     fwd_rns=rns.fwd_ntt_rns_plain, inv_rns=rns.inv_ntt_rns_plain,
     reduce=lambda x, q: torch_kernels.reduce_mod(x, q, q, 1,
                                                  ops.approx_for(x)),
-    mac_flush=lambda t, keys, c, ds, kc, kms, approx: mac_flush_plain(
-        t, keys, c.mac, ds, kc, kms, approx),
     conv_fwd=lambda x, rplan, moduli: rns.fwd_ntt_rns_conv_plain(
         x, rplan, ops.row_constants(tuple(moduli), x.device),
         ops.approx_for(x)),
@@ -571,49 +548,39 @@ def switch(steps, t_target, keys, n, ds, kms, kc, moduli, msf):
     the mod-down's forwards; else one call a prime."""
     c = steps.constants(moduli, msf, ds, t_target)
     approx = steps.approx(t_target)
-    plans = [steps.plan(n, q) for q in moduli[:ds]] + [steps.plan(n,
-                                                                 moduli[-1])]
+    key_plan = steps.plan(n, moduli[-1])
     flush = flush_approx(steps, moduli, ds, approx)
-    if ds > 1 and len(set(moduli[:ds])) == ds:
+    stacked = ds > 1 and len(set(moduli[:ds])) == ds
+    # The target's inverse NTTs, (2, 1), as one stacked value.
+    if stacked:
         rplan = steps.rns_plan(n, moduli[:ds])
-        # The target's inverse NTTs, (2, 1), one stacked transform.
         t_intt = steps.inv_rns(t_target, rplan, 2, 1)
-        # Row i < ds: the other targets base-converted to q_i and forward-
-        # transformed at (4, 4), one stacked (ds, ds - 1, n) block, with the
-        # target itself (already in NTT form) at j = i; the key prime's row:
-        # every target base-converted to qk, one batched transform. The
-        # multiply-accumulate reads the three parts.
-        key_row = steps.fwd(steps.reduce(t_intt, moduli[-1]), plans[ds], 4,
-                            4)
-        off = steps.conv_fwd(t_intt, rplan, moduli[:ds])
-        tpp = steps.mac_flush_parts(off, t_target, key_row, keys, c, ds, kc,
-                                    kms, flush)
     else:
-        rplan = None
-        # The target's inverse NTTs, (2, 1), one per decomposition prime.
-        t_intt = [steps.inv(steps.take(t_target, j), plans[j], 2, 1)
-                  for j in range(ds)]
-        # Row i (the ds decomposition primes, then the key prime): the
-        # other targets, base-converted to q_i and forward-transformed at
-        # (4, 4); at j = i (i < ds) the target itself, in NTT form.
-        rows = []
-        for i, plan in enumerate(plans):
-            js = [j for j in range(ds) if j != i]
-            ops_i = []
-            if js:
-                conv = steps.reduce(steps.stack([t_intt[j] for j in js]),
-                                    plan.q)
-                ops_i = steps.unbind(steps.fwd(conv, plan, 4, 4))
-            if i < ds:
-                ops_i.insert(i, steps.take(t_target, i))
-            rows.append(steps.stack(ops_i))
-        tpp = steps.mac_flush(steps.stack(rows), keys, c, ds, kc, kms, flush)
+        plans = [steps.plan(n, q) for q in moduli[:ds]]
+        t_intt = steps.stack([steps.inv(steps.take(t_target, j), plans[j],
+                                        2, 1) for j in range(ds)])
+    # The key prime's row: every target base-converted to qk and forward-
+    # transformed at (4, 4), one batched transform.
+    key_row = steps.fwd(steps.reduce(t_intt, moduli[-1]), key_plan, 4, 4)
+    # Row i < ds: the other targets base-converted to q_i and forward-
+    # transformed at (4, 4), one (ds, ds - 1, n) block; the target itself
+    # (already in NTT form) is the row's term at j = i.
+    if stacked:
+        off = steps.conv_fwd(t_intt, rplan, moduli[:ds])
+    elif ds > 1:
+        off = steps.stack([steps.fwd(steps.reduce(steps.stack(
+            [steps.take(t_intt, j) for j in range(ds) if j != i]), q),
+            plans[i], 4, 4) for i, q in enumerate(moduli[:ds])])
+    else:
+        off = steps.stack([steps.take(t_intt, slice(0, 0))])
+    tpp = steps.mac_flush_parts(off, t_target, key_row, keys, c, ds, kc, kms,
+                                flush)
     # Mod-down: the key prime's row, (2, 2) inverse; the spread to every
     # q_i; the (4, 4) forward NTTs (stacked where the transforms above
     # were).
-    t_last = steps.inv(steps.take(tpp, ds), plans[ds], 2, 2)
+    t_last = steps.inv(steps.take(tpp, ds), key_plan, 2, 2)
     spread_out = steps.spread(t_last, c, approx)
-    if rplan is not None:
+    if stacked:
         t_ntt = steps.fwd_rns(spread_out, rplan, 4, 4)
     else:
         t_ntt = steps.stack([steps.fwd(steps.take(spread_out, i), plans[i],

@@ -67,8 +67,8 @@ def _mesh_steps(mesh: Mesh) -> SimpleNamespace:
     steps run one call a prime, as the JAX package's mesh key switch runs
     them (hexl_tpu/parallel/composites.py:106-126): the transforms through
     each prime's DistNTT, the base conversion through K8 row by row
-    (`conv_fwd`), the block assembled before the multiply-accumulate
-    (`mac_flush_parts`). The flush is the JAX package's per-row one
+    (`conv_fwd`); the multiply-accumulate reads each position's three
+    parts (`mac_flush_parts`). The flush is the JAX package's per-row one
     (composites.py:138), so under the approximation switch every row takes
     its approximate quotients (`row_flush`)."""
     steps = _ks.WRAPPERS
@@ -93,16 +93,14 @@ def _mesh_steps(mesh: Mesh) -> SimpleNamespace:
         return stack([local(lambda p, q=q: steps.reduce(p, q), xi)
                       for q, xi in zip(moduli, unbind(x))])
 
-    def mac_flush(t, keys, c, ds, kc, kms, approx):
-        return local(lambda tp, k: steps.mac_flush(tp, k, c(k.device), ds,
-                                                   kc, kms, approx), t, keys)
-
     def conv_fwd(x, dists, moduli):
         return fwd_rns(reduce_rows(local(_ks.others, x), moduli), dists, 4,
                        4)
 
-    def mac_flush_parts(off, diag, last, *args):
-        return mac_flush(local(_ks.assemble, off, diag, last), *args)
+    def mac_flush_parts(off, diag, last, keys, c, ds, kc, kms, approx):
+        return local(lambda o, d, t, k: steps.mac_flush_parts(
+            o, d, t, k, c(k.device), ds, kc, kms, approx), off, diag, last,
+            keys)
 
     return SimpleNamespace(
         plan=lambda n, q: get_dist_ntt(n, q, mesh),
@@ -111,13 +109,12 @@ def _mesh_steps(mesh: Mesh) -> SimpleNamespace:
         constants=lambda moduli, msf, ds, like: functools.partial(
             _ks.constants, moduli, msf, ds),
         approx=lambda x: ops.approx_for(x.parts[0][0]), row_flush=True,
-        take=take, stack=stack, unbind=unbind,
+        take=take, stack=stack,
         fwd=lambda x, d, imf, omf: d.forward(x, imf, omf),
         inv=lambda x, d, imf, omf: d.inverse(x, imf, omf),
         fwd_rns=fwd_rns, inv_rns=per_prime("inverse"),
         reduce=lambda x, q: local(lambda p: steps.reduce(p, q), x),
-        mac_flush=mac_flush, conv_fwd=conv_fwd,
-        mac_flush_parts=mac_flush_parts,
+        conv_fwd=conv_fwd, mac_flush_parts=mac_flush_parts,
         spread=lambda x, c, approx: local(
             lambda p: steps.spread(p, c(p.device), approx), x),
         fold=lambda res, tpp, tn, c, approx: local(

@@ -302,7 +302,6 @@ def test_flush_rule():
 
 @pytest.mark.parametrize("source,entry,args", [
     ("dyadic.cu", "hexl_dyadic", dyadic._ARGS),
-    ("key_switch.cu", "hexl_ks_mac_flush", ks._MAC_ARGS),
     ("key_switch.cu", "hexl_ks_spread", ks._SPREAD_ARGS),
     ("key_switch.cu", "hexl_ks_fold", ks._FOLD_ARGS),
     ("key_switch.cu", "hexl_ks_mac_flush_parts", ks._MAC_PARTS_ARGS),

@@ -214,7 +214,7 @@ def test_mac_group_matches_the_kernel():
             / "key_switch.cu").read_text()
     assert int(re.search(r"constexpr int MAC_GROUP = (\d+);", text)[1]) \
         == ks.MAC_GROUP
-    left = re.findall(r"case (\d+): return launch_mac<A, \1, PARTS>", text)
+    left = re.findall(r"case (\d+): return launch_mac<A, \1>", text)
     assert tuple(int(v) for v in left) == tuple(range(1, ks.MAC_GROUP))
 
 

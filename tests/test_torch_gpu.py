@@ -381,7 +381,8 @@ def test_key_switch_kernels_match_plain(cuda, n, bits, kc):
     tq = torch.stack([to_tensor(rng.integers(0, 4 * q, (ds, n),
                                              dtype=np.uint64), cuda)
                       for q in moduli[:ds] + moduli[-1:]])
-    got = ks_mod.mac_flush(tq, keys, c, ds, kc, ds + 1)
+    parts = chip_smoke.block_parts(tq, ds)
+    got = ks_mod.mac_flush_parts(*parts, keys, c, ds, kc, ds + 1)
     torch.cuda.synchronize()
     assert torch.equal(got, ks_mod.mac_flush_plain(tq, keys, c.mac, ds, kc,
                                                    ds + 1))
@@ -393,7 +394,7 @@ def test_key_switch_kernels_match_plain(cuda, n, bits, kc):
     tntt = torch.stack([to_tensor(rng.integers(0, 4 * q, (kc, n),
                                                dtype=np.uint64), cuda)
                         for q in moduli[:ds]])
-    tpp = ks_mod.mac_flush(tq, keys, c, ds, kc, ds + 1)
+    tpp = ks_mod.mac_flush_parts(*parts, keys, c, ds, kc, ds + 1)
     got = ks_mod.fold(result, tpp, tntt, c)
     torch.cuda.synchronize()
     assert torch.equal(got, ks_mod.fold_plain(result, tpp, tntt, c))
@@ -597,22 +598,14 @@ def test_conv_fwd_kernel_at_every_cross_width(cuda, log_n):
     assert torch.equal(got, want)
 
 
-def _split(t, ds):
-    """The (ds + 1, ds, n) block's three parts: off (ds, ds - 1, n), diag
-    (ds, n), last (ds, n)."""
-    off = torch.stack([torch.cat([t[i, :i], t[i, i + 1:]])
-                       for i in range(ds)])
-    diag = torch.stack([t[i, i] for i in range(ds)])
-    return off, diag, t[ds].clone()
-
-
 @pytest.mark.parametrize("kc", [1, 2, 3, 4, 5])
 def test_mac_flush_parts_kernel_matches_the_assembled_block(cuda, kc):
-    """K10 through its row map (`mac_flush_parts`) against K10 on the
-    assembled block and the exact sums: t and keys at their largest
-    (`ks_cases.worst_case_mac`) on SEAL's CKKS chain at ds 20 and the BFV
-    basis at ds 15; random operands with one part 8 bytes off a 16-byte
-    boundary, and odd n (the single-word branch); exact and approximate."""
+    """K10 through its row map (`mac_flush_parts`) against the plain flush
+    of the assembled block (`mac_flush_plain`) and the exact sums: t and
+    keys at their largest (`ks_cases.worst_case_mac`) on SEAL's CKKS chain
+    at ds 20 and the BFV basis at ds 15; random operands with one part 8
+    bytes off a 16-byte boundary, and odd n (the single-word branch);
+    exact and approximate."""
     n = 1 << 15
     for kind, ds in (("ckks", 20), ("bfv", 15)):
         moduli = _block_basis(kind, ds, n) + tuple(
@@ -624,13 +617,13 @@ def test_mac_flush_parts_kernel_matches_the_assembled_block(cuda, kc):
         want = want[:, [0] * kc]
         c = ks_mod.constants(moduli, tuple(nt.inverse_mod(moduli[-1] % q, q)
                                            for q in moduli[:ds]), ds, cuda)
-        off, diag, last = _split(t, ds)
+        off, diag, last = chip_smoke.block_parts(t, ds)
         for approx in (False, True):
             got = ks_mod.mac_flush_parts(off, diag, last, keys, c, ds, kc,
                                          kms, approx)
             _strict("K10 parts", got, want, f"worst case {kind} kc={kc}")
-            _strict("K10 parts", got, ks_mod.mac_flush(t, keys, c, ds, kc,
-                                                       kms, approx),
+            _strict("K10 parts", got, ks_mod.mac_flush_plain(
+                t, keys, c.mac, ds, kc, kms, approx),
                     f"worst case {kind} kc={kc} approx={approx}")
     rng = np.random.default_rng(30 + kc)
     ds = 3
@@ -643,7 +636,7 @@ def test_mac_flush_parts_kernel_matches_the_assembled_block(cuda, kc):
         keys = torch.stack([torch.stack([torch.stack([
             _rand(rng, (n,), q, cuda) for q in moduli]) for _ in range(kc)])
             for _ in range(ds)])
-        off, diag, last = _split(t, ds)
+        off, diag, last = chip_smoke.block_parts(t, ds)
         for which in (None, 0, 1, 2):
             args = [off, diag, last]
             if which is not None:
@@ -651,7 +644,8 @@ def test_mac_flush_parts_kernel_matches_the_assembled_block(cuda, kc):
             for approx in (False, True):
                 _strict("K10 parts", ks_mod.mac_flush_parts(
                     *args, keys, c, ds, kc, ds + 1, approx),
-                    ks_mod.mac_flush(t, keys, c, ds, kc, ds + 1, approx),
+                    ks_mod.mac_flush_plain(t, keys, c.mac, ds, kc, ds + 1,
+                                           approx),
                     f"n={n} part {which} off, approx={approx}")
 
 
@@ -760,7 +754,8 @@ def test_mac_flush_at_ds_20_with_worst_case_operands(cuda):
         c = ks_mod.constants(moduli, tuple(pow(moduli[-1], -1, q)
                                            for q in moduli[:ds]), ds, cuda)
         for approx in (False, True):
-            got = ks_mod.mac_flush(t, keys, c, ds, 2, kms, approx)
+            got = ks_mod.mac_flush_parts(*chip_smoke.block_parts(t, ds),
+                                         keys, c, ds, 2, kms, approx)
             torch.cuda.synchronize()
             assert torch.equal(got, want)
             assert torch.equal(got, ks_mod.mac_flush_plain(
@@ -1386,16 +1381,15 @@ def test_new_instantiations_do_not_spill(cuda):
     packed walk, K3's kernels (exact, lean16, lean8 and approx), K12's
     radix walk, K16, every eltwise body (the streaming template: 17 exact
     and 6 approximate instantiations), K10 at every kc it is built for
-    (exact and approximate) in both forms (the assembled block and its
-    parts) and the approximate instantiations of K9 and K11, from the
-    -Xptxas -v report of the build."""
+    (exact and approximate) and the approximate instantiations of K9 and
+    K11, from the -Xptxas -v report of the build."""
     import re
     res = _build.kernel_resources(_build.build_all()["log"])
     new = {k: v for k, v in res.items()
            if "chain_kernel" in k or re.search(r"kernelIyLi[123]E", k)
            or re.search(r"radix_(packed_)?(fwd|inv)_kernel", k)
            or re.search(r"poly_\w+_kernel", k) or "stage_kernel" in k
-           or re.search(r"eltwise_kernel|mac_flush_(parts_)?kernel", k)
+           or re.search(r"eltwise_kernel|mac_flush_parts_kernel", k)
            or re.search(r"(dyadic|spread|fold)_kernelILb1E", k)}
     radix = [k for k in new if "radix_" in k]
     assert len(radix) == ((4 + 8) * 7 + (1 + 2) * 10 + 2 * 4 * 2
@@ -1405,15 +1399,13 @@ def test_new_instantiations_do_not_spill(cuda):
     assert len([k for k in new if "stage_kernel" in k]) == 2
     eltwise = [k for k in new if "eltwise_kernel" in k]
     assert len(eltwise) == 17 + 6, eltwise
-    mac = [k for k in new if "mac_flush_kernel" in k]
-    assert len(mac) == 2 * ks_mod.MAC_GROUP, mac
     parts = [k for k in new if "mac_flush_parts_kernel" in k]
     assert len(parts) == 2 * ks_mod.MAC_GROUP, parts
     composites = [k for k in new
                   if re.search(r"(dyadic|spread|fold)_kernel", k)]
     assert len(composites) == 3, composites
     assert len(new) >= (3 * 6 * 3 + 2 + 3 + len(radix) + len(k3) + 2
-                        + len(eltwise) + len(mac) + len(parts)
+                        + len(eltwise) + len(parts)
                         + len(composites))
     spills = {k: v for k, v in new.items() if v[2] or v[3]}
     assert not spills, spills
@@ -2052,7 +2044,8 @@ def test_approx_key_switch_kernels_match_plain(cuda, n, bits, kc,
     c = ks_mod.constants(tuple(moduli), tuple(msf), ds, cuda)
     tq = torch.stack([_rand(rng, (ds, n), 4 * q, cuda)
                       for q in moduli[:ds] + moduli[-1:]])
-    tpp = ks_mod.mac_flush(tq, keys, c, ds, kc, ds + 1, True)
+    tpp = ks_mod.mac_flush_parts(*chip_smoke.block_parts(tq, ds), keys, c,
+                                 ds, kc, ds + 1, True)
     torch.cuda.synchronize()
     assert torch.equal(tpp, ks_mod.mac_flush_plain(tq, keys, c.mac, ds, kc,
                                                    ds + 1, True))
@@ -2146,8 +2139,8 @@ def test_row_kernels_at_their_edges(cuda):
 @pytest.mark.parametrize("ds", chip_smoke.EDGE_KS_DS)
 def test_mac_flush_kernel_at_its_edges(cuda, ds):
     """K10 and K10.approx at every component group size and past one
-    group (EDGE_KS_KCS), at odd n and n = 0, with t and the keys 8 bytes
-    off a 16-byte boundary."""
+    group (EDGE_KS_KCS), at odd n and n = 0, with each part of t and the
+    keys 8 bytes off a 16-byte boundary."""
     assert chip_smoke.mac_edge_checks(np.random.default_rng(ds), cuda, nt,
                                       ks_mod, to_tensor, _strict, ds) > 0
 

@@ -31,9 +31,11 @@ KC = 2
 
 def mixed_basis(n, ds):
     """ds decomposition primes {60, 40 x (ds - 1)} and a 60-bit key prime,
-    distinct and = 1 mod 2n (SEAL's CKKS shape)."""
+    distinct and = 1 mod 2n (SEAL's CKKS shape; at ds = 1 one 60-bit
+    decomposition prime and the key prime)."""
     sixty = nt.generate_primes(2, 59, False, ntt_size=n)
-    forty = nt.generate_primes(ds - 1, 39, False, ntt_size=n)
+    forty = nt.generate_primes(ds - 1, 39, False, ntt_size=n) if ds > 1 \
+        else ()
     return (sixty[0],) + tuple(forty) + (sixty[1],)
 
 
@@ -115,9 +117,11 @@ def parts(rng, moduli, ds, kms, n):
     return off, diag, last, keys
 
 
-@pytest.mark.parametrize("ds", [2, 3, 5])
+@pytest.mark.parametrize("ds", [1, 2, 3, 5])
 @pytest.mark.parametrize("n", [64, 1024])
 def test_mac_flush_parts_is_the_assembled_flush(n, ds, approx):
+    """At ds = 1 `off` is an empty (1, 0, n) block: row 0's one trip is the
+    target, the key prime's row reads `last`."""
     moduli = mixed_basis(n, ds)
     kms = len(moduli)
     off, diag, last, keys = parts(np.random.default_rng(7 * n + ds),

@@ -207,7 +207,8 @@ def test_spill_check_counts_every_radix_shape():
                  "_Z19poly_cluster_kernelILi1ELi14EEvPKyS1_PyS1_S1_S1_S1_"
                  "7Barrett8InvFinalIyE",
                  "_Z13dyadic_kernelILb1EEvPKyS1_PyS1_iix",
-                 "_Z16mac_flush_kernelILb1EEvPKyS1_PyS1_iiiix",
+                 "_Z22mac_flush_parts_kernelILb1ELi1EEvPKyS1_S1_S1_PyS1_"
+                 "iiiixi",
                  "_Z13spread_kernelILb1EEvPKyPyS1_yyyix",
                  "_Z11fold_kernelILb1EEvPKyS1_S1_PyS1_iix"):
         assert chip_smoke.NEW_INSTANTIATION.search(name)

@@ -170,8 +170,8 @@ def test_key_switch_time_is_glue_checks_steps_and_launches(ds):
     if ds > 1:
         assert steps == STACKED_STEPS
     else:
-        assert {"inv", "fwd", "take", "stack", "mac_flush", "spread",
-                "fold"} <= steps
+        assert {"inv", "fwd", "take", "stack", "mac_flush_parts",
+                "spread", "fold"} <= steps
 
 
 def test_every_step_of_the_pipeline_has_its_span():
